@@ -10,16 +10,23 @@ Phases (each raises on failure, so any failure exits non-zero):
 1. environment: torch, CUDA, the card's name and power limit;
 2. build every kernel under ``medfusion_tpu_torch/csrc/`` from source;
 3. each kernel against its plain PyTorch version on the card, at every shape
-   of the main path, in float32 and bfloat16;
-4. kernel times at the main path's batch (kernel, plain version, one
-   PyTorch library call, and the card's bound for the same bytes);
+   of the main paths (flash attention in both layouts, with its lse; GEGLU
+   also at the main path's batch, where its launches split F otherwise), in
+   float32 and bfloat16;
+4. kernel times at the flagship batch (kernel, plain version, one PyTorch
+   library call where one computes the same function, and the card's bound
+   for the same work), each timed launch also held to its plain version;
 5. the small ``smoke`` preset sampled on the card and on the CPU from the
-   same latent and noise, float32;
-6. the main path: the ``chest`` preset at full width, bfloat16, 8 samples,
-   150 DDIM steps, eta 1, guidance 8, VAE decode, with the kernel launches
-   counted;
-7. a breakdown of that path: one CFG UNet step and one decode timed with
-   CUDA events, and a profiled 5-step sample with its device time by kind.
+   same latent and noise, float32, without attention and with spatial
+   attention (one head, so head dims 16 and 32);
+6. the main paths: the ``chest`` preset at full width, bfloat16, 8 samples,
+   150 DDIM steps, eta 1, guidance 8, VAE decode, first without attention
+   (slice 1) and then with spatial attention (slice 2), each with the
+   kernel launches counted from zero and checked against the counts derived
+   here;
+7. a breakdown of the spatial path: one CFG UNet step and one decode timed
+   with CUDA events, and a profiled 5-step sample with its device time by
+   kind.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -28,6 +35,7 @@ as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -35,8 +43,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peak device-memory rate (NVIDIA data sheet), for the bound.
+# H100 SXM peaks (NVIDIA data sheet, dense), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
 
 # The GroupNorm(+SiLU) shapes of the chest path: (where, S, C, G, launches
 # per UNet forward or per decode).
@@ -51,11 +60,45 @@ GN_SHAPES = (
     ("vae", 128 * 128, 128, 8, 2),
     ("vae", 256 * 256, 64, 8, 2),
 )
+# The spatial transformers of the chest UNet with use_attention='spatial':
+# (tokens N, width C, heads, transformers per UNet forward, attention entry).
+# Levels 1-3 attend at 32^2, 16^2 and 8^2 (the middle at 8^2); each level
+# has 2 encoder and 3 decoder stages, and the decoder's first stage of level
+# i runs at the width of level i - 1. N >= 1024 takes the head layout.
+ATTN_SHAPES = (
+    (32 * 32, 256, 8, 5, "head"),
+    (16 * 16, 512, 8, 4, "tokens"),
+    (16 * 16, 256, 8, 1, "tokens"),
+    (8 * 8, 1024, 8, 5, "tokens"),
+    (8 * 8, 512, 8, 1, "tokens"),
+)
+TRANSFORMERS = sum(s[3] for s in ATTN_SHAPES)  # 16
 STEPS, N_SAMPLES, GUIDANCE = 150, 8, 8.0
 UNET_GN_PER_FORWARD = sum(s[4] for s in GN_SHAPES if s[0] == "unet")  # 34
 VAE_GN_PER_DECODE = sum(s[4] for s in GN_SHAPES if s[0] == "vae")  # 8
+# each spatial transformer adds two GroupNorms without SiLU (its own norm
+# and its self-attention's norm_x), one attention and one GEGLU MLP; the
+# cross-attention against the one embedding token launches nothing
+EXPECTED = {
+    "none": {"group_norm_silu": UNET_GN_PER_FORWARD * STEPS + VAE_GN_PER_DECODE},
+    "spatial": {
+        "group_norm_silu": (UNET_GN_PER_FORWARD + 2 * TRANSFORMERS) * STEPS
+        + VAE_GN_PER_DECODE,
+        "flash_attention": STEPS * sum(s[3] for s in ATTN_SHAPES if s[4] == "head"),
+        "flash_attention_tokens": STEPS * sum(s[3] for s in ATTN_SHAPES
+                                              if s[4] == "tokens"),
+        "geglu_mlp": STEPS * TRANSFORMERS,
+    },
+}
 TIMING_BATCH = {"unet": 64, "vae": 32}  # B=32 with CFG doubling the UNet rows
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# attention lse: f32 sums of the same products in another order (bfloat16:
+# of the same bf16 q*s and k*s); o's tolerance is attn_o_tol's
+ATTN_LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
+# GEGLU: float32 sums over C and F in another order; bfloat16 rounds h and
+# gate once (the kernel) or after the product and again after the bias (the
+# module path), and an ulp flip of g moves the F-long down-projection sum
+GEGLU_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def log(msg):
@@ -70,7 +113,9 @@ def card_line():
 
 
 def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` launches, after a warm-up."""
+    """Mean time of ``fn`` over ``reps`` back-to-back eager calls, after a
+    warm-up (CUDA events): the device's time, or the host's where the
+    Python wrapper takes longer than the kernel."""
     import torch
 
     fn()
@@ -85,6 +130,32 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed (CUDA events): no host time between launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def gn_inputs(b, s, c, dtype, gen):
     import torch
 
@@ -95,8 +166,109 @@ def gn_inputs(b, s, c, dtype, gen):
     return x.to(dtype), scale.to(dtype), bias.to(dtype)
 
 
-def phase_kernel_checks(G):
-    """Phase 3: kernel vs plain version at every path shape, B=2."""
+def attn_inputs(b, n, m, c, dtype, gen):
+    """q [B, N, C], k/v [B, M, C] in the token layout."""
+    import torch
+
+    return tuple(torch.randn((b, r, c), generator=gen, device="cuda").to(dtype)
+                 for r in (n, m, m))
+
+
+def geglu_inputs(rows, c, dtype, gen):
+    """x and the MLP's parameters; w1 and w2 as the transposed views of
+    nn.Linear weights that the transformer block passes."""
+    import torch
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        t = torch.randn(shape, generator=gen, device="cuda") * std + mean
+        return t.to(dtype)
+
+    f = 4 * c
+    return (rnd(rows, c, std=2.0, mean=0.5), rnd(c, std=0.1, mean=1.0),
+            rnd(c, std=0.1), rnd(2 * f, c, std=c ** -0.5).t(), rnd(2 * f, std=0.1),
+            rnd(c, f, std=f ** -0.5).t(), rnd(c, std=0.1))
+
+
+def attn_o_tol(ref):
+    """(atol, rtol) for attention's o against the plain version's ``ref``.
+    float32: 2e-5 (the same f32 products summed in another order). bfloat16:
+    two bf16 ulps of max|ref|, no rtol. Both sides round q*s, k*s and o to
+    bf16, and p to bf16 against the running (kernel) or the final (plain)
+    row max; the f32 values rounded to o differ by well under an ulp, so o
+    differs by at most one ulp of its own magnitude."""
+    import torch
+
+    if ref.dtype != torch.bfloat16:
+        return 2e-5, 2e-5
+    top = ref.abs().max().item()
+    return 2.0 * 2.0 ** (math.floor(math.log2(top)) - 7), 0.0
+
+
+def keep(worst, kernel, name, err):
+    """Record ``err`` as the kernel's largest error in dtype ``name``."""
+    worst.setdefault(kernel, {})
+    worst[kernel][name] = max(worst[kernel].get(name, 0.0), err)
+
+
+def close(name, out, ref, atol, rtol):
+    """Max |out - ref|, after asserting that they agree."""
+    import torch
+
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol,
+                               msg=lambda m: f"{name}: {m}")
+    return err
+
+
+def check_attention(FA, n, m, c, heads, dtype, gen):
+    """Both entries against the plain version, o and lse, at B=2; returns
+    the largest o error of each entry."""
+    name = str(dtype).split(".")[-1]
+    ltol = ATTN_LSE_TOL[name]
+    q, k, v = attn_inputs(2, n, m, c, dtype, gen)
+    scale = (c // heads) ** -0.25
+    heads_of = [FA._heads(t, heads) for t in (q, k, v)]
+    ro, rlse = FA.naive_attention_reference(*heads_of, scale)
+    atol, rtol = attn_o_tol(ro)
+    o, lse = FA.flash_attention_tokens_cuda(q, k, v, heads, scale)
+    # the head entry on contiguous [B, H, N, D] copies
+    oh, lseh = FA.flash_attention_cuda(*(t.contiguous() for t in heads_of), scale)
+    tag = f"attn N={n} M={m} C={c} H={heads} {name}"
+    errs = {"flash_attention_tokens": close(tag + " tokens o", FA._heads(o, heads),
+                                            ro, atol, rtol),
+            "flash_attention": close(tag + " head o", oh, ro, atol, rtol)}
+    close(tag + " tokens lse", lse.transpose(1, 2), rlse, ltol, ltol)
+    close(tag + " head lse", lseh, rlse, ltol, ltol)
+    log(f"  {tag}: max|d| o tokens {errs['flash_attention_tokens']:.3e}, head "
+        f"{errs['flash_attention']:.3e} (o atol {atol:.3e} rtol {rtol}; lse {ltol})")
+    return errs
+
+
+def check_geglu(GL, rows, c, dtype, gen):
+    name = str(dtype).split(".")[-1]
+    tol = GEGLU_TOL[name]
+    args = geglu_inputs(rows, c, dtype, gen)
+    out = GL.geglu_mlp_cuda(*args)
+    ref = GL.geglu_mlp_reference(*args)
+    err = close(f"geglu M={rows} C={c} {name}", out, ref, tol, tol)
+    sms = torch_sms()
+    block_rows, splits = GL.launch_shape(rows, c, 4 * c, dtype, sms)
+    log(f"  geglu M={rows} C={c} F={4 * c} {name} ({block_rows} rows a block, F "
+        f"in {splits}): max|d|={err:.3e} (atol=rtol={tol})")
+    return err
+
+
+def torch_sms():
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def phase_kernel_checks(G, FA, GL):
+    """Phase 3: kernel vs plain version at every path shape. GroupNorm and
+    attention at B=2 (they take the same tiles at any batch); GEGLU at
+    the rows of B=2 and of the main path's batch (2 x N_SAMPLES UNet rows
+    under CFG), whose launches split F differently."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -109,17 +281,25 @@ def phase_kernel_checks(G):
                 x, scale, bias = gn_inputs(2, s, c, dtype, gen)
                 out = G.group_norm_silu_cuda(x, scale, bias, g, apply_silu=silu)
                 ref = G.group_norm_silu_reference(x, scale, bias, g, apply_silu=silu)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-                worst[name] = max(worst.get(name, 0.0), err)
+                err = close(f"gn {where} S={s} C={c}", out, ref, tol, tol)
+                keep(worst, "group_norm_silu", name, err)
                 log(f"  gn {where} S={s} C={c} G={g} {name} silu={silu}: "
                     f"max|d|={err:.3e} (atol=rtol={tol})")
+        # every attention shape of the path, a ragged cross-attention, and
+        # the smoke preset's head dims
+        for n, m, c, heads in ([(n, n, c, h) for n, c, h, _, _ in ATTN_SHAPES]
+                               + [(77, 45, 256, 4), (64, 64, 32, 2)]):
+            for kernel, err in check_attention(FA, n, m, c, heads, dtype, gen).items():
+                keep(worst, kernel, name, err)
+        for rows, c in ([(b * n, c) for b in (2, 2 * N_SAMPLES)
+                         for n, c, _, _, _ in ATTN_SHAPES] + [(77, 256), (130, 16)]):
+            keep(worst, "geglu_mlp", name, check_geglu(GL, rows, c, dtype, gen))
+        torch.cuda.synchronize()
     return worst
 
 
 def phase_kernel_times(G):
-    """Phase 4: times at the path's batch, bf16 with SiLU."""
+    """Phase 4: GroupNorm+SiLU times at the path's batch, bf16 with SiLU."""
     import torch
     import torch.nn.functional as F
 
@@ -129,52 +309,148 @@ def phase_kernel_times(G):
         b = TIMING_BATCH[where]
         x, scale, bias = gn_inputs(b, s, c, torch.bfloat16, gen)
         reps = 20 if x.numel() < 2**26 else 5
-        k = cuda_ms(lambda: G.group_norm_silu_cuda(x, scale, bias, g), reps)
-        p = cuda_ms(lambda: G.group_norm_silu_reference(x, scale, bias, g), reps)
-        lib = cuda_ms(lambda: F.silu(F.group_norm(x, g, scale, bias, 1e-5)), reps)
+        k = graph_ms(lambda: G.group_norm_silu_cuda(x, scale, bias, g), reps)
+        eager = cuda_ms(lambda: G.group_norm_silu_cuda(x, scale, bias, g), reps)
+        p = graph_ms(lambda: G.group_norm_silu_reference(x, scale, bias, g), reps)
+        lib = graph_ms(lambda: F.silu(F.group_norm(x, g, scale, bias, 1e-5)), reps)
         nbytes = 2 * x.numel() * x.element_size() + 2 * c * x.element_size()
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append(dict(where=where, B=b, S=s, C=c, G=g, launches_per_call=per_call,
-                         ms=k, plain_ms=p, library_ms=lib, bound_ms=bound))
-        log(f"  gn {where} B={b} S={s} C={c} G={g}: kernel {k:.4f} ms, plain "
+                         ms=k, eager_ms=eager, plain_ms=p, library_ms=lib,
+                         **bounds(0, nbytes)))
+        bound = rows[-1]["bound_ms"]
+        log(f"  gn {where} B={b} S={s} C={c} G={g}: kernel {k:.4f} ms (eager "
+            f"{eager:.4f}), plain "
             f"{p:.4f} ms, library {lib:.4f} ms, bound {bound:.4f} ms "
             f"({bound / k:.1%} of bound)")
         del x
     return rows
 
 
+def bounds(flops, nbytes):
+    """The card's least time for the work, in ms, and its two parts."""
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def phase_attention_geglu_times(FA, GL, worst):
+    """Phase 4, continued: flash attention and GEGLU at the flagship batch
+    (64 UNet rows), bf16, each at its path entry; bounds from this run's
+    shapes: max(FLOPs / bf16 peak, bytes / HBM rate). Each timed launch is
+    also held to its plain version, its error kept in ``worst``; GEGLU is
+    timed and checked at the main path's batch too."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b = TIMING_BATCH["unet"]
+    sms = torch_sms()
+    attn, geglu = [], []
+    for n, c, heads, per_fwd, layout in ATTN_SHAPES:
+        d = c // heads
+        scale = d ** -0.25
+        q, k, v = attn_inputs(b, n, n, c, torch.bfloat16, gen)
+        qh, kh, vh = (FA._heads(t, heads) for t in (q, k, v))
+        if layout == "head":
+            kern = lambda: FA.flash_attention_cuda(qh, kh, vh, scale)  # noqa: E731
+            o = kern()[0]
+        else:
+            kern = lambda: FA.flash_attention_tokens_cuda(q, k, v, heads, scale)  # noqa: E731
+            o = FA._heads(kern()[0], heads)
+        ref = FA.naive_attention_reference(qh, kh, vh, scale)[0]
+        err = close(f"attn {layout} B={b} N={n} C={c}", o, ref, *attn_o_tol(ref))
+        keep(worst, "flash_attention" if layout == "head" else "flash_attention_tokens",
+             "bfloat16", err)
+        del o, ref
+        sc = torch.tensor(scale, dtype=torch.bfloat16)
+        t_k = graph_ms(kern, 20)
+        t_e = cuda_ms(kern, 20)
+        t_p = graph_ms(lambda: FA.naive_attention_reference(qh, kh, vh, scale), 3)
+        t_l = graph_ms(lambda: F.scaled_dot_product_attention(qh * sc, kh * sc, vh,
+                                                              scale=1.0), 20)
+        flops = 4 * b * heads * n * n * d
+        nbytes = 4 * b * n * c * 2 + b * heads * n * 4  # q, k, v, o; lse f32
+        attn.append(dict(layout=layout, B=b, N=n, C=c, H=heads, d=d,
+                         launches_per_forward=per_fwd, ms=t_k, eager_ms=t_e,
+                         plain_ms=t_p, library_ms=t_l, **bounds(flops, nbytes)))
+        bound = attn[-1]["bound_ms"]
+        log(f"  attention {layout} B={b} N={n} H={heads} d={d}: max|d| o {err:.3e}; "
+            f"kernel {t_k:.4f} ms (eager {t_e:.4f}), plain {t_p:.4f} ms, sdpa "
+            f"{t_l:.4f} ms, bound {bound:.4f} ms ({bound / t_k:.1%} of bound, "
+            f"{flops / t_k / 1e9:.1f} TFLOP/s)")
+        del q, k, v, qh, kh, vh
+        rows, f = b * n, 4 * c
+        args = geglu_inputs(rows, c, torch.bfloat16, gen)
+        tol = GEGLU_TOL["bfloat16"]
+        err = close(f"geglu M={rows} C={c}", GL.geglu_mlp_cuda(*args),
+                    GL.geglu_mlp_reference(*args), tol, tol)
+        keep(worst, "geglu_mlp", "bfloat16", err)
+        t_k = graph_ms(lambda: GL.geglu_mlp_cuda(*args), 20)
+        t_e = cuda_ms(lambda: GL.geglu_mlp_cuda(*args), 20)
+        t_p = graph_ms(lambda: GL.geglu_mlp_reference(*args), 5)
+        flops = 6 * rows * c * f
+        nbytes = (2 * rows * c + 3 * c * f + 2 * f + 3 * c) * 2
+        geglu.append(dict(M=rows, C=c, F=f, launches_per_forward=per_fwd, ms=t_k,
+                          eager_ms=t_e, plain_ms=t_p, library_ms=None,
+                          **bounds(flops, nbytes)))
+        bound = geglu[-1]["bound_ms"]
+        block_rows, splits = GL.launch_shape(rows, c, f, torch.bfloat16, sms)
+        log(f"  geglu M={rows} C={c} F={f} ({block_rows} rows a block, F in "
+            f"{splits}): max|d| {err:.3e}; kernel {t_k:.4f} ms (eager {t_e:.4f}), "
+            f"plain {t_p:.4f} ms, bound {bound:.4f} ms ({bound / t_k:.1%} of bound, "
+            f"{flops / t_k / 1e9:.1f} TFLOP/s)")
+        del args
+    # the main path's own batch: B=8 with CFG, 16 UNet rows (held to the
+    # plain version in phase 3)
+    for n, c, _, _, _ in ATTN_SHAPES:
+        rows = 2 * N_SAMPLES * n
+        args = geglu_inputs(rows, c, torch.bfloat16, gen)
+        t_k = graph_ms(lambda: GL.geglu_mlp_cuda(*args), 20)
+        t_p = graph_ms(lambda: GL.geglu_mlp_reference(*args), 5)
+        block_rows, splits = GL.launch_shape(rows, c, 4 * c, torch.bfloat16, sms)
+        log(f"  geglu at the sampling batch M={rows} C={c}: {block_rows} rows a "
+            f"block, F in {splits}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        del args
+    torch.cuda.empty_cache()
+    return attn, geglu
+
+
 def perturb_(module, gen):
     """Move a seeded model away from its zero-initialised output convs and
-    its unit/zero norm affines, so that every comparison is non-vacuous."""
+    projections and its unit/zero norm affines, so that every comparison is
+    non-vacuous."""
     import torch
 
     from medfusion_tpu_torch.nn.blocks import Norm
 
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, torch.nn.Conv2d) and not m.weight.any():
+            if (isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))
+                    and not m.weight.any()):
                 bound = (m.weight[0].numel()) ** -0.5
                 for p in (m.weight, m.bias):
                     p.copy_((torch.rand(p.shape, generator=gen, device=p.device)
                              * 2 - 1) * bound)
-            elif isinstance(m, Norm):
+            elif isinstance(m, (Norm, torch.nn.LayerNorm)):
                 for p, base in ((m.weight, 1.0), (m.bias, 0.0)):
                     p.copy_(base + 0.1 * torch.randn(p.shape, generator=gen,
                                                      device=p.device))
 
 
-def phase_smoke_vs_cpu():
-    """Phase 5: smoke preset, f32, 10 steps, guidance 3, card vs CPU."""
+def phase_smoke_vs_cpu(attention):
+    """Phase 5: smoke preset, f32, 10 steps, guidance 3, card vs CPU; with
+    attention, one head per level (head dims 16 and 32)."""
     import torch
 
     from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
 
     p = PRESETS["smoke"]
-    cpu = build_pipeline(p, device="cpu", seed=0)
+    kw = dict(attention=attention, attn_heads=1 if attention != "none" else 8)
+    cpu = build_pipeline(p, device="cpu", seed=0, **kw)
     gen = torch.Generator().manual_seed(0)
     perturb_(cpu.noise_estimator, gen)
     perturb_(cpu.latent_embedder, gen)
-    card = build_pipeline(p, device="cuda", seed=0)
+    card = build_pipeline(p, device="cuda", seed=0, **kw)
     card.noise_estimator.load_state_dict(cpu.noise_estimator.state_dict())
     card.latent_embedder.load_state_dict(cpu.latent_embedder.state_dict())
     b, steps = 4, 10
@@ -188,43 +464,53 @@ def phase_smoke_vs_cpu():
     scale = max(1.0, ref.abs().max().item())
     err = (out - ref).abs().max().item()
     tol = 1e-4 * scale
-    log(f"  smoke card vs cpu: images {tuple(out.shape)}, max|d|={err:.3e} "
-        f"(tol 1e-4 x max(1, max|ref|) = {tol:.3e})")
+    log(f"  smoke attention={attention} card vs cpu: images {tuple(out.shape)}, "
+        f"max|d|={err:.3e} (tol 1e-4 x max(1, max|ref|) = {tol:.3e})")
     torch.testing.assert_close(out, ref, atol=tol, rtol=1e-4)
 
 
-def phase_main_path(ops):
-    """Phase 6: chest, bf16, B=8, 150 steps, CFG 8, decode."""
+def phase_main_path(ops, attention):
+    """Phase 6: chest, bf16, B=8, 150 steps, CFG 8, decode, with the
+    launches counted from zero and held to EXPECTED[attention]."""
     import torch
 
     from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
+    from medfusion_tpu_torch.nn.attention import SpatialTransformer
 
     p = PRESETS["chest"]
     t0 = time.perf_counter()
-    f32 = build_pipeline(p, device="cuda", seed=0)
+    f32 = build_pipeline(p, device="cuda", seed=0, attention=attention)
     gen = torch.Generator(device="cuda").manual_seed(0)
     perturb_(f32.noise_estimator, gen)
     perturb_(f32.latent_embedder, gen)
-    pipe = build_pipeline(p, device="cuda", compute_dtype=torch.bfloat16, seed=0)
+    pipe = build_pipeline(p, device="cuda", compute_dtype=torch.bfloat16, seed=0,
+                          attention=attention)
     pipe.noise_estimator.load_state_dict(f32.noise_estimator.state_dict())
     pipe.latent_embedder.load_state_dict(f32.latent_embedder.state_dict())
     torch.cuda.synchronize()
-    n_params = sum(q.numel() for q in pipe.noise_estimator.parameters())
-    log(f"  built chest UNet ({n_params / 1e6:.1f} M params) + VAE in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name, m in (("unet", pipe.noise_estimator), ("vae", pipe.latent_embedder)):
+    unet = pipe.noise_estimator
+    n_params = sum(q.numel() for q in unet.parameters())
+    n_st = sum(isinstance(m, SpatialTransformer) for m in unet.modules())
+    log(f"  built chest UNet attention={attention} ({n_params / 1e6:.1f} M params, "
+        f"{n_st} spatial transformers) + VAE in {time.perf_counter() - t0:.1f} s")
+    if n_st != (TRANSFORMERS if attention == "spatial" else 0):
+        raise RuntimeError(f"{n_st} spatial transformers, the counts assume "
+                           f"{TRANSFORMERS}")
+    for name, m in (("unet", unet), ("vae", pipe.latent_embedder)):
         bad = [k for k, q in m.state_dict().items() if q.device.type != "cuda"]
         if bad:
             raise RuntimeError(f"{name} tensors off the card: {bad[:3]}")
 
-    # one UNet forward at full width: bf16 (kernel) against f32 (kernel),
-    # f32 convs without TF32
-    x = torch.randn((2, 8, 32, 32), generator=gen, device="cuda")
-    t = torch.tensor([999, 500], device="cuda")
-    c = torch.tensor([0, 1], device="cuda")
+    # one UNet forward at full width and the sampling batch's 16 rows (the
+    # kernels' launches of the main path): bf16 (kernels) against f32
+    # (kernels), f32 convs and matmuls without TF32
+    rows = 2 * N_SAMPLES
+    x = torch.randn((rows, 8, 32, 32), generator=gen, device="cuda")
+    t = torch.linspace(999, 0, rows, device="cuda").long()
+    c = torch.arange(rows, device="cuda") % 2
     with torch.no_grad():
         y32, _ = f32.noise_estimator(x, t, c)
-        y16, _ = pipe.noise_estimator(x.bfloat16(), t, c)
+        y16, _ = unet(x.bfloat16(), t, c)
     rel = ((y16.float() - y32).abs().max() / y32.abs().max()).item()
     log(f"  chest UNet forward bf16 vs f32: max|d|/max|ref| = {rel:.3e} (limit 5e-2)")
     if not rel < 5e-2:
@@ -242,10 +528,10 @@ def phase_main_path(ops):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()
-    expected = UNET_GN_PER_FORWARD * STEPS + VAE_GN_PER_DECODE
-    log(f"  chest sample: {tuple(imgs.shape)} in {seconds:.3f} s = "
-        f"{N_SAMPLES / seconds:.3f} samples/s; launches {launches} "
-        f"(expected group_norm_silu {expected})")
+    expected = EXPECTED[attention]
+    log(f"  chest attention={attention} sample: {tuple(imgs.shape)} in {seconds:.3f} "
+        f"s = {N_SAMPLES / seconds:.3f} samples/s; launches {launches} "
+        f"(expected {expected})")
     if tuple(imgs.shape) != (N_SAMPLES, 256, 256, 3):
         raise RuntimeError(f"images have shape {tuple(imgs.shape)}")
     if not torch.isfinite(imgs).all():
@@ -254,10 +540,27 @@ def phase_main_path(ops):
     log(f"  image range [{imgs.min().item():.3f}, {imgs.max().item():.3f}]")
     if not 0 < amax < 1e4:
         raise RuntimeError(f"image magnitude {amax} out of range")
-    if launches["group_norm_silu"] != expected:
-        raise RuntimeError(f"group_norm_silu launched {launches['group_norm_silu']} "
-                           f"times, expected {expected}")
+    for kernel, n in launches.items():
+        if n != expected.get(kernel, 0):
+            raise RuntimeError(f"{kernel} launched {n} times, expected "
+                               f"{expected.get(kernel, 0)}")
     return launches, seconds, pipe
+
+
+def kind_of(kernel_name):
+    name = kernel_name.lower()
+    if "gn_stats_kernel" in name or "gn_apply_kernel" in name:
+        return "group_norm_silu"
+    if "flash_fwd" in name:
+        return "flash_attention"
+    if "geglu_" in name:
+        return "geglu_mlp"
+    if any(k in name for k in ("conv", "cudnn", "implicit", "wgrad", "dgrad",
+                               "fprop", "nchwtonhwc", "nhwctonchw")):
+        return "conv"
+    if any(k in name for k in ("gemm", "xmma", "cutlass", "gemv", "sm90_", "nvjet")):
+        return "matmul"
+    return "other"
 
 
 def phase_breakdown(pipe):
@@ -281,22 +584,14 @@ def phase_breakdown(pipe):
                          guidance_scale=GUIDANCE, generator=gen)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kind = {"group_norm_silu": 0.0, "conv": 0.0, "other": 0.0}
+    by_kind = dict.fromkeys(("group_norm_silu", "flash_attention", "geglu_mlp",
+                             "conv", "matmul", "other"), 0.0)
     # kernel rows only: an operator's row repeats its kernels' time
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:90]}")
     for e in kernels:
-        us = e.self_device_time_total
-        name = e.key.lower()
-        if "gn_stats_kernel" in name or "gn_apply_kernel" in name:
-            kind = "group_norm_silu"
-        elif any(k in name for k in ("conv", "xmma", "cudnn", "implicit", "wgrad",
-                                     "dgrad", "fprop", "nchwtonhwc", "nhwctonchw")):
-            kind = "conv"
-        else:
-            kind = "other"
-        by_kind[kind] += us / 1e3
+        by_kind[kind_of(e.key)] += e.self_device_time_total / 1e3
     busy = sum(by_kind.values())
     log(f"  UNet step (CFG, B={2 * N_SAMPLES}): {step_ms:.3f} ms; decode "
         f"(B={N_SAMPLES}): {decode_ms:.3f} ms (CUDA events)")
@@ -304,6 +599,20 @@ def phase_breakdown(pipe):
         f"busy {busy:.1f} ms ({busy / wall_ms:.1%}); "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in by_kind.items()))
 
+
+def kernel_row(name, source, replaces, launches, err, rows):
+    """One entry of the kernels line: times summed over one launch at each
+    of ``rows``' shapes."""
+    def total(key):
+        vals = [r[key] for r in rows]
+        return None if None in vals else sum(vals)
+
+    by_ops = total("ops_ms") >= total("bytes_ms")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": total("ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "operations" if by_ops else "bytes",
+            "library_ms": total("library_ms")}
 
 
 def main():
@@ -318,6 +627,8 @@ def main():
     sys.path.insert(0, str(ROOT))
     from medfusion_tpu_torch import ops
     from medfusion_tpu_torch.ops import build
+    from medfusion_tpu_torch.ops import flash_attention as FA
+    from medfusion_tpu_torch.ops import geglu as GL
     from medfusion_tpu_torch.ops import group_norm as G
 
     t_all = time.perf_counter()
@@ -332,44 +643,57 @@ def main():
     log(f"[2] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for stem, text in build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    {stem}: {line.strip()}")
 
     log("[3] kernels against their plain versions (B=2)")
-    worst = phase_kernel_checks(G)
+    worst = phase_kernel_checks(G, FA, GL)
 
-    log("[4] kernel times (bf16, SiLU on; CUDA events)")
+    log("[4] kernel times (bf16; CUDA events around a replayed CUDA graph of "
+        "the launches, and around the same launches made eagerly)")
     rows = phase_kernel_times(G)
+    attn_rows, geglu_rows = phase_attention_geglu_times(FA, GL, worst)
 
     log("[5] smoke preset: card against CPU (float32)")
-    phase_smoke_vs_cpu()
+    for attention in ("none", "spatial"):
+        phase_smoke_vs_cpu(attention)
 
-    log("[6] main path: chest, bf16")
-    launches, seconds, pipe = phase_main_path(ops)
+    log("[6] main paths: chest, bf16")
+    launches_none, _, pipe = phase_main_path(ops, "none")
+    del pipe
+    torch.cuda.empty_cache()
+    launches, seconds, pipe = phase_main_path(ops, "spatial")
 
-    log("[7] where a chest step's device time goes")
+    log("[7] where a chest-spatial step's device time goes")
     phase_breakdown(pipe)
     del pipe
 
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
-    log(f"  group_norm_silu per UNet forward (B=64): {per_fwd:.4f} ms; "
-        f"per decode (B=32): {per_dec:.4f} ms")
+    attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
+    geglu_fwd = sum(r["ms"] * r["launches_per_forward"] for r in geglu_rows)
+    log(f"  per UNet forward (B=64): group_norm_silu {per_fwd:.4f} ms (the conv "
+        f"blocks'), attention {attn_fwd:.4f} ms, geglu {geglu_fwd:.4f} ms; "
+        f"group_norm_silu per decode (B=32): {per_dec:.4f} ms")
 
-    kernels = [{
-        "name": "group_norm_silu",
-        "route": "cuda",
-        "source": "medfusion_tpu_torch/csrc/group_norm_silu.cu",
-        "replaces": "medfusion_tpu/ops/group_norm.py:25",
-        "launches": launches["group_norm_silu"],
-        "max_abs_err": worst["bfloat16"],
-        # one launch at each of the 9 path shapes, at the path's batch
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": "bytes",
-        "library_ms": sum(r["library_ms"] for r in rows),
-    }]
+    fa_src = "medfusion_tpu_torch/csrc/flash_attention.cu"
+    kernels = [
+        kernel_row("group_norm_silu", "medfusion_tpu_torch/csrc/group_norm_silu.cu",
+                   "medfusion_tpu/ops/group_norm.py:25", launches["group_norm_silu"],
+                   worst["group_norm_silu"]["bfloat16"], rows),
+        kernel_row("flash_attention", fa_src, "medfusion_tpu/ops/flash_attention.py:73",
+                   launches["flash_attention"], worst["flash_attention"]["bfloat16"],
+                   [r for r in attn_rows if r["layout"] == "head"]),
+        kernel_row("flash_attention_tokens", fa_src,
+                   "medfusion_tpu/ops/flash_attention.py:327",
+                   launches["flash_attention_tokens"],
+                   worst["flash_attention_tokens"]["bfloat16"],
+                   [r for r in attn_rows if r["layout"] == "tokens"]),
+        kernel_row("geglu_mlp", "medfusion_tpu_torch/csrc/geglu_mlp.cu",
+                   "medfusion_tpu/ops/geglu.py:96", launches["geglu_mlp"],
+                   worst["geglu_mlp"]["bfloat16"], geglu_rows),
+    ]
+    log(f"  launches: chest none {launches_none}, chest spatial {launches}")
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

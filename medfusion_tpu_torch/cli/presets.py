@@ -61,8 +61,10 @@ def build_vae(p: Preset):
                norm_name=("GROUP", {"num_groups": n_groups, "affine": True}))
 
 
-def build_unet(p: Preset):
-    """The reference 'unet2' estimator ('unet' family)."""
+def build_unet(p: Preset, attention: str = "none", attn_heads: int = 8):
+    """The reference 'unet2' estimator ('unet' family). ``attention`` is the
+    reference's ``use_attention`` ('none' | 'linear' | 'spatial'; 'spatial'
+    is the eye/colon attention config) and ``attn_heads`` its head count."""
     from medfusion_tpu_torch.models.unet import UNet
 
     n = len(p.unet_hid_chs)
@@ -71,7 +73,8 @@ def build_unet(p: Preset):
                 hid_chs=p.unet_hid_chs, kernel_sizes=(3,) * n,
                 strides=(1,) + (2,) * (n - 1), time_emb_dim=p.unet_hid_chs[-1],
                 cond_emb_num_classes=p.num_classes, deep_supervision=0,
-                use_attention="none", use_res_block=True,
+                use_attention=attention, attn_heads=attn_heads,
+                use_res_block=True,
                 norm_name=("GROUP", {"num_groups": n_groups, "affine": True}))
 
 
@@ -84,11 +87,13 @@ def build_scheduler(p: Preset, device="cpu"):
 
 
 def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
-                   unet_params=None, vae_params=None):
+                   unet_params=None, vae_params=None, attention: str = "none",
+                   attn_heads: int = 8):
     """Sampling pipeline as ``medfusion_tpu/cli/sample.py`` builds it (eps
     objective, no x0 clipping), on ``device`` (default ``cuda``; raises
     without CUDA). Weights are a seeded torch initialisation, or the JAX
-    package's flax params (nested numpy dicts) when given."""
+    package's flax params (nested numpy dicts) when given. ``attention`` and
+    ``attn_heads`` configure the UNet (:func:`build_unet`)."""
     from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
     from medfusion_tpu_torch.utils.weights import load_jax_params
 
@@ -96,7 +101,8 @@ def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
     fork = [dev] if dev.type == "cuda" else []
     with torch.random.fork_rng(devices=fork), torch.device(dev):
         torch.manual_seed(seed)
-        unet, vae = build_unet(p), build_vae(p)
+        unet = build_unet(p, attention=attention, attn_heads=attn_heads)
+        vae = build_vae(p)
     if unet_params is not None:
         load_jax_params(unet, unet_params, kind="unet")
     if vae_params is not None:

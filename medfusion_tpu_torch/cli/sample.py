@@ -7,7 +7,12 @@ grid written with the standard library's zlib.
 
 Usage:
   python -m medfusion_tpu_torch.cli.sample --preset chest --n 8 \
+      [--attention spatial] [--attention-heads 8] \
       [--params weights.npz] [--dtype bf16] [--device cuda] --out results/samples
+
+``--attention`` is the UNet's ``use_attention`` config ('spatial' is the
+reference's eye/colon attention config); on the card every attention and
+transformer MLP runs through the hand-written kernels.
 
 ``--params`` is an ``.npz`` of the JAX package's flax params, keyed by the
 flax paths joined by '/', with ``noise_estimator/`` and ``latent_embedder/``
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
+from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
 
 DTYPES = {"bf16": torch.bfloat16, "f32": None}
 
@@ -74,10 +80,20 @@ def main(argv=None):
     ap.add_argument("--eta", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
+    ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none",
+                    help="UNet attention per the reference's use_attention "
+                         "config: 'linear' = single-layer transformer, "
+                         "'spatial' = SpatialTransformer")
+    ap.add_argument("--attention-heads", type=int, default=8,
+                    help="attention heads (reference geometry: 8); must "
+                         "divide every attended level's width")
     ap.add_argument("--params", default=None, help="flax params .npz")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="results/samples")
     args = ap.parse_args(argv)
+    if args.attention_heads != 8 and args.attention == "none":
+        ap.error("--attention-heads has no effect without attention layers; "
+                 "add --attention spatial|linear")
 
     p = PRESETS[args.preset]
     unet_params = vae_params = None
@@ -85,7 +101,8 @@ def main(argv=None):
         unet_params, vae_params = load_npz_params(args.params)
     pipe = build_pipeline(p, device=args.device, compute_dtype=DTYPES[args.dtype],
                           seed=args.seed, unet_params=unet_params,
-                          vae_params=vae_params)
+                          vae_params=vae_params, attention=args.attention,
+                          attn_heads=args.attention_heads)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     steps = min(args.steps, p.timesteps)

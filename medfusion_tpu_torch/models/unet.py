@@ -8,9 +8,13 @@ consuming one skip by channel concat, with a nearest-exact up + conv after
 the first stage of each level above the first; zero-init out conv (twice the
 channels under ``estimate_variance``); optional deep-supervision heads.
 
+Each conv stage of the encoder, the middle and the decoder is followed by
+an attention slot (``in_blocks.i.1``, ``middle_block.1``, ``out_blocks.i.1``):
+``use_attention`` 'none' | 'linear' | 'spatial', one for all levels or one
+per level, with ``attn_heads`` heads of width ``level width / attn_heads``.
+
 Classifier-free guidance zeroes the label embedding with a per-sample
-``cond_mask``, as the JAX package does. Only ``use_attention='none'`` is
-ported; 'linear' and 'spatial' come with the attention slice.
+``cond_mask``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -22,13 +26,13 @@ import torch
 import torch.nn as nn
 
 from medfusion_tpu_torch.models.embedders import LabelEmbedder, TimeEmbedding
+from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES, Attention
 from medfusion_tpu_torch.nn.blocks import (
     BasicBlock,
     BasicDown,
     BasicUp,
     UnetBasicBlock,
     UnetResBlock,
-    _no_attention,
     conv_nd,
 )
 from medfusion_tpu_torch.nn.functional import save_add
@@ -58,13 +62,26 @@ class UNet(nn.Module):
                  cond_emb_num_classes: Optional[int] = None,
                  deep_supervision=True, use_res_block: bool = True,
                  estimate_variance: bool = False,
-                 use_attention="none", num_res_blocks: int = 2):
+                 use_attention="none", attn_heads: int = 8,
+                 num_res_blocks: int = 2):
         super().__init__()
         depth = len(strides)
         attn = (list(use_attention) if isinstance(use_attention, (list, tuple))
                 else [use_attention] * depth)
-        for a in attn:
-            _no_attention(a)
+        if len(attn) != depth or any(a not in ATTENTION_TYPES for a in attn):
+            raise ValueError(f"use_attention={use_attention!r}: expected one of "
+                             f"{ATTENTION_TYPES} or a list of {depth} of them")
+        if attn_heads < 1:
+            raise ValueError(f"attn_heads must be >= 1, got {attn_heads}")
+        # level i attends at hid_chs[i] (encoder, middle) and hid_chs[i - 1]
+        # (the decoder's first stage)
+        for i in range(1, depth):
+            for ch in {hid_chs[i], hid_chs[i - 1]}:
+                if attn[i] != "none" and ch % attn_heads:
+                    raise ValueError(
+                        f"attn_heads={attn_heads} does not divide attended "
+                        f"level width {ch} (hid_chs={tuple(hid_chs)}, "
+                        f"use_attention level {i}={attn[i]!r})")
         self.cond_emb_num_classes = cond_emb_num_classes
         self.num_res_blocks = nrb = num_res_blocks
         t_dim = time_emb_dim or hid_chs[0] * 4
@@ -74,6 +91,10 @@ class UNet(nn.Module):
         def conv_block(cin, cout, k):
             return ConvBlock(n, cin, cout, k, 1, norm_name, act_name,
                              emb_channels=t_dim)
+
+        def attention(ch, kind):
+            return Attention(n, ch, attn_heads, ch // attn_heads, norm_name,
+                             None, t_dim, 1, kind)
 
         self.time_embedder = TimeEmbedding(emb_dim=t_dim)
         if cond_emb_num_classes is not None:
@@ -87,7 +108,8 @@ class UNet(nn.Module):
         for i in range(1, depth):
             for k in range(nrb):
                 in_blocks.append(nn.ModuleList([
-                    conv_block(skip_chs[-1], hid_chs[i], kernel_sizes[i])]))
+                    conv_block(skip_chs[-1], hid_chs[i], kernel_sizes[i]),
+                    attention(hid_chs[i], attn[i])]))
                 skip_chs.append(hid_chs[i])
             if i < depth - 1:
                 in_blocks.append(BasicDown(n, hid_chs[i], hid_chs[i],
@@ -97,7 +119,7 @@ class UNet(nn.Module):
 
         self.middle_block = nn.ModuleList([
             conv_block(hid_chs[-1], hid_chs[-1], kernel_sizes[-1]),
-            nn.Identity(),  # the attention slot
+            attention(hid_chs[-1], attn[-1]),
             conv_block(hid_chs[-1], hid_chs[-1], kernel_sizes[-1]),
         ])
 
@@ -120,7 +142,8 @@ class UNet(nn.Module):
         out_blocks = []
         for idx in range(n_out):
             level, k, cin, co = out_specs[idx]
-            stage = [conv_block(cin, co, kernel_sizes[level]), nn.Identity()]
+            stage = [conv_block(cin, co, kernel_sizes[level]),
+                     attention(co, attn[level])]
             if level > 1 and k == 0:
                 stage.append(BasicUp(n, co, co, strides[level], strides[level]))
             out_blocks.append(nn.ModuleList(stage))
@@ -150,9 +173,10 @@ class UNet(nn.Module):
             if isinstance(blk, BasicDown):
                 x.append(blk(x[-1]))
             else:
-                x.append(blk[0](x[-1], emb))
+                x.append(blk[1](blk[0](x[-1], emb), emb))
 
         h = self.middle_block[0](x[-1], emb)
+        h = self.middle_block[1](h, emb)
         h = self.middle_block[2](h, emb)
 
         y_ver = []
@@ -163,7 +187,7 @@ class UNet(nn.Module):
             if (len(self.outc_ver) >= d > 0) and (j == 0):
                 y_ver.append(self.outc_ver[d - 1](h))
             stage = self.out_blocks[i - 1]
-            h = stage[0](h, emb)
+            h = stage[1](stage[0](h, emb), emb)
             if len(stage) > 2:
                 h = stage[2](h)
         return self.outc(h), y_ver[::-1]

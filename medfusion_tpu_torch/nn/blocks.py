@@ -279,5 +279,5 @@ class UpBlock(nn.Module):
 def _no_attention(use_attention):
     if use_attention != "none":
         raise NotImplementedError(
-            f"use_attention={use_attention!r}: the attention modules come with "
-            f"the port's second slice; only 'none' is ported")
+            f"use_attention={use_attention!r}: attention inside the VAE's "
+            f"down/up blocks is not ported (ROADMAP Queue 1); only 'none'")

@@ -24,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, ctypes._CFuncPtr] = {}
 BUILD_LOG: Dict[str, str] = {}  # stem -> compiler output (ptxas register use)
 
 
@@ -80,3 +81,15 @@ def library(stem: str) -> ctypes.CDLL:
             raise RuntimeError(f"no kernel source csrc/{stem}.cu")
         lib = _LIBS[stem] = ctypes.CDLL(str(targets[stem]))
     return lib
+
+
+def function(stem: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of ``csrc/<stem>.cu``, returning an
+    int CUDA error code, with its argument types set once."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        fn = getattr(library(stem), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[symbol] = fn
+    return fn

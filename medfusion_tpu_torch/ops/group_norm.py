@@ -29,6 +29,8 @@ CHUNK = 16384
 
 _SYMBOLS = {torch.float32: "mf_group_norm_silu_f32",
             torch.bfloat16: "mf_group_norm_silu_bf16"}
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def group_norm_silu_reference(x, scale, bias, num_groups: int,
@@ -72,7 +74,7 @@ def group_norm_silu_cuda(x, scale, bias, num_groups: int, eps: float = 1e-5,
                          apply_silu: bool = True):
     """Launch the CUDA kernel on the current stream (no autograd)."""
     global LAUNCHES
-    from medfusion_tpu_torch.ops.build import library
+    from medfusion_tpu_torch.ops.build import function
 
     _check(x, scale, bias, num_groups)
     if x.device.type != "cuda":
@@ -85,10 +87,7 @@ def group_norm_silu_cuda(x, scale, bias, num_groups: int, eps: float = 1e-5,
     y = torch.empty_like(x)
     stats = torch.empty((b * num_groups * nchunk, 2), dtype=torch.float32,
                         device=x.device)
-    fn = getattr(library("group_norm_silu"), _SYMBOLS[x.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = function("group_norm_silu", _SYMBOLS[x.dtype], _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),

@@ -3,7 +3,7 @@
 The port's own copy of the export direction of
 ``medfusion_tpu/utils/torch_compat.py`` (``flax_path_to_torch_key``,
 ``_to_torch_leaf``, ``to_torch_state_dict``), with the rules of the modules
-ported so far (UNet and VAE without attention): a nested dict of numpy
+ported so far (UNet with its attention blocks, VAE): a nested dict of numpy
 arrays, keyed as the flax param tree, becomes a state dict with the
 reference's torch key names, with conv kernels moved from HWIO to OIHW and
 dense kernels to [out, in]. The flax tree is flattened by plain recursion.
@@ -26,9 +26,12 @@ def flax_path_to_torch_key(path: str, kind: str = "unet") -> str:
     k = re.sub(r"^cond_embedder/embedding/embedding$", "cond_embedder.embedding.weight", k)
     k = re.sub(r"^in_blocks_(\d+)_1/down_conv/conv/", r"in_blocks.\1.down_op.", k)
     k = re.sub(r"^in_blocks_(\d+)_1/", r"in_blocks.\1.0.", k)
+    k = re.sub(r"^in_blocks_(\d+)_2/", r"in_blocks.\1.1.", k)
     k = re.sub(r"^middle_conv_1/", "middle_block.0.", k)
+    k = re.sub(r"^middle_attn/", "middle_block.1.", k)
     k = re.sub(r"^middle_conv_2/", "middle_block.2.", k)
     k = re.sub(r"^out_blocks_(\d+)_0/", r"out_blocks.\1.0.", k)
+    k = re.sub(r"^out_blocks_(\d+)_1/", r"out_blocks.\1.1.", k)
     k = re.sub(r"^out_blocks_(\d+)_2/up_conv/conv/", r"out_blocks.\1.2.up_op.", k)
     if kind == "unet":
         k = re.sub(r"^outc/conv/conv/", "outc.conv.conv.", k)
@@ -40,6 +43,18 @@ def flax_path_to_torch_key(path: str, kind: str = "unet") -> str:
     k = re.sub(r"^decoders_(\d+)/", r"decoders.\1.", k)
     k = re.sub(r"^out_enc_0/", "out_enc.0.", k)
     k = re.sub(r"^out_enc_1/", "out_enc.1.", k)
+    # attention-scoped rules before the generic block_i rule: block_i inside
+    # a SpatialTransformer ('attention/block_i/') is a transformer block, in
+    # a UNet conv block it is block_seq.i
+    k = re.sub(r"attention/block_(\d+)/geglu/norm/",
+               r"attention.transformer_blocks.\1.proj_out.0.norm.", k)
+    k = re.sub(r"attention/block_(\d+)/geglu/proj/linear/",
+               r"attention.transformer_blocks.\1.proj_out.0.proj.", k)
+    k = re.sub(r"attention/block_(\d+)/proj_out/linear/",
+               r"attention.transformer_blocks.\1.proj_out.2.", k)
+    k = re.sub(r"attention/block_(\d+)/", r"attention.transformer_blocks.\1.", k)
+    k = re.sub(r"attention/proj_in/linear/", "attention.proj_in.", k)
+    k = re.sub(r"attention/proj_out/linear/", "attention.proj_out.", k)
     # block internals
     k = re.sub(r"block_(\d+)/", r"block_seq.\1.", k)
     k = re.sub(r"local_embedder/linear/", "local_embedder.1.", k)
@@ -47,6 +62,11 @@ def flax_path_to_torch_key(path: str, kind: str = "unet") -> str:
     k = re.sub(r"up_op/up_conv/conv/", "up_op.up_op.", k)
     k = re.sub(r"(^|/)down_conv/conv/", r"\1down_op.", k)
     k = re.sub(r"(^|/)up_conv/conv/", r"\1up_op.", k)
+    k = re.sub(r"norm_x/norm/", "norm_x.", k)
+    k = re.sub(r"to_(q|k|v)/linear/", r"to_\1.", k)
+    k = re.sub(r"to_out/linear/", "to_out.0.", k)
+    k = re.sub(r"self_atn/", "self_atn.", k)
+    k = re.sub(r"cros_atn/", "cros_atn.", k)
     k = re.sub(r"conv_res/conv/", "conv_res.", k)
     k = re.sub(r"norm/norm/", "norm.", k)
     k = re.sub(r"conv/conv/", "conv.", k)

@@ -1,0 +1,252 @@
+"""The port's attention against the JAX package, on the CPU in float32.
+
+* ``naive_attention_reference`` (the flash kernel's plain version) against
+  JAX ``naive_attention`` and against the Pallas forwards run in interpret
+  mode: ``_fwd_call`` (head layout) through ``flash_attention`` and directly
+  for its lse, ``_fwd_mha_call`` (token layout) through
+  ``flash_attention_tokens`` and directly for its lse, with 32-wide blocks
+  and N, M of 64-128, so that the online recurrence loops over several KV
+  blocks. Tolerance 1e-5 (the same f32 products summed in another order).
+* ``LinearTransformer``, ``GEGLU`` (its parameters through
+  ``geglu_reference``), ``BasicTransformerBlock`` and
+  ``SpatialTransformer`` against the flax modules on the same weights
+  (rtol 3e-5 / atol 3e-6: float32 projections and GroupNorm statistics
+  summed in another order). The UNet with attention is held to the JAX
+  UNet in ``tests/test_torch_attention_unet.py``.
+
+Flax params are perturbed away from their init (zero-init output
+projections would make the comparison vacuous), as in
+``tests/test_torch_models.py``.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from medfusion_tpu.nn import attention as jax_attn
+from medfusion_tpu_torch import ops
+from medfusion_tpu_torch.nn import attention as A
+from medfusion_tpu_torch.ops import flash_attention as FA
+from medfusion_tpu_torch.ops.geglu import geglu_reference
+from medfusion_tpu_torch.utils.weights import jax_params_to_state_dict
+from tests.test_torch_models import _randomize, nchw, nhwc
+
+# the package re-binds the name ``flash_attention`` to its wrapper function
+jax_fa = importlib.import_module("medfusion_tpu.ops.flash_attention")
+KEY = jax.random.PRNGKey(0)
+GROUPS4 = ("GROUP", {"num_groups": 4, "affine": True})
+
+
+def _qkv(b, h, n, m, d, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, n, d)).astype(np.float32)
+    k = rng.standard_normal((b, h, m, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, m, d)).astype(np.float32)
+    return q, k, v
+
+
+def _port_heads(q, k, v, scale):
+    o, lse = FA.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), scale)
+    return o.numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("n,m,d", [(64, 128, 16), (128, 96, 32), (96, 64, 64)])
+def test_plain_version_matches_jax_head_layout(n, m, d):
+    q, k, v = _qkv(2, 2, n, m, d, seed=n + m + d)
+    scale = d ** -0.25
+    o, lse = _port_heads(q, k, v, scale)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    np.testing.assert_allclose(o, np.asarray(jax_fa.naive_attention(jq, jk, jv, scale)),
+                               atol=1e-5, rtol=1e-5)
+    pallas = jax_fa.flash_attention(jq, jk, jv, scale, block_q=32, block_k=32,
+                                    interpret=True)
+    np.testing.assert_allclose(o, np.asarray(pallas), atol=1e-5, rtol=1e-5)
+    flat = [a.reshape(4, -1, d) for a in (jq, jk, jv)]
+    po, plse = jax_fa._fwd_call(*flat, scale, 32, 32, True)
+    np.testing.assert_allclose(o.reshape(4, n, d), np.asarray(po), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(lse.reshape(4, n), np.asarray(plse)[..., 0],
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,m,d", [(64, 128, 16), (128, 64, 32), (96, 96, 32)])
+def test_plain_version_matches_jax_token_layout(n, m, d):
+    h = 128 // d  # hd = 128, the Pallas token kernel's lane width
+    q, k, v = _qkv(2, h, n, m, d, seed=3 * n + m + d)
+    tok = [np.ascontiguousarray(a.transpose(0, 2, 1, 3).reshape(2, a.shape[2], h * d))
+           for a in (q, k, v)]
+    scale = d ** -0.25
+    o, lse = FA.flash_attention_tokens(*(torch.from_numpy(a) for a in tok), h, scale)
+    o, lse = o.numpy(), lse.numpy()
+    assert o.shape == (2, n, 128) and lse.shape == (2, n, h)
+    jt = [jnp.asarray(a) for a in tok]
+    pallas = jax_fa.flash_attention_tokens(*jt, h, scale, block_q=32, block_k=32,
+                                           interpret=True)
+    np.testing.assert_allclose(o, np.asarray(pallas), atol=1e-5, rtol=1e-5)
+    po, plse = jax_fa._fwd_mha_call(*jt, h, scale, 32, 32, True)
+    np.testing.assert_allclose(o, np.asarray(po), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(lse, np.asarray(plse), atol=1e-5, rtol=1e-5)
+    naive = jax_fa.naive_attention(*(jnp.asarray(a) for a in (q, k, v)), scale)
+    np.testing.assert_allclose(o, np.asarray(naive).transpose(0, 2, 1, 3).reshape(2, n, -1),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_plain_version_takes_ragged_and_odd_shapes():
+    """Any N, M >= 1 and any head dim on the CPU (the kernel's ragged tiles
+    are masked; its head dims are checked at launch)."""
+    q, k, v = _qkv(1, 3, 77, 1, 8, seed=5)
+    o, _ = _port_heads(q, k, v, 0.5)
+    np.testing.assert_allclose(o, np.broadcast_to(v, o.shape), atol=1e-6)  # one key
+    q, k, v = _qkv(2, 1, 77, 45, 16, seed=6)
+    o, _ = _port_heads(q, k, v, 0.5)
+    ref = jax_fa.naive_attention(*(jnp.asarray(a) for a in (q, k, v)), 0.5)
+    np.testing.assert_allclose(o, np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_dispatch_splits_layouts_at_the_head_layout_threshold(monkeypatch):
+    """KV >= HEAD_LAYOUT_MIN_TOKENS takes the head-layout entry, shorter KV
+    the token-layout entry; both give the same attention."""
+    seen = []
+    for name in ("flash_attention", "flash_attention_tokens"):
+        real = getattr(FA, name)
+        monkeypatch.setattr(FA, name, lambda *a, _n=name, _r=real: (seen.append(_n), _r(*a))[1])
+    monkeypatch.setattr(ops, "HEAD_LAYOUT_MIN_TOKENS", 64)
+    rng = np.random.default_rng(0)
+    for m in (32, 64):
+        q, k, v = (torch.from_numpy(rng.standard_normal((2, m, 32)).astype(np.float32))
+                   for _ in range(3))
+        out = ops.attention(q, k, v, 2, 0.5)
+        ref, _ = FA.naive_attention_reference(*(FA._heads(t, 2) for t in (q, k, v)), 0.5)
+        torch.testing.assert_close(out, ref.transpose(1, 2).flatten(2), rtol=1e-6, atol=1e-6)
+    assert seen == ["flash_attention_tokens", "flash_attention"]
+
+
+def test_cpu_wrappers_take_the_plain_version(monkeypatch):
+    def no_launch(*a, **k):
+        raise AssertionError("a CUDA launcher was called for a CPU tensor")
+
+    monkeypatch.setattr(FA, "flash_attention_cuda", no_launch)
+    monkeypatch.setattr(FA, "flash_attention_tokens_cuda", no_launch)
+    before = ops.launch_counts()
+    q = torch.randn(2, 16, 64)
+    FA.flash_attention_tokens(q, q, q, 4, 0.5)
+    qh = FA._heads(q, 4)
+    FA.flash_attention(qh, qh, qh, 0.5)
+    assert ops.launch_counts() == before
+
+
+def test_launchers_refuse_cpu_tensors_and_unsupported_head_dims():
+    q = torch.randn(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FA.flash_attention_cuda(q, q, q, 0.5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FA.flash_attention_tokens_cuda(torch.randn(1, 8, 64), torch.randn(1, 8, 64),
+                                       torch.randn(1, 8, 64), 2, 0.5)
+    for d in (8, 48, 256):
+        x = torch.randn(1, 2, 8, d)
+        with pytest.raises(ValueError, match="head dims"):
+            FA.flash_attention_cuda(x, x, x, 0.5)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        FA.flash_attention_cuda(q.double(), q.double(), q.double(), 0.5)
+    with pytest.raises(ValueError, match="divisible"):
+        FA.flash_attention_tokens_cuda(torch.randn(1, 8, 60), torch.randn(1, 8, 60),
+                                       torch.randn(1, 8, 60), 8, 0.5)
+
+
+# ---- modules against flax -------------------------------------------------
+
+
+def _flax_pair(flax_module, x_nhwc, *args, seed=1):
+    shapes = jax.eval_shape(flax_module.init, KEY, jnp.asarray(x_nhwc), *args)["params"]
+    params = _randomize(shapes, seed)
+    y = flax_module.apply({"params": params}, jnp.asarray(x_nhwc), *args)
+    return params, np.asarray(y)
+
+
+def _load(module, tree, strip):
+    """Carry a flax param ``tree`` through the port's key map and load the
+    keys under ``strip`` into ``module``."""
+    sd = jax_params_to_state_dict(tree)
+    module.load_state_dict({k[len(strip):]: v for k, v in sd.items()}, strict=True)
+    return module.eval()
+
+
+def _inputs(shape, emb_dim, seed=2):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    emb = rng.standard_normal((shape[0], emb_dim)).astype(np.float32)
+    return x, emb
+
+
+@pytest.mark.parametrize("emb", [False, True], ids=["self", "cross_one_token"])
+def test_linear_transformer_matches_flax(emb):
+    x, e = _inputs((2, 6, 5, 16), 24)
+    jm = jax_attn.LinearTransformer(2, 16, 2, 8, GROUPS4, None, 24 if emb else None)
+    args = (jnp.asarray(e),) if emb else ()
+    params, y = _flax_pair(jm, x, *args)
+    tm = _load(A.LinearTransformer(2, 16, 2, 8, GROUPS4, None, 24 if emb else None),
+               {"attention": params}, "attention.")
+    with torch.no_grad():
+        ty = tm(nchw(x), torch.from_numpy(e) if emb else None)
+    assert np.abs(y - x).max() > 1e-2  # the attention term is not zero
+    np.testing.assert_allclose(nhwc(ty), y, rtol=3e-5, atol=3e-6)
+
+
+def test_linear_transformer_cross_attends_to_several_tokens():
+    x, _ = _inputs((2, 4, 4, 16), 8)
+    toks = np.random.default_rng(3).standard_normal((2, 5, 24)).astype(np.float32)
+    jm = jax_attn.LinearTransformer(2, 16, 2, 8, GROUPS4, None, 24)
+    params, y = _flax_pair(jm, x, jnp.asarray(toks))
+    tm = _load(A.LinearTransformer(2, 16, 2, 8, GROUPS4, None, 24),
+               {"attention": params}, "attention.")
+    with torch.no_grad():
+        ty = tm(nchw(x), torch.from_numpy(toks))
+    np.testing.assert_allclose(nhwc(ty), y, rtol=3e-5, atol=3e-6)
+
+
+def test_geglu_matches_flax():
+    x = np.random.default_rng(4).standard_normal((3, 7, 16)).astype(np.float32)
+    jm = jax_attn.GEGLU(64)
+    params, y = _flax_pair(jm, x)
+    tm = _load(A.GEGLU(16, 64), {"attention": {"block_0": {"geglu": params}}},
+               "attention.transformer_blocks.0.proj_out.0.")
+    with torch.no_grad():
+        ty = geglu_reference(torch.from_numpy(x), tm.norm.weight, tm.norm.bias,
+                             tm.proj.weight.t(), tm.proj.bias)
+    np.testing.assert_allclose(ty.numpy(), y, rtol=1e-5, atol=1e-6)
+
+
+def test_basic_transformer_block_matches_flax():
+    x, e = _inputs((2, 6, 6, 16), 24)
+    jm = jax_attn.BasicTransformerBlock(2, 16, 2, 8, GROUPS4, None, 24)
+    params, y = _flax_pair(jm, x, jnp.asarray(e))
+    tm = _load(A.BasicTransformerBlock(2, 16, 2, 8, GROUPS4, None, 24),
+               {"attention": {"block_0": params}}, "attention.transformer_blocks.0.")
+    with torch.no_grad():
+        ty = tm(nchw(x), torch.from_numpy(e))
+    np.testing.assert_allclose(nhwc(ty), y, rtol=3e-5, atol=3e-6)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_spatial_transformer_matches_flax(depth):
+    x, e = _inputs((2, 6, 6, 16), 24)
+    jm = jax_attn.SpatialTransformer(2, 16, 2, 8, GROUPS4, None, 24, depth)
+    params, y = _flax_pair(jm, x, jnp.asarray(e))
+    tm = _load(A.SpatialTransformer(2, 16, 2, 8, GROUPS4, None, 24, depth),
+               {"attention": params}, "attention.")
+    with torch.no_grad():
+        ty = tm(nchw(x), torch.from_numpy(e))
+    assert np.abs(y - x).max() > 1e-2
+    np.testing.assert_allclose(nhwc(ty), y, rtol=3e-5, atol=3e-6)
+
+
+def test_attention_dispatcher_rejects_unknown_type_and_dropout():
+    with pytest.raises(ValueError, match="unknown attention type"):
+        A.Attention(2, 16, 2, 8, GROUPS4, attention_type="flash")
+    with pytest.raises(NotImplementedError, match="dropout"):
+        A.Attention(2, 16, 2, 8, GROUPS4, dropout=0.1, attention_type="spatial")
+    x = torch.randn(1, 16, 2, 2)
+    assert A.Attention(2, 16, attention_type="none")(x) is x

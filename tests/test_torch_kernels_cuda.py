@@ -7,17 +7,43 @@ on a machine that has none; there, skip the JAX-importing conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Tolerances: float32 atol = rtol = 2e-5 (the statistics are summed in another
-order); bfloat16 atol = rtol = 1e-2 (both sides round an f32 result to bf16,
-so they may differ by one bf16 ulp).
+Tolerances:
+
+* GroupNorm: float32 atol = rtol = 2e-5 (the statistics are summed in
+  another order); bfloat16 atol = rtol = 1e-2 (both sides round an f32
+  result to bf16, so they may differ by one bf16 ulp).
+* Flash attention, o: float32 atol = rtol = 2e-5 (the same products summed
+  in another order, f32 FMA on both sides, no TF32); bfloat16 atol = two
+  bf16 ulps of max|o_ref|, rtol = 0: both sides round q*s, k*s and o to
+  bf16, and p to bf16 against the running row max (kernel) or the final one
+  (plain version); the f32 values rounded to o differ by well under an ulp,
+  so o differs by at most one ulp of its own magnitude. lse: 2e-5 in
+  float32, 1e-4 in bfloat16 (f32 sums of the same bf16 products).
+* GEGLU: float32 atol = rtol = 1e-4 (sums over C and over F = 4C in another
+  order); bfloat16 atol = rtol = 3e-2: the kernel rounds h and gate once,
+  the plain version (the module path) after the product and again after the
+  bias, and an ulp flip in g moves the F-long down-projection sum by about
+  an ulp of the output.
+
+GEGLU is held at the rows of two UNet rows and of the sampling batch's 16
+(8 samples under CFG), since its launch splits F by the row count.
 """
+
+import math
 
 import pytest
 import torch
 
+from medfusion_tpu_torch import ops
+from medfusion_tpu_torch.ops import flash_attention as FA
+from medfusion_tpu_torch.ops import geglu as GL
 from medfusion_tpu_torch.ops import group_norm as G
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+ATTN_LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-4}
+GEGLU_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["f32", "bf16"])
 
 
 @pytest.fixture
@@ -27,6 +53,13 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _attn_o_tol(ref):
+    """(atol, rtol) of attention's o against the plain version's ``ref``."""
+    if ref.dtype != torch.bfloat16:
+        return 2e-5, 2e-5
+    return 2.0 * 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7), 0.0
 
 
 def _inputs(gen, b, c, side, dtype, mean=3.0):
@@ -75,3 +108,115 @@ def test_launch_on_a_side_stream(cuda):
     stream.synchronize()
     ref = G.group_norm_silu_reference(x, scale, bias, 32)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+# (tokens N, KV tokens M, width H*D, heads): the chest-spatial path's shape
+# classes (1024 tokens d=32, 256 d=64 and d=32, 64 d=128 and d=64), a
+# ragged cross-attention and the smoke preset's d=16
+ATTN_CASES = [(1024, 1024, 256, 8), (256, 256, 512, 8), (256, 256, 256, 8),
+              (64, 64, 1024, 8), (64, 64, 512, 8), (77, 45, 256, 4),
+              (100, 100, 32, 2)]
+
+
+def _attn_inputs(gen, b, n, m, c, dtype):
+    return [torch.randn((b, r, c), generator=gen, device="cuda").to(dtype)
+            for r in (n, m, m)]
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("n,m,c,heads", ATTN_CASES)
+def test_flash_attention_both_layouts_match_plain_version(cuda, dtype, n, m, c, heads):
+    q, k, v = _attn_inputs(cuda, 2, n, m, c, dtype)
+    scale = (c // heads) ** -0.25
+    qh, kh, vh = (FA._heads(t, heads) for t in (q, k, v))
+    ro, rlse = FA.naive_attention_reference(qh, kh, vh, scale)
+    before = ops.launch_counts()
+    o, lse = FA.flash_attention_tokens(q, k, v, heads, scale)
+    oh, lseh = FA.flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(), scale)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_tokens"] == before["flash_attention_tokens"] + 1
+    atol, rtol = _attn_o_tol(ro)
+    ltol = ATTN_LSE_TOL[dtype]
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert o.shape == q.shape and lse.shape == (2, n, heads)
+    for out, lo in ((FA._heads(o, heads), lse.transpose(1, 2)), (oh, lseh)):
+        torch.testing.assert_close(out.float(), ro.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(lo, rlse, atol=ltol, rtol=ltol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_strided_head_views(cuda):
+    """The head entry on [B, H, N, D] views of token-layout tensors (as the
+    attention dispatch passes them) writes o with q's strides."""
+    q, k, v = _attn_inputs(cuda, 2, 1024, 1024, 256, torch.bfloat16)
+    qh, kh, vh = (FA._heads(t, 8) for t in (q, k, v))
+    o, _ = FA.flash_attention(qh, kh, vh, 0.5)
+    assert o.stride() == qh.stride()
+    ref, _ = FA.naive_attention_reference(qh, kh, vh, 0.5)
+    atol, rtol = _attn_o_tol(ref)
+    torch.testing.assert_close(o.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 48, 256])
+def test_flash_attention_refuses_unsupported_head_dims(cuda, d):
+    x = torch.randn((1, 2, 16, d), device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_attention(x, x, x, 0.5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_a_gradient(cuda):
+    x = torch.randn((1, 2, 16, 32), device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        FA.flash_attention(x, x, x, 0.5)
+
+
+def _geglu_inputs(gen, rows, c, dtype):
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(dtype)
+
+    f = 4 * c
+    return [rnd(rows, c, std=2.0, mean=0.5), rnd(c, std=0.1, mean=1.0), rnd(c, std=0.1),
+            rnd(2 * f, c, std=c ** -0.5).t(), rnd(2 * f, std=0.1),
+            rnd(c, f, std=f ** -0.5).t(), rnd(c, std=0.1)]
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("rows,c", [(2048, 256), (512, 512), (512, 256), (128, 1024),
+                                    (128, 512), (16384, 256), (4096, 512), (4096, 256),
+                                    (1024, 1024), (1024, 512), (77, 256), (130, 16),
+                                    (33, 48)])
+def test_geglu_mlp_matches_plain_version(cuda, dtype, rows, c):
+    args = _geglu_inputs(cuda, rows, c, dtype)
+    before = GL.LAUNCHES
+    out = GL.fused_geglu_mlp(*args)
+    ref = GL.geglu_mlp_reference(*args)
+    torch.cuda.synchronize()
+    assert GL.LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == (rows, c)
+    tol = GEGLU_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_geglu_mlp_gradient_recomputes_through_plain_version(cuda):
+    args = _geglu_inputs(cuda, 40, 32, torch.float32)
+    grad = torch.randn((40, 32), generator=cuda, device="cuda")
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    (GL.fused_geglu_mlp(*leaves) * grad).sum().backward()
+    ref = [t.detach().clone().requires_grad_() for t in args]
+    (GL.geglu_mlp_reference(*ref) * grad).sum().backward()
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_geglu_mlp_refuses_unsupported_widths(cuda):
+    args = _geglu_inputs(cuda, 8, 1040, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        GL.fused_geglu_mlp(*args)

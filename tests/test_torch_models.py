@@ -187,8 +187,12 @@ def test_state_dict_keys_cover_the_module():
         assert tuple(sd[k].shape) == tuple(v.shape), k
 
 
-def test_unet_rejects_attention():
-    with pytest.raises(NotImplementedError, match="second slice"):
-        UNet(in_ch=2, out_ch=2, hid_chs=(8, 16), kernel_sizes=(3, 3),
-             strides=(1, 2), use_attention="linear",
-             norm_name=("GROUP", {"num_groups": 4}))
+def test_vae_blocks_reject_attention():
+    """The VAE's down/up blocks take no attention yet; the UNet's attention
+    is tested in tests/test_torch_attention_unet.py."""
+    from medfusion_tpu_torch.nn.blocks import DownBlock, UpBlock
+
+    for block in (DownBlock, UpBlock):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            block(2, 8, 8, 3, 2, 2, ("GROUP", {"num_groups": 4}), "SWISH",
+                  use_attention="linear")

@@ -68,18 +68,19 @@ def test_sample_cli_runs_on_cpu(tmp_path):
     assert (out / "sample_diff.png").exists()
 
 
-def test_sample_cli_loads_npz_params(tmp_path):
+@pytest.mark.parametrize("attention", ["none", "spatial"])
+def test_sample_cli_loads_npz_params(tmp_path, attention):
     """--params takes flax paths joined by '/', as the JAX package names them."""
     from medfusion_tpu_torch.utils.weights import flax_path_to_torch_key
 
     p = presets.PRESETS["smoke"]
-    ref = presets.build_pipeline(p, device="cpu", seed=3)
+    ref = presets.build_pipeline(p, device="cpu", seed=3, attention=attention)
     flat = {}
     for prefix, module, kind in (("noise_estimator", ref.noise_estimator, "unet"),
                                  ("latent_embedder", ref.latent_embedder, "vae")):
         by_key = {k: v.numpy() for k, v in module.state_dict().items()}
         # invert the export map on this module's own keys
-        for path in _flax_paths(kind):
+        for path in _flax_paths(kind, attention):
             key = flax_path_to_torch_key(path, kind)
             if key in by_key:
                 flat[f"{prefix}/{path}"] = _to_flax(path, by_key.pop(key))
@@ -87,7 +88,7 @@ def test_sample_cli_loads_npz_params(tmp_path):
     npz = tmp_path / "params.npz"
     np.savez(npz, **flat)
     unet_params, vae_params = sample.load_npz_params(npz)
-    pipe = presets.build_pipeline(p, device="cpu", seed=99,
+    pipe = presets.build_pipeline(p, device="cpu", seed=99, attention=attention,
                                   unet_params=unet_params, vae_params=vae_params)
     for a, b in ((pipe.noise_estimator, ref.noise_estimator),
                  (pipe.latent_embedder, ref.latent_embedder)):
@@ -95,7 +96,23 @@ def test_sample_cli_loads_npz_params(tmp_path):
             torch.testing.assert_close(v, w, rtol=0, atol=0, msg=k)
 
 
-def _flax_paths(kind):
+def test_sample_cli_attention_options(tmp_path):
+    """--attention spatial samples on the CPU; --attention-heads needs
+    attention layers and must divide the attended widths."""
+    out = tmp_path / "s"
+    results = sample.main(["--preset", "smoke", "--device", "cpu", "--steps", "2",
+                           "--n", "1", "--dtype", "f32", "--attention", "spatial",
+                           "--attention-heads", "2", "--out", str(out)])
+    assert all(r.shape == (1, 32, 32, 3) and np.isfinite(r).all()
+               for r in results.values())
+    with pytest.raises(SystemExit):
+        sample.main(["--preset", "smoke", "--device", "cpu", "--attention-heads", "4"])
+    with pytest.raises(ValueError, match="does not divide"):
+        sample.main(["--preset", "smoke", "--device", "cpu", "--attention", "linear",
+                     "--attention-heads", "3"])
+
+
+def _flax_paths(kind, attention="none"):
     """The flax param paths of the smoke preset's modules."""
     import jax
     import jax.numpy as jnp
@@ -107,7 +124,8 @@ def _flax_paths(kind):
     if kind == "unet":
         z = jnp.zeros((1, *p.latent_shape))
         t = jnp.zeros((1,), jnp.int32)
-        tree = jax.eval_shape(build_unet(p).init, key, z, t, t)["params"]
+        tree = jax.eval_shape(build_unet(p, attention=attention).init,
+                              key, z, t, t)["params"]
     else:
         x = jnp.zeros((1, p.image_size, p.image_size, p.in_channels))
         tree = jax.eval_shape(build_vae(p).init, {"params": key, "sample": key}, x)["params"]
