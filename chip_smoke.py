@@ -10,23 +10,31 @@ Phases (each raises on failure, so any failure exits non-zero):
 1. environment: torch, CUDA, the card's name and power limit;
 2. build every kernel under ``medfusion_tpu_torch/csrc/`` from source;
 3. each kernel against its plain PyTorch version on the card, at every shape
-   of the main paths (flash attention in both layouts, with its lse; GEGLU
-   also at the main path's batch, where its launches split F otherwise), in
-   float32 and bfloat16;
+   of the main paths (flash attention in both layouts, with its lse, and its
+   two backward kernels; GEGLU also at the sampling batch, where its
+   launches split F otherwise), in float32 and bfloat16;
 4. kernel times at the flagship batch (kernel, plain version, one PyTorch
    library call where one computes the same function, and the card's bound
    for the same work), each timed launch also held to its plain version;
-5. the small ``smoke`` preset sampled on the card and on the CPU from the
-   same latent and noise, float32, without attention and with spatial
-   attention (one head, so head dims 16 and 32);
-6. the main paths: the ``chest`` preset at full width, bfloat16, 8 samples,
-   150 DDIM steps, eta 1, guidance 8, VAE decode, first without attention
-   (slice 1) and then with spatial attention (slice 2), each with the
-   kernel launches counted from zero and checked against the counts derived
-   here;
-7. a breakdown of the spatial path: one CFG UNet step and one decode timed
-   with CUDA events, and a profiled 5-step sample with its device time by
-   kind.
+   the backward kernels at the training batch;
+5. the small ``smoke`` preset on the card and on the CPU from the same
+   weights and draws, float32: sampled without attention and with spatial
+   attention (one head, so head dims 16 and 32), and trained for two steps
+   with spatial attention;
+6. the sampling paths: the ``chest`` preset at full width, bfloat16, 8
+   samples, 150 DDIM steps, eta 1, guidance 8, VAE decode, first without
+   attention (slice 1) and then with spatial attention (slice 2), each with
+   the kernel launches counted from zero and checked against the counts
+   derived here;
+7. a breakdown of the spatial sampling path: one CFG UNet step and one
+   decode timed with CUDA events, and a profiled 5-step sample with its
+   device time by kind;
+8. the training path (slice 3): the ``chest`` preset with spatial attention,
+   bf16 compute with f32 masters, batch 32, AdamW + EMA steps on synthetic
+   data, with the launches counted from zero and checked, a bf16 step's
+   gradients against an f32 step's (and the same check shown to flag
+   planted faults in the backward kernels), ms per step and samples/s, and
+   a profiled step with its device time by kind.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -34,6 +42,7 @@ as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -91,6 +100,22 @@ EXPECTED = {
     },
 }
 TIMING_BATCH = {"unet": 64, "vae": 32}  # B=32 with CFG doubling the UNet rows
+# The training path: chest, spatial attention, batch 32 (the JAX package's
+# diffusion_batch_size), bf16 compute. The frozen VAE encoder runs the
+# decoder's GroupNorm shapes (2 norms at each of 256^2x64, 128^2x128,
+# 64^2x256, 32^2x512); the GroupNorm and GEGLU backward recompute through
+# their plain versions and launch nothing; each self-attention launches its
+# forward, then the dQ and the dK/dV kernel once.
+TRAIN_BATCH, TRAIN_STEPS = 32, 5
+VAE_GN_PER_ENCODE = VAE_GN_PER_DECODE
+TRAIN_EXPECTED_PER_STEP = {
+    "group_norm_silu": UNET_GN_PER_FORWARD + 2 * TRANSFORMERS + VAE_GN_PER_ENCODE,
+    "flash_attention": EXPECTED["spatial"]["flash_attention"] // STEPS,
+    "flash_attention_tokens": EXPECTED["spatial"]["flash_attention_tokens"] // STEPS,
+    "flash_attention_bwd_dq": TRANSFORMERS,
+    "flash_attention_bwd_dkv": TRANSFORMERS,
+    "geglu_mlp": TRANSFORMERS,
+}
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # attention lse: f32 sums of the same products in another order (bfloat16:
 # of the same bf16 q*s and k*s); o's tolerance is attn_o_tol's
@@ -99,6 +124,25 @@ ATTN_LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
 # gate once (the kernel) or after the product and again after the bias (the
 # module path), and an ulp flip of g moves the F-long down-projection sum
 GEGLU_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# bf16 training step against the f32 step on the same weights and draws:
+# each parameter tensor's gradient held against its own f32 gradient,
+# |g16 - g32|_2 / |g32|_2, the worst of the 721 tensors against the limit.
+# bf16 keeps 8 significant bits (2^-8 = 3.9e-3 a rounding) and the backward
+# rounds at every layer. The same check then runs on each planted fault (a
+# backward kernel's output zeroed after its launch, at one head dim, on the
+# heads given) and must flag every one, so a fault confined to a few
+# attention layers cannot hide under the larger gradients elsewhere. On an
+# H100 the sound step reads 2.1e-2 (an 8² attention's to_q) and the four
+# faults 0.38-1.0; the limit sits between, a factor of ~4 from each.
+TRAIN_GRAD_REL_LIMIT = 1e-1
+# (label, wrapper, operand of flash_attention_backward_operands: 5 dq, 6 dk,
+# 7 dv, head dim, heads)
+PLANTED_FAULTS = (
+    ("dq zeroed at d=32, every head", "flash_attention_bwd_dq", 5, 32, slice(None)),
+    ("dq zeroed at d=128, head 0", "flash_attention_bwd_dq", 5, 128, 0),
+    ("dk zeroed at d=64, head 0", "flash_attention_bwd_dkv", 6, 64, 0),
+    ("dv zeroed at d=64, head 0", "flash_attention_bwd_dkv", 7, 64, 0),
+)
 
 
 def log(msg):
@@ -244,6 +288,70 @@ def check_attention(FA, n, m, c, heads, dtype, gen):
     return errs
 
 
+def attn_bwd_tol(ref):
+    """(atol, rtol) for a backward kernel's gradient against the plain
+    backward's ``ref``. float32: 2e-5 (the same products summed in another
+    order). bfloat16: two bf16 ulps of max|ref|, no rtol: both sides round
+    ds and p to bf16 at the same points, from f32 sums taken in another
+    order, so an element of ds, and so of the gradient, may land one ulp
+    apart."""
+    import torch
+
+    if ref.dtype != torch.bfloat16:
+        return 2e-5, 2e-5
+    top = ref.float().abs().max().item()
+    return 2.0 * 2.0 ** (math.floor(math.log2(top)) - 7), 0.0
+
+
+def bwd_operands(FA, q, k, v, heads, layout, do):
+    """The backward kernels' operands for token-layout q/k/v/do [B, N, C]:
+    the forward kernel's o and lse, in the head layout (contiguous [B, H, N,
+    D] copies) or the token layout ([B, H, N, D] views)."""
+    scale = (q.shape[2] // heads) ** -0.25
+    if layout == "head":
+        qh, kh, vh, doh = (FA._heads(t, heads).contiguous() for t in (q, k, v, do))
+        o, lse = FA.flash_attention_cuda(qh, kh, vh, scale)
+    else:
+        o, lse = FA.flash_attention_tokens_cuda(q, k, v, heads, scale)
+        qh, kh, vh, doh = (FA._heads(t, heads) for t in (q, k, v, do))
+        o, lse = FA._heads(o, heads), lse.transpose(1, 2)
+    return FA.flash_attention_backward_operands(qh, kh, vh, o, lse, doh), scale
+
+
+def check_bwd(FA, ops, scale, tag):
+    """The kernels' dq, dk, dv (in ``ops``, after a launch of both) against
+    the plain backward; returns {kernel: max error} (dk/dv: the larger)."""
+    q, k, v, o, do, dq, dk, dv, lse, _ = ops
+    rq, rk, rv = FA.flash_attention_backward_reference(q, k, v, o, lse, do, scale)
+    errs = {}
+    for what, out, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        errs[what] = close(f"{tag} {what}", out, ref, *attn_bwd_tol(ref))
+    return {"flash_attention_bwd_dq": errs["dq"],
+            "flash_attention_bwd_dkv": max(errs["dk"], errs["dv"])}
+
+
+def check_attention_backward(FA, n, m, c, heads, dtype, gen):
+    """Both backward kernels against the plain backward at B=2, in both
+    layouts; returns the largest error of each kernel."""
+    import torch
+
+    name = str(dtype).split(".")[-1]
+    q, k, v = attn_inputs(2, n, m, c, dtype, gen)
+    do = torch.randn((2, n, c), generator=gen, device="cuda").to(dtype)
+    worst = {}
+    for layout in ("head", "tokens"):
+        ops, scale = bwd_operands(FA, q, k, v, heads, layout, do)
+        tag = f"attn bwd {layout} N={n} M={m} C={c} H={heads} {name}"
+        FA.flash_attention_bwd_dq(ops, scale)
+        FA.flash_attention_bwd_dkv(ops, scale)
+        for kernel, err in check_bwd(FA, ops, scale, tag).items():
+            worst[kernel] = max(worst.get(kernel, 0.0), err)
+    log(f"  attn bwd N={n} M={m} C={c} H={heads} {name}: max|d| dq "
+        f"{worst['flash_attention_bwd_dq']:.3e}, dk/dv "
+        f"{worst['flash_attention_bwd_dkv']:.3e} (both layouts)")
+    return worst
+
+
 def check_geglu(GL, rows, c, dtype, gen):
     name = str(dtype).split(".")[-1]
     tol = GEGLU_TOL[name]
@@ -290,6 +398,12 @@ def phase_kernel_checks(G, FA, GL):
         for n, m, c, heads in ([(n, n, c, h) for n, c, h, _, _ in ATTN_SHAPES]
                                + [(77, 45, 256, 4), (64, 64, 32, 2)]):
             for kernel, err in check_attention(FA, n, m, c, heads, dtype, gen).items():
+                keep(worst, kernel, name, err)
+        # the backward at every training-path shape and a ragged one
+        for n, m, c, heads in ([(n, n, c, h) for n, c, h, _, _ in ATTN_SHAPES]
+                               + [(77, 45, 256, 4), (45, 77, 64, 4)]):
+            for kernel, err in check_attention_backward(FA, n, m, c, heads, dtype,
+                                                        gen).items():
                 keep(worst, kernel, name, err)
         for rows, c in ([(b * n, c) for b in (2, 2 * N_SAMPLES)
                          for n, c, _, _, _ in ATTN_SHAPES] + [(77, 256), (130, 16)]):
@@ -415,6 +529,72 @@ def phase_attention_geglu_times(FA, GL, worst):
     return attn, geglu
 
 
+def phase_attention_backward_times(FA, worst):
+    """Phase 4, continued: the two backward kernels at the training batch
+    (B=32), bf16, each at its path entry's layout. Each kernel is timed
+    alone (CUDA events around a replayed graph of 20 launches) beside its
+    plain version (the dQ part and the dK/dV part of the plain backward)
+    and checked against the plain backward. Library: the backward of
+    ``F.scaled_dot_product_attention(q*s, k*s, v, scale=1.0)`` (forward +
+    backward minus forward, each a replayed graph, timed only), one call
+    that yields dq, dk and dv together, so it stands beside the sum of the
+    two kernels' times and is given in both rows. Bounds from this run's shapes: dQ 6*BH*N*M*d
+    FLOPs and q, k, v, o, dO, lse read, dq and D written; dK/dV 8*BH*N*M*d
+    FLOPs and q, k, v, dO, lse, D read, dk and dv written."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b = TRAIN_BATCH
+    rows = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    for n, c, heads, per_fwd, layout in ATTN_SHAPES:
+        d = c // heads
+        q, k, v, do = attn_inputs(b, n, n, c, torch.bfloat16, gen) + (
+            torch.randn((b, n, c), generator=gen, device="cuda").bfloat16(),)
+        ops, scale = bwd_operands(FA, q, k, v, heads, layout, do)
+        t_dq = graph_ms(lambda: FA.flash_attention_bwd_dq(ops, scale), 20)
+        t_dkv = graph_ms(lambda: FA.flash_attention_bwd_dkv(ops, scale), 20)
+        tag = f"attn bwd {layout} B={b} N={n} C={c}"
+        for kernel, err in check_bwd(FA, ops, scale, tag).items():
+            keep(worst, kernel, "bfloat16", err)
+        qh, kh, vh, o, doh, _, _, _, lse, delta = ops
+        p_dq = graph_ms(lambda: FA.flash_attention_bwd_dq_reference(
+            qh, kh, vh, o, lse, doh, scale), 3)
+        p_dkv = graph_ms(lambda: FA.flash_attention_bwd_dkv_reference(
+            qh, kh, vh, lse, doh, delta, scale), 3)
+        sc = torch.tensor(scale, dtype=torch.bfloat16)
+        leaves = [(t * sc).detach().requires_grad_() for t in (qh, kh)] + [
+            vh.detach().requires_grad_()]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*leaves, scale=1.0)
+
+        t_fwd = graph_ms(sdpa, 10)
+        t_both = graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, doh), 10)
+        lib = t_both - t_fwd
+        bh, e = b * heads, 2  # bf16 bytes
+        tok = b * n * c * e  # one [B, N, C] bf16 tensor
+        stat = bh * n * 4  # one [B, H, N] f32 vector (lse, D)
+        shape = dict(layout=layout, B=b, N=n, C=c, H=heads, d=d,
+                     launches_per_step=per_fwd, library_ms=lib)
+        rows["flash_attention_bwd_dq"].append(dict(
+            shape, ms=t_dq, plain_ms=p_dq,
+            **bounds(6 * bh * n * n * d, 6 * tok + 2 * stat)))
+        rows["flash_attention_bwd_dkv"].append(dict(
+            shape, ms=t_dkv, plain_ms=p_dkv,
+            **bounds(8 * bh * n * n * d, 6 * tok + 2 * stat)))
+        b_dq = rows["flash_attention_bwd_dq"][-1]["bound_ms"]
+        b_dkv = rows["flash_attention_bwd_dkv"][-1]["bound_ms"]
+        log(f"  attention bwd {layout} B={b} N={n} H={heads} d={d}: dQ {t_dq:.4f} ms "
+            f"(plain {p_dq:.4f}, bound {b_dq:.4f}, {b_dq / t_dq:.1%}), dK/dV "
+            f"{t_dkv:.4f} ms (plain {p_dkv:.4f}, bound {b_dkv:.4f}, "
+            f"{b_dkv / t_dkv:.1%}); sum {t_dq + t_dkv:.4f} ms vs SDPA backward "
+            f"{lib:.4f} ms (fwd+bwd {t_both:.4f}, fwd {t_fwd:.4f})")
+        del q, k, v, do, ops, leaves
+    torch.cuda.empty_cache()
+    return rows
+
+
 def perturb_(module, gen):
     """Move a seeded model away from its zero-initialised output convs and
     projections and its unit/zero norm affines, so that every comparison is
@@ -467,6 +647,78 @@ def phase_smoke_vs_cpu(attention):
     log(f"  smoke attention={attention} card vs cpu: images {tuple(out.shape)}, "
         f"max|d|={err:.3e} (tol 1e-4 x max(1, max|ref|) = {tol:.3e})")
     torch.testing.assert_close(out, ref, atol=tol, rtol=1e-4)
+
+
+def close_params(name, out, ref, lr, steps):
+    """Parameters after ``steps`` AdamW steps against ``ref``: Adam's first
+    steps move every element by about lr (m / sqrt(v) ~ sign(g)), so an
+    element whose gradient is within rounding of 0 may move the other way
+    on the other device: every element within 2 lr per step, and 99.9 % of
+    them within 1e-3 lr (+ 1e-6 relative)."""
+    worst, n_close, n = 0.0, 0, 0
+    for k, r in ref.items():
+        d = (out[k].detach().float().cpu() - r.detach().float().cpu()).abs()
+        worst = max(worst, d.max().item())
+        n_close += int((d <= 1e-3 * lr + 1e-6 * r.detach().abs().cpu()).sum())
+        n += d.numel()
+    log(f"  {name}: max|d| {worst:.3e} (limit {2 * lr * steps:.1e}), "
+        f"{n_close / n:.5%} within 1e-3 lr")
+    if not (worst <= 2 * lr * steps and n_close >= 0.999 * n):
+        raise RuntimeError(f"{name} departs: max {worst}, {n_close}/{n} close")
+
+
+def phase_smoke_train_vs_cpu():
+    """Phase 5, continued: the smoke preset with spatial attention (one
+    head: d = 16 and 32), f32, two AdamW + EMA steps on the card and on the
+    CPU from the same weights, batch and draws. Losses within rtol 1e-4, the
+    first step's gradients within 1e-4 of the largest |g| (f32 sums in
+    another order, forward and backward), parameters and EMA as
+    :func:`close_params`."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline
+    from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step
+
+    p = PRESETS["smoke"]
+    kw = dict(attention="spatial", attn_heads=1, seed=0)
+    cpu = build_train_pipeline(p, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(5)
+    perturb_(cpu.noise_estimator, gen)
+    perturb_(cpu.latent_embedder, gen)
+    card = build_train_pipeline(p, device="cuda", **kw)
+    card.noise_estimator.load_state_dict(cpu.noise_estimator.state_dict())
+    card.latent_embedder.load_state_dict(cpu.latent_embedder.state_dict())
+    b = p.diffusion_batch_size
+    batches = [{"source": torch.rand((b, 32, 32, 3), generator=gen) * 2 - 1,
+                "target": torch.arange(b) % 2} for _ in range(2)]
+    draws = [cpu.train_draws(b, p.latent_shape, generator=gen) for _ in range(2)]
+    results = {}
+    for name, pipe in (("cpu", cpu), ("card", card)):
+        dev = pipe.device
+        state = TrainState(pipe.noise_estimator, lr=p.diffusion_lr, use_ema=True)
+        step = make_diffusion_train_step(pipe)
+        losses, grads = [], None
+        for batch, dr in zip(batches, draws):
+            m = step(state, {k: v.to(dev) for k, v in batch.items()},
+                     {k: v.to(dev) for k, v in dr.items()})
+            losses.append(float(m["loss"]))
+            if grads is None:
+                grads = {k: q.grad.detach().cpu().clone()
+                         for k, q in state.model.named_parameters()}
+        results[name] = (losses, grads, dict(state.model.named_parameters()),
+                         dict(state.ema.named_parameters()))
+    (l_ref, g_ref, p_ref, e_ref), (l_out, g_out, p_out, e_out) = (
+        results["cpu"], results["card"])
+    log(f"  smoke training card vs cpu: losses {l_out} vs {l_ref}")
+    torch.testing.assert_close(torch.tensor(l_out), torch.tensor(l_ref), rtol=1e-4, atol=0)
+    top = max(g.abs().max().item() for g in g_ref.values())
+    gerr = max((g_out[k] - g_ref[k]).abs().max().item() for k in g_ref)
+    log(f"  smoke training step 1 gradients: max|d| {gerr:.3e} (limit 1e-4 x max|g| "
+        f"= {1e-4 * top:.3e})")
+    if not gerr <= 1e-4 * top:
+        raise RuntimeError(f"card gradients depart from the CPU's by {gerr}")
+    close_params("smoke training params after 2 steps", p_out, p_ref, p.diffusion_lr, 2)
+    close_params("smoke training EMA after 2 steps", e_out, e_ref, p.diffusion_lr, 2)
 
 
 def phase_main_path(ops, attention):
@@ -547,12 +799,30 @@ def phase_main_path(ops, attention):
     return launches, seconds, pipe
 
 
+KINDS = ("group_norm_silu", "flash_attention", "flash_attention_bwd", "geglu_mlp",
+         "conv", "matmul", "optimizer", "other")
+
+
+def device_kernels(prof):
+    """Kernel rows of a profile: device events without the user annotations
+    (``Optimizer.step#...``), whose spans repeat their kernels' time."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
+
+
 def kind_of(kernel_name):
     name = kernel_name.lower()
     if "gn_stats_kernel" in name or "gn_apply_kernel" in name:
         return "group_norm_silu"
     if "flash_fwd" in name:
         return "flash_attention"
+    if "flash_bwd" in name:
+        return "flash_attention_bwd"
+    if "adam" in name or "multi_tensor_apply" in name or "foreach" in name:
+        return "optimizer"
     if "geglu_" in name:
         return "geglu_mlp"
     if any(k in name for k in ("conv", "cudnn", "implicit", "wgrad", "dgrad",
@@ -566,7 +836,6 @@ def kind_of(kernel_name):
 def phase_breakdown(pipe):
     """Phase 7: where a chest step's device time goes (B=8, CFG 8)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -584,10 +853,9 @@ def phase_breakdown(pipe):
                          guidance_scale=GUIDANCE, generator=gen)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kind = dict.fromkeys(("group_norm_silu", "flash_attention", "geglu_mlp",
-                             "conv", "matmul", "other"), 0.0)
+    by_kind = dict.fromkeys(KINDS, 0.0)
     # kernel rows only: an operator's row repeats its kernels' time
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:90]}")
     for e in kernels:
@@ -598,6 +866,211 @@ def phase_breakdown(pipe):
     log(f"  profiled {steps}-step sample + decode: wall {wall_ms:.1f} ms, device "
         f"busy {busy:.1f} ms ({busy / wall_ms:.1%}); "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in by_kind.items()))
+
+
+def train_batches(p, n_batches, seed):
+    """Synthetic chest batches on the card, as the training CLI makes them."""
+    import torch
+
+    from medfusion_tpu_torch.data import SimpleDataModule, SyntheticDataset2D
+
+    ds = SyntheticDataset2D(n=TRAIN_BATCH * n_batches, image_size=p.image_size,
+                            channels=p.in_channels, num_classes=p.num_classes, seed=seed)
+    dm = SimpleDataModule(ds, batch_size=TRAIN_BATCH, seed=seed)
+    return [{"source": torch.from_numpy(b["source"]).cuda(),
+             "target": torch.from_numpy(b["target"]).long().cuda()}
+            for b in dm.train_dataloader(0)]
+
+
+def grads_of(pipe, batch, draws, dtype):
+    """The loss and the gradients of the f32 masters at ``dtype`` compute
+    (the train step's casts), without an optimizer step."""
+    import torch
+
+    from medfusion_tpu_torch.train.diffusion import estimator_params, with_compute_dtype
+
+    unet = pipe.noise_estimator
+    run = with_compute_dtype(pipe, dtype)
+    loss, _ = run.train_loss(batch, draws, estimator_params=estimator_params(unet, dtype))
+    names, masters = zip(*unet.named_parameters())
+    grads = torch.autograd.grad(loss, masters, allow_unused=True)
+    return loss.detach(), {k: (torch.zeros_like(q) if g is None else g)
+                           for k, q, g in zip(names, masters, grads)}
+
+
+def grad_departure(g, ref):
+    """How far the gradients ``g`` depart from ``ref`` (name -> tensor):
+    (the three worst tensors' |d|_2 / |ref|_2 with their names, worst
+    first; max |d| over max |ref| across all elements). A tensor whose
+    ``ref`` is all zero departs by 0 if its ``g`` is too, else by infinity.
+    The key projections' biases are left out: softmax is invariant to a
+    shift that is the same for every key, so their gradient is zero but
+    for rounding in both dtypes."""
+    rels = []
+    for k, r in ref.items():
+        if k.endswith("to_k.bias"):
+            continue
+        d, r_norm = (g[k] - r).norm().item(), r.norm().item()
+        rels.append((d / r_norm if r_norm > 0 else (0.0 if d == 0 else math.inf), k))
+    top = max(r.abs().max().item() for r in ref.values())
+    return (sorted(rels, reverse=True)[:3],
+            max((g[k] - r).abs().max().item() for k, r in ref.items()) / top)
+
+
+@contextlib.contextmanager
+def planted_fault(FA, wrapper, operand, head_dim, heads):
+    """Within the block, every launch of the backward ``wrapper`` at
+    ``head_dim`` is followed by zeroing its output ``operand`` on ``heads``."""
+    real = getattr(FA, wrapper)
+
+    def faulty(ops, scale):
+        real(ops, scale)
+        if ops[0].shape[3] == head_dim:
+            ops[operand][:, heads].zero_()
+
+    setattr(FA, wrapper, faulty)
+    try:
+        yield
+    finally:
+        setattr(FA, wrapper, real)
+
+
+def check_train_grads(FA, pipe, batch, draws):
+    """A bf16 loss and gradient against an f32 one on the same weights and
+    draws, held to TRAIN_GRAD_REL_LIMIT; then each of PLANTED_FAULTS, which
+    the same check must flag."""
+    import torch
+
+    l32, g32 = grads_of(pipe, batch, draws, None)
+    l16, g16 = grads_of(pipe, batch, draws, torch.bfloat16)
+    worst, glob = grad_departure(g16, g32)
+    del g16
+    log(f"  bf16 vs f32 step: loss {l16.item():.5f} vs {l32.item():.5f}; gradients: "
+        f"worst tensors |d|_2/|g32|_2 = {fmt_worst(worst)} (limit "
+        f"{TRAIN_GRAD_REL_LIMIT}); max|d|/max|g32| over all = {glob:.3e}")
+    missed = []
+    for label, *fault in PLANTED_FAULTS:
+        with planted_fault(FA, *fault):
+            _, gf = grads_of(pipe, batch, draws, torch.bfloat16)
+        f_worst, f_glob = grad_departure(gf, g32)
+        del gf
+        log(f"  planted fault, {label}: worst tensors {fmt_worst(f_worst)}; "
+            f"max|d|/max|g32| over all {f_glob:.3e}")
+        if not f_worst[0][0] >= TRAIN_GRAD_REL_LIMIT:
+            missed.append(label)
+    del g32
+    torch.cuda.empty_cache()
+    if not (torch.isfinite(l16) and abs(l16.item() - l32.item()) <= 5e-2 * abs(l32.item())):
+        raise RuntimeError(f"bf16 loss {l16.item()} departs from f32 {l32.item()}")
+    if not worst[0][0] < TRAIN_GRAD_REL_LIMIT:
+        raise RuntimeError(f"bf16 gradients depart from f32: {fmt_worst(worst)}")
+    if missed:
+        raise RuntimeError(f"the gradient check misses the planted faults {missed}")
+
+
+def fmt_worst(worst):
+    return ", ".join(f"{rel:.3e} ({name})" for rel, name in worst)
+
+
+def phase_train_main_path(ops, FA):
+    """Phase 8: the training path. Chest, spatial attention, 8 heads, bf16
+    compute with f32 masters, B=32, AdamW (lr 1e-4, weight decay 0.01) +
+    EMA, synthetic data: one warm-up step, then TRAIN_STEPS steps with the
+    launches counted from zero and held to TRAIN_EXPECTED_PER_STEP; loss
+    finite, masters f32; first :func:`check_train_grads`."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline
+    from medfusion_tpu_torch.nn.blocks import Norm
+    from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step
+
+    p = PRESETS["chest"]
+    t0 = time.perf_counter()
+    pipe = build_train_pipeline(p, device="cuda", attention="spatial", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    perturb_(pipe.noise_estimator, gen)
+    perturb_(pipe.latent_embedder, gen)
+    vae = pipe.latent_embedder
+    enc_norms = sum(isinstance(m, Norm) for part in (vae.inc, vae.encoders, vae.out_enc)
+                    for m in part.modules())
+    if enc_norms != VAE_GN_PER_ENCODE:
+        raise RuntimeError(f"the encoder has {enc_norms} GroupNorms, the counts assume "
+                           f"{VAE_GN_PER_ENCODE}")
+    batches = train_batches(p, 1 + TRAIN_STEPS, seed=0)
+    draws = [pipe.train_draws(TRAIN_BATCH, p.latent_shape, generator=gen)
+             for _ in batches]
+    log(f"  built chest-spatial training pipeline and {len(batches)} batches of "
+        f"{TRAIN_BATCH} in {time.perf_counter() - t0:.1f} s")
+
+    check_train_grads(FA, pipe, batches[0], draws[0])  # no update
+
+    state = TrainState(pipe.noise_estimator, lr=p.diffusion_lr, weight_decay=1e-2,
+                       use_ema=True)
+    step = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
+    step(state, batches[0], draws[0])  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(state, b, d)["loss"] for b, d in zip(batches[1:], draws[1:])]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    losses = [float(v) for v in losses]
+    expected = {k: v * TRAIN_STEPS for k, v in TRAIN_EXPECTED_PER_STEP.items()}
+    ms = seconds / TRAIN_STEPS * 1e3
+    log(f"  chest-spatial training: {TRAIN_STEPS} steps at B={TRAIN_BATCH} in "
+        f"{seconds:.3f} s = {ms:.1f} ms/step, {TRAIN_BATCH / ms * 1e3:.1f} samples/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; losses "
+        f"{[round(v, 5) for v in losses]}")
+    log(f"  launches {launches} (expected {expected})")
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite training loss {losses}")
+    dtypes = {q.dtype for q in state.model.parameters()} | {
+        q.dtype for q in state.ema.parameters()}
+    if dtypes != {torch.float32}:
+        raise RuntimeError(f"master or EMA parameters in {dtypes}")
+    if state.step != 1 + TRAIN_STEPS:
+        raise RuntimeError(f"state at step {state.step}")
+    for kernel, n in launches.items():
+        if n != expected.get(kernel, 0):
+            raise RuntimeError(f"training: {kernel} launched {n} times, expected "
+                               f"{expected.get(kernel, 0)}")
+    return launches, ms, (state, step, batches[0], draws[0])
+
+
+def phase_train_breakdown(train, step_ms):
+    """Phase 8, continued: one profiled training step, its device time by
+    kind, and the device's busy share of the profiled step's wall time and
+    of ``step_ms``, the unprofiled step's (the profiler slows the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step, batch, draws = train
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, draws)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kind = dict.fromkeys(KINDS, 0.0)
+    kernels = device_kernels(prof)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:90]}")
+    for e in kernels:
+        by_kind[kind_of(e.key)] += e.self_device_time_total / 1e3
+    busy = sum(by_kind.values())
+    log(f"  profiled training step (B={TRAIN_BATCH}): wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({busy / wall_ms:.1%} of it, {busy / step_ms:.1%} of the "
+        f"unprofiled {step_ms:.1f} ms step), {sum(e.count for e in kernels)} kernel "
+        f"launches; " + ", ".join(f"{k} {v:.1f} ms" for k, v in by_kind.items()))
+    # AdamW reads param, grad, m, v and writes param, m, v; the EMA reads
+    # itself and the param and writes itself: 40 bytes per f32 parameter
+    n_tensors = sum(1 for _ in state.model.parameters())
+    n = sum(q.numel() for q in state.model.parameters())
+    log(f"  {n_tensors} parameter tensors, {n / 1e6:.1f} M parameters: AdamW + EMA "
+        f"bytes bound {bounds(0, 40 * n)['bound_ms']:.3f} ms, measured "
+        f"{by_kind['optimizer']:.1f} ms")
 
 
 def kernel_row(name, source, replaces, launches, err, rows):
@@ -653,30 +1126,43 @@ def main():
         "the launches, and around the same launches made eagerly)")
     rows = phase_kernel_times(G)
     attn_rows, geglu_rows = phase_attention_geglu_times(FA, GL, worst)
+    bwd_rows = phase_attention_backward_times(FA, worst)
 
     log("[5] smoke preset: card against CPU (float32)")
     for attention in ("none", "spatial"):
         phase_smoke_vs_cpu(attention)
+    phase_smoke_train_vs_cpu()
 
-    log("[6] main paths: chest, bf16")
+    log("[6] sampling paths: chest, bf16")
     launches_none, _, pipe = phase_main_path(ops, "none")
     del pipe
     torch.cuda.empty_cache()
     launches, seconds, pipe = phase_main_path(ops, "spatial")
 
-    log("[7] where a chest-spatial step's device time goes")
+    log("[7] where a chest-spatial sampling step's device time goes")
     phase_breakdown(pipe)
     del pipe
+    torch.cuda.empty_cache()
+
+    log("[8] training path: chest-spatial, bf16 compute, f32 masters, "
+        f"B={TRAIN_BATCH}, AdamW + EMA")
+    train_launches, train_ms, train = phase_train_main_path(ops, FA)
+    phase_train_breakdown(train, train_ms)
+    del train
+    torch.cuda.empty_cache()
 
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
     attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
     geglu_fwd = sum(r["ms"] * r["launches_per_forward"] for r in geglu_rows)
+    bwd_step = sum(r["ms"] * r["launches_per_step"] for k in bwd_rows for r in bwd_rows[k])
     log(f"  per UNet forward (B=64): group_norm_silu {per_fwd:.4f} ms (the conv "
         f"blocks'), attention {attn_fwd:.4f} ms, geglu {geglu_fwd:.4f} ms; "
-        f"group_norm_silu per decode (B=32): {per_dec:.4f} ms")
+        f"group_norm_silu per decode (B=32): {per_dec:.4f} ms; attention backward "
+        f"per training step (B=32): {bwd_step:.4f} ms of {train_ms:.1f} ms")
 
     fa_src = "medfusion_tpu_torch/csrc/flash_attention.cu"
+    bwd_src = "medfusion_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [
         kernel_row("group_norm_silu", "medfusion_tpu_torch/csrc/group_norm_silu.cu",
                    "medfusion_tpu/ops/group_norm.py:25", launches["group_norm_silu"],
@@ -684,6 +1170,16 @@ def main():
         kernel_row("flash_attention", fa_src, "medfusion_tpu/ops/flash_attention.py:73",
                    launches["flash_attention"], worst["flash_attention"]["bfloat16"],
                    [r for r in attn_rows if r["layout"] == "head"]),
+        kernel_row("flash_attention_bwd_dq", bwd_src,
+                   "medfusion_tpu/ops/flash_attention.py:113",
+                   train_launches["flash_attention_bwd_dq"],
+                   worst["flash_attention_bwd_dq"]["bfloat16"],
+                   bwd_rows["flash_attention_bwd_dq"]),
+        kernel_row("flash_attention_bwd_dkv", bwd_src,
+                   "medfusion_tpu/ops/flash_attention.py:141",
+                   train_launches["flash_attention_bwd_dkv"],
+                   worst["flash_attention_bwd_dkv"]["bfloat16"],
+                   bwd_rows["flash_attention_bwd_dkv"]),
         kernel_row("flash_attention_tokens", fa_src,
                    "medfusion_tpu/ops/flash_attention.py:327",
                    launches["flash_attention_tokens"],
@@ -693,7 +1189,9 @@ def main():
                    "medfusion_tpu/ops/geglu.py:96", launches["geglu_mlp"],
                    worst["geglu_mlp"]["bfloat16"], geglu_rows),
     ]
-    log(f"  launches: chest none {launches_none}, chest spatial {launches}")
+    log(f"  worst errors by kernel and dtype: {worst}")
+    log(f"  launches: chest none {launches_none}, chest spatial {launches}, "
+        f"chest-spatial training {train_launches}")
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

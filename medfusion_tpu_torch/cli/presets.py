@@ -1,5 +1,7 @@
-"""Named presets (port of ``medfusion_tpu/cli/presets.py``) and
-:func:`build_pipeline`, which makes a seeded sampling pipeline on a device.
+"""Named presets (port of ``medfusion_tpu/cli/presets.py``),
+:func:`build_pipeline`, which makes a seeded sampling pipeline on a device,
+and :func:`build_train_pipeline`, which makes the training pipeline of the
+JAX package's training CLI.
 
 chest  — CheXpert 256x256, latent 8x32x32
 eye    — AIROGS 256x256, latent 4x32x32
@@ -31,6 +33,9 @@ class Preset:
     schedule: str = "scaled_linear"
     beta_start: float = 0.002
     beta_end: float = 0.02
+    cfg_dropout: float = 0.5
+    diffusion_batch_size: int = 32
+    diffusion_lr: float = 1e-4
     ae_deep_supervision: int = 1
 
 
@@ -44,7 +49,7 @@ PRESETS = {
     "smoke": Preset(name="smoke", image_size=32, in_channels=3,
                     latent_shape=(8, 8, 2), emb_channels=2, num_classes=2,
                     vae_hid_chs=(8, 16, 32), unet_hid_chs=(16, 32),
-                    timesteps=20, ae_deep_supervision=0),
+                    timesteps=20, diffusion_batch_size=4, ae_deep_supervision=0),
 }
 
 
@@ -86,15 +91,11 @@ def build_scheduler(p: Preset, device="cpu"):
         beta_start=p.beta_start, beta_end=p.beta_end, device=device)
 
 
-def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
-                   unet_params=None, vae_params=None, attention: str = "none",
-                   attn_heads: int = 8):
-    """Sampling pipeline as ``medfusion_tpu/cli/sample.py`` builds it (eps
-    objective, no x0 clipping), on ``device`` (default ``cuda``; raises
-    without CUDA). Weights are a seeded torch initialisation, or the JAX
-    package's flax params (nested numpy dicts) when given. ``attention`` and
-    ``attn_heads`` configure the UNet (:func:`build_unet`)."""
-    from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
+def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params,
+                   vae_params):
+    """(UNet, VAE, device): the modules on ``device``, with a seeded torch
+    initialisation, or the JAX package's flax params (nested numpy dicts)
+    when given."""
     from medfusion_tpu_torch.utils.weights import load_jax_params
 
     dev = resolve_device(device)
@@ -107,8 +108,43 @@ def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
         load_jax_params(unet, unet_params, kind="unet")
     if vae_params is not None:
         load_jax_params(vae, vae_params, kind="vae")
-    unet.eval()
-    vae.eval()
+    return unet, vae, dev
+
+
+def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
+                   unet_params=None, vae_params=None, attention: str = "none",
+                   attn_heads: int = 8):
+    """Sampling pipeline as ``medfusion_tpu/cli/sample.py`` builds it (eps
+    objective, no x0 clipping), on ``device`` (default ``cuda``; raises
+    without CUDA), with both modules cast to ``compute_dtype``. Weights are
+    a seeded torch initialisation, or the JAX package's flax params (nested
+    numpy dicts) when given. ``attention`` and ``attn_heads`` configure the
+    UNet (:func:`build_unet`)."""
+    from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
+
+    unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads,
+                                    unet_params, vae_params)
+    if compute_dtype is not None:
+        unet.to(compute_dtype)
+        vae.to(compute_dtype)
     return DiffusionPipeline(scheduler=build_scheduler(p, dev),
-                             noise_estimator=unet, latent_embedder=vae,
+                             noise_estimator=unet.eval(), latent_embedder=vae.eval(),
                              clip_x0=False, compute_dtype=compute_dtype)
+
+
+def build_train_pipeline(p: Preset, device=None, attention: str = "none",
+                         attn_heads: int = 8, objective: str = "x_T",
+                         compute_dtype=None, seed: int = 0):
+    """Training pipeline as ``medfusion_tpu/cli/train_diffusion.py`` builds
+    it: CFG dropout ``p.cfg_dropout``, no input centering, no x0 clipping,
+    L1 loss, ``objective`` ('x_T', 'x_0' or 'v'). Both modules stay float32
+    (the estimator holds the master weights; the train step casts both to
+    ``compute_dtype``); the VAE is frozen."""
+    from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
+
+    unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads, None, None)
+    return DiffusionPipeline(
+        scheduler=build_scheduler(p, dev),
+        noise_estimator=unet, latent_embedder=vae.eval().requires_grad_(False),
+        estimator_objective=objective, classifier_free_guidance_dropout=p.cfg_dropout,
+        do_input_centering=False, clip_x0=False, loss="l1", compute_dtype=compute_dtype)

@@ -186,3 +186,10 @@ def estimate_x_0_from_v(sched, x_t, v, t, clip: bool = True):
     x_0 = (extract(sched.sqrt_alphas_cumprod, t, ndim) * x_t
            - extract(sched.sqrt_one_minus_alphas_cumprod, t, ndim) * v)
     return clip_x0(x_0) if clip else x_0
+
+
+def v_target(sched, x_0, eps, t):
+    """v-prediction target v = sqrt(abar_t)*eps - sqrt(1-abar_t)*x_0."""
+    ndim = x_0.ndim
+    return (extract(sched.sqrt_alphas_cumprod, t, ndim) * eps
+            - extract(sched.sqrt_one_minus_alphas_cumprod, t, ndim) * x_0)

@@ -37,14 +37,14 @@
 // The launch goes on the caller's stream; the kernel allocates nothing. The
 // entry point returns cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_common.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace mf_flash;
 
 constexpr float kInitMax = -1e30f;  // the TPU kernel's _NEG_INF
 
@@ -62,60 +62,6 @@ struct Params {
   long long l_sb, l_sh, l_st;
   float scale;
 };
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_h(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c[0..3] += A(16x16, row) * B(16x8, col); bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Eight bf16 values times s, each product rounded to bf16.
-__device__ __forceinline__ uint4 scale8(uint4 v, float s) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    h[j] = __floats2bfloat162_rn(f.x * s, f.y * s);
-  }
-  return v;
-}
-
-// rows x D tile from global (row stride st, rows >= valid zero) into shared
-// memory with row stride LD, optionally scaled.
-template <int D, int LD, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long st, int valid,
-                                          bool scaled, float s) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      val = *reinterpret_cast<const uint4*>(src + r * st + c);
-      if (scaled) val = scale8(val, s);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
 
 constexpr int kBQ = 64;   // query rows per block (bf16)
 constexpr int kBK = 64;   // keys per tile (bf16)
@@ -155,14 +101,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   load_tile<D, LD, kBQ, kThreads>(Qs, q + q0 * p.q_st, p.q_st, p.N - q0, true, s);
   __syncthreads();
   uint32_t qf[KD][4];
-  const bf16* qrow = Qs + (warp * 16 + g) * LD + t4 * 2;
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    qf[kk][0] = ld32(qrow + kk * 16);
-    qf[kk][1] = ld32(qrow + 8 * LD + kk * 16);
-    qf[kk][2] = ld32(qrow + kk * 16 + 8);
-    qf[kk][3] = ld32(qrow + 8 * LD + kk * 16 + 8);
-  }
+  for (int kk = 0; kk < KD; ++kk) load_a<LD>(qf[kk], Qs, warp * 16, kk * 16, g, t4);
 
   float m_r[2] = {kInitMax, kInitMax};
   float l_r[2] = {0.f, 0.f};  // this lane's part of the row sums
@@ -234,10 +174,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_f(sc[2 * kk][0], sc[2 * kk][1]);
-      a[1] = pack_f(sc[2 * kk][2], sc[2 * kk][3]);
-      a[2] = pack_f(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      a[3] = pack_f(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      a_from_c(a, sc[2 * kk], sc[2 * kk + 1]);
       const bf16* vp = Vs + (kk * 16 + t4 * 2) * LD + g;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {

@@ -2,9 +2,10 @@
 
 * :mod:`medfusion_tpu_torch.ops.group_norm` — GroupNorm(+SiLU), replacing the
   Pallas kernel ``medfusion_tpu/ops/group_norm.py::_kernel``.
-* :mod:`medfusion_tpu_torch.ops.flash_attention` — the flash-attention
-  forward in head and token layout, replacing ``_fwd_kernel`` and
-  ``_fwd_mha_kernel`` of ``medfusion_tpu/ops/flash_attention.py``.
+* :mod:`medfusion_tpu_torch.ops.flash_attention` — flash attention in
+  head and token layout, replacing ``_fwd_kernel`` and ``_fwd_mha_kernel``
+  (forward) and ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (backward) of
+  ``medfusion_tpu/ops/flash_attention.py``.
 * :mod:`medfusion_tpu_torch.ops.geglu` — the fused LayerNorm + GEGLU +
   down-projection MLP, replacing ``medfusion_tpu/ops/geglu.py::_kernel``.
 * :mod:`medfusion_tpu_torch.ops.build` — builds ``csrc/*.cu`` at first use.
@@ -43,6 +44,8 @@ def launch_counts() -> dict:
     return {"group_norm_silu": group_norm.LAUNCHES,
             "flash_attention": _fa.LAUNCHES,
             "flash_attention_tokens": _fa.TOKEN_LAUNCHES,
+            "flash_attention_bwd_dq": _fa.BWD_DQ_LAUNCHES,
+            "flash_attention_bwd_dkv": _fa.BWD_DKV_LAUNCHES,
             "geglu_mlp": geglu.LAUNCHES}
 
 
@@ -50,4 +53,6 @@ def reset_launch_counts() -> None:
     group_norm.LAUNCHES = 0
     _fa.LAUNCHES = 0
     _fa.TOKEN_LAUNCHES = 0
+    _fa.BWD_DQ_LAUNCHES = 0
+    _fa.BWD_DKV_LAUNCHES = 0
     geglu.LAUNCHES = 0

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file has a plain C interface and compiles on its own into
 one shared library (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC``); all sources compile in parallel, one ``nvcc``
 each. Libraries land in ``medfusion_tpu_torch/_build/`` under a name that
-carries a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one is reused. A failed build raises with the compiler's output.
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha1(src.read_bytes() + headers
+                     + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}-{h[:12]}.so"
 
 

@@ -1,29 +1,43 @@
-"""Latent diffusion pipeline for sampling
+"""Latent diffusion pipeline: the training loss and sampling
 (port of ``medfusion_tpu/pipelines/diffusion/core.py``).
 
-The modules are NCHW; the public ``sample`` / ``denoise`` take and return
-the JAX package's channels-last layout (see ``ddim.py``). Classifier-free
-guidance runs [uncond | cond] as one batched forward with a per-sample
-``cond_mask`` that zeroes the label embedding. Schedule math stays float32;
-``compute_dtype`` casts the estimator's and the decoder's inputs, and the
-modules themselves are cast once at construction (the JAX package casts its
-float32 master params on every call, which gives the same values).
+The modules are NCHW; the public ``train_loss``, ``sample`` and ``denoise``
+take and return the JAX package's channels-last layout (see ``ddim.py``).
+Classifier-free guidance runs [uncond | cond] as one batched forward with a
+per-sample ``cond_mask`` that zeroes the label embedding. Schedule and loss
+math stays float32; ``compute_dtype`` casts the estimator's, the encoder's
+and the decoder's inputs. The pipeline never casts its modules:
+``cli/presets.py::build_pipeline`` casts them once for sampling, which gives
+the values of the JAX package's per-call cast of its float32 params, and the
+train step casts the estimator's float32 master parameters on every step
+(``train/diffusion.py``).
 
-Not ported: training (``train_loss``), self-conditioning, an explicit
-unconditional label (``un_cond``), classifier guidance, cold diffusion,
-zero-terminal-SNR schedules.
+Randomness is explicit: ``train_loss`` takes its draws (encoder noise, t,
+x_T and the one CFG-drop boolean) as inputs, which :meth:`train_draws`
+makes from a ``torch.Generator``.
+
+Not ported: self-conditioning, a learned variance and deep supervision in
+the training loss, Min-SNR weighting, an explicit unconditional label
+(``un_cond``), classifier guidance, cold diffusion, zero-terminal-SNR
+schedules.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
+from torch.func import functional_call
 
 from medfusion_tpu_torch.core import schedules as S
 from medfusion_tpu_torch.core.schedules import GaussianDiffusionSchedule
-from medfusion_tpu_torch.pipelines.diffusion.ddim import DDIMSamplerMixin
+from medfusion_tpu_torch.pipelines.diffusion.ddim import (
+    DDIMSamplerMixin,
+    _to_nchw,
+)
+
+_LOSSES = {"l1": lambda d: d.abs(), "l2": lambda d: d * d}
 
 
 @dataclasses.dataclass
@@ -33,7 +47,10 @@ class DiffusionPipeline(DDIMSamplerMixin):
     latent_embedder: Any = None  # nn.Module with encode/decode, or None
     estimator_objective: str = "x_T"  # 'x_T' (eps), 'x_0' or 'v'
     estimate_variance: bool = False
+    classifier_free_guidance_dropout: float = 0.5
+    do_input_centering: bool = True
     clip_x0: bool = True
+    loss: str = "l1"
     compute_dtype: Optional[torch.dtype] = None
     latent_scale: float = 1.0
     latent_shift: float = 0.0
@@ -41,10 +58,8 @@ class DiffusionPipeline(DDIMSamplerMixin):
     def __post_init__(self):
         if self.estimator_objective not in ("x_T", "x_0", "v"):
             raise ValueError(f"unknown estimator_objective {self.estimator_objective!r}")
-        if self.compute_dtype is not None:
-            self.noise_estimator.to(self.compute_dtype)
-            if self.latent_embedder is not None:
-                self.latent_embedder.to(self.compute_dtype)
+        if self.loss not in _LOSSES:
+            raise ValueError(f"unknown loss {self.loss!r}; expected one of {sorted(_LOSSES)}")
 
     @property
     def device(self) -> torch.device:
@@ -52,10 +67,17 @@ class DiffusionPipeline(DDIMSamplerMixin):
 
     # -- model application --------------------------------------------------
 
-    def _apply_estimator(self, x_t, t, condition, cond_mask):
+    def _apply_estimator(self, x_t, t, condition, cond_mask,
+                         params: Optional[Mapping[str, torch.Tensor]] = None):
+        """The estimator on NCHW ``x_t``; ``params`` (name -> tensor) stand
+        in for its own parameters, as the train step's cast copies do."""
         if self.compute_dtype is not None:
             x_t = x_t.to(self.compute_dtype)
-        y, y_ver = self.noise_estimator(x_t, t, condition, cond_mask)
+        args = (x_t, t, condition, cond_mask)
+        if params is None:
+            y, y_ver = self.noise_estimator(*args)
+        else:
+            y, y_ver = functional_call(self.noise_estimator, dict(params), args)
         if self.compute_dtype is not None:
             y = y.float()
             y_ver = [v.float() for v in y_ver]
@@ -85,6 +107,66 @@ class DiffusionPipeline(DDIMSamplerMixin):
             z = z.to(self.compute_dtype)
         out = self.latent_embedder.decode(z)
         return out.float() if self.compute_dtype is not None else out
+
+    # -- training -----------------------------------------------------------
+
+    def train_draws(self, batch_size: int, latent_shape,
+                    generator=None) -> Dict[str, torch.Tensor]:
+        """The random inputs of one :meth:`train_loss`, in the order the JAX
+        package splits its key (encoder, t, noise, CFG): ``enc_noise`` and
+        ``x_T`` [B, *latent_shape] (channels-last) standard normal, ``t``
+        [B] uniform in [0, T), and ``drop``, one boolean for the whole batch
+        that is true with probability ``classifier_free_guidance_dropout``."""
+        shape = (batch_size, *latent_shape)
+        kw = dict(generator=generator, device=self.device)
+        return {"enc_noise": torch.randn(shape, **kw),
+                "t": torch.randint(0, self.scheduler.T, (batch_size,), **kw),
+                "x_T": torch.randn(shape, **kw),
+                "drop": torch.rand((), **kw) < self.classifier_free_guidance_dropout}
+
+    def train_loss(self, batch: Mapping[str, torch.Tensor],
+                   draws: Mapping[str, torch.Tensor],
+                   estimator_params: Optional[Mapping[str, torch.Tensor]] = None):
+        """One training-loss evaluation. ``batch``: ``source`` images
+        [B, H, W, C] (channels-last) and optional integer ``target`` labels
+        [B]; ``draws``: as :meth:`train_draws` makes them (``enc_noise`` is
+        read only when a latent embedder samples). The frozen encoder runs
+        without gradients. Returns (loss, metrics) with the metrics ``loss``,
+        ``L1`` and ``L2``, all f32 scalars."""
+        if self.estimate_variance:
+            raise NotImplementedError(
+                "the learned-variance training loss is not ported (ROADMAP)")
+        sched = self.scheduler
+        x_in = _to_nchw(batch["source"])
+        condition = batch.get("target")
+        b = x_in.shape[0]
+        with torch.no_grad():
+            noise = draws.get("enc_noise")
+            x_0 = self.encode_latent(x_in, None if noise is None else _to_nchw(noise))
+        if self.do_input_centering:
+            x_0 = 2 * x_0 - 1
+        t = draws["t"]
+        x_T = _to_nchw(draws["x_T"])
+        x_t = S.q_sample(sched, x_0, t, x_T)
+        cond_mask = None
+        if condition is not None:  # no host sync on the drop draw
+            drop = torch.as_tensor(draws["drop"], device=x_0.device)
+            cond_mask = torch.where(drop, 0.0, 1.0).to(x_0.dtype).expand(b)
+        pred, pred_vertical = self._apply_estimator(x_t, t, condition, cond_mask,
+                                                    estimator_params)
+        if pred_vertical:
+            raise NotImplementedError(
+                "the deep-supervision loss terms are not ported (ROADMAP)")
+        if self.estimator_objective == "x_T":
+            target = x_T
+        elif self.estimator_objective == "v":
+            target = S.v_target(sched, x_0, x_T, t)
+        else:
+            target = x_0
+        diff = pred - target
+        loss = _LOSSES[self.loss](diff).mean()
+        metrics = {"loss": loss, "L1": diff.abs().mean(), "L2": (diff * diff).mean()}
+        return loss, metrics
 
     # -- one reverse step ---------------------------------------------------
 

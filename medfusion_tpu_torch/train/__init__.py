@@ -1,0 +1,10 @@
+"""Diffusion training (port of ``medfusion_tpu/train``): the train state
+with AdamW and EMA, learning-rate schedules, and the train step."""
+
+from medfusion_tpu_torch.train.diffusion import make_diffusion_train_step
+from medfusion_tpu_torch.train.ema import ema_decay, ema_update
+from medfusion_tpu_torch.train.lr_schedules import make_lr_schedule
+from medfusion_tpu_torch.train.state import TrainState
+
+__all__ = ["TrainState", "ema_decay", "ema_update", "make_diffusion_train_step",
+           "make_lr_schedule"]

@@ -1,0 +1,74 @@
+"""Diffusion train step (port of ``medfusion_tpu/train/diffusion.py``):
+AdamW over the noise estimator only; the latent embedder is frozen.
+
+Mixed precision (``compute_dtype=torch.bfloat16``): the estimator's
+parameters are cast from the float32 masters on every step, inside the
+autograd graph, so that the gradients come back to the masters through the
+cast in float32; activations run in bf16, while the master parameters, the
+optimizer state and the loss stay float32. The frozen latent embedder runs
+in the compute dtype too, from a private cast copy made once (the JAX
+package casts its parameters on every call, to the same values). There is
+no jit and no buffer donation: the step runs eagerly and updates the state
+in place."""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Callable, Dict, Mapping
+
+import torch
+
+from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
+from medfusion_tpu_torch.train.state import TrainState
+
+
+def with_compute_dtype(pipeline: DiffusionPipeline, compute_dtype=None) -> DiffusionPipeline:
+    """``pipeline`` at ``compute_dtype`` (None keeps the pipeline's), with a
+    private cast copy of its frozen latent embedder where that embedder's
+    parameters are in another dtype."""
+    if compute_dtype is not None:
+        pipeline = dataclasses.replace(pipeline, compute_dtype=compute_dtype)
+    dtype = pipeline.compute_dtype
+    frozen = pipeline.latent_embedder
+    if dtype is not None and frozen is not None and any(
+            p.dtype != dtype for p in frozen.parameters()):
+        frozen = copy.deepcopy(frozen).to(dtype).requires_grad_(False)
+        pipeline = dataclasses.replace(pipeline, latent_embedder=frozen)
+    return pipeline
+
+
+def estimator_params(model: torch.nn.Module, dtype=None) -> Dict[str, torch.Tensor]:
+    """The model's parameters by name, cast to ``dtype`` inside the autograd
+    graph (so that gradients reach the masters in their own dtype)."""
+    params = dict(model.named_parameters())
+    if dtype is None:
+        return params
+    return {k: p.to(dtype) for k, p in params.items()}
+
+
+def make_diffusion_train_step(pipeline: DiffusionPipeline,
+                              compute_dtype=None) -> Callable:
+    """Returns ``step_fn(state, batch, draws) -> metrics``: one loss and
+    gradient of ``state.model`` (:meth:`DiffusionPipeline.train_loss` on
+    ``batch`` and ``draws``), one AdamW + EMA update of ``state``, and the
+    loss metrics (detached f32 scalars on the model's device).
+    ``compute_dtype`` overrides the pipeline's."""
+    pipeline = with_compute_dtype(pipeline, compute_dtype)
+
+    def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor],
+                draws: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        state.optimizer.zero_grad(set_to_none=True)
+        params = estimator_params(state.model, pipeline.compute_dtype)
+        loss, metrics = pipeline.train_loss(batch, draws, estimator_params=params)
+        loss.backward()
+        for p in state.model.parameters():
+            # a parameter the loss does not reach (the projections skipped
+            # by cross-attention to one token) gets a zero gradient, so that
+            # AdamW still decays it, as optax's adamw does
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step_fn

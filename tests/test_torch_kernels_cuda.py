@@ -24,6 +24,13 @@ Tolerances:
   the plain version (the module path) after the product and again after the
   bias, and an ulp flip in g moves the F-long down-projection sum by about
   an ulp of the output.
+* Flash attention backward, dq/dk/dv against the plain backward on the
+  kernels' o and lse: float32 atol = rtol = 2e-5 (the same products summed
+  in another order, f32 FMA, no TF32); bfloat16 atol = two bf16 ulps of the
+  largest |gradient|, rtol = 0: both sides round ds and p to bf16 at the
+  same points and the gradients once at the end, from f32 sums taken in
+  another order, so an element of ds, and so of the gradient, may land one
+  ulp apart.
 
 GEGLU is held at the rows of two UNet rows and of the sampling batch's 16
 (8 samples under CFG), since its launch splits F by the row count.
@@ -168,11 +175,85 @@ def test_flash_attention_refuses_unsupported_head_dims(cuda, d):
         FA.flash_attention(x, x, x, 0.5)
 
 
+def _bwd_tol(ref):
+    """(atol, rtol) of a backward kernel's gradient against the plain
+    backward's ``ref``."""
+    if ref.dtype != torch.bfloat16:
+        return 2e-5, 2e-5
+    return 2.0 * 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7), 0.0
+
+
+def _attention_grads(q, k, v, do, heads, layout):
+    """dq, dk, dv through the entry of ``layout`` (token-layout tensors in
+    and out), the kernels' o and lse, and the plain backward's gradients on
+    that o and lse."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    scale = (q.shape[2] // heads) ** -0.25
+    if layout == "head":
+        o, lse = FA.flash_attention(*(FA._heads(t, heads) for t in leaves), scale)
+        o.backward(FA._heads(do, heads))
+        oh = o.detach()
+    else:
+        o, lse = FA.flash_attention_tokens(*leaves, heads, scale)
+        o.backward(do)
+        oh, lse = FA._heads(o.detach(), heads), lse.transpose(1, 2)
+    ref = FA.flash_attention_backward_reference(
+        *(FA._heads(t, heads) for t in (q, k, v)), oh, lse, FA._heads(do, heads), scale)
+    return [t.grad for t in leaves], [r.transpose(1, 2).flatten(2) for r in ref]
+
+
 @pytest.mark.cuda
-def test_flash_attention_refuses_a_gradient(cuda):
-    x = torch.randn((1, 2, 16, 32), device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        FA.flash_attention(x, x, x, 0.5)
+@DTYPES
+@pytest.mark.parametrize("layout", ["head", "tokens"])
+@pytest.mark.parametrize("n,m,c,heads", [
+    (1024, 1024, 256, 8), (256, 256, 512, 8), (256, 256, 256, 8), (64, 64, 1024, 8),
+    (64, 64, 512, 8),  # the chest-spatial training path's shapes
+    (77, 45, 64, 4), (77, 45, 128, 4), (45, 77, 256, 4), (77, 45, 512, 4),  # d 16..128
+])
+def test_flash_attention_backward_matches_plain_version(cuda, dtype, layout, n, m, c,
+                                                        heads):
+    """A CUDA tensor that needs a gradient runs the forward kernel and both
+    backward kernels, in either layout, and matches the plain backward."""
+    q = torch.randn((2, n, c), generator=cuda, device="cuda").to(dtype)
+    k, v = (torch.randn((2, m, c), generator=cuda, device="cuda").to(dtype)
+            for _ in range(2))
+    do = torch.randn((2, n, c), generator=cuda, device="cuda").to(dtype)
+    before = ops.launch_counts()
+    grads, refs = _attention_grads(q, k, v, do, heads, layout)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    fwd = "flash_attention" if layout == "head" else "flash_attention_tokens"
+    for name in (fwd, "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    for what, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape
+        atol, rtol = _bwd_tol(r)
+        torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=rtol,
+                                   msg=lambda msg, w=what: f"{w}: {msg}")
+
+
+@pytest.mark.cuda
+@DTYPES
+def test_flash_attention_backward_is_deterministic(cuda, dtype):
+    """No atomics: two runs give the same bits."""
+    q, k, v, do = (torch.randn((2, 256, 256), generator=cuda, device="cuda").to(dtype)
+                   for _ in range(4))
+    first = _attention_grads(q, k, v, do, 8, "tokens")[0]
+    second = _attention_grads(q, k, v, do, 8, "tokens")[0]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_takes_a_strided_gradient(cuda):
+    """An incoming gradient whose rows break the 16-byte rule is copied,
+    not refused; an expanded one (zero strides) is read as it is."""
+    q, k, v = (torch.randn((1, 64, 64), generator=cuda, device="cuda") for _ in range(3))
+    for do in (torch.randn((1, 64, 72), generator=cuda, device="cuda")[..., 3:67],
+               torch.randn((1, 1, 64), generator=cuda, device="cuda").expand(1, 64, 64)):
+        grads, refs = _attention_grads(q, k, v, do, 2, "tokens")
+        for g, r in zip(grads, refs):
+            torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-5)
 
 
 def _geglu_inputs(gen, rows, c, dtype):
