@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases (each raises on failure, so any failure exits non-zero):
 
 1. environment: torch, CUDA, the card's name and power limit;
-2. build every kernel under ``medfusion_tpu_torch/csrc/`` from source;
+2. build every kernel under ``medfusion_tpu_torch/csrc/`` from source (each
+   library's seconds, ptxas registers and spills);
 3. each kernel against its plain PyTorch version on the card, at every shape
    of the main paths (flash attention in both layouts, with its lse, and its
    two backward kernels; GEGLU also at the sampling batch, where its
@@ -16,7 +17,8 @@ Phases (each raises on failure, so any failure exits non-zero):
 4. kernel times at the flagship batch (kernel, plain version, one PyTorch
    library call where one computes the same function, and the card's bound
    for the same work), each timed launch also held to its plain version;
-   the backward kernels at the training batch;
+   the backward kernels at the training batch, with the tensor rate each
+   reaches and the SFU time of its exponentials;
 5. the small ``smoke`` preset on the card and on the CPU from the same
    weights and draws, float32: sampled without attention and with spatial
    attention (one head, so head dims 16 and 32), and trained for two steps
@@ -154,6 +156,14 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def cuda_ms(fn, reps):
@@ -538,14 +548,19 @@ def phase_attention_backward_times(FA, worst):
     ``F.scaled_dot_product_attention(q*s, k*s, v, scale=1.0)`` (forward +
     backward minus forward, each a replayed graph, timed only), one call
     that yields dq, dk and dv together, so it stands beside the sum of the
-    two kernels' times and is given in both rows. Bounds from this run's shapes: dQ 6*BH*N*M*d
-    FLOPs and q, k, v, o, dO, lse read, dq and D written; dK/dV 8*BH*N*M*d
-    FLOPs and q, k, v, dO, lse, D read, dk and dv written."""
+    two kernels' times and is given in both rows. Bounds from this run's
+    shapes: dQ 6*BH*N*M*d FLOPs and q, k, v, o, dO, lse read, dq and D
+    written; dK/dV 8*BH*N*M*d FLOPs and q, k, v, dO, lse, D read, dk and dv
+    written. Beside them, each row's tensor rate reached (its FLOPs over its
+    time) and ``exp_ms``, the SFU's time for the kernel's BH*N*M
+    exponentials (2*BH*N*M for the two) at 16 a clock on each SM at the
+    card's maximum SM clock."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     b = TRAIN_BATCH
+    exp_per_s = 16 * torch_sms() * sm_clock_hz()
     rows = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
     for n, c, heads, per_fwd, layout in ATTN_SHAPES:
         d = c // heads
@@ -577,18 +592,20 @@ def phase_attention_backward_times(FA, worst):
         stat = bh * n * 4  # one [B, H, N] f32 vector (lse, D)
         shape = dict(layout=layout, B=b, N=n, C=c, H=heads, d=d,
                      launches_per_step=per_fwd, library_ms=lib)
-        rows["flash_attention_bwd_dq"].append(dict(
-            shape, ms=t_dq, plain_ms=p_dq,
-            **bounds(6 * bh * n * n * d, 6 * tok + 2 * stat)))
-        rows["flash_attention_bwd_dkv"].append(dict(
-            shape, ms=t_dkv, plain_ms=p_dkv,
-            **bounds(8 * bh * n * n * d, 6 * tok + 2 * stat)))
-        b_dq = rows["flash_attention_bwd_dq"][-1]["bound_ms"]
-        b_dkv = rows["flash_attention_bwd_dkv"][-1]["bound_ms"]
-        log(f"  attention bwd {layout} B={b} N={n} H={heads} d={d}: dQ {t_dq:.4f} ms "
-            f"(plain {p_dq:.4f}, bound {b_dq:.4f}, {b_dq / t_dq:.1%}), dK/dV "
-            f"{t_dkv:.4f} ms (plain {p_dkv:.4f}, bound {b_dkv:.4f}, "
-            f"{b_dkv / t_dkv:.1%}); sum {t_dq + t_dkv:.4f} ms vs SDPA backward "
+        exp_ms = bh * n * n / exp_per_s * 1e3
+        for kernel, t, p_t, flops in (("flash_attention_bwd_dq", t_dq, p_dq, 6),
+                                      ("flash_attention_bwd_dkv", t_dkv, p_dkv, 8)):
+            flops *= bh * n * n * d
+            rows[kernel].append(dict(shape, ms=t, plain_ms=p_t, exp_ms=exp_ms,
+                                     tflops=flops / t / 1e9,
+                                     **bounds(flops, 6 * tok + 2 * stat)))
+        r_dq, r_dkv = rows["flash_attention_bwd_dq"][-1], rows["flash_attention_bwd_dkv"][-1]
+        log(f"  attention bwd {layout} B={b} N={n} H={heads} d={d}: "
+            + "; ".join(f"{what} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                        f"{r['bound_ms']:.4f}, {r['bound_ms'] / r['ms']:.1%}; "
+                        f"{r['tflops']:.1f} TFLOP/s)" for what, r in (("dQ", r_dq),
+                                                                     ("dK/dV", r_dkv)))
+            + f"; exp_ms {exp_ms:.4f} each; sum {t_dq + t_dkv:.4f} ms vs SDPA backward "
             f"{lib:.4f} ms (fwd+bwd {t_both:.4f}, fwd {t_fwd:.4f})")
         del q, k, v, do, ops, leaves
     torch.cuda.empty_cache()
@@ -1113,7 +1130,8 @@ def main():
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    log(f"[2] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s; each library "
+        f"done after (s): " + ", ".join(f"{k} {v:.1f}" for k, v in build.BUILD_SECONDS.items()))
     for stem, text in build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:

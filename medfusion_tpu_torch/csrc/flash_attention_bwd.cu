@@ -15,42 +15,81 @@
 //   dQ = sc2 * (dS K),  dK = sc2 * (dS^T Q),  dV = P^T dO
 // where dS and P are rounded to the input dtype only as operands of the
 // last three products (which accumulate in f32), and dQ, dK, dV are rounded
-// once at the end.
+// once at the end. bf16 takes P = exp2(S * log2e - lse * log2e) on the SFU
+// (ex2.approx), a few f32 ulps from exp(S - lse) before P's bf16 rounding.
 //
 // Two kernels, as on the TPU, so that no sum crosses blocks: no atomics, and
 // the result is the same bits on every run.
-//   * dQ: one block per (batch*head, 64 queries), looping over 64-key tiles.
+//   * dQ: one block per (batch*head, 64 queries), looping over key tiles.
 //     It also computes D for its rows, keeps it for dS and writes it out for
 //     the dK/dV kernel, which runs after it on the same stream.
-//   * dK/dV: one block per (batch*head, 64 keys), looping over 64-query
-//     tiles. It computes S^T = K Q^T directly, rows being keys: P^T and
-//     dS^T then come out of the mma accumulators already in the A-fragment
-//     layout of P^T dO and dS^T Q (the trick the forward uses to feed P into
-//     P V), and lse and D are per-column values of those accumulators.
-// bf16: mma.sync m16n8k16, bf16 in, f32 accumulate; 4 warps of 16 rows;
-// every operand tile is staged in shared memory with rows padded by 8
-// values (no bank conflicts on fragment loads). f32: plain f32 FMA (not
-// TF32), four lanes per row, each holding d/4 of the row's vectors.
-// Ragged tiles take any N, M >= 1: loads beyond N or M are zero-filled;
-// keys past M give P = 0 in the dQ kernel, and queries past N give P = 0
-// and dS = 0 in the dK/dV kernel (their lse and D are not data).
+//   * dK/dV: one block per (batch*head, 64 keys), looping over query tiles.
+//     It computes S^T = K Q^T directly, rows being keys, so that P^T and
+//     dS^T come out of the accumulators as the A operands of P^T dO and
+//     dS^T Q, and lse and D are per-column values.
 //
-// Bound: tensor-core FLOPs, 6*BH*N*M*d for dQ (q k^T, dO v^T, dS k) and
-// 8*BH*N*M*d for dK/dV (k q^T, v dO^T, P^T dO, dS^T q), against reading q,
-// k, v, o, dO, lse and writing dq, dk, dv once. No TMA, wgmma or pipelined
-// tile loads yet: that is for the PR that makes these kernels fast.
+// Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s, 132 SMs): tensor-core
+// FLOPs, 6*BH*N*M*d for dQ (q k^T, dO v^T, dS k) and 8*BH*N*M*d for dK/dV
+// (k q^T, v dO^T, P^T dO, dS^T q), against reading q, k, v, o, dO, lse, D
+// and writing dq, dk, dv once. Each kernel also takes BH*N*M exponentials,
+// at 16 a clock on each SM: at d = 32 (the 1,024-token shape, B = 32, H = 8)
+// that is 0.064 ms at 1.98 GHz against a FLOP bound of 0.052 ms (dQ) and
+// 0.069 ms (dK/dV), so at d = 32 the SFU, not the tensor cores, sets the
+// dQ kernel's floor; exp2 saves expf's range reduction on the FMA pipe.
+//
+// bf16 design (one block = one consumer warpgroup + one producer warp):
+//   * warps 0-3 are the consumer warpgroup and own the block's 64 rows, the
+//     M of every wgmma (m64nNk16, bf16 in, f32 accumulate). dQ: S = Q K^T
+//     and dP = dO V^T with both operands in shared memory (Q and dO resident,
+//     K and V by tile); dS leaves the accumulators as bf16 A fragments in
+//     registers, and dQ += dS K reads the K tile MN-major through the
+//     descriptor's transpose bit (no transposed copy). dK/dV: S^T = K Q^T and
+//     dP^T = V dO^T (K and V resident), then dV += P^T dO and dK += dS^T Q
+//     from registers, reading dO and Q MN-major.
+//   * warp 4 is the producer: it loads the resident tiles once and the
+//     looped tiles (K and V; Q and dO) with TMA (cp.async.bulk.tensor, 4-D
+//     maps (d, token, head, batch) built from the strides, so one map serves
+//     both layouts) into a ring of stages, each signalled by a "full"
+//     mbarrier (TMA bytes) and released by an "empty" one (the consumers'
+//     128 arrivals). The producer of dK/dV also copies the tile's lse * log2e
+//     and D (ordinary loads: the token layout's lse stride is H * 4 bytes,
+//     under TMA's 16-byte rule at H < 4) into the stage before it arrives.
+//   * what sets the pace is each warpgroup's serial chain (scores, then the
+//     exponentials and dS, then the accumulating products), hidden only by
+//     the other blocks on the SM. So the sizes favour blocks per SM over
+//     work per block: looped tiles of 64 keys in dQ and 32 queries in dK/dV,
+//     whose two accumulators (dK, dV) leave less room for the scores (92
+//     registers a thread at d = 32, four blocks an SM, against 130 and three
+//     with 64 queries; d = 128: ~190 registers, and 64 queries would spill);
+//     2 stages, 3 for dQ at d = 128. On an H100 (PERF.md) these beat
+//     deeper rings, 64-query dK/dV tiles, 32-key dQ tiles, two consumer
+//     warpgroups sharing each looped tile (288 threads: one block an SM),
+//     and issuing the next tile's scores behind this tile's products (more
+//     live registers, fewer blocks). With a one-warp producer, setmaxnreg
+//     would move too few registers to matter, and is not used.
+//   * shared tiles use TMA's 32/64/128-byte swizzle (row width 2 * min(d,
+//     64) bytes; d = 128 is two 64-column halves), which is the layout the
+//     wgmma descriptors read (hopper_sm90.cuh). TMA zero-fills rows past N
+//     or M; keys past M still get P = 0 in the dQ kernel and queries past N
+//     P = 0 and dS = 0 in the dK/dV kernel (their lse and D are not data).
+// f32 (not on the training path): the simple version, plain f32 FMA (not
+// TF32), 32 rows a block, four lanes a row, each holding d/4 of the row's
+// vectors, tiles staged with synchronous loads.
 //
 // Launches go on the caller's stream; the kernels allocate nothing. Each
-// entry point returns cudaGetLastError() after its launch.
+// entry point returns cudaGetLastError() after its launch, or 10000 plus
+// the CUresult where a tensor map cannot be encoded.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_attention_common.cuh"
+#include "hopper_sm90.cuh"
 
 namespace {
 
 using namespace mf_flash;
+using namespace mf_sm90;
 
 // operands, in the order of the entry points' pointer and stride arrays
 enum { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV, kLse, kDelta, kOperands };
@@ -67,267 +106,377 @@ __device__ __forceinline__ T* base(const BwdParams& p, int which, int b, int h) 
   return static_cast<T*>(p.ptr[which]) + b * p.st[which][0] + h * p.st[which][1];
 }
 
-constexpr int kTile = 64;  // rows of a block and of a looped tile (bf16)
+constexpr int kTile = 64;  // rows of a bf16 block: one warpgroup's wgmma M
 constexpr int kThreads = 128;
 constexpr int kTile32 = 32;  // f32
+constexpr int kConsumers = 128;  // warps 0-3
+constexpr int kBf16Threads = kConsumers + 32;  // + the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
 
+// Looped tile rows, keys (dQ) or queries (dK/dV), and the ring's stages,
+// as measured fastest on an H100 (see the note at the top).
+__host__ __device__ constexpr int loop_rows(int which) {
+  return which == 0 ? 64 : 32;
+}
 template <int D>
-constexpr int bf16_smem_bytes() {
-  return 4 * kTile * (D + 8) * 2 + 2 * kTile * 4;
+__host__ __device__ constexpr int ring_stages(int which) {
+  return which == 0 && D == 128 ? 3 : 2;
+}
+
+// Shared memory of a bf16 block, from a 1,024-byte aligned base: two
+// resident tiles, the ring (two looped tiles and two f32 vectors a stage),
+// D of the block's rows, the mbarriers.
+template <int D, int LOOP, int STAGES>
+struct BwdSmem {
+  using Res = SwTile<D, kTile>;
+  using Loop = SwTile<D, LOOP>;
+  static constexpr int kRes1 = Res::BYTES;
+  static constexpr int kRing = 2 * Res::BYTES;
+  static constexpr int kStage = 2 * Loop::BYTES;
+  static constexpr int kVec = kRing + STAGES * kStage;  // [stage][2][LOOP] f32
+  static constexpr int kRows = kVec + STAGES * 2 * LOOP * 4;  // [64] f32
+  static constexpr int kBars = kRows + kTile * 4;  // res, full[], empty[]
+  static constexpr int kBytes = kBars + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
+};
+
+__device__ __forceinline__ unsigned char* aligned_smem() {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t a = smem_addr(smem_raw);
+  return smem_raw + ((1024 - (a & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// dq (or dk, dv) rows r0 and r0 + 8 of a [64, D] accumulator held as
+// halves of W columns, times `scale`, to rows [0, valid) of out.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, long long st, int valid, int r0,
+                                           int t4, const float (&acc)[D / SwTile<D, 64>::W][SwTile<D, 64>::W / 2],
+                                           float scale) {
+  constexpr int W = SwTile<D, 64>::W;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= valid) continue;
+    bf16* o = out + row * st + t4 * 2;
+#pragma unroll
+    for (int h = 0; h < D / W; ++h) {
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(o + h * W + j * 8) = __floats2bfloat162_rn(
+            scale * acc[h][4 * j + 2 * r], scale * acc[h][4 * j + 2 * r + 1]);
+      }
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(BwdParams p) {
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;    // k-steps over the head dim
-  constexpr int NT = kTile / 8;  // n-tiles of S per key tile
-  constexpr int DT = D / 8;     // n-tiles of dQ
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kTile * LD;
-  bf16* Ks = dOs + kTile * LD;
-  bf16* Vs = Ks + kTile * LD;
-  float* Ds = reinterpret_cast<float*>(Vs + kTile * LD);
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_bwd_dq_bf16(BwdParams p, const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv) {
+  constexpr int BK = loop_rows(0);
+  constexpr int kStages = ring_stages<D>(0);
+  using L = BwdSmem<D, BK, kStages>;
+  using Res = typename L::Res;
+  using Loop = typename L::Loop;
+  constexpr int W = Res::W;
+  constexpr int HALVES = D / W;
+  unsigned char* smem = aligned_smem();
+  const uint32_t s0 = smem_addr(smem);
+  const uint32_t sQ = s0, sDO = s0 + L::kRes1;
+  float* Ds = reinterpret_cast<float*>(smem + L::kRows);
+  const uint32_t bars = s0 + L::kBars;  // res, full[kStages], empty[kStages]
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto k_tile = [&](int s) { return s0 + L::kRing + s * L::kStage; };
+  auto v_tile = [&](int s) { return k_tile(s) + Loop::BYTES; };
 
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
   const int q0 = blockIdx.x * kTile;
   const int nq = min(kTile, p.N - q0);
-  const bf16* q = base<const bf16>(p, kQ, b, h) + q0 * p.st[kQ][2];
-  const bf16* k = base<const bf16>(p, kK, b, h);
-  const bf16* v = base<const bf16>(p, kV, b, h);
-  const bf16* o = base<const bf16>(p, kO, b, h) + q0 * p.st[kO][2];
-  const bf16* dout = base<const bf16>(p, kDO, b, h) + q0 * p.st[kDO][2];
-  bf16* dq = base<bf16>(p, kDQ, b, h) + q0 * p.st[kDQ][2];
-  const float* lse = base<const float>(p, kLse, b, h) + q0 * p.st[kLse][2];
-  float* delta = base<float>(p, kDelta, b, h) + q0 * p.st[kDelta][2];
-
-  load_tile<D, LD, kTile, kThreads>(Qs, q, p.st[kQ][2], nq, false, 1.f);
-  load_tile<D, LD, kTile, kThreads>(dOs, dout, p.st[kDO][2], nq, false, 1.f);
-  {
-    // D = rowsum(dO * O) in f32, two threads a row; written for dK/dV
-    const int r = threadIdx.x >> 1;
-    const int half = threadIdx.x & 1;
-    float sum = 0.f;
-    if (r < nq) {
-      const bf16* orow = o + r * p.st[kO][2] + half * (D / 2);
-      const bf16* drow = dout + r * p.st[kDO][2] + half * (D / 2);
-#pragma unroll
-      for (int c = 0; c < D / 2; c += 2) {
-        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + c));
-        const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + c));
-        sum = fmaf(d.x, a.x, sum);
-        sum = fmaf(d.y, a.y, sum);
-      }
+  const int tiles = (p.M + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (half == 0) {
-      Ds[r] = sum;
-      if (r < nq) delta[r * p.st[kDelta][2]] = sum;
-    }
+    mbar_init_fence();
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int r0 = warp * 16 + g;  // this lane's rows: r0 and r0 + 8
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    lse_r[r] = row < nq ? lse[row * p.st[kLse][2]] : 0.f;
-    d_r[r] = Ds[row];
-  }
-
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  for (int k0 = 0; k0 < p.M; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D, LD, kTile, kThreads>(Ks, k + k0 * p.st[kK][2], p.st[kK][2], p.M - k0, false, 1.f);
-    load_tile<D, LD, kTile, kThreads>(Vs, v + k0 * p.st[kV][2], p.st[kV][2], p.M - k0, false, 1.f);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, Qs, warp * 16, kk * 16, g, t4);
-      load_a<LD>(da, dOs, warp * 16, kk * 16, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* kp = Ks + (nt * 8 + g) * LD + kk * 16 + t4 * 2;
-        mma_bf16(s[nt], qa, ld32(kp), ld32(kp + 8));
-        const bf16* vp = Vs + (nt * 8 + g) * LD + kk * 16 + t4 * 2;
-        mma_bf16(dp[nt], da, ld32(vp), ld32(vp + 8));
+  if (threadIdx.x >= kConsumers) {  // the producer warp: one lane issues TMA
+    if (threadIdx.x == kConsumers) {
+      mbar_arrive_expect_tx(bars, 2 * Res::BYTES);
+      for (int hf = 0; hf < HALVES; ++hf) {
+        tma_load_4d(sQ + hf * Res::HALF_BYTES, &tq, hf * W, q0, h, b, bars);
+        tma_load_4d(sDO + hf * Res::HALF_BYTES, &tdo, hf * W, q0, h, b, bars);
+      }
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(s), L::kStage);
+        for (int hf = 0; hf < HALVES; ++hf) {
+          tma_load_4d(k_tile(s) + hf * Loop::HALF_BYTES, &tk, hf * W, it * BK, h, b, full(s));
+          tma_load_4d(v_tile(s) + hf * Loop::HALF_BYTES, &tv, hf * W, it * BK, h, b, full(s));
+        }
       }
     }
-    // dS = P * (dP - D) in place of S; keys past M give P = 0
+  } else {  // the consumer warpgroup
+    const bf16* o = base<const bf16>(p, kO, b, h) + q0 * p.st[kO][2];
+    const bf16* dout = base<const bf16>(p, kDO, b, h) + q0 * p.st[kDO][2];
+    const float* lse = base<const float>(p, kLse, b, h) + q0 * p.st[kLse][2];
+    float* delta = base<float>(p, kDelta, b, h) + q0 * p.st[kDelta][2];
+    {
+      // D = rowsum(dO * O) in f32, two threads a row; written for dK/dV
+      const int r = threadIdx.x >> 1;
+      const int half = threadIdx.x & 1;
+      float sum = 0.f;
+      if (r < nq) {
+        const bf16* orow = o + r * p.st[kO][2] + half * (D / 2);
+        const bf16* drow = dout + r * p.st[kDO][2] + half * (D / 2);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const float pv = col < p.M ? expf(__fmul_rn(p.sc2, s[nt][e]) - lse_r[e >> 1]) : 0.f;
-        s[nt][e] = pv * (dp[nt][e] - d_r[e >> 1]);
+        for (int c = 0; c < D / 2; c += 2) {
+          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + c));
+          const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + c));
+          sum = fmaf(d.x, a.x, sum);
+          sum = fmaf(d.y, a.y, sum);
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (half == 0) {
+        Ds[r] = sum;
+        if (r < nq) delta[r * p.st[kDelta][2]] = sum;
       }
     }
-    // dQ += dS K, dS rounded to bf16 from the accumulators
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      a_from_c(a, s[2 * kk], s[2 * kk + 1]);
-      const bf16* kp = Ks + (kk * 16 + t4 * 2) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const bf16* kq = kp + dt * 8;
-        mma_bf16(acc[dt], a, pack_h(kq[0], kq[LD]), pack_h(kq[8 * LD], kq[9 * LD]));
-      }
-    }
-  }
+    consumer_sync();
 
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+    float l2[2], d_r[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    if (row >= nq) continue;
-    bf16* out = dq + row * p.st[kDQ][2] + t4 * 2;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(out + dt * 8) = __floats2bfloat162_rn(
-          p.sc2 * acc[dt][2 * r], p.sc2 * acc[dt][2 * r + 1]);
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      l2[r] = row < nq ? lse[row * p.st[kLse][2]] * kLog2e : 0.f;
+      d_r[r] = Ds[row];
     }
+    float acc[HALVES][W / 2];
+#pragma unroll
+    for (int hf = 0; hf < HALVES; ++hf) {
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) acc[hf][i] = 0.f;
+    }
+    mbar_wait(bars, 0);
+
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kStages;
+      mbar_wait(full(s), (it / kStages) & 1);
+      float sc[BK / 2], dp[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Wgmma<BK>::ss(sc, Res::k_major(sQ, kk), Loop::k_major(k_tile(s), kk), kk > 0);
+        Wgmma<BK>::ss(dp, Res::k_major(sDO, kk), Loop::k_major(v_tile(s), kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      // dS = P * (dP - D) in place of S; keys past M give P = 0
+      const int k0 = it * BK;
+      const bool ragged = k0 + BK > p.M;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pv = ex2(fmaf(__fmul_rn(p.sc2, sc[4 * j + e]), kLog2e, -l2[e >> 1]));
+          if (ragged && k0 + j * 8 + t4 * 2 + (e & 1) >= p.M) pv = 0.f;
+          sc[4 * j + e] = pv * (dp[4 * j + e] - d_r[e >> 1]);
+        }
+      }
+      uint32_t a[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) a_from_c(a[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+      // dQ += dS K, dS rounded to bf16, the K tile read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int hf = 0; hf < HALVES; ++hf) {
+          Wgmma<W>::rs(acc[hf], a[kk], Loop::mn_major(k_tile(s), kk, hf));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) fence_regs(acc[hf]);
+      mbar_arrive(empty(s));
+    }
+    store_rows<D>(base<bf16>(p, kDQ, b, h) + q0 * p.st[kDQ][2], p.st[kDQ][2], nq, r0, t4,
+                  acc, p.sc2);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16(BwdParams p) {
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;
-  constexpr int NT = kTile / 8;  // n-tiles of S^T per query tile
-  constexpr int DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kTile * LD;
-  bf16* Qs = Vs + kTile * LD;
-  bf16* dOs = Qs + kTile * LD;
-  float* Ls = reinterpret_cast<float*>(dOs + kTile * LD);
-  float* Dl = Ls + kTile;
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_bwd_dkv_bf16(BwdParams p, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tdo) {
+  constexpr int BQ = loop_rows(1);
+  constexpr int kStages = ring_stages<D>(1);
+  using L = BwdSmem<D, BQ, kStages>;
+  using Res = typename L::Res;
+  using Loop = typename L::Loop;
+  constexpr int W = Res::W;
+  constexpr int HALVES = D / W;
+  unsigned char* smem = aligned_smem();
+  const uint32_t s0 = smem_addr(smem);
+  const uint32_t sK = s0, sV = s0 + L::kRes1;
+  float* vec = reinterpret_cast<float*>(smem + L::kVec);  // [stage][lse*log2e, D][BQ]
+  const uint32_t bars = s0 + L::kBars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto q_tile = [&](int s) { return s0 + L::kRing + s * L::kStage; };
+  auto do_tile = [&](int s) { return q_tile(s) + Loop::BYTES; };
 
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
   const int k0 = blockIdx.x * kTile;
   const int nk = min(kTile, p.M - k0);
-  const bf16* q = base<const bf16>(p, kQ, b, h);
-  const bf16* k = base<const bf16>(p, kK, b, h) + k0 * p.st[kK][2];
-  const bf16* v = base<const bf16>(p, kV, b, h) + k0 * p.st[kV][2];
-  const bf16* dout = base<const bf16>(p, kDO, b, h);
-  bf16* dk = base<bf16>(p, kDK, b, h) + k0 * p.st[kDK][2];
-  bf16* dv = base<bf16>(p, kDV, b, h) + k0 * p.st[kDV][2];
-  const float* lse = base<const float>(p, kLse, b, h);
-  const float* delta = base<const float>(p, kDelta, b, h);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-
-  load_tile<D, LD, kTile, kThreads>(Ks, k, p.st[kK][2], nk, false, 1.f);
-  load_tile<D, LD, kTile, kThreads>(Vs, v, p.st[kV][2], nk, false, 1.f);
-
-  float acck[DT][4], accv[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acck[dt][e] = accv[dt][e] = 0.f;
+  const int tiles = (p.N + BQ - 1) / BQ;
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes
+      mbar_init(empty(s), kConsumers);
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  for (int q0 = 0; q0 < p.N; q0 += kTile) {
-    const int nq = min(kTile, p.N - q0);
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D, LD, kTile, kThreads>(Qs, q + q0 * p.st[kQ][2], p.st[kQ][2], nq, false, 1.f);
-    load_tile<D, LD, kTile, kThreads>(dOs, dout + q0 * p.st[kDO][2], p.st[kDO][2], nq, false, 1.f);
-    if (threadIdx.x < kTile) {
-      const int i = threadIdx.x;
-      Ls[i] = i < nq ? lse[(q0 + i) * p.st[kLse][2]] : 0.f;
-      Dl[i] = i < nq ? delta[(q0 + i) * p.st[kDelta][2]] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's 16 keys
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<LD>(ka, Ks, warp * 16, kk * 16, g, t4);
-      load_a<LD>(va, Vs, warp * 16, kk * 16, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* qp = Qs + (nt * 8 + g) * LD + kk * 16 + t4 * 2;
-        mma_bf16(s[nt], ka, ld32(qp), ld32(qp + 8));
-        const bf16* dop = dOs + (nt * 8 + g) * LD + kk * 16 + t4 * 2;
-        mma_bf16(dp[nt], va, ld32(dop), ld32(dop + 8));
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    const float* lse = base<const float>(p, kLse, b, h);
+    const float* delta = base<const float>(p, kDelta, b, h);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bars, 2 * Res::BYTES);
+      for (int hf = 0; hf < HALVES; ++hf) {
+        tma_load_4d(sK + hf * Res::HALF_BYTES, &tk, hf * W, k0, h, b, bars);
+        tma_load_4d(sV + hf * Res::HALF_BYTES, &tv, hf * W, k0, h, b, bars);
       }
     }
-    // P^T in place of S^T, dS^T in place of dP^T; lse and D by column
-    // (query); queries past N give P = 0 and dS = 0
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + t4 * 2 + (e & 1);
-        float pv = 0.f, ds = 0.f;
-        if (col < nq) {
-          pv = expf(__fmul_rn(p.sc2, s[nt][e]) - Ls[col]);
-          ds = pv * (dp[nt][e] - Dl[col]);
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kStages;
+      if (it >= kStages) mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+      float* ls = vec + s * 2 * BQ;
+      for (int i = lane; i < BQ; i += 32) {
+        const int q = it * BQ + i;
+        ls[i] = q < p.N ? lse[q * p.st[kLse][2]] * kLog2e : 0.f;
+        ls[BQ + i] = q < p.N ? delta[q * p.st[kDelta][2]] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full(s), L::kStage);
+        for (int hf = 0; hf < HALVES; ++hf) {
+          tma_load_4d(q_tile(s) + hf * Loop::HALF_BYTES, &tq, hf * W, it * BQ, h, b, full(s));
+          tma_load_4d(do_tile(s) + hf * Loop::HALF_BYTES, &tdo, hf * W, it * BQ, h, b,
+                      full(s));
         }
-        s[nt][e] = pv;
-        dp[nt][e] = ds;
+      } else {
+        mbar_arrive(full(s));
       }
     }
-    // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16
+  } else {  // the consumer warpgroup: rows are this block's 64 keys
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    float acck[HALVES][W / 2], accv[HALVES][W / 2];
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
-      a_from_c(da, dp[2 * kk], dp[2 * kk + 1]);
-      const bf16* dop = dOs + (kk * 16 + t4 * 2) * LD + g;
-      const bf16* qp = Qs + (kk * 16 + t4 * 2) * LD + g;
+    for (int hf = 0; hf < HALVES; ++hf) {
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const bf16* x = dop + dt * 8;
-        mma_bf16(accv[dt], pa, pack_h(x[0], x[LD]), pack_h(x[8 * LD], x[9 * LD]));
-        const bf16* y = qp + dt * 8;
-        mma_bf16(acck[dt], da, pack_h(y[0], y[LD]), pack_h(y[8 * LD], y[9 * LD]));
-      }
+      for (int i = 0; i < W / 2; ++i) acck[hf][i] = accv[hf][i] = 0.f;
     }
-  }
+    mbar_wait(bars, 0);
 
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kStages;
+      mbar_wait(full(s), (it / kStages) & 1);
+      // S^T = K Q^T and dP^T = V dO^T
+      float sc[BQ / 2], dp[BQ / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = warp * 16 + g + 8 * r;
-    if (row >= nk) continue;
-    bf16* ko = dk + row * p.st[kDK][2] + t4 * 2;
-    bf16* vo = dv + row * p.st[kDV][2] + t4 * 2;
+      for (int i = 0; i < BQ / 2; ++i) sc[i] = dp[i] = 0.f;
+      wgmma_fence();
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(ko + dt * 8) = __floats2bfloat162_rn(
-          p.sc2 * acck[dt][2 * r], p.sc2 * acck[dt][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(vo + dt * 8) = __floats2bfloat162_rn(
-          accv[dt][2 * r], accv[dt][2 * r + 1]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Wgmma<BQ>::ss(sc, Res::k_major(sK, kk), Loop::k_major(q_tile(s), kk), kk > 0);
+        Wgmma<BQ>::ss(dp, Res::k_major(sV, kk), Loop::k_major(do_tile(s), kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      // P^T in place of S^T, dS^T in place of dP^T; lse and D by column
+      // (query); queries past N give P = 0 and dS = 0
+      const float* ls = vec + s * 2 * BQ;
+      const int q0 = it * BQ;
+      const bool ragged = q0 + BQ > p.N;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const int col = j * 8 + t4 * 2;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+        const float2 dd = *reinterpret_cast<const float2*>(ls + BQ + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lc = (e & 1) ? l2.y : l2.x;
+          const float dc = (e & 1) ? dd.y : dd.x;
+          float pv = ex2(fmaf(__fmul_rn(p.sc2, sc[4 * j + e]), kLog2e, -lc));
+          float ds = pv * (dp[4 * j + e] - dc);
+          if (ragged && q0 + col + (e & 1) >= p.N) pv = ds = 0.f;
+          sc[4 * j + e] = pv;
+          dp[4 * j + e] = ds;
+        }
+      }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        a_from_c(pa[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+        a_from_c(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+      }
+      // dV += P^T dO and dK += dS^T Q, the dO and Q tiles read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+        for (int hf = 0; hf < HALVES; ++hf) {
+          Wgmma<W>::rs(accv[hf], pa[kk], Loop::mn_major(do_tile(s), kk, hf));
+          Wgmma<W>::rs(acck[hf], da[kk], Loop::mn_major(q_tile(s), kk, hf));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) {
+        fence_regs(acck[hf]);
+        fence_regs(accv[hf]);
+      }
+      mbar_arrive(empty(s));
     }
+    const int r0 = warp * 16 + g;
+    store_rows<D>(base<bf16>(p, kDK, b, h) + k0 * p.st[kDK][2], p.st[kDK][2], nk, r0, t4,
+                  acck, p.sc2);
+    store_rows<D>(base<bf16>(p, kDV, b, h) + k0 * p.st[kDV][2], p.st[kDV][2], nk, r0, t4,
+                  accv, 1.f);
   }
 }
 
@@ -484,29 +633,103 @@ int set_smem(Kernel kernel, int bytes, bool* done) {
   return 0;
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                         cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+constexpr int kEncodeError = 10000;
+
+// The 4-D map (d, token, head, batch) of operand `which`, in boxes of
+// (min(D, 64), rows, 1, 1) with the swizzle of SwTile<D, rows>. A dim of
+// extent 1 takes the stride that a packed tensor would have (the kernels
+// never step along it); a zero stride along a longer dim is refused
+// (the wrapper copies such an operand).
+template <int D>
+int encode(CUtensorMap* map, const BwdParams& p, int which, int B, int tokens, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  constexpr int W = D < 64 ? D : 64;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)tokens, (cuuint64_t)p.H, (cuuint64_t)B};
+  const long long st[3] = {p.st[which][2], p.st[which][1], p.st[which][0]};  // token, head, batch
+  cuuint64_t strides[3];
+  long long packed = D;
+  for (int i = 0; i < 3; ++i) {
+    const long long s = dims[i + 1] == 1 ? packed : st[i];
+    if (s <= 0) return kEncodeError + (int)CUDA_ERROR_INVALID_VALUE;
+    strides[i] = (cuuint64_t)s * 2;
+    packed = s * (long long)dims[i + 1];
+  }
+  cuuint32_t box[4] = {(cuuint32_t)W, (cuuint32_t)rows, 1, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p.ptr[which], dims,
+                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + (int)res;
+}
+
 // which: 0 = dQ (and D), 1 = dK/dV
 template <int D>
-int launch(int which, int is_bf16, const BwdParams& p, int BH, cudaStream_t stream) {
+int launch_bf16(int which, const BwdParams& p, int B, cudaStream_t stream) {
   const int rows = which == 0 ? p.N : p.M;
-  if (is_bf16) {
-    constexpr int smem = bf16_smem_bytes<D>();
-    static bool dq_attr = false, dkv_attr = false;
-    const dim3 grid((rows + kTile - 1) / kTile, BH);
-    int err;
-    if (which == 0) {
-      if ((err = set_smem(flash_bwd_dq_bf16<D>, smem, &dq_attr)) != 0) return err;
-      flash_bwd_dq_bf16<D><<<grid, kThreads, smem, stream>>>(p);
-    } else {
-      if ((err = set_smem(flash_bwd_dkv_bf16<D>, smem, &dkv_attr)) != 0) return err;
-      flash_bwd_dkv_bf16<D><<<grid, kThreads, smem, stream>>>(p);
-    }
+  const dim3 grid((rows + kTile - 1) / kTile, B * p.H);
+  CUtensorMap res[2], loop[2];
+  // resident tiles: q, dO (dQ) or k, v (dK/dV); looped: k, v or q, dO
+  const int res_ops[2] = {which == 0 ? kQ : kK, which == 0 ? kDO : kV};
+  const int loop_ops[2] = {which == 0 ? kK : kQ, which == 0 ? kV : kDO};
+  const int res_tokens = which == 0 ? p.N : p.M;
+  const int loop_tokens = which == 0 ? p.M : p.N;
+  const int lrows = loop_rows(which);
+  int err;
+  for (int i = 0; i < 2; ++i) {
+    if ((err = encode<D>(&res[i], p, res_ops[i], B, res_tokens, kTile)) != 0) return err;
+    if ((err = encode<D>(&loop[i], p, loop_ops[i], B, loop_tokens, lrows)) != 0) return err;
+  }
+  if (which == 0) {
+    constexpr int smem = BwdSmem<D, loop_rows(0), ring_stages<D>(0)>::kBytes;
+    static bool attr = false;
+    if ((err = set_smem(flash_bwd_dq_bf16<D>, smem, &attr)) != 0) return err;
+    flash_bwd_dq_bf16<D><<<grid, kBf16Threads, smem, stream>>>(p, res[0], res[1], loop[0],
+                                                                loop[1]);
   } else {
-    const dim3 grid((rows + kTile32 - 1) / kTile32, BH);
-    if (which == 0) {
-      flash_bwd_dq_f32<D><<<grid, kThreads, 0, stream>>>(p);
-    } else {
-      flash_bwd_dkv_f32<D><<<grid, kThreads, 0, stream>>>(p);
-    }
+    constexpr int smem = BwdSmem<D, loop_rows(1), ring_stages<D>(1)>::kBytes;
+    static bool attr = false;
+    if ((err = set_smem(flash_bwd_dkv_bf16<D>, smem, &attr)) != 0) return err;
+    flash_bwd_dkv_bf16<D><<<grid, kBf16Threads, smem, stream>>>(p, res[0], res[1], loop[0],
+                                                                 loop[1]);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(int which, int is_bf16, const BwdParams& p, int B, cudaStream_t stream) {
+  if (is_bf16) return launch_bf16<D>(which, p, B, stream);
+  const int rows = which == 0 ? p.N : p.M;
+  const dim3 grid((rows + kTile32 - 1) / kTile32, B * p.H);
+  if (which == 0) {
+    flash_bwd_dq_f32<D><<<grid, kThreads, 0, stream>>>(p);
+  } else {
+    flash_bwd_dkv_f32<D><<<grid, kThreads, 0, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
@@ -524,10 +747,10 @@ int dispatch(int which, int is_bf16, void* const* ptrs, int B, int H, int N,
   p.sc2 = sc2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(which, is_bf16, p, B * H, st);
-    case 32: return launch<32>(which, is_bf16, p, B * H, st);
-    case 64: return launch<64>(which, is_bf16, p, B * H, st);
-    case 128: return launch<128>(which, is_bf16, p, B * H, st);
+    case 16: return launch<16>(which, is_bf16, p, B, st);
+    case 32: return launch<32>(which, is_bf16, p, B, st);
+    case 64: return launch<64>(which, is_bf16, p, B, st);
+    case 128: return launch<128>(which, is_bf16, p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -540,7 +763,9 @@ int dispatch(int which, int is_bf16, void* const* ptrs, int B, int H, int N,
 // float32. sc2 is s^2, the square of the forward's scale taken in double
 // and rounded to f32 once, as the TPU kernels' sc2 = scale * scale is. D in
 // {16, 32, 64, 128}; any other D returns cudaErrorInvalidValue without
-// launching.
+// launching. bfloat16 reads q, k, v and dO through TMA: their addresses and
+// strides are multiples of 16 bytes, and no stride along a dim longer than 1
+// is 0 (else 10000 + CUDA_ERROR_INVALID_VALUE, without launching).
 //
 // mf_flash_attention_bwd_dq writes dq and delta = rowsum(dO * O);
 // mf_flash_attention_bwd_dkv reads delta and writes dk and dv, so it runs

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -27,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 BUILD_LOG: Dict[str, str] = {}  # stem -> compiler output (ptxas register use)
+BUILD_SECONDS: Dict[str, float] = {}  # stem -> seconds from the builds' start to its end
 
 
 def _nvcc() -> str:
@@ -53,23 +55,31 @@ def build_all() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {s.stem: _target(s) for s in sources}
     pending = {}
+    start = time.perf_counter()
     for src in sources:
         out = targets[src.stem]
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = tmp.with_suffix(".log")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        pending[src.stem] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, out)
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        pending[src.stem] = (proc, tmp, log, out)
     failures = []
-    for stem, (proc, tmp, out) in pending.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[stem] = log
-        if proc.returncode != 0:
-            failures.append(f"{stem}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
+    while pending:  # poll, so that each library's seconds are its own
+        for stem, (proc, tmp, log, out) in list(pending.items()):
+            if proc.poll() is None:
+                continue
+            BUILD_SECONDS[stem] = time.perf_counter() - start
+            BUILD_LOG[stem] = log.read_text()
+            log.unlink()
+            del pending[stem]
+            if proc.returncode != 0:
+                failures.append(f"{stem}.cu (exit {proc.returncode}):\n{BUILD_LOG[stem]}")
+                continue
+            os.replace(tmp, out)
+        time.sleep(0.05)
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return targets

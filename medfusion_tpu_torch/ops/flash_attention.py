@@ -43,6 +43,7 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
                  + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+_ENCODE_ERROR = 10000  # a backward entry returns this plus the CUresult of a failed encode
 
 
 def naive_attention_reference(q, k, v, scale: float):
@@ -130,6 +131,12 @@ def _rows_aligned(t):
             and t.data_ptr() % 16 == 0)
 
 
+def _no_zero_stride(t):
+    """No dim longer than 1 has stride 0: a TMA tensor map takes no such
+    stride (an expanded tensor is copied for the bfloat16 backward)."""
+    return all(s != 0 or n == 1 for s, n in zip(t.stride(), t.shape))
+
+
 def _launch(q, k, v, o, lse, scale):
     """Launch on [B, H, N|M, D] views (any strides, unit head stride) and
     an lse view [B, H, N]."""
@@ -173,6 +180,9 @@ def _launch_bwd(kernel: str, ops, scale):
         err = fn(_IS_BF16[q.dtype], ctypes.cast(ptrs, ctypes.c_void_p), b, h, n,
                  k.shape[2], d, ctypes.cast(strides, ctypes.c_void_p),
                  float(scale * scale), stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"flash attention backward ({kernel}): a TMA tensor map "
+                           f"could not be encoded (CUresult {err - _ENCODE_ERROR})")
     if err != 0:
         raise RuntimeError(f"flash attention backward ({kernel}) launch failed: "
                            f"CUDA error {err}")
@@ -184,7 +194,8 @@ def flash_attention_backward_operands(q, k, v, o, lse, do):
     dk, dv, lse, delta) of the two kernels. dq, dk and dv take q's, k's and
     v's strides; ``do`` is copied to a contiguous tensor only where its rows
     break the kernels' 16-byte rule (autograd hands it over in whatever
-    strides the next op gave it)."""
+    strides the next op gave it) and, in bfloat16, q, k, v and do where
+    they have a zero stride (:func:`_no_zero_stride`)."""
     _check(q, k, v)
     for name, t in (("o", o), ("lse", lse)):
         if t.device != q.device:
@@ -200,6 +211,8 @@ def flash_attention_backward_operands(q, k, v, o, lse, do):
                          f"match q {tuple(q.shape)} {q.dtype} on {q.device}")
     if not _rows_aligned(do):
         do = do.contiguous()
+    if q.dtype == torch.bfloat16:  # q, k, v and do are read through TMA
+        q, k, v, do = (t if _no_zero_stride(t) else t.contiguous() for t in (q, k, v, do))
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     return (q, k, v, o, do, torch.empty_like(q), torch.empty_like(k),
             torch.empty_like(v), lse, delta)

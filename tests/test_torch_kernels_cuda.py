@@ -105,18 +105,6 @@ def test_group_norm_silu_gradient_recomputes_through_plain_version(cuda):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.cuda
-def test_launch_on_a_side_stream(cuda):
-    x, scale, bias = _inputs(cuda, 2, 256, 16, torch.bfloat16)
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        out = G.group_norm_silu(x, scale, bias, 32)
-    stream.synchronize()
-    ref = G.group_norm_silu_reference(x, scale, bias, 32)
-    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
-
-
 # (tokens N, KV tokens M, width H*D, heads): the chest-spatial path's shape
 # classes (1024 tokens d=32, 256 d=64 and d=32, 64 d=128 and d=64), a
 # ragged cross-attention and the smoke preset's d=16
@@ -209,6 +197,8 @@ def _attention_grads(q, k, v, do, heads, layout):
     (1024, 1024, 256, 8), (256, 256, 512, 8), (256, 256, 256, 8), (64, 64, 1024, 8),
     (64, 64, 512, 8),  # the chest-spatial training path's shapes
     (77, 45, 64, 4), (77, 45, 128, 4), (45, 77, 256, 4), (77, 45, 512, 4),  # d 16..128
+    # N and M off the bf16 kernels' 64-row blocks and 64- or 32-row tiles
+    (1000, 1024, 256, 8), (129, 127, 512, 4), (1, 64, 64, 4), (64, 3, 512, 4),
 ])
 def test_flash_attention_backward_matches_plain_version(cuda, dtype, layout, n, m, c,
                                                         heads):
@@ -234,26 +224,75 @@ def test_flash_attention_backward_matches_plain_version(cuda, dtype, layout, n, 
 
 @pytest.mark.cuda
 @DTYPES
-def test_flash_attention_backward_is_deterministic(cuda, dtype):
-    """No atomics: two runs give the same bits."""
-    q, k, v, do = (torch.randn((2, 256, 256), generator=cuda, device="cuda").to(dtype)
+@pytest.mark.parametrize("n,layout", [(256, "tokens"), (1024, "head")])
+def test_flash_attention_backward_is_deterministic(cuda, dtype, n, layout):
+    """No atomics: two runs give the same bits (d = 32, as at the 32^2 and
+    16^2 levels of the training path)."""
+    q, k, v, do = (torch.randn((2, n, 256), generator=cuda, device="cuda").to(dtype)
                    for _ in range(4))
-    first = _attention_grads(q, k, v, do, 8, "tokens")[0]
-    second = _attention_grads(q, k, v, do, 8, "tokens")[0]
+    first = _attention_grads(q, k, v, do, 8, layout)[0]
+    second = _attention_grads(q, k, v, do, 8, layout)[0]
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_takes_a_strided_gradient(cuda):
+@DTYPES
+def test_flash_attention_backward_takes_a_strided_gradient(cuda, dtype):
     """An incoming gradient whose rows break the 16-byte rule is copied,
-    not refused; an expanded one (zero strides) is read as it is."""
-    q, k, v = (torch.randn((1, 64, 64), generator=cuda, device="cuda") for _ in range(3))
-    for do in (torch.randn((1, 64, 72), generator=cuda, device="cuda")[..., 3:67],
-               torch.randn((1, 1, 64), generator=cuda, device="cuda").expand(1, 64, 64)):
+    not refused; an expanded one (zero strides) is read as it is in float32
+    and copied for the bfloat16 kernels' TMA loads."""
+    q, k, v = (torch.randn((1, 64, 64), generator=cuda, device="cuda").to(dtype)
+               for _ in range(3))
+    for do in (torch.randn((1, 64, 72), generator=cuda, device="cuda").to(dtype)[..., 3:67],
+               torch.randn((1, 1, 64), generator=cuda, device="cuda").to(dtype).expand(
+                   1, 64, 64)):
         grads, refs = _attention_grads(q, k, v, do, 2, "tokens")
         for g, r in zip(grads, refs):
-            torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-5)
+            torch.testing.assert_close(g.float(), r.float(), atol=_bwd_tol(r)[0],
+                                       rtol=_bwd_tol(r)[1])
+
+
+def _side_stream_group_norm(gen):
+    x, scale, bias = _inputs(gen, 2, 256, 16, torch.bfloat16)
+    return (lambda: [G.group_norm_silu(x, scale, bias, 32)],
+            lambda: [G.group_norm_silu_reference(x, scale, bias, 32)],
+            lambda r: (1e-2, 1e-2))
+
+
+def _side_stream_attention_backward(gen):
+    """Both backward kernels (bf16, token layout) on their operands."""
+    q, k, v, do = (torch.randn((2, 256, 256), generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    qh, kh, vh, doh = (FA._heads(t, 8) for t in (q, k, v, do))
+    o, lse = FA.flash_attention_tokens_cuda(q, k, v, 8, 0.5)
+    torch.cuda.synchronize()
+    oh, lseh = FA._heads(o, 8), lse.transpose(1, 2)
+
+    def kernels():
+        return list(FA.flash_attention_backward_cuda(qh, kh, vh, oh, lseh, doh, 0.5))
+
+    return (kernels,
+            lambda: list(FA.flash_attention_backward_reference(qh, kh, vh, oh, lseh, doh,
+                                                                0.5)),
+            _bwd_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["group_norm_silu", "flash_attention_backward"])
+def test_launch_on_a_side_stream(cuda, kernel):
+    """A launch goes on the caller's current stream, not the default one."""
+    make = {"group_norm_silu": _side_stream_group_norm,
+            "flash_attention_backward": _side_stream_attention_backward}[kernel]
+    run, plain, tol = make(cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        outs = run()
+    stream.synchronize()
+    for out, ref in zip(outs, plain()):
+        atol, rtol = tol(ref)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
 def _geglu_inputs(gen, rows, c, dtype):
