@@ -17,8 +17,9 @@ Phases (each raises on failure, so any failure exits non-zero):
 4. kernel times at the flagship batch (kernel, plain version, one PyTorch
    library call where one computes the same function, and the card's bound
    for the same work), each timed launch also held to its plain version;
-   the backward kernels at the training batch, with the tensor rate each
-   reaches and the SFU time of its exponentials;
+   the attention kernels (forward at the flagship batch, backward at the
+   training batch) with the tensor rate each reaches and the SFU time of its
+   exponentials, which their bounds include;
 5. the small ``smoke`` preset on the card and on the CPU from the same
    weights and draws, float32: sampled without attention and with spatial
    attention (one head, so head dims 16 and 32), and trained for two steps
@@ -403,10 +404,13 @@ def phase_kernel_checks(G, FA, GL):
                 keep(worst, "group_norm_silu", name, err)
                 log(f"  gn {where} S={s} C={c} G={g} {name} silu={silu}: "
                     f"max|d|={err:.3e} (atol=rtol={tol})")
-        # every attention shape of the path, a ragged cross-attention, and
-        # the smoke preset's head dims
+        # every attention shape of the path, the smoke preset's head dims,
+        # and N and M off the bf16 kernel's 64-row blocks and tiles at head
+        # dims 16 to 128
         for n, m, c, heads in ([(n, n, c, h) for n, c, h, _, _ in ATTN_SHAPES]
-                               + [(77, 45, 256, 4), (64, 64, 32, 2)]):
+                               + [(64, 64, 32, 2), (77, 45, 256, 4), (45, 77, 64, 4),
+                                  (1000, 1024, 256, 8), (129, 127, 512, 4),
+                                  (1, 64, 64, 4), (64, 3, 512, 4)]):
             for kernel, err in check_attention(FA, n, m, c, heads, dtype, gen).items():
                 keep(worst, kernel, name, err)
         # the backward at every training-path shape and a ragged one
@@ -450,25 +454,37 @@ def phase_kernel_times(G):
     return rows
 
 
-def bounds(flops, nbytes):
-    """The card's least time for the work, in ms, and its two parts."""
-    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+def bounds(flops, nbytes, exp_ms=0.0):
+    """The card's least time for the work, in ms, and its two parts: the
+    operations (the tensor cores' bf16 FLOPs, or ``exp_ms``, the SFU's time
+    for the work's exponentials, whichever is longer) and the bytes."""
+    ops_ms = max(flops / BF16_FLOPS_PER_S * 1e3, exp_ms)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def exp_rate():
+    """Exponentials a second: the SFU's 16 a clock on each SM at the card's
+    maximum SM clock."""
+    return 16 * torch_sms() * sm_clock_hz()
 
 
 def phase_attention_geglu_times(FA, GL, worst):
     """Phase 4, continued: flash attention and GEGLU at the flagship batch
     (64 UNet rows), bf16, each at its path entry; bounds from this run's
-    shapes: max(FLOPs / bf16 peak, bytes / HBM rate). Each timed launch is
-    also held to its plain version, its error kept in ``worst``; GEGLU is
-    timed and checked at the main path's batch too."""
+    shapes: max(FLOPs / bf16 peak, bytes / HBM rate), and for attention also
+    ``exp_ms``, the SFU's time for its BH*N*M exponentials (at 1,024 tokens
+    d=32 the largest of the three). Attention prints its tensor rate, its
+    share of the bound and its time beside SDPA's. Each timed launch is also
+    held to its plain version, its error kept in ``worst``; GEGLU is timed
+    and checked at the main path's batch too."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     b = TIMING_BATCH["unet"]
     sms = torch_sms()
+    exp_per_s = exp_rate()
     attn, geglu = [], []
     for n, c, heads, per_fwd, layout in ATTN_SHAPES:
         d = c // heads
@@ -494,14 +510,18 @@ def phase_attention_geglu_times(FA, GL, worst):
                                                               scale=1.0), 20)
         flops = 4 * b * heads * n * n * d
         nbytes = 4 * b * n * c * 2 + b * heads * n * 4  # q, k, v, o; lse f32
+        exp_ms = b * heads * n * n / exp_per_s * 1e3
         attn.append(dict(layout=layout, B=b, N=n, C=c, H=heads, d=d,
                          launches_per_forward=per_fwd, ms=t_k, eager_ms=t_e,
-                         plain_ms=t_p, library_ms=t_l, **bounds(flops, nbytes)))
-        bound = attn[-1]["bound_ms"]
+                         plain_ms=t_p, library_ms=t_l, exp_ms=exp_ms,
+                         tflops=flops / t_k / 1e9, **bounds(flops, nbytes, exp_ms)))
+        r = attn[-1]
         log(f"  attention {layout} B={b} N={n} H={heads} d={d}: max|d| o {err:.3e}; "
-            f"kernel {t_k:.4f} ms (eager {t_e:.4f}), plain {t_p:.4f} ms, sdpa "
-            f"{t_l:.4f} ms, bound {bound:.4f} ms ({bound / t_k:.1%} of bound, "
-            f"{flops / t_k / 1e9:.1f} TFLOP/s)")
+            f"kernel {t_k:.4f} ms (eager {t_e:.4f}) vs sdpa {t_l:.4f} ms "
+            f"({t_k / t_l:.2f}x), plain {t_p:.4f} ms; bound {r['bound_ms']:.4f} ms "
+            f"(FLOPs {flops / BF16_FLOPS_PER_S * 1e3:.4f}, bytes {r['bytes_ms']:.4f}, "
+            f"exp_ms {exp_ms:.4f}): {r['bound_ms'] / t_k:.1%} of bound, "
+            f"{r['tflops']:.1f} TFLOP/s")
         del q, k, v, qh, kh, vh
         rows, f = b * n, 4 * c
         args = geglu_inputs(rows, c, torch.bfloat16, gen)
@@ -551,16 +571,16 @@ def phase_attention_backward_times(FA, worst):
     two kernels' times and is given in both rows. Bounds from this run's
     shapes: dQ 6*BH*N*M*d FLOPs and q, k, v, o, dO, lse read, dq and D
     written; dK/dV 8*BH*N*M*d FLOPs and q, k, v, dO, lse, D read, dk and dv
-    written. Beside them, each row's tensor rate reached (its FLOPs over its
-    time) and ``exp_ms``, the SFU's time for the kernel's BH*N*M
-    exponentials (2*BH*N*M for the two) at 16 a clock on each SM at the
-    card's maximum SM clock."""
+    written; and ``exp_ms``, the SFU's time for the kernel's BH*N*M
+    exponentials at 16 a clock on each SM at the card's maximum SM clock,
+    which the bound takes where it is longer than the FLOPs' time. Beside
+    them, each row's tensor rate reached (its FLOPs over its time)."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     b = TRAIN_BATCH
-    exp_per_s = 16 * torch_sms() * sm_clock_hz()
+    exp_per_s = exp_rate()
     rows = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
     for n, c, heads, per_fwd, layout in ATTN_SHAPES:
         d = c // heads
@@ -598,7 +618,7 @@ def phase_attention_backward_times(FA, worst):
             flops *= bh * n * n * d
             rows[kernel].append(dict(shape, ms=t, plain_ms=p_t, exp_ms=exp_ms,
                                      tflops=flops / t / 1e9,
-                                     **bounds(flops, 6 * tok + 2 * stat)))
+                                     **bounds(flops, 6 * tok + 2 * stat, exp_ms)))
         r_dq, r_dkv = rows["flash_attention_bwd_dq"][-1], rows["flash_attention_bwd_dkv"][-1]
         log(f"  attention bwd {layout} B={b} N={n} H={heads} d={d}: "
             + "; ".join(f"{what} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
@@ -1172,10 +1192,12 @@ def main():
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
     attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
+    attn_sdpa = sum(r["library_ms"] * r["launches_per_forward"] for r in attn_rows)
     geglu_fwd = sum(r["ms"] * r["launches_per_forward"] for r in geglu_rows)
     bwd_step = sum(r["ms"] * r["launches_per_step"] for k in bwd_rows for r in bwd_rows[k])
     log(f"  per UNet forward (B=64): group_norm_silu {per_fwd:.4f} ms (the conv "
-        f"blocks'), attention {attn_fwd:.4f} ms, geglu {geglu_fwd:.4f} ms; "
+        f"blocks'), attention {attn_fwd:.4f} ms (sdpa {attn_sdpa:.4f}), geglu "
+        f"{geglu_fwd:.4f} ms; "
         f"group_norm_silu per decode (B=32): {per_dec:.4f} ms; attention backward "
         f"per training step (B=32): {bwd_step:.4f} ms of {train_ms:.1f} ms")
 

@@ -8,7 +8,7 @@
 // dtype (s itself is first rounded to it, as jnp.asarray(scale, in_dt));
 // online softmax with f32 statistics; the probability block p is rounded to
 // the input dtype before p.v, which accumulates in f32; o = acc / l in the
-// input dtype and lse = m + log(l) in f32.
+// input dtype and lse = m + log(l) in f32 (natural log).
 //
 // Layouts: the caller passes element strides (batch, head, token) for q, o,
 // k, v and lse; the head dim is unit-stride. The head layout [B, H, N, D] and
@@ -16,37 +16,65 @@
 // token stride H*D) are the same kernel, so the token layout needs no
 // transposes.
 //
-// Bound: tensor-core FLOPs, 4*B*H*N*M*d, at the UNet's shapes (N = M = 1024,
-// 256 or 64 tokens; d = 32, 64 or 128) against reading q, k, v and writing o
-// once. Design (FlashAttention-2 style, simple first version):
-//   * one block of 4 warps per (batch*head, 64-query tile); each warp owns
-//     16 query rows, held as mma A fragments in registers for the whole loop;
-//   * a loop over 64-key tiles: k (scaled, rounded) and v are staged in
-//     shared memory with rows padded by 8 values, so that the fragment loads
-//     are free of bank conflicts; ragged tiles are zero-filled and their
-//     logits masked to -inf, so any N, M >= 1 works;
-//   * bf16: S = Q K^T and O += P V with mma.sync m16n8k16 (bf16 in, f32
-//     accumulate); the row max and sum live in registers, reduced over the
-//     four lanes that share a row, and P goes from the S accumulators to A
-//     fragments without touching shared memory;
-//   * f32: plain f32 FMA (not TF32), four lanes per query row, each lane
-//     holding d/4 of q and of the accumulator.
-// No TMA, wgmma or pipelining of the tile loads yet: that is for the PR that
-// makes it fast.
+// Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s, 132 SMs): the larger of
+// the tensor-core FLOPs, 4*BH*N*M*d, over the bf16 rate; reading q, k, v and
+// writing o and lse once over HBM's; and the BH*N*M exponentials over the
+// SFU's 16 a clock on each SM. At 1,024 tokens d = 32 (B = 64 rows, H = 8)
+// that is 0.069 ms of FLOPs against 0.128 ms of exponentials at 1.98 GHz:
+// the SFU sets the floor, and the tensor cores and the loads have to hide
+// under it. The token shapes (256 and 64 tokens) are bytes-bound.
+//
+// bf16 design (one consumer warpgroup + one producer warp a block):
+//   * the consumer warpgroup owns the block's 64 query rows, the M of every
+//     wgmma (m64nNk16, bf16 in, f32 accumulate). S = (Q s)(K s)^T
+//     (m64n64k16) reads both operands K-major from shared memory; the
+//     exponentials leave the accumulators as bf16 A fragments in registers
+//     (mf_flash::a_from_c), and O += P V (RS) reads the V tile MN-major
+//     through the descriptor's transpose bit, with no transposed copy;
+//   * the producer warp loads Q once and the K and V tiles of 64 keys into
+//     a ring of two stages with TMA (4-D maps (d, token, head, batch)
+//     built from the strides, so one map serves both layouts). TMA brings
+//     raw q and k, and the scores' wgmma reads them from shared memory, so
+//     the producer's lanes scale each arrived Q and K tile in place (each
+//     product rounded to bf16, the function's rounding point) and fence
+//     their writes to the async proxy before releasing the tile, so the
+//     scaling runs on the producer's warp, not the consumers'. Each stage
+//     has four mbarriers: K landed (TMA bytes), K scaled (the producer's 32
+//     lanes), V landed (TMA bytes), stage free (the consumers' arrivals);
+//   * softmax in base 2 on the SFU: p = ex2(S log2e - m log2e), one FFMA
+//     and one ex2.approx an element, the row max and sum over the four lanes
+//     of a row; keys past M are masked to -inf (TMA zero-fills them, and a
+//     zero score is not -inf), queries past N are not stored;
+//   * what sets the pace is instruction issue and latency, not the SFU: on
+//     an H100 (PERF.md) dropping the exponentials saved 4 % at 1,024 tokens
+//     d = 32, dropping the K scaling 15 %. Each warpgroup runs scores ->
+//     softmax -> P V in series, hidden by the other blocks on the SM (five at
+//     d = 32: 74 registers). That beat, on the sum of the path's shapes,
+//     issuing tile j's scores beside tile j-1's P V, two consumer warpgroups
+//     sharing each tile (with and without FlashAttention-3's ping-pong
+//     through named barriers) and three stages; setmaxnreg would move few
+//     registers from a one-warp producer, and the consumer needs no more.
+// f32 (not on a bf16 path): the simple version, plain f32 FMA (not TF32),
+// four lanes per query row, each lane holding d/4 of q and of the
+// accumulator, tiles staged with synchronous loads.
 //
 // The launch goes on the caller's stream; the kernel allocates nothing. The
-// entry point returns cudaGetLastError() after the launch.
+// entry point returns cudaGetLastError() after the launch, or 10000 plus the
+// CUresult where a tensor map cannot be encoded.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_attention_common.cuh"
+#include "hopper_sm90.cuh"
 
 namespace {
 
 using namespace mf_flash;
+using namespace mf_sm90;
 
 constexpr float kInitMax = -1e30f;  // the TPU kernel's _NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -63,143 +91,233 @@ struct Params {
   float scale;
 };
 
-constexpr int kBQ = 64;   // query rows per block (bf16)
-constexpr int kBK = 64;   // keys per tile (bf16)
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // f32 blocks
+// bf16 blocks: 64 query rows (one consumer warpgroup) plus the producer
+// warp, 64-key tiles, a ring of two stages
+constexpr int kRows = 64;
+constexpr int kConsumers = 128;
+constexpr int kBf16Threads = kConsumers + 32;
+constexpr int kStages = 2;
 
+// Shared memory of a bf16 block, from a 1,024-byte aligned base: the Q
+// tile, the ring (a K and a V tile a stage), the mbarriers (Q landed, Q
+// scaled, then K landed, K scaled, V landed and stage free for each stage).
 template <int D>
-constexpr int bf16_smem_bytes() {
-  return (kBQ + 2 * kBK) * (D + 8) * 2;
+struct FwdSmem {
+  using Tile = SwTile<D, kRows>;
+  static constexpr int kRing = Tile::BYTES;
+  static constexpr int kStage = 2 * Tile::BYTES;
+  static constexpr int kBars = kRing + kStages * kStage;
+  static constexpr int kBytes = kBars + (2 + 4 * kStages) * 8 + 1024;  // + alignment
+};
+
+// Every bf16 value of the BYTES-byte tile at `tile` times s, each product
+// rounded to bf16, by the 32 lanes of a warp (16 bytes a lane at a time;
+// the swizzle moves whole 16-byte chunks, so it does not matter), then
+// fenced for the wgmma reads that follow the lanes' barrier arrival.
+template <int BYTES>
+__device__ __forceinline__ void scale_tile(unsigned char* tile, float s, int lane) {
+  static_assert(BYTES % 512 == 0, "whole rounds of 32 lanes x 16 bytes");
+#pragma unroll 4
+  for (int i = lane * 16; i < BYTES; i += 32 * 16) {
+    uint4* v = reinterpret_cast<uint4*>(tile + i);
+    *v = scale8(*v, s);
+  }
+  fence_proxy_async();
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;   // k-steps over the head dim
-  constexpr int NT = kBK / 8;  // n-tiles of S per key tile
-  constexpr int DT = D / 8;    // n-tiles of O
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kBQ * LD;
-  bf16* Vs = Ks + kBK * LD;
+__global__ void __launch_bounds__(kBf16Threads, D == 128 ? 2 : 3)
+    flash_fwd_bf16(Params p, const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv) {
+  using L = FwdSmem<D>;
+  using Tile = typename L::Tile;
+  constexpr int W = Tile::W;
+  constexpr int HALVES = D / W;
+  unsigned char* smem = aligned_smem();
+  const uint32_t s0 = smem_addr(smem);
+  const uint32_t bars = s0 + L::kBars;
+  const uint32_t q_landed = bars, q_scaled = bars + 8;
+  // kind 0: K landed, 1: K scaled, 2: V landed, 3: stage free
+  auto bar = [&](int kind, int st) { return bars + 16 + 8 * (kind * kStages + st); };
+  auto k_tile = [&](int st) { return L::kRing + st * L::kStage; };  // offsets
+  auto v_tile = [&](int st) { return k_tile(st) + Tile::BYTES; };
 
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
-  const int q0 = blockIdx.x * kBQ;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
-  float* lse = p.lse + b * p.l_sb + h * p.l_sh;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // row within the 8-row group of a fragment
-  const int t4 = lane & 3;  // column pair within the fragment
+  const int q0 = blockIdx.x * kRows;
+  const int tiles = (p.M + kRows - 1) / kRows;
+  if (threadIdx.x == 0) {
+    mbar_init(q_landed, 1);
+    mbar_init(q_scaled, 32);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar(0, st), 1);
+      mbar_init(bar(1, st), 32);
+      mbar_init(bar(2, st), 1);
+      mbar_init(bar(3, st), kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
   const float s = __bfloat162float(__float2bfloat16(p.scale));
 
-  load_tile<D, LD, kBQ, kThreads>(Qs, q + q0 * p.q_st, p.q_st, p.N - q0, true, s);
-  __syncthreads();
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) load_a<LD>(qf[kk], Qs, warp * 16, kk * 16, g, t4);
-
-  float m_r[2] = {kInitMax, kInitMax};
-  float l_r[2] = {0.f, 0.f};  // this lane's part of the row sums
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  for (int k0 = 0; k0 < p.M; k0 += kBK) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D, LD, kBK, kThreads>(Ks, k + k0 * p.k_st, p.k_st, p.M - k0, true, s);
-    load_tile<D, LD, kBK, kThreads>(Vs, v + k0 * p.v_st, p.v_st, p.M - k0, false, 1.f);
-    __syncthreads();
-
-    float sc[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* kp = Ks + (nt * 8 + g) * LD + kk * 16 + t4 * 2;
-        mma_bf16(sc[nt], qf[kk], ld32(kp), ld32(kp + 8));
-      }
-    }
-    if (k0 + kBK > p.M) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (k0 + nt * 8 + t4 * 2 + (e & 1) >= p.M) sc[nt][e] = -INFINITY;
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    const CUtensorMap* mk = &tk;
+    const CUtensorMap* mv = &tv;
+    auto issue = [&](int it) {  // K and V tile `it` into its stage
+      const int st = it % kStages;
+      if (it >= kStages) mbar_wait(bar(3, st), ((it / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bar(0, st), Tile::BYTES);
+        mbar_arrive_expect_tx(bar(2, st), Tile::BYTES);
+        for (int hf = 0; hf < HALVES; ++hf) {
+          tma_load_4d(s0 + k_tile(st) + hf * Tile::HALF_BYTES, mk, hf * W, it * kRows, h, b,
+                      bar(0, st));
+          tma_load_4d(s0 + v_tile(st) + hf * Tile::HALF_BYTES, mv, hf * W, it * kRows, h, b,
+                      bar(2, st));
         }
       }
-    }
-    // online softmax: rows g (elements 0, 1) and g + 8 (elements 2, 3)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(sc[nt][0], sc[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(sc[nt][2], sc[nt][3]));
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      alpha[r] = expf(m_r[r] - m_new);
-      m_r[r] = m_new;
-      l_r[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[nt][e] = expf(sc[nt][e] - m_r[e >> 1]);
-        l_r[e >> 1] += sc[nt][e];
+    };
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_landed, Tile::BYTES);
+      for (int hf = 0; hf < HALVES; ++hf) {
+        tma_load_4d(s0 + hf * Tile::HALF_BYTES, &tq, hf * W, q0, h, b, q_landed);
       }
     }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
+    for (int it = 0; it < kStages - 1 && it < tiles; ++it) issue(it);
+    mbar_wait(q_landed, 0);
+    scale_tile<Tile::BYTES>(smem, s, lane);
+    mbar_arrive(q_scaled);
+    // scale tile it, then refill the stage that tile it - 1 frees
+    for (int it = 0; it < tiles; ++it) {
+      const int st = it % kStages;
+      mbar_wait(bar(0, st), (it / kStages) & 1);
+      scale_tile<Tile::BYTES>(smem + k_tile(st), s, lane);
+      mbar_arrive(bar(1, st));
+      if (it + kStages - 1 < tiles) issue(it + kStages - 1);
     }
-    // O += P V: the S accumulators of key columns [16kk, 16kk + 16) are the
-    // A fragment of P for that k-step, rounded to bf16
+  } else {  // the consumer warpgroup
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    float m_r[2] = {kInitMax, kInitMax};
+    float l_r[2] = {0.f, 0.f};  // this lane's part of the row sums
+    float acc[HALVES][W / 2];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      a_from_c(a, sc[2 * kk], sc[2 * kk + 1]);
-      const bf16* vp = Vs + (kk * 16 + t4 * 2) * LD + g;
+    for (int hf = 0; hf < HALVES; ++hf) {
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const bf16* vq = vp + dt * 8;
-        mma_bf16(acc[dt], a, pack_h(vq[0], vq[LD]), pack_h(vq[8 * LD], vq[9 * LD]));
+      for (int i = 0; i < W / 2; ++i) acc[hf][i] = 0.f;
+    }
+    mbar_wait(q_scaled, 0);
+
+    for (int it = 0; it < tiles; ++it) {
+      const int st = it % kStages;
+      const uint32_t phase = (it / kStages) & 1;
+      // S = (Q s)(K s)^T, both operands K-major in shared memory
+      float sc[kRows / 2];
+      mbar_wait(bar(1, st), phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Wgmma<kRows>::ss(sc, Tile::k_major(s0, kk), Tile::k_major(s0 + k_tile(st), kk), kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      // online softmax (rows g: elements 0, 1 of each 8-column chunk; g + 8:
+      // elements 2, 3); keys past M are -inf
+      const int k0 = it * kRows;
+      if (k0 + kRows > p.M) {
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (k0 + j * 8 + t4 * 2 + (e & 1) >= p.M) sc[4 * j + e] = -INFINITY;
+          }
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float ml[2], alpha[2];  // m_new * log2e; exp(m_old - m_new)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);
+        ml[r] = m_new * kLog2e;
+        alpha[r] = ex2(fmaf(m_r[r], kLog2e, -ml[r]));
+        m_r[r] = m_new;
+        l_r[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv = ex2(fmaf(sc[4 * j + e], kLog2e, -ml[e >> 1]));
+          sc[4 * j + e] = pv;
+          l_r[e >> 1] += pv;
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) {
+#pragma unroll
+        for (int i = 0; i < W / 2; ++i) acc[hf][i] *= alpha[(i >> 1) & 1];
+      }
+      // O += P V: P rounded to bf16 as A fragments, the V tile MN-major
+      uint32_t pa[kRows / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) a_from_c(pa[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+      mbar_wait(bar(2, st), phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+#pragma unroll
+        for (int hf = 0; hf < HALVES; ++hf) {
+          Wgmma<W>::rs(acc[hf], pa[kk], Tile::mn_major(s0 + v_tile(st), kk, hf));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      // keep the accumulator and the A registers in place until now
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) fence_regs(acc[hf]);
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
+      }
+      mbar_arrive(bar(3, st));
     }
-  }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= p.N) continue;
-    bf16* orow = o + row * p.o_st + t4 * 2;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) = __floats2bfloat162_rn(
-          acc[dt][2 * r] / l_r[r], acc[dt][2 * r + 1] / l_r[r]);
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     }
-    if (t4 == 0) lse[row * p.l_st] = m_r[r] + logf(l_r[r]);
+    bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+    float* lse = p.lse + b * p.l_sb + h * p.l_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row >= p.N) continue;
+      bf16* orow = o + row * p.o_st + t4 * 2;
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) {
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + hf * W + j * 8) = __floats2bfloat162_rn(
+              acc[hf][4 * j + 2 * r] / l_r[r], acc[hf][4 * j + 2 * r + 1] / l_r[r]);
+        }
+      }
+      if (t4 == 0) lse[row * p.l_st] = m_r[r] + logf(l_r[r]);
+    }
   }
 }
 
@@ -274,22 +392,33 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
 }
 
 template <int D>
-int launch(int is_bf16, const Params& p, int BH, cudaStream_t stream) {
-  if (is_bf16) {
-    constexpr int smem = bf16_smem_bytes<D>();
-    static bool attr_set = false;
-    if (!attr_set) {
-      cudaError_t err = cudaFuncSetAttribute(
-          flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return (int)err;
-      attr_set = true;
-    }
-    const dim3 grid((p.N + kBQ - 1) / kBQ, BH);
-    flash_fwd_bf16<D><<<grid, kThreads, smem, stream>>>(p);
-  } else {
-    const dim3 grid((p.N + kBQ32 - 1) / kBQ32, BH);
-    flash_fwd_f32<D><<<grid, kThreads, 0, stream>>>(p);
+int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  constexpr int smem = FwdSmem<D>::kBytes;
+  CUtensorMap tq, tk, tv;
+  const long long qs[3] = {p.q_sb, p.q_sh, p.q_st};
+  const long long ks[3] = {p.k_sb, p.k_sh, p.k_st};
+  const long long vs[3] = {p.v_sb, p.v_sh, p.v_st};
+  int err;
+  if ((err = encode<D>(&tq, const_cast<void*>(p.q), qs, B, p.H, p.N, kRows)) != 0) return err;
+  if ((err = encode<D>(&tk, const_cast<void*>(p.k), ks, B, p.H, p.M, kRows)) != 0) return err;
+  if ((err = encode<D>(&tv, const_cast<void*>(p.v), vs, B, p.H, p.M, kRows)) != 0) return err;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
   }
+  const dim3 grid((p.N + kRows - 1) / kRows, B * p.H);
+  flash_fwd_bf16<D><<<grid, kBf16Threads, smem, stream>>>(p, tq, tk, tv);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(int is_bf16, const Params& p, int B, cudaStream_t stream) {
+  if (is_bf16) return launch_bf16<D>(p, B, stream);
+  const dim3 grid((p.N + kBQ32 - 1) / kBQ32, B * p.H);
+  flash_fwd_f32<D><<<grid, kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -299,6 +428,9 @@ int launch(int is_bf16, const Params& p, int BH, cudaStream_t stream) {
 // head, token; the head dim is unit-stride); lse: [B, H, N] f32 by
 // strides[12..14]. is_bf16: 1 for bfloat16, 0 for float32. D in {16, 32, 64,
 // 128}; any other D returns cudaErrorInvalidValue without launching.
+// bfloat16 reads q, k and v through TMA: their addresses and strides are
+// multiples of 16 bytes, and no stride along a dim longer than 1 is 0 (else
+// 10000 + CUDA_ERROR_INVALID_VALUE, without launching).
 extern "C" int mf_flash_attention_fwd(int is_bf16, const void* q, const void* k,
                                       const void* v, void* o, void* lse, int B,
                                       int H, int N, int M, int D,
@@ -321,10 +453,10 @@ extern "C" int mf_flash_attention_fwd(int is_bf16, const void* q, const void* k,
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(is_bf16, p, B * H, st);
-    case 32: return launch<32>(is_bf16, p, B * H, st);
-    case 64: return launch<64>(is_bf16, p, B * H, st);
-    case 128: return launch<128>(is_bf16, p, B * H, st);
+    case 16: return launch<16>(is_bf16, p, B, st);
+    case 32: return launch<32>(is_bf16, p, B, st);
+    case 64: return launch<64>(is_bf16, p, B, st);
+    case 128: return launch<128>(is_bf16, p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

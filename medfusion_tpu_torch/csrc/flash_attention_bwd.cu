@@ -139,12 +139,6 @@ struct BwdSmem {
   static constexpr int kBytes = kBars + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
 };
 
-__device__ __forceinline__ unsigned char* aligned_smem() {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t a = smem_addr(smem_raw);
-  return smem_raw + ((1024 - (a & 1023)) & 1023);
-}
-
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
@@ -633,61 +627,6 @@ int set_smem(Kernel kernel, int bytes, bool* done) {
   return 0;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                         cudaEnableDefault, &found) == cudaSuccess
-        && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
-
-constexpr int kEncodeError = 10000;
-
-// The 4-D map (d, token, head, batch) of operand `which`, in boxes of
-// (min(D, 64), rows, 1, 1) with the swizzle of SwTile<D, rows>. A dim of
-// extent 1 takes the stride that a packed tensor would have (the kernels
-// never step along it); a zero stride along a longer dim is refused
-// (the wrapper copies such an operand).
-template <int D>
-int encode(CUtensorMap* map, const BwdParams& p, int which, int B, int tokens, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
-  constexpr int W = D < 64 ? D : 64;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)tokens, (cuuint64_t)p.H, (cuuint64_t)B};
-  const long long st[3] = {p.st[which][2], p.st[which][1], p.st[which][0]};  // token, head, batch
-  cuuint64_t strides[3];
-  long long packed = D;
-  for (int i = 0; i < 3; ++i) {
-    const long long s = dims[i + 1] == 1 ? packed : st[i];
-    if (s <= 0) return kEncodeError + (int)CUDA_ERROR_INVALID_VALUE;
-    strides[i] = (cuuint64_t)s * 2;
-    packed = s * (long long)dims[i + 1];
-  }
-  cuuint32_t box[4] = {(cuuint32_t)W, (cuuint32_t)rows, 1, 1};
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p.ptr[which], dims,
-                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kEncodeError + (int)res;
-}
-
 // which: 0 = dQ (and D), 1 = dK/dV
 template <int D>
 int launch_bf16(int which, const BwdParams& p, int B, cudaStream_t stream) {
@@ -702,8 +641,12 @@ int launch_bf16(int which, const BwdParams& p, int B, cudaStream_t stream) {
   const int lrows = loop_rows(which);
   int err;
   for (int i = 0; i < 2; ++i) {
-    if ((err = encode<D>(&res[i], p, res_ops[i], B, res_tokens, kTile)) != 0) return err;
-    if ((err = encode<D>(&loop[i], p, loop_ops[i], B, loop_tokens, lrows)) != 0) return err;
+    if ((err = encode<D>(&res[i], p.ptr[res_ops[i]], p.st[res_ops[i]], B, p.H, res_tokens,
+                         kTile)) != 0)
+      return err;
+    if ((err = encode<D>(&loop[i], p.ptr[loop_ops[i]], p.st[loop_ops[i]], B, p.H,
+                         loop_tokens, lrows)) != 0)
+      return err;
   }
   if (which == 0) {
     constexpr int smem = BwdSmem<D, loop_rows(0), ring_stages<D>(0)>::kBytes;

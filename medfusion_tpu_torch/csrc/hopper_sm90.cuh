@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks for the flash-attention backward kernels
-// (flash_attention_bwd.cu): warpgroup matrix multiplies (wgmma) with their
-// shared-memory descriptors and fences, mbarriers, and TMA tile loads.
+// Hopper (sm_90a) building blocks for the flash-attention kernels, forward
+// (flash_attention.cu) and backward (flash_attention_bwd.cu): warpgroup
+// matrix multiplies (wgmma) with their shared-memory descriptors and fences,
+// mbarriers, TMA tile loads and the host-side encoder of their 4-D tensor
+// maps.
 //
 // wgmma m64nNk16, bf16 in, f32 accumulate, issued by one warpgroup (four
 // consecutive warps, the first a multiple of 4). The accumulator d[N/2] of
@@ -37,6 +39,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The block's dynamic shared memory from its first 1,024-byte boundary (the
+// launch asks for 1,024 bytes more than the layout needs).
+__device__ __forceinline__ unsigned char* aligned_smem() {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t a = smem_addr(smem_raw);
+  return smem_raw + ((1024 - (a & 1023)) & 1023);
+}
+
 // layout: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo, int layout) {
@@ -69,6 +79,13 @@ struct SwTile {
                      8 * ROW_BYTES, LAYOUT);
   }
 };
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands, TMA): a thread that rewrites a
+// tile in place issues it before releasing the tile to the wgmma readers.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -217,6 +234,67 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- host side: the 4-D tensor maps of the TMA loads ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                         cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// An entry point returns this plus the CUresult where a map cannot be encoded.
+constexpr int kEncodeError = 10000;
+
+// The 4-D map (d, token, head, batch) of a bf16 tensor [B, H, tokens, D]
+// at `ptr` with element strides st = (batch, head, token) and a unit-stride
+// head dim, in boxes of (min(D, 64), rows, 1, 1) with the swizzle of
+// SwTile<D, rows>. A dim of extent 1 takes the stride that a packed tensor
+// would have (the kernels never step along it); a zero stride along a
+// longer dim is refused (the wrappers copy such an operand). Returns 0 or
+// kEncodeError + the CUresult.
+template <int D>
+int encode(CUtensorMap* map, void* ptr, const long long* st, int B, int H, int tokens,
+           int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  constexpr int W = D < 64 ? D : 64;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)tokens, (cuuint64_t)H, (cuuint64_t)B};
+  const long long by_dim[3] = {st[2], st[1], st[0]};  // token, head, batch
+  cuuint64_t strides[3];
+  long long packed = D;
+  for (int i = 0; i < 3; ++i) {
+    const long long s = dims[i + 1] == 1 ? packed : by_dim[i];
+    if (s <= 0) return kEncodeError + (int)CUDA_ERROR_INVALID_VALUE;
+    strides[i] = (cuuint64_t)s * 2;
+    packed = s * (long long)dims[i + 1];
+  }
+  cuuint32_t box[4] = {(cuuint32_t)W, (cuuint32_t)rows, 1, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box,
+                          unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + (int)res;
 }
 
 }  // namespace mf_sm90

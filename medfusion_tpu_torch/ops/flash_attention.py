@@ -43,7 +43,7 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
                  + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-_ENCODE_ERROR = 10000  # a backward entry returns this plus the CUresult of a failed encode
+_ENCODE_ERROR = 10000  # an entry returns this plus the CUresult of a failed encode
 
 
 def naive_attention_reference(q, k, v, scale: float):
@@ -133,13 +133,14 @@ def _rows_aligned(t):
 
 def _no_zero_stride(t):
     """No dim longer than 1 has stride 0: a TMA tensor map takes no such
-    stride (an expanded tensor is copied for the bfloat16 backward)."""
+    stride (an expanded tensor is copied for the bfloat16 kernels)."""
     return all(s != 0 or n == 1 for s, n in zip(t.stride(), t.shape))
 
 
 def _launch(q, k, v, o, lse, scale):
     """Launch on [B, H, N|M, D] views (any strides, unit head stride) and
-    an lse view [B, H, N]."""
+    an lse view [B, H, N], as :func:`flash_attention_forward_operands`
+    gives them."""
     from medfusion_tpu_torch.ops.build import function
 
     b, h, n, d = q.shape
@@ -152,8 +153,36 @@ def _launch(q, k, v, o, lse, scale):
         err = fn(_IS_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), lse.data_ptr(), b, h, n, k.shape[2], d,
                  ctypes.cast(arr, ctypes.c_void_p), float(scale), stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"flash attention: a TMA tensor map could not be encoded "
+                           f"(CUresult {err - _ENCODE_ERROR})")
     if err != 0:
         raise RuntimeError(f"flash attention launch failed: CUDA error {err}")
+
+
+def flash_attention_forward_operands(q, k, v, num_heads=None):
+    """Check the forward's inputs and allocate its outputs: returns (q, k,
+    v, o, lse) as the kernel takes them, [B, H, N|M, D] views and an lse
+    view [B, H, N]. ``num_heads`` None is the head layout (q [B, H, N, D];
+    o takes q's strides where q is dense, else packed ones; lse [B, H, N]);
+    else the token layout (q [B, N, H*D]; o the view of a new [B, N, H*D]
+    tensor, lse the view of a new [B, N, H] one). In bfloat16 a q, k or v
+    with a zero stride is copied (:func:`_no_zero_stride`: the kernel reads
+    them through TMA)."""
+    tokens = q.shape
+    if num_heads is not None:
+        q, k, v = (_heads(t, num_heads) for t in (q, k, v))
+    _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if _no_zero_stride(t) else t.contiguous() for t in (q, k, v))
+    if num_heads is None:
+        o = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    else:
+        o = _heads(torch.empty(tokens, dtype=q.dtype, device=q.device), num_heads)
+        lse = torch.empty((*tokens[:2], num_heads), dtype=torch.float32,
+                          device=q.device).transpose(1, 2)
+    return q, k, v, o, lse
 
 
 def _on_card(t):
@@ -251,32 +280,25 @@ def flash_attention_cuda(q, k, v, scale: float):
     """Head layout on the card: q [B, H, N, D], k/v [B, H, M, D] (any
     strides with a unit head stride) -> (o like q, lse [B, H, N] f32)."""
     global LAUNCHES
-    _check(q, k, v)
+    ops = flash_attention_forward_operands(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda takes a CUDA tensor, got {q.device}")
-    b, h, n, _ = q.shape
-    o = torch.empty_like(q)  # keeps q's strides
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    _launch(q, k, v, o, lse, scale)
+    _launch(*ops, scale)
     LAUNCHES += 1
-    return o, lse
+    return ops[3], ops[4]
 
 
 def flash_attention_tokens_cuda(q, k, v, num_heads: int, scale: float):
     """Token layout on the card: q [B, N, H*D], k/v [B, M, H*D] ->
     (o [B, N, H*D], lse [B, N, H] f32), through the same kernel."""
     global TOKEN_LAUNCHES
-    qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
-    _check(qh, kh, vh)
+    ops = flash_attention_forward_operands(q, k, v, num_heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_tokens_cuda takes a CUDA tensor, "
                          f"got {q.device}")
-    b, n, _ = q.shape
-    o = torch.empty((b, n, q.shape[2]), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, n, num_heads), dtype=torch.float32, device=q.device)
-    _launch(qh, kh, vh, _heads(o, num_heads), lse.transpose(1, 2), scale)
+    _launch(*ops, scale)
     TOKEN_LAUNCHES += 1
-    return o, lse
+    return ops[3].transpose(1, 2).flatten(2), ops[4].transpose(1, 2)
 
 
 def _heads(x, num_heads):

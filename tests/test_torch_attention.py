@@ -250,3 +250,59 @@ def test_attention_dispatcher_rejects_unknown_type_and_dropout():
         A.Attention(2, 16, 2, 8, GROUPS4, dropout=0.1, attention_type="spatial")
     x = torch.randn(1, 16, 2, 2)
     assert A.Attention(2, 16, attention_type="none")(x) is x
+
+
+# ---- the forward kernel's operands ----------------------------------------
+
+
+def _expanded(shape, dim, dtype):
+    """A tensor of ``shape`` whose ``dim`` has stride 0."""
+    one = list(shape)
+    one[dim] = 1
+    return torch.randn(one).to(dtype).expand(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("expanded", [None, "q", "k", "v"])
+@pytest.mark.parametrize("layout", ["head", "tokens"])
+def test_forward_operands(layout, expanded, dtype):
+    """Which operands the forward copies (in bfloat16, one with a zero
+    stride, since the kernel reads q, k and v through TMA; in float32
+    none) and which strides o and lse get: the head layout's o takes a
+    dense q's strides and lse is packed [B, H, N]; the token layout's o and
+    lse are [B, H, N, D] and [B, H, N] views of packed [B, N, H*D] and
+    [B, N, H] tensors."""
+    b, n, m, h, d = 2, 24, 40, 4, 16
+    if layout == "head":
+        shapes = {"q": (b, h, n, d), "k": (b, h, m, d), "v": (b, h, m, d)}
+        # q as the [B, H, N, D] view of a token-layout tensor, as the
+        # attention dispatch passes it
+        made = {"q": FA._heads(torch.randn(b, n, h * d).to(dtype), h),
+                "k": torch.randn(shapes["k"]).to(dtype),
+                "v": torch.randn(shapes["v"]).to(dtype)}
+        if expanded:
+            made[expanded] = _expanded(shapes[expanded], 2, dtype)
+    else:
+        shapes = {"q": (b, n, h * d), "k": (b, m, h * d), "v": (b, m, h * d)}
+        made = {name: torch.randn(shape).to(dtype) for name, shape in shapes.items()}
+        if expanded:
+            made[expanded] = _expanded(shapes[expanded], 1, dtype)
+    heads = None if layout == "head" else h
+    q, k, v, o, lse = FA.flash_attention_forward_operands(
+        made["q"], made["k"], made["v"], heads)
+    views = dict(zip("qkv", (q, k, v)))
+    for name, t in made.items():
+        given = t if layout == "head" else FA._heads(t, h)
+        copied = views[name].data_ptr() != t.data_ptr()
+        assert copied == (dtype == torch.bfloat16 and name == expanded), name
+        assert torch.equal(views[name], given)
+        assert FA._no_zero_stride(views[name]) or dtype == torch.float32
+    assert o.shape == (b, h, n, d) and o.dtype == dtype
+    assert lse.shape == (b, h, n) and lse.dtype == torch.float32
+    if layout == "head":
+        q_dense = expanded != "q" or dtype == torch.bfloat16
+        assert o.stride() == (q.stride() if q_dense else (h * n * d, n * d, d, 1))
+        assert lse.stride() == (h * n, n, 1)
+    else:
+        assert o.stride() == (n * h * d, d, h * d, 1)
+        assert lse.stride() == (n * h, 1, h)

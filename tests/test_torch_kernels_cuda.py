@@ -106,11 +106,13 @@ def test_group_norm_silu_gradient_recomputes_through_plain_version(cuda):
 
 
 # (tokens N, KV tokens M, width H*D, heads): the chest-spatial path's shape
-# classes (1024 tokens d=32, 256 d=64 and d=32, 64 d=128 and d=64), a
-# ragged cross-attention and the smoke preset's d=16
+# classes (1024 tokens d=32, 256 d=64 and d=32, 64 d=128 and d=64), the
+# smoke preset's d=16, and N and M off the bf16 kernel's 64-row query blocks
+# and 64-key tiles at head dims 16 to 128
 ATTN_CASES = [(1024, 1024, 256, 8), (256, 256, 512, 8), (256, 256, 256, 8),
-              (64, 64, 1024, 8), (64, 64, 512, 8), (77, 45, 256, 4),
-              (100, 100, 32, 2)]
+              (64, 64, 1024, 8), (64, 64, 512, 8), (100, 100, 32, 2),
+              (77, 45, 256, 4), (77, 45, 128, 4), (45, 77, 64, 4), (45, 77, 512, 8),
+              (1000, 1024, 256, 8), (129, 127, 512, 4), (1, 64, 64, 4), (64, 3, 512, 4)]
 
 
 def _attn_inputs(gen, b, n, m, c, dtype):
@@ -140,6 +142,42 @@ def test_flash_attention_both_layouts_match_plain_version(cuda, dtype, n, m, c, 
     for out, lo in ((FA._heads(o, heads), lse.transpose(1, 2)), (oh, lseh)):
         torch.testing.assert_close(out.float(), ro.float(), atol=atol, rtol=rtol)
         torch.testing.assert_close(lo, rlse, atol=ltol, rtol=ltol)
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("layout", ["head", "tokens"])
+def test_flash_attention_takes_an_expanded_operand(cuda, dtype, layout):
+    """A k with a zero stride (one key broadcast over M) is read as it is in
+    float32 and copied for the bfloat16 kernel's TMA loads; either way o and
+    lse match the plain version."""
+    q, v = _attn_inputs(cuda, 2, 96, 80, 256, dtype)[::2]
+    k = torch.randn((2, 1, 256), generator=cuda, device="cuda").to(dtype).expand(2, 80, 256)
+    qh, kh, vh = (FA._heads(t, 8) for t in (q, k, v))
+    ro, rlse = FA.naive_attention_reference(qh, kh, vh, 0.5)
+    if layout == "head":
+        o, lse = FA.flash_attention(qh, kh, vh, 0.5)
+    else:
+        o, lse = FA.flash_attention_tokens(q, k, v, 8, 0.5)
+        o, lse = FA._heads(o, 8), lse.transpose(1, 2)
+    atol, rtol = _attn_o_tol(ro)
+    torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, rlse, atol=ATTN_LSE_TOL[dtype], rtol=ATTN_LSE_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["head", "tokens"])
+def test_flash_attention_is_deterministic(cuda, layout):
+    """No atomics: two bf16 runs at 1,024 tokens d=32 (the head layout's
+    path shape) give the same bits, o and lse."""
+    q, k, v = _attn_inputs(cuda, 2, 1024, 1024, 256, torch.bfloat16)
+    if layout == "head":
+        run = lambda: FA.flash_attention_cuda(*(FA._heads(t, 8) for t in (q, k, v)), 0.5)  # noqa: E731
+    else:
+        run = lambda: FA.flash_attention_tokens_cuda(q, k, v, 8, 0.5)  # noqa: E731
+    first, second = run(), run()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -260,6 +298,23 @@ def _side_stream_group_norm(gen):
             lambda r: (1e-2, 1e-2))
 
 
+def _side_stream_attention(gen):
+    """The forward kernel (bf16) in both layouts: o and lse of each."""
+    q, k, v = (torch.randn((2, 256, 256), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    qh, kh, vh = (FA._heads(t, 8) for t in (q, k, v))
+
+    def kernels():
+        o, lse = FA.flash_attention_tokens_cuda(q, k, v, 8, 0.5)
+        return [FA._heads(o, 8), lse.transpose(1, 2), *FA.flash_attention_cuda(qh, kh, vh, 0.5)]
+
+    def plain():
+        return 2 * list(FA.naive_attention_reference(qh, kh, vh, 0.5))
+
+    return kernels, plain, lambda r: (_attn_o_tol(r) if r.dtype == torch.bfloat16
+                                      else (ATTN_LSE_TOL[torch.bfloat16],) * 2)
+
+
 def _side_stream_attention_backward(gen):
     """Both backward kernels (bf16, token layout) on their operands."""
     q, k, v, do = (torch.randn((2, 256, 256), generator=gen, device="cuda").bfloat16()
@@ -279,10 +334,12 @@ def _side_stream_attention_backward(gen):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["group_norm_silu", "flash_attention_backward"])
+@pytest.mark.parametrize("kernel", ["group_norm_silu", "flash_attention",
+                                    "flash_attention_backward"])
 def test_launch_on_a_side_stream(cuda, kernel):
     """A launch goes on the caller's current stream, not the default one."""
     make = {"group_norm_silu": _side_stream_group_norm,
+            "flash_attention": _side_stream_attention,
             "flash_attention_backward": _side_stream_attention_backward}[kernel]
     run, plain, tol = make(cuda)
     stream = torch.cuda.Stream()

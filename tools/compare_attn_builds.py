@@ -1,0 +1,226 @@
+#!/usr/bin/env python3
+"""Compare builds of the flash-attention kernels on one CUDA card.
+
+Each variant is a directory holding the kernel's source
+(``flash_attention.cu`` for the forward, ``flash_attention_bwd.cu`` for the
+backward) and its headers (a copy of ``medfusion_tpu_torch/csrc`` with a
+change, or the package's own), plus optional ``-D`` macros. Every variant is
+built with the package's nvcc flags (its bf16 ptxas registers, spills and
+warnings printed), checked against the plain version at ragged and path
+shapes in bf16 (the forward's o within two bf16 ulps of max|o| and its lse
+within 1e-4, the backward's gradients within two ulps of the largest, as
+``chip_smoke.py``), and timed at the path's five shapes in turns, A B ... B
+A, the faster of each variant's two turns kept: the forward at the
+flagship sampling batch (B=64 UNet rows) beside
+``F.scaled_dot_product_attention`` on the same inputs, the backward at the
+training batch (B=32). Run from the repository root:
+
+    python3 tools/compare_attn_builds.py --kernel fwd \\
+        now=medfusion_tpu_torch/csrc other=path/to/copy:MACRO=1,OTHER
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CHECKS = [(1024, 1024, 256, 8, "head"), (256, 256, 512, 8, "tokens"),
+          (64, 64, 1024, 8, "tokens"), (77, 45, 256, 4, "tokens"),
+          (45, 77, 64, 4, "head"), (1000, 1024, 256, 8, "head"),
+          (129, 127, 512, 4, "tokens"), (300, 200, 128, 4, "head"),
+          (1, 64, 64, 4, "tokens"), (64, 3, 512, 4, "head")]
+SOURCES = {"fwd": ("flash_attention.cu", ["mf_flash_attention_fwd"]),
+           "bwd": ("flash_attention_bwd.cu",
+                   ["mf_flash_attention_bwd_dq", "mf_flash_attention_bwd_dkv"])}
+
+
+def build(kernel, variants, out_dir):
+    """{name: [entry points]}; prints each build's bf16 ptxas lines."""
+    from medfusion_tpu_torch.ops import build as B
+    from medfusion_tpu_torch.ops import flash_attention as FA
+
+    source, symbols = SOURCES[kernel]
+    argtypes = FA._ARGTYPES if kernel == "fwd" else FA._BWD_ARGTYPES
+    procs = {}
+    for name, (src, macros) in variants.items():
+        lib = out_dir / f"{name}.so"
+        cmd = [B._nvcc(), *B.NVCC_FLAGS, "-I", str(src), *[f"-D{m}" for m in macros],
+               "-o", str(lib), str(src / source)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), lib)
+    fns = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+        print(f"== {name}")
+        entry = None
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "bf16" in line else None
+            elif entry and ("registers" in line or "spill" in line):
+                print(f"   {entry[-60:]}: {line.strip()}")
+            elif "warning" in line.lower():
+                print(f"   {line.strip()}")
+        cdll = ctypes.CDLL(str(lib))
+        fns[name] = []
+        for symbol in symbols:
+            fn = getattr(cdll, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[name].append(fn)
+    return fns
+
+
+def launch_fwd(fn, ops, scale):
+    import torch
+
+    q, k, v, o, lse = ops
+    b, h, n, d = q.shape
+    strides = (ctypes.c_longlong * 15)(*[s for t in (q, o, k, v) for s in t.stride()[:3]],
+                                       *lse.stride())
+    err = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+             b, h, n, k.shape[2], d, ctypes.cast(strides, ctypes.c_void_p), float(scale),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"launch failed: error {err}")
+
+
+def launch_bwd(fn, ops, scale):
+    import torch
+
+    q, k = ops[0], ops[1]
+    b, h, n, d = q.shape
+    ptrs = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in ops])
+    strides = (ctypes.c_longlong * 30)(*[s for t in ops for s in t.stride()[:3]])
+    err = fn(1, ctypes.cast(ptrs, ctypes.c_void_p), b, h, n, k.shape[2], d,
+             ctypes.cast(strides, ctypes.c_void_p), float(scale * scale),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"launch failed: error {err}")
+
+
+def fwd_operands(CS, FA, b, n, m, c, heads, layout, gen):
+    """The forward kernel's operands (q, k, v, o, lse views) and scale."""
+    import torch
+
+    q, k, v = CS.attn_inputs(b, n, m, c, torch.bfloat16, gen)
+    if layout == "head":
+        ops = FA.flash_attention_forward_operands(*(FA._heads(t, heads) for t in (q, k, v)))
+    else:
+        ops = FA.flash_attention_forward_operands(q, k, v, heads)
+    return ops, (c // heads) ** -0.25
+
+
+def bwd_operands(CS, FA, b, n, m, c, heads, layout, gen):
+    import torch
+
+    q, k, v = CS.attn_inputs(b, n, m, c, torch.bfloat16, gen)
+    do = torch.randn((b, n, c), generator=gen, device="cuda").bfloat16()
+    return CS.bwd_operands(FA, q, k, v, heads, layout, do)
+
+
+def check(kernel, CS, FA, fns, gen):
+    """Each variant against the plain version at CHECKS; returns False if
+    any fails."""
+    import torch
+
+    ok_all = True
+    for n, m, c, heads, layout in CHECKS:
+        if kernel == "fwd":
+            ops, scale = fwd_operands(CS, FA, 2, n, m, c, heads, layout, gen)
+            ro, rlse = FA.naive_attention_reference(*ops[:3], scale)
+            refs = [(ops[3], ro, CS.attn_o_tol(ro)[0]),
+                    (ops[4], rlse, CS.ATTN_LSE_TOL["bfloat16"])]
+        else:
+            ops, scale = bwd_operands(CS, FA, 2, n, m, c, heads, layout, gen)
+            grads = FA.flash_attention_backward_reference(*ops[:4], ops[8], ops[4], scale)
+            refs = [(out, r, CS.attn_bwd_tol(r)[0]) for out, r in zip(ops[5:8], grads)]
+        for name, entries in fns.items():
+            for out, _, _ in refs:
+                out.fill_(float("nan"))
+            for fn in entries:
+                (launch_fwd if kernel == "fwd" else launch_bwd)(fn, ops, scale)
+            torch.cuda.synchronize()
+            errs = [((out.float() - r.float()).abs().max().item(), tol)
+                    for out, r, tol in refs]
+            ok = all(e <= tol for e, tol in errs)  # NaN fails
+            ok_all &= ok
+            print(f"check N={n} M={m} C={c} H={heads} {layout}: {name} "
+                  f"{'ok' if ok else 'FAIL'} " + "/".join(f"{e:.2e}" for e, _ in errs),
+                  flush=True)
+    return ok_all
+
+
+def times(kernel, CS, FA, fns, gen):
+    """Each variant's time at the path's shapes, in turns; the forward also
+    beside SDPA on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    totals = {name: [0.0] * len(entries) for name, entries in fns.items()}
+    sdpa_total = 0.0
+    for n, c, heads, _, layout in CS.ATTN_SHAPES:
+        if kernel == "fwd":
+            b = CS.TIMING_BATCH["unet"]
+            ops, scale = fwd_operands(CS, FA, b, n, n, c, heads, layout, gen)
+            go = launch_fwd
+        else:
+            b = CS.TRAIN_BATCH
+            ops, scale = bwd_operands(CS, FA, b, n, n, c, heads, layout, gen)
+            go = launch_bwd
+        best = {}
+        for name in list(fns) + list(fns)[::-1]:
+            ts = [CS.graph_ms(lambda f=f: go(f, ops, scale), 20) for f in fns[name]]
+            best[name] = [min(a, b) for a, b in zip(best.get(name, ts), ts)]
+        for name, ts in best.items():
+            totals[name] = [a + t for a, t in zip(totals[name], ts)]
+        extra = ""
+        if kernel == "fwd":
+            sc = torch.tensor(scale, dtype=torch.bfloat16)
+            qh, kh, vh = ops[:3]
+            t_l = CS.graph_ms(lambda: F.scaled_dot_product_attention(
+                qh * sc, kh * sc, vh, scale=1.0), 20)
+            sdpa_total += t_l
+            extra = f"; sdpa {t_l:.4f}"
+        print(f"ms N={n} d={c // heads} {layout} B={b}: " + "; ".join(
+            f"{name} " + "/".join(f"{t:.4f}" for t in ts) for name, ts in best.items())
+            + extra, flush=True)
+    print("sums: " + "; ".join(f"{name} " + "/".join(f"{t:.4f}" for t in ts)
+                               for name, ts in totals.items())
+          + (f"; sdpa {sdpa_total:.4f}" if kernel == "fwd" else ""))
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernel", choices=sorted(SOURCES), default="fwd")
+    parser.add_argument("variants", nargs="+", help="name=dir[:MACRO,MACRO=1]")
+    args = parser.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_attn_builds: no CUDA device")
+    import chip_smoke as CS
+    from medfusion_tpu_torch.ops import flash_attention as FA
+
+    variants = {}
+    for spec in args.variants:
+        name, rest = spec.split("=", 1)
+        src, _, macros = rest.partition(":")
+        variants[name] = (Path(src).resolve(), [m for m in macros.split(",") if m])
+    with tempfile.TemporaryDirectory() as tmp:
+        fns = build(args.kernel, variants, Path(tmp))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ok = check(args.kernel, CS, FA, fns, gen)
+        times(args.kernel, CS, FA, fns, gen)
+    print(CS.card_line())
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
