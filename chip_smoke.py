@@ -12,23 +12,27 @@ Phases (each raises on failure, so any failure exits non-zero):
    library's seconds, ptxas registers and spills);
 3. each kernel against its plain PyTorch version on the card, at every shape
    of the main paths (flash attention in both layouts, with its lse, and its
-   two backward kernels; GEGLU also at the sampling batch, where its
-   launches split F otherwise), in float32 and bfloat16;
+   two backward kernels, also at head widths off 16/32/64/128 and above
+   128; GEGLU also at the sampling batch, whose launch plan differs), in
+   float32 and bfloat16;
 4. kernel times at the flagship batch (kernel, plain version, one PyTorch
    library call where one computes the same function, and the card's bound
    for the same work), each timed launch also held to its plain version;
    the attention kernels (forward at the flagship batch, backward at the
    training batch) with the tensor rate each reaches and the SFU time of its
-   exponentials, which their bounds include;
+   exponentials, which their bounds include; the attention forward at the
+   wide heads of ``attn_heads`` 4, 2 and 1 beside SDPA; GEGLU beside the two
+   cuBLAS products of its matrix work (the library's floor for them);
 5. the small ``smoke`` preset on the card and on the CPU from the same
    weights and draws, float32: sampled without attention and with spatial
    attention (one head, so head dims 16 and 32), and trained for two steps
    with spatial attention;
 6. the sampling paths: the ``chest`` preset at full width, bfloat16, 8
    samples, 150 DDIM steps, eta 1, guidance 8, VAE decode, first without
-   attention (slice 1) and then with spatial attention (slice 2), each with
-   the kernel launches counted from zero and checked against the counts
-   derived here;
+   attention (slice 1), then with spatial attention (slice 2), then with
+   spatial attention at 2 heads (head widths 128 to 512), each with the
+   kernel launches counted from zero and checked against the counts derived
+   here;
 7. a breakdown of the spatial sampling path: one CFG UNet step and one
    decode timed with CUDA events, and a profiled 5-step sample with its
    device time by kind;
@@ -119,6 +123,17 @@ TRAIN_EXPECTED_PER_STEP = {
     "flash_attention_bwd_dkv": TRANSFORMERS,
     "geglu_mlp": TRANSFORMERS,
 }
+# head widths the attention kernels reach by zero-filled columns (8, 24) or
+# by 128-column chunks (136 and up; at 136 the last chunk is one half),
+# held to the plain versions in phase 3
+WIDE_HEAD_DIMS = (8, 24, 136, 256, 512, 1024)
+# the flagship batch's attention shapes at attn_heads 4, 2 and 1 (tokens N,
+# width C, heads), timed in phase 4 beside SDPA, recorded and not judged
+WIDE_ATTN_SHAPES = ((64, 1024, 4), (256, 512, 2), (64, 1024, 2), (1024, 256, 1),
+                    (256, 512, 1), (64, 1024, 1))
+# the sampling run at attn_heads 2 (head widths 128 at 32^2, 256 and 128 at
+# 16^2, 512 and 256 at 8^2): same launches as at 8 heads
+WIDE_SAMPLE_HEADS = 2
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # attention lse: f32 sums of the same products in another order (bfloat16:
 # of the same bf16 q*s and k*s); o's tolerance is attn_o_tol's
@@ -370,10 +385,9 @@ def check_geglu(GL, rows, c, dtype, gen):
     out = GL.geglu_mlp_cuda(*args)
     ref = GL.geglu_mlp_reference(*args)
     err = close(f"geglu M={rows} C={c} {name}", out, ref, tol, tol)
-    sms = torch_sms()
-    block_rows, splits = GL.launch_shape(rows, c, 4 * c, dtype, sms)
-    log(f"  geglu M={rows} C={c} F={4 * c} {name} ({block_rows} rows a block, F "
-        f"in {splits}): max|d|={err:.3e} (atol=rtol={tol})")
+    plan = GL.launch_shape(rows, c, 4 * c, dtype, torch_sms())
+    log(f"  geglu M={rows} C={c} F={4 * c} {name} ({plan.block_rows} rows, "
+        f"{plan.tiles_per_block} n-tiles a block): max|d|={err:.3e} (atol=rtol={tol})")
     return err
 
 
@@ -413,14 +427,22 @@ def phase_kernel_checks(G, FA, GL):
                                   (1, 64, 64, 4), (64, 3, 512, 4)]):
             for kernel, err in check_attention(FA, n, m, c, heads, dtype, gen).items():
                 keep(worst, kernel, name, err)
-        # the backward at every training-path shape and a ragged one
+        # head widths off the compiled 16/32/64/128 (zero-filled columns) and
+        # above 128 (128-column chunks), two heads, N and M off the blocks
+        wide = [(n, m, 2 * d, 2) for d in WIDE_HEAD_DIMS for n, m in ((77, 45), (129, 127))]
+        for n, m, c, heads in wide:
+            for kernel, err in check_attention(FA, n, m, c, heads, dtype, gen).items():
+                keep(worst, kernel, name, err)
+        # the backward at every training-path shape, ragged ones, and the
+        # head widths above
         for n, m, c, heads in ([(n, n, c, h) for n, c, h, _, _ in ATTN_SHAPES]
-                               + [(77, 45, 256, 4), (45, 77, 64, 4)]):
+                               + [(77, 45, 256, 4), (45, 77, 64, 4)] + wide):
             for kernel, err in check_attention_backward(FA, n, m, c, heads, dtype,
                                                         gen).items():
                 keep(worst, kernel, name, err)
         for rows, c in ([(b * n, c) for b in (2, 2 * N_SAMPLES)
-                         for n, c, _, _, _ in ATTN_SHAPES] + [(77, 256), (130, 16)]):
+                         for n, c, _, _, _ in ATTN_SHAPES]
+                         + [(77, 256), (130, 16), (1000, 1024), (1000, 512)]):
             keep(worst, "geglu_mlp", name, check_geglu(GL, rows, c, dtype, gen))
         torch.cuda.synchronize()
     return worst
@@ -523,40 +545,94 @@ def phase_attention_geglu_times(FA, GL, worst):
             f"exp_ms {exp_ms:.4f}): {r['bound_ms'] / t_k:.1%} of bound, "
             f"{r['tflops']:.1f} TFLOP/s")
         del q, k, v, qh, kh, vh
-        rows, f = b * n, 4 * c
-        args = geglu_inputs(rows, c, torch.bfloat16, gen)
-        tol = GEGLU_TOL["bfloat16"]
-        err = close(f"geglu M={rows} C={c}", GL.geglu_mlp_cuda(*args),
-                    GL.geglu_mlp_reference(*args), tol, tol)
-        keep(worst, "geglu_mlp", "bfloat16", err)
-        t_k = graph_ms(lambda: GL.geglu_mlp_cuda(*args), 20)
-        t_e = cuda_ms(lambda: GL.geglu_mlp_cuda(*args), 20)
-        t_p = graph_ms(lambda: GL.geglu_mlp_reference(*args), 5)
-        flops = 6 * rows * c * f
-        nbytes = (2 * rows * c + 3 * c * f + 2 * f + 3 * c) * 2
-        geglu.append(dict(M=rows, C=c, F=f, launches_per_forward=per_fwd, ms=t_k,
-                          eager_ms=t_e, plain_ms=t_p, library_ms=None,
-                          **bounds(flops, nbytes)))
-        bound = geglu[-1]["bound_ms"]
-        block_rows, splits = GL.launch_shape(rows, c, f, torch.bfloat16, sms)
-        log(f"  geglu M={rows} C={c} F={f} ({block_rows} rows a block, F in "
-            f"{splits}): max|d| {err:.3e}; kernel {t_k:.4f} ms (eager {t_e:.4f}), "
-            f"plain {t_p:.4f} ms, bound {bound:.4f} ms ({bound / t_k:.1%} of bound, "
-            f"{flops / t_k / 1e9:.1f} TFLOP/s)")
-        del args
-    # the main path's own batch: B=8 with CFG, 16 UNet rows (held to the
-    # plain version in phase 3)
-    for n, c, _, _, _ in ATTN_SHAPES:
-        rows = 2 * N_SAMPLES * n
-        args = geglu_inputs(rows, c, torch.bfloat16, gen)
-        t_k = graph_ms(lambda: GL.geglu_mlp_cuda(*args), 20)
-        t_p = graph_ms(lambda: GL.geglu_mlp_reference(*args), 5)
-        block_rows, splits = GL.launch_shape(rows, c, 4 * c, torch.bfloat16, sms)
-        log(f"  geglu at the sampling batch M={rows} C={c}: {block_rows} rows a "
-            f"block, F in {splits}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-        del args
+        geglu.append(geglu_times(GL, b * n, c, per_fwd, worst, gen, sms))
+    # the main path's own batch: B=8 with CFG, 16 UNet rows (also held to
+    # the plain version in phase 3)
+    geglu_b8 = [geglu_times(GL, 2 * N_SAMPLES * n, c, per_fwd, worst, gen, sms)
+                for n, c, _, per_fwd, _ in ATTN_SHAPES]
     torch.cuda.empty_cache()
-    return attn, geglu
+    return attn, geglu, geglu_b8
+
+
+def geglu_times(GL, rows, c, per_fwd, worst, gen, sms):
+    """One GEGLU shape, bf16: held to the plain version, then the kernels'
+    time (replayed graph and eager), the plain version's, and the two cuBLAS
+    products of the same matrix work (xn [M, C] @ W1 [C, 2F] and g [M, F]
+    @ W2 [F, C], timed only: the library's floor for the two-kernel
+    design's products, not a call that computes the function). Bound: 6 M
+    C F FLOPs, or reading x and the weights and writing the output once."""
+    import torch
+
+    f = 4 * c
+    args = geglu_inputs(rows, c, torch.bfloat16, gen)
+    tol = GEGLU_TOL["bfloat16"]
+    err = close(f"geglu M={rows} C={c}", GL.geglu_mlp_cuda(*args),
+                GL.geglu_mlp_reference(*args), tol, tol)
+    keep(worst, "geglu_mlp", "bfloat16", err)
+    t_k = graph_ms(lambda: GL.geglu_mlp_cuda(*args), 20)
+    t_e = cuda_ms(lambda: GL.geglu_mlp_cuda(*args), 20)
+    t_p = graph_ms(lambda: GL.geglu_mlp_reference(*args), 5)
+    xn = torch.randn((rows, c), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((rows, f), generator=gen, device="cuda").bfloat16()
+    w1, w2 = args[3], args[5]
+    t_mm = graph_ms(lambda: xn @ w1, 20) + graph_ms(lambda: g @ w2, 20)
+    flops = 6 * rows * c * f
+    nbytes = (2 * rows * c + 3 * c * f + 2 * f + 3 * c) * 2
+    row = dict(M=rows, C=c, F=f, launches_per_forward=per_fwd, ms=t_k, eager_ms=t_e,
+               plain_ms=t_p, library_ms=None, cublas_products_ms=t_mm,
+               tflops=flops / t_k / 1e9, **bounds(flops, nbytes))
+    plan = GL.launch_shape(rows, c, f, torch.bfloat16, sms)
+    log(f"  geglu M={rows} C={c} F={f} ({plan.block_rows} rows and {plan.tiles_per_block} "
+        f"n-tiles an up-projection block, grids {plan.up_grid} and {plan.down_grid}): "
+        f"max|d| {err:.3e}; kernel {t_k:.4f} ms (eager {t_e:.4f}), plain {t_p:.4f} ms "
+        f"({t_p / t_k:.2f}x the kernel's time), cuBLAS products {t_mm:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / t_k:.1%} of bound, "
+        f"{row['tflops']:.1f} TFLOP/s)")
+    return row
+
+
+def phase_wide_attention_times(FA, worst):
+    """Phase 4, continued: the attention forward at the flagship batch (64
+    UNet rows), bf16, at the head widths of ``attn_heads`` 4, 2 and 1
+    (WIDE_ATTN_SHAPES; 128-column chunks above d = 128), held to the plain
+    version and timed beside SDPA: recorded, not judged."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b = TIMING_BATCH["unet"]
+    rows = []
+    for n, c, heads in WIDE_ATTN_SHAPES:
+        d = c // heads
+        scale = d ** -0.25
+        q, k, v = attn_inputs(b, n, n, c, torch.bfloat16, gen)
+        qh, kh, vh = (FA._heads(t, heads) for t in (q, k, v))
+        if n >= 1024:
+            layout = "head"
+            kern = lambda: FA.flash_attention_cuda(qh, kh, vh, scale)  # noqa: E731
+            o = kern()[0]
+        else:
+            layout = "tokens"
+            kern = lambda: FA.flash_attention_tokens_cuda(q, k, v, heads, scale)  # noqa: E731
+            o = FA._heads(kern()[0], heads)
+        ref = FA.naive_attention_reference(qh, kh, vh, scale)[0]
+        err = close(f"attn {layout} B={b} N={n} d={d}", o, ref, *attn_o_tol(ref))
+        keep(worst, "flash_attention" if layout == "head" else "flash_attention_tokens",
+             "bfloat16", err)
+        del o, ref
+        sc = torch.tensor(scale, dtype=torch.bfloat16)
+        t_k = graph_ms(kern, 10)
+        t_l = graph_ms(lambda: F.scaled_dot_product_attention(qh * sc, kh * sc, vh,
+                                                              scale=1.0), 10)
+        flops = 4 * b * heads * n * n * d
+        rows.append(dict(layout=layout, N=n, H=heads, d=d, ms=t_k, library_ms=t_l,
+                         tflops=flops / t_k / 1e9))
+        log(f"  wide heads: attention {layout} B={b} N={n} H={heads} d={d}: max|d| o "
+            f"{err:.3e}; kernel {t_k:.4f} ms vs sdpa {t_l:.4f} ms ({t_k / t_l:.2f}x), "
+            f"{flops / t_k / 1e9:.1f} TFLOP/s")
+        del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_attention_backward_times(FA, worst):
@@ -758,9 +834,10 @@ def phase_smoke_train_vs_cpu():
     close_params("smoke training EMA after 2 steps", e_out, e_ref, p.diffusion_lr, 2)
 
 
-def phase_main_path(ops, attention):
+def phase_main_path(ops, attention, attn_heads=8):
     """Phase 6: chest, bf16, B=8, 150 steps, CFG 8, decode, with the
-    launches counted from zero and held to EXPECTED[attention]."""
+    launches counted from zero and held to EXPECTED[attention] (the head
+    count changes the head widths, not the launches)."""
     import torch
 
     from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
@@ -768,19 +845,21 @@ def phase_main_path(ops, attention):
 
     p = PRESETS["chest"]
     t0 = time.perf_counter()
-    f32 = build_pipeline(p, device="cuda", seed=0, attention=attention)
+    f32 = build_pipeline(p, device="cuda", seed=0, attention=attention,
+                         attn_heads=attn_heads)
     gen = torch.Generator(device="cuda").manual_seed(0)
     perturb_(f32.noise_estimator, gen)
     perturb_(f32.latent_embedder, gen)
     pipe = build_pipeline(p, device="cuda", compute_dtype=torch.bfloat16, seed=0,
-                          attention=attention)
+                          attention=attention, attn_heads=attn_heads)
     pipe.noise_estimator.load_state_dict(f32.noise_estimator.state_dict())
     pipe.latent_embedder.load_state_dict(f32.latent_embedder.state_dict())
     torch.cuda.synchronize()
     unet = pipe.noise_estimator
     n_params = sum(q.numel() for q in unet.parameters())
     n_st = sum(isinstance(m, SpatialTransformer) for m in unet.modules())
-    log(f"  built chest UNet attention={attention} ({n_params / 1e6:.1f} M params, "
+    log(f"  built chest UNet attention={attention} heads={attn_heads} "
+        f"({n_params / 1e6:.1f} M params, "
         f"{n_st} spatial transformers) + VAE in {time.perf_counter() - t0:.1f} s")
     if n_st != (TRANSFORMERS if attention == "spatial" else 0):
         raise RuntimeError(f"{n_st} spatial transformers, the counts assume "
@@ -801,7 +880,8 @@ def phase_main_path(ops, attention):
         y32, _ = f32.noise_estimator(x, t, c)
         y16, _ = unet(x.bfloat16(), t, c)
     rel = ((y16.float() - y32).abs().max() / y32.abs().max()).item()
-    log(f"  chest UNet forward bf16 vs f32: max|d|/max|ref| = {rel:.3e} (limit 5e-2)")
+    log(f"  chest UNet forward heads={attn_heads} bf16 vs f32: max|d|/max|ref| = "
+        f"{rel:.3e} (limit 5e-2)")
     if not rel < 5e-2:
         raise RuntimeError(f"bf16 UNet departs from f32 by {rel:.3e}")
     del f32, y32, y16
@@ -818,7 +898,8 @@ def phase_main_path(ops, attention):
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()
     expected = EXPECTED[attention]
-    log(f"  chest attention={attention} sample: {tuple(imgs.shape)} in {seconds:.3f} "
+    log(f"  chest attention={attention} heads={attn_heads} sample: {tuple(imgs.shape)} "
+        f"in {seconds:.3f} "
         f"s = {N_SAMPLES / seconds:.3f} samples/s; launches {launches} "
         f"(expected {expected})")
     if tuple(imgs.shape) != (N_SAMPLES, 256, 256, 3):
@@ -1163,8 +1244,9 @@ def main():
     log("[4] kernel times (bf16; CUDA events around a replayed CUDA graph of "
         "the launches, and around the same launches made eagerly)")
     rows = phase_kernel_times(G)
-    attn_rows, geglu_rows = phase_attention_geglu_times(FA, GL, worst)
+    attn_rows, geglu_rows, geglu_b8 = phase_attention_geglu_times(FA, GL, worst)
     bwd_rows = phase_attention_backward_times(FA, worst)
+    wide_rows = phase_wide_attention_times(FA, worst)
 
     log("[5] smoke preset: card against CPU (float32)")
     for attention in ("none", "spatial"):
@@ -1181,6 +1263,10 @@ def main():
     phase_breakdown(pipe)
     del pipe
     torch.cuda.empty_cache()
+    log(f"[6b] sampling path: chest-spatial at {WIDE_SAMPLE_HEADS} heads, bf16")
+    launches_wide, _, pipe = phase_main_path(ops, "spatial", WIDE_SAMPLE_HEADS)
+    del pipe
+    torch.cuda.empty_cache()
 
     log("[8] training path: chest-spatial, bf16 compute, f32 masters, "
         f"B={TRAIN_BATCH}, AdamW + EMA")
@@ -1194,10 +1280,14 @@ def main():
     attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
     attn_sdpa = sum(r["library_ms"] * r["launches_per_forward"] for r in attn_rows)
     geglu_fwd = sum(r["ms"] * r["launches_per_forward"] for r in geglu_rows)
+    geglu_mm = sum(r["cublas_products_ms"] * r["launches_per_forward"] for r in geglu_rows)
+    geglu_fwd_b8 = sum(r["ms"] * r["launches_per_forward"] for r in geglu_b8)
+    geglu_plain_b8 = sum(r["plain_ms"] * r["launches_per_forward"] for r in geglu_b8)
     bwd_step = sum(r["ms"] * r["launches_per_step"] for k in bwd_rows for r in bwd_rows[k])
     log(f"  per UNet forward (B=64): group_norm_silu {per_fwd:.4f} ms (the conv "
         f"blocks'), attention {attn_fwd:.4f} ms (sdpa {attn_sdpa:.4f}), geglu "
-        f"{geglu_fwd:.4f} ms; "
+        f"{geglu_fwd:.4f} ms (its cuBLAS products {geglu_mm:.4f}; at the sampling batch, "
+        f"16 rows: {geglu_fwd_b8:.4f} ms, plain {geglu_plain_b8:.4f}); "
         f"group_norm_silu per decode (B=32): {per_dec:.4f} ms; attention backward "
         f"per training step (B=32): {bwd_step:.4f} ms of {train_ms:.1f} ms")
 
@@ -1230,8 +1320,11 @@ def main():
                    worst["geglu_mlp"]["bfloat16"], geglu_rows),
     ]
     log(f"  worst errors by kernel and dtype: {worst}")
-    log(f"  launches: chest none {launches_none}, chest spatial {launches}, "
-        f"chest-spatial training {train_launches}")
+    log(f"  launches: chest none {launches_none}, chest spatial {launches}, chest spatial "
+        f"at {WIDE_SAMPLE_HEADS} heads {launches_wide}, chest-spatial training "
+        f"{train_launches}")
+    log("  wide heads (ms kernel / sdpa): " + ", ".join(
+        f"N={r['N']} d={r['d']} {r['ms']:.4f}/{r['library_ms']:.4f}" for r in wide_rows))
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

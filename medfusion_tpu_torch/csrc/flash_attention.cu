@@ -54,9 +54,24 @@
 //     sharing each tile (with and without FlashAttention-3's ping-pong
 //     through named barriers) and three stages; setmaxnreg would move few
 //     registers from a one-warp producer, and the consumer needs no more.
+//
+// Head widths: every d that is a multiple of 8, up to 1,024. d <= 128 runs
+// the kernel compiled for the next width of 16, 32, 64 and 128 (PAD = true
+// where d is narrower: the widths 16-128 themselves keep the instantiation
+// without the column checks): TMA zero-fills the tile's columns past d (a
+// zero column changes no product and no rounding point) and only d columns
+// of o are stored. d > 128 cannot
+// keep a [64, d] f32 accumulator in registers, so flash_fwd_bf16_wide
+// splits o's columns into 128-wide chunks over gridDim.z: each block keeps
+// its 64 query rows' scaled Q resident (d / 64 tiles of 64 columns, 128 KB
+// at d = 1,024), accumulates S = (Q s)(K s)^T over 64-column slices of K
+// streamed through the ring, and multiplies P by its own 128-column chunk
+// of V. Every chunk recomputes the scores (d / 128 times the score FLOPs);
+// chunk 0 writes lse.
 // f32 (not on a bf16 path): the simple version, plain f32 FMA (not TF32),
-// four lanes per query row, each lane holding d/4 of q and of the
-// accumulator, tiles staged with synchronous loads.
+// four lanes per query row, a chunk of DC = min(128, next width >= d)
+// columns of o per block (gridDim.z chunks), the scores summed over DC-wide
+// slices of q and k, tiles staged with synchronous loads.
 //
 // The launch goes on the caller's stream; the kernel allocates nothing. The
 // entry point returns cudaGetLastError() after the launch, or 10000 plus the
@@ -82,7 +97,7 @@ struct Params {
   const void* v;
   void* o;
   float* lse;
-  int H, N, M;
+  int H, N, M, d;
   long long q_sb, q_sh, q_st;
   long long o_sb, o_sh, o_st;
   long long k_sb, k_sh, k_st;
@@ -126,7 +141,7 @@ __device__ __forceinline__ void scale_tile(unsigned char* tile, float s, int lan
   fence_proxy_async();
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(kBf16Threads, D == 128 ? 2 : 3)
     flash_fwd_bf16(Params p, const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -312,6 +327,7 @@ __global__ void __launch_bounds__(kBf16Threads, D == 128 ? 2 : 3)
       for (int hf = 0; hf < HALVES; ++hf) {
 #pragma unroll
         for (int j = 0; j < W / 8; ++j) {
+          if (PAD && hf * W + j * 8 >= p.d) continue;  // columns past d are zero-fill
           *reinterpret_cast<__nv_bfloat162*>(orow + hf * W + j * 8) = __floats2bfloat162_rn(
               acc[hf][4 * j + 2 * r] / l_r[r], acc[hf][4 * j + 2 * r + 1] / l_r[r]);
         }
@@ -321,14 +337,238 @@ __global__ void __launch_bounds__(kBf16Threads, D == 128 ? 2 : 3)
   }
 }
 
+// d > 128 (bf16): one block = 64 query rows x one 128-column chunk of o
+// (blockIdx.z). Shared memory: the scaled Q, kSlices(d) tiles of [64 rows,
+// 64 columns] (8 KB each); a ring of kWideStages stages of 16 KB, each
+// holding one item of the stream: per key tile, the kSlices(d) 64-column
+// slices of K (one 8 KB tile each, scaled in place by the producer), then
+// the block's chunk of V ([64 keys, 128 columns], two halves; the second
+// half is not loaded where it lies wholly past d, and the columns it would
+// feed are not stored); then the mbarriers.
+constexpr int kWideStages = 4;
+constexpr int kHalf = 64 * 128;         // bytes of a [64, 64] bf16 tile
+constexpr int kWideStage = 2 * kHalf;   // one ring stage
+using Half = SwTile<64, kRows>;         // a [64, 64] tile, 128-byte rows
+using Chunk = SwTile<128, kRows>;       // a [64, 128] tile: two halves
+
+__host__ __device__ constexpr int kSlices(int d) { return (d + 63) / 64; }
+inline int wide_smem(int d) {
+  return kSlices(d) * kHalf + kWideStages * kWideStage + (2 + 3 * kWideStages) * 8 + 1024;
+}
+constexpr int kWideMaxSmem = 16 * kHalf + kWideStages * kWideStage + (2 + 3 * kWideStages) * 8 + 1024;
+
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_fwd_bf16_wide(Params p, const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv) {
+  const int nsl = kSlices(p.d);
+  const int per_tile = nsl + 1;  // items of one key tile: the K slices, then V
+  const int c0 = blockIdx.z * 128;  // this block's columns of o
+  const bool hi = c0 + 64 < p.d;    // the chunk's second half holds columns
+  unsigned char* smem = aligned_smem();
+  const uint32_t s0 = smem_addr(smem);
+  const uint32_t ring = s0 + nsl * kHalf;
+  const uint32_t bars = ring + kWideStages * kWideStage;
+  const uint32_t q_landed = bars, q_scaled = bars + 8;
+  // kind 0: landed (TMA bytes), 1: scaled (the producer's 32 lanes), 2: free
+  auto bar = [&](int kind, int st) { return bars + 16 + 8 * (kind * kWideStages + st); };
+  auto stage = [&](int st) { return ring + st * kWideStage; };
+
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  const int q0 = blockIdx.x * kRows;
+  const int tiles = (p.M + kRows - 1) / kRows;
+  const int items = tiles * per_tile;
+  if (threadIdx.x == 0) {
+    mbar_init(q_landed, 1);
+    mbar_init(q_scaled, 32);
+    for (int st = 0; st < kWideStages; ++st) {
+      mbar_init(bar(0, st), 1);
+      mbar_init(bar(1, st), 32);
+      mbar_init(bar(2, st), kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const float s = __bfloat162float(__float2bfloat16(p.scale));
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    auto issue = [&](int i) {  // item i into its stage
+      const int st = i % kWideStages;
+      if (i >= kWideStages) mbar_wait(bar(2, st), ((i / kWideStages) & 1) ^ 1);
+      if (lane == 0) {
+        const int it = i / per_tile, j = i % per_tile;
+        if (j < nsl) {
+          mbar_arrive_expect_tx(bar(0, st), kHalf);
+          tma_load_4d(stage(st), &tk, j * 64, it * kRows, h, b, bar(0, st));
+        } else {
+          mbar_arrive_expect_tx(bar(0, st), hi ? 2 * kHalf : kHalf);
+          tma_load_4d(stage(st), &tv, c0, it * kRows, h, b, bar(0, st));
+          if (hi) tma_load_4d(stage(st) + kHalf, &tv, c0 + 64, it * kRows, h, b, bar(0, st));
+        }
+      }
+    };
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_landed, nsl * kHalf);
+      for (int j = 0; j < nsl; ++j) tma_load_4d(s0 + j * kHalf, &tq, j * 64, q0, h, b, q_landed);
+    }
+    for (int i = 0; i < kWideStages - 1 && i < items; ++i) issue(i);
+    mbar_wait(q_landed, 0);
+    for (int j = 0; j < nsl; ++j) scale_tile<kHalf>(smem + j * kHalf, s, lane);
+    mbar_arrive(q_scaled);
+    // scale item i where it is a K slice, then refill the stage item i - 1
+    // frees; "scaled" completes for a V item too (with nothing to wait
+    // for), so that each stage's barriers complete once per item
+    for (int i = 0; i < items; ++i) {
+      const int st = i % kWideStages;
+      if (i % per_tile < nsl) {
+        mbar_wait(bar(0, st), (i / kWideStages) & 1);
+        scale_tile<kHalf>(smem + (stage(st) - s0), s, lane);
+      }
+      mbar_arrive(bar(1, st));
+      if (i + kWideStages - 1 < items) issue(i + kWideStages - 1);
+    }
+  } else {  // the consumer warpgroup
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    float m_r[2] = {kInitMax, kInitMax};
+    float l_r[2] = {0.f, 0.f};
+    float acc[2][32];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[hf][i] = 0.f;
+    }
+    mbar_wait(q_scaled, 0);
+
+    for (int it = 0; it < tiles; ++it) {
+      // S = sum over the slices of (Q_j s)(K_j s)^T; slice j's stage is
+      // freed once slice j + 1's products are issued and j's have completed
+      float sc[kRows / 2];
+      for (int j = 0; j < nsl; ++j) {
+        const int i = it * per_tile + j;
+        const int st = i % kWideStages;
+        mbar_wait(bar(1, st), (i / kWideStages) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          Wgmma<kRows>::ss(sc, Half::k_major(s0 + j * kHalf, kk), Half::k_major(stage(st), kk),
+                           j > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (j > 0) mbar_arrive(bar(2, (i - 1) % kWideStages));
+      }
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(bar(2, (it * per_tile + nsl - 1) % kWideStages));
+      const int k0 = it * kRows;
+      if (k0 + kRows > p.M) {
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (k0 + j * 8 + t4 * 2 + (e & 1) >= p.M) sc[4 * j + e] = -INFINITY;
+          }
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float ml[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);
+        ml[r] = m_new * kLog2e;
+        alpha[r] = ex2(fmaf(m_r[r], kLog2e, -ml[r]));
+        m_r[r] = m_new;
+        l_r[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv = ex2(fmaf(sc[4 * j + e], kLog2e, -ml[e >> 1]));
+          sc[4 * j + e] = pv;
+          l_r[e >> 1] += pv;
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[hf][i] *= alpha[(i >> 1) & 1];
+      }
+      // O[:, chunk] += P V[:, chunk]
+      uint32_t pa[kRows / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) a_from_c(pa[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+      const int i = it * per_tile + nsl;
+      const int st = i % kWideStages;
+      mbar_wait(bar(0, st), (i / kWideStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        Wgmma<64>::rs(acc[0], pa[kk], Chunk::mn_major(stage(st), kk, 0));
+        if (hi) Wgmma<64>::rs(acc[1], pa[kk], Chunk::mn_major(stage(st), kk, 1));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[kk][e])::"memory");
+      }
+      mbar_arrive(bar(2, st));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    }
+    bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+    float* lse = p.lse + b * p.l_sb + h * p.l_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row >= p.N) continue;
+      bf16* orow = o + row * p.o_st + c0 + t4 * 2;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (c0 + hf * 64 + j * 8 >= p.d) continue;
+          *reinterpret_cast<__nv_bfloat162*>(orow + hf * 64 + j * 8) = __floats2bfloat162_rn(
+              acc[hf][4 * j + 2 * r] / l_r[r], acc[hf][4 * j + 2 * r + 1] / l_r[r]);
+        }
+      }
+      if (t4 == 0 && blockIdx.z == 0) lse[row * p.l_st] = m_r[r] + logf(l_r[r]);
+    }
+  }
+}
+
 constexpr int kBQ32 = 32;  // query rows per block (f32): 4 lanes per row
 constexpr int kBK32 = 32;  // keys per tile (f32)
 
-template <int D>
+// f32: columns [c0, c0 + DC) of o per block (c0 = DC * blockIdx.z); the
+// scores summed over DC-wide slices of q*s and k*s, lane `sub` taking
+// columns 4 i + sub of each slice and the four lanes of a row reduced with
+// shuffles.
+template <int DC>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
-  constexpr int DP = D / 4;  // head dims per lane: d = 4 * i + sub
-  __shared__ float Ks[kBK32][D];
-  __shared__ float Vs[kBK32][D];
+  constexpr int DP = DC / 4;  // columns per lane of a slice
+  __shared__ float Ks[kBK32][DC];
+  __shared__ float Vs[kBK32][DC];
 
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -339,32 +579,37 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
   float* lse = p.lse + b * p.l_sb + h * p.l_sh;
   const int row = blockIdx.x * kBQ32 + (threadIdx.x >> 2);
   const int sub = threadIdx.x & 3;
+  const int c0 = blockIdx.z * DC;
   const float s = p.scale;
 
-  float qr[DP], acc[DP];
+  float acc[DP];
 #pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    qr[i] = row < p.N ? q[row * p.q_st + 4 * i + sub] * s : 0.f;
-    acc[i] = 0.f;
-  }
+  for (int i = 0; i < DP; ++i) acc[i] = 0.f;
   float m = kInitMax, l = 0.f;
 
   for (int k0 = 0; k0 < p.M; k0 += kBK32) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kBK32 * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
-      const bool ok = k0 + j < p.M;
-      Ks[j][d] = ok ? k[(k0 + j) * p.k_st + d] * s : 0.f;
-      Vs[j][d] = ok ? v[(k0 + j) * p.v_st + d] : 0.f;
-    }
-    __syncthreads();
     float sc[kBK32];
+#pragma unroll
+    for (int j = 0; j < kBK32; ++j) sc[j] = 0.f;
+    for (int s0 = 0; s0 < p.d; s0 += DC) {
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < kBK32 * DC; idx += kThreads) {
+        const int j = idx / DC, c = idx % DC;
+        Ks[j][c] = k0 + j < p.M && s0 + c < p.d ? k[(k0 + j) * p.k_st + s0 + c] * s : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < DP; ++i) {
+        const int col = s0 + 4 * i + sub;
+        const float qv = row < p.N && col < p.d ? q[row * p.q_st + col] * s : 0.f;
+#pragma unroll
+        for (int j = 0; j < kBK32; ++j) sc[j] = fmaf(qv, Ks[j][4 * i + sub], sc[j]);
+      }
+    }
     float mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < kBK32; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) part = fmaf(qr[i], Ks[j][4 * i + sub], part);
+      float part = sc[j];
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       sc[j] = k0 + j < p.M ? part : -INFINITY;
@@ -376,6 +621,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
     l *= alpha;
 #pragma unroll
     for (int i = 0; i < DP; ++i) acc[i] *= alpha;
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kBK32 * DC; idx += kThreads) {
+      const int j = idx / DC, c = idx % DC;
+      Vs[j][c] = k0 + j < p.M && c0 + c < p.d ? v[(k0 + j) * p.v_st + c0 + c] : 0.f;
+    }
+    __syncthreads();
 #pragma unroll
     for (int j = 0; j < kBK32; ++j) {
       const float pj = expf(sc[j] - m);
@@ -386,39 +637,64 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
   }
   if (row < p.N) {
 #pragma unroll
-    for (int i = 0; i < DP; ++i) o[row * p.o_st + 4 * i + sub] = acc[i] / l;
-    if (sub == 0) lse[row * p.l_st] = m + logf(l);
+    for (int i = 0; i < DP; ++i) {
+      const int col = c0 + 4 * i + sub;
+      if (col < p.d) o[row * p.o_st + col] = acc[i] / l;
+    }
+    if (sub == 0 && blockIdx.z == 0) lse[row * p.l_st] = m + logf(l);
   }
 }
 
-template <int D>
-int launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  constexpr int smem = FwdSmem<D>::kBytes;
-  CUtensorMap tq, tk, tv;
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+// The q, k and v maps in boxes of W columns by 64 rows.
+int encode_qkv(Maps* t, const Params& p, int B, int W) {
   const long long qs[3] = {p.q_sb, p.q_sh, p.q_st};
   const long long ks[3] = {p.k_sb, p.k_sh, p.k_st};
   const long long vs[3] = {p.v_sb, p.v_sh, p.v_st};
   int err;
-  if ((err = encode<D>(&tq, const_cast<void*>(p.q), qs, B, p.H, p.N, kRows)) != 0) return err;
-  if ((err = encode<D>(&tk, const_cast<void*>(p.k), ks, B, p.H, p.M, kRows)) != 0) return err;
-  if ((err = encode<D>(&tv, const_cast<void*>(p.v), vs, B, p.H, p.M, kRows)) != 0) return err;
+  if ((err = encode(&t->q, const_cast<void*>(p.q), qs, p.d, B, p.H, p.N, kRows, W)) != 0)
+    return err;
+  if ((err = encode(&t->k, const_cast<void*>(p.k), ks, p.d, B, p.H, p.M, kRows, W)) != 0)
+    return err;
+  return encode(&t->v, const_cast<void*>(p.v), vs, p.d, B, p.H, p.M, kRows, W);
+}
+
+template <int D, bool PAD>
+int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  constexpr int smem = FwdSmem<D>::kBytes;
+  Maps t;
+  int err;
+  if ((err = encode_qkv(&t, p, B, SwTile<D, kRows>::W)) != 0) return err;
   static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  if ((err = set_smem(flash_fwd_bf16<D, PAD>, smem, &attr_set)) != 0) return err;
   const dim3 grid((p.N + kRows - 1) / kRows, B * p.H);
-  flash_fwd_bf16<D><<<grid, kBf16Threads, smem, stream>>>(p, tq, tk, tv);
+  flash_fwd_bf16<D, PAD><<<grid, kBf16Threads, smem, stream>>>(p, t.q, t.k, t.v);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(int is_bf16, const Params& p, int B, cudaStream_t stream) {
-  if (is_bf16) return launch_bf16<D>(p, B, stream);
-  const dim3 grid((p.N + kBQ32 - 1) / kBQ32, B * p.H);
-  flash_fwd_f32<D><<<grid, kThreads, 0, stream>>>(p);
+int launch_narrow(const Params& p, int B, cudaStream_t stream) {
+  return p.d == D ? launch_bf16<D, false>(p, B, stream) : launch_bf16<D, true>(p, B, stream);
+}
+
+int launch_bf16_wide(const Params& p, int B, cudaStream_t stream) {
+  Maps t;
+  int err;
+  if ((err = encode_qkv(&t, p, B, 64)) != 0) return err;
+  static bool attr_set = false;
+  if ((err = set_smem(flash_fwd_bf16_wide, kWideMaxSmem, &attr_set)) != 0) return err;
+  const dim3 grid((p.N + kRows - 1) / kRows, B * p.H, (p.d + 127) / 128);
+  flash_fwd_bf16_wide<<<grid, kBf16Threads, wide_smem(p.d), stream>>>(p, t.q, t.k, t.v);
+  return (int)cudaGetLastError();
+}
+
+template <int DC>
+int launch_f32(const Params& p, int B, cudaStream_t stream) {
+  const dim3 grid((p.N + kBQ32 - 1) / kBQ32, B * p.H, (p.d + DC - 1) / DC);
+  flash_fwd_f32<DC><<<grid, kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -426,16 +702,17 @@ int launch(int is_bf16, const Params& p, int B, cudaStream_t stream) {
 
 // q, k, v, o: [B, H, N|M, D] addressed by strides[0..11] (q, o, k, v: batch,
 // head, token; the head dim is unit-stride); lse: [B, H, N] f32 by
-// strides[12..14]. is_bf16: 1 for bfloat16, 0 for float32. D in {16, 32, 64,
-// 128}; any other D returns cudaErrorInvalidValue without launching.
-// bfloat16 reads q, k and v through TMA: their addresses and strides are
-// multiples of 16 bytes, and no stride along a dim longer than 1 is 0 (else
-// 10000 + CUDA_ERROR_INVALID_VALUE, without launching).
+// strides[12..14]. is_bf16: 1 for bfloat16, 0 for float32. D a multiple of
+// 8 up to 1,024; any other D returns cudaErrorInvalidValue without
+// launching. bfloat16 reads q, k and v through TMA: their addresses and
+// strides are multiples of 16 bytes, and no stride along a dim longer than 1
+// is 0 (else 10000 + CUDA_ERROR_INVALID_VALUE, without launching).
 extern "C" int mf_flash_attention_fwd(int is_bf16, const void* q, const void* k,
                                       const void* v, void* o, void* lse, int B,
                                       int H, int N, int M, int D,
                                       const long long* strides, float scale,
                                       void* stream) {
+  if (D < 8 || D > 1024 || D % 8) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;
@@ -445,6 +722,7 @@ extern "C" int mf_flash_attention_fwd(int is_bf16, const void* q, const void* k,
   p.H = H;
   p.N = N;
   p.M = M;
+  p.d = D;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_st = strides[2];
   p.o_sb = strides[3]; p.o_sh = strides[4]; p.o_st = strides[5];
   p.k_sb = strides[6]; p.k_sh = strides[7]; p.k_st = strides[8];
@@ -452,11 +730,15 @@ extern "C" int mf_flash_attention_fwd(int is_bf16, const void* q, const void* k,
   p.l_sb = strides[12]; p.l_sh = strides[13]; p.l_st = strides[14];
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(is_bf16, p, B, st);
-    case 32: return launch<32>(is_bf16, p, B, st);
-    case 64: return launch<64>(is_bf16, p, B, st);
-    case 128: return launch<128>(is_bf16, p, B, st);
-    default: return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    if (D <= 16) return launch_narrow<16>(p, B, st);
+    if (D <= 32) return launch_narrow<32>(p, B, st);
+    if (D <= 64) return launch_narrow<64>(p, B, st);
+    if (D <= 128) return launch_narrow<128>(p, B, st);
+    return launch_bf16_wide(p, B, st);
   }
+  if (D <= 16) return launch_f32<16>(p, B, st);
+  if (D <= 32) return launch_f32<32>(p, B, st);
+  if (D <= 64) return launch_f32<64>(p, B, st);
+  return launch_f32<128>(p, B, st);
 }

@@ -72,9 +72,23 @@
 //     wgmma descriptors read (hopper_sm90.cuh). TMA zero-fills rows past N
 //     or M; keys past M still get P = 0 in the dQ kernel and queries past N
 //     P = 0 and dS = 0 in the dK/dV kernel (their lse and D are not data).
+//
+// Head widths: every d that is a multiple of 8, up to 1,024. d <= 128 runs
+// the kernels compiled for the next width of 16, 32, 64 and 128 (PAD = true
+// where d is narrower: the widths 16-128 themselves keep the instantiations
+// without the column checks): TMA zero-fills the tiles' columns past d, D
+// sums only d columns, and only d columns of dq, dk and dv are stored. d > 128 (the *_wide kernels) splits
+// the gradients' columns into 128-wide chunks over gridDim.z; each block
+// streams 64-column slices of both operands of the score products (Q and
+// K, then dO and V, for S and dP; K and Q, then V and dO, for S^T and
+// dP^T) through a ring of 16 KB stages, then its chunk of the looped
+// operand (K for dQ; dO and Q for dK/dV) for the accumulating products.
+// Every chunk recomputes the scores (d / 128 times their FLOPs); the dQ
+// kernel's chunk 0 writes D.
 // f32 (not on the training path): the simple version, plain f32 FMA (not
-// TF32), 32 rows a block, four lanes a row, each holding d/4 of the row's
-// vectors, tiles staged with synchronous loads.
+// TF32), 32 rows a block, four lanes a row, a chunk of DC = min(128, next
+// width >= d) columns of the gradients per block (gridDim.z chunks), the
+// scores summed over DC-wide slices, tiles staged with synchronous loads.
 //
 // Launches go on the caller's stream; the kernels allocate nothing. Each
 // entry point returns cudaGetLastError() after its launch, or 10000 plus
@@ -97,7 +111,7 @@ enum { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV, kLse, kDelta, kOperands };
 struct BwdParams {
   void* ptr[kOperands];
   long long st[kOperands][3];  // batch, head, token strides in elements
-  int H, N, M;
+  int H, N, M, d;
   float sc2;
 };
 
@@ -145,10 +159,12 @@ __device__ __forceinline__ void consumer_sync() {
 
 // dq (or dk, dv) rows r0 and r0 + 8 of a [64, D] accumulator held as
 // halves of W columns, times `scale`, to rows [0, valid) of out.
+// Columns of the accumulator at or past d (zero-fill, or a chunk's half
+// that lies past d) are not stored.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* out, long long st, int valid, int r0,
                                            int t4, const float (&acc)[D / SwTile<D, 64>::W][SwTile<D, 64>::W / 2],
-                                           float scale) {
+                                           float scale, int d) {
   constexpr int W = SwTile<D, 64>::W;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -159,6 +175,7 @@ __device__ __forceinline__ void store_rows(bf16* out, long long st, int valid, i
     for (int h = 0; h < D / W; ++h) {
 #pragma unroll
       for (int j = 0; j < W / 8; ++j) {
+        if (h * W + j * 8 >= d) continue;
         *reinterpret_cast<__nv_bfloat162*>(o + h * W + j * 8) = __floats2bfloat162_rn(
             scale * acc[h][4 * j + 2 * r], scale * acc[h][4 * j + 2 * r + 1]);
       }
@@ -166,7 +183,7 @@ __device__ __forceinline__ void store_rows(bf16* out, long long st, int valid, i
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(kBf16Threads, 1)
     flash_bwd_dq_bf16(BwdParams p, const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
@@ -236,6 +253,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
         const bf16* drow = dout + r * p.st[kDO][2] + half * (D / 2);
 #pragma unroll
         for (int c = 0; c < D / 2; c += 2) {
+          if (PAD && half * (D / 2) + c >= p.d) break;
           const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + c));
           const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + c));
           sum = fmaf(d.x, a.x, sum);
@@ -317,11 +335,11 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
       mbar_arrive(empty(s));
     }
     store_rows<D>(base<bf16>(p, kDQ, b, h) + q0 * p.st[kDQ][2], p.st[kDQ][2], nq, r0, t4,
-                  acc, p.sc2);
+                  acc, p.sc2, PAD ? p.d : D);
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(kBf16Threads, 1)
     flash_bwd_dkv_bf16(BwdParams p, const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
@@ -468,30 +486,380 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     }
     const int r0 = warp * 16 + g;
     store_rows<D>(base<bf16>(p, kDK, b, h) + k0 * p.st[kDK][2], p.st[kDK][2], nk, r0, t4,
-                  acck, p.sc2);
+                  acck, p.sc2, PAD ? p.d : D);
     store_rows<D>(base<bf16>(p, kDV, b, h) + k0 * p.st[kDV][2], p.st[kDV][2], nk, r0, t4,
-                  accv, 1.f);
+                  accv, 1.f, PAD ? p.d : D);
   }
 }
 
-// f32: 32 rows a block, four lanes a row; lane `sub` holds elements
-// 4 * i + sub of the row's vectors. Sums over d are reduced over the four
-// lanes with shuffles.
+// ---- d > 128 (bf16) ----
+// One block = 64 rows (queries for dQ, keys for dK/dV) x one 128-column
+// chunk of the gradients (blockIdx.z). Each looped tile is a stream of
+// 2 * kSlices(d) + 1 items through a ring of kWStages stages of 16 KB: the
+// 64-column slices of the two score products' operands, A in the stage's
+// first 8 KB and B in its second (dQ: (Q_j, K_j), then (dO_j, V_j); dK/dV:
+// (K_j, Q_j), then (V_j, dO_j)), then the chunk of the looped operand that
+// the accumulating products read MN-major (dQ: K's [64 keys, 128]; dK/dV:
+// dO's and Q's [32 queries, 128], with the tile's lse * log2e and D).
+constexpr int kWStages = 4;
+constexpr int kHalf = 64 * 128;        // bytes of a [64, 64] bf16 tile
+constexpr int kWStage = 2 * kHalf;
+constexpr int kWideBQ = 32;            // queries of a dK/dV looped tile
+
+__host__ __device__ constexpr int kSlices(int d) { return (d + 63) / 64; }
+// ring, per-stage vectors (dK/dV: [2][kWideBQ] f32), D of the rows (dQ),
+// mbarriers (full[], empty[])
+constexpr int kWVec = kWStages * kWStage;
+constexpr int kWRows = kWVec + kWStages * 2 * kWideBQ * 4;
+constexpr int kWBars = kWRows + kTile * 4;
+constexpr int kWideSmem = kWBars + 2 * kWStages * 8 + 1024;
+
+// The score product over the d-slices: items first .. first + nsl - 1,
+// each A [64, 64] (K-major) x B [BROWS, 64]^T into acc; a slice's stage is
+// freed once the next slice's products are issued and its own completed.
+template <int BROWS>
+__device__ __forceinline__ void slice_products(float* acc, int nsl, int first, uint32_t ring,
+                                               uint32_t bars) {
+  for (int j = 0; j < nsl; ++j) {
+    const int i = first + j;
+    const int st = i % kWStages;
+    const uint32_t stage = ring + st * kWStage;
+    mbar_wait(bars + 8 * st, (i / kWStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      Wgmma<BROWS>::ss(acc, SwTile<64, kTile>::k_major(stage, kk),
+                       SwTile<64, BROWS>::k_major(stage + kHalf, kk), j > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (j > 0) mbar_arrive(bars + 8 * (kWStages + (i - 1) % kWStages));
+  }
+  wgmma_wait<0>();
+  mbar_arrive(bars + 8 * (kWStages + (first + nsl - 1) % kWStages));
+}
+
+// rows r0, r0 + 8 of a [64, 128] chunk accumulator (two halves), times
+// scale, to columns [c0, min(c0 + 128, d)) of rows [0, valid) of out.
+__device__ __forceinline__ void store_chunk(bf16* out, long long st, int valid, int r0, int t4,
+                                            const float (&acc)[2][32], float scale, int c0,
+                                            int d) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= valid) continue;
+    bf16* o = out + row * st + c0 + t4 * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (c0 + h * 64 + j * 8 >= d) continue;
+        *reinterpret_cast<__nv_bfloat162*>(o + h * 64 + j * 8) = __floats2bfloat162_rn(
+            scale * acc[h][4 * j + 2 * r], scale * acc[h][4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_bwd_dq_bf16_wide(BwdParams p, const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv) {
+  using Chunk = SwTile<128, kTile>;
+  const int nsl = kSlices(p.d);
+  const int per_tile = 2 * nsl + 1;
+  const int c0 = blockIdx.z * 128;
+  const bool hi = c0 + 64 < p.d;
+  unsigned char* smem = aligned_smem();
+  const uint32_t s0 = smem_addr(smem);
+  float* Ds = reinterpret_cast<float*>(smem + kWRows);
+  const uint32_t bars = s0 + kWBars;  // full[kWStages], empty[kWStages]
+  auto stage = [&](int st) { return s0 + st * kWStage; };
+
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  const int q0 = blockIdx.x * kTile;
+  const int nq = min(kTile, p.N - q0);
+  const int tiles = (p.M + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kWStages; ++st) {
+      mbar_init(bars + 8 * st, 1);
+      mbar_init(bars + 8 * (kWStages + st), kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp: one lane issues TMA
+    if (threadIdx.x == kConsumers) {
+      for (int i = 0; i < tiles * per_tile; ++i) {
+        const int st = i % kWStages;
+        const uint32_t full = bars + 8 * st;
+        if (i >= kWStages) mbar_wait(bars + 8 * (kWStages + st), ((i / kWStages) & 1) ^ 1);
+        const int it = i / per_tile, j = i % per_tile;
+        if (j < 2 * nsl) {
+          const int col = (j % nsl) * 64;
+          mbar_arrive_expect_tx(full, 2 * kHalf);
+          tma_load_4d(stage(st), j < nsl ? &tq : &tdo, col, q0, h, b, full);
+          tma_load_4d(stage(st) + kHalf, j < nsl ? &tk : &tv, col, it * kTile, h, b, full);
+        } else {
+          mbar_arrive_expect_tx(full, hi ? 2 * kHalf : kHalf);
+          tma_load_4d(stage(st), &tk, c0, it * kTile, h, b, full);
+          if (hi) tma_load_4d(stage(st) + kHalf, &tk, c0 + 64, it * kTile, h, b, full);
+        }
+      }
+    }
+  } else {  // the consumer warpgroup
+    const bf16* o = base<const bf16>(p, kO, b, h) + q0 * p.st[kO][2];
+    const bf16* dout = base<const bf16>(p, kDO, b, h) + q0 * p.st[kDO][2];
+    const float* lse = base<const float>(p, kLse, b, h) + q0 * p.st[kLse][2];
+    float* delta = base<float>(p, kDelta, b, h) + q0 * p.st[kDelta][2];
+    {
+      // D = rowsum(dO * O) in f32 over all d, two threads a row
+      const int r = threadIdx.x >> 1;
+      const int half = threadIdx.x & 1;
+      const int w = p.d / 2;  // a multiple of 4
+      float sum = 0.f;
+      if (r < nq) {
+        const bf16* orow = o + r * p.st[kO][2] + half * w;
+        const bf16* drow = dout + r * p.st[kDO][2] + half * w;
+        for (int c = 0; c < w; c += 2) {
+          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + c));
+          const float2 dd = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + c));
+          sum = fmaf(dd.x, a.x, sum);
+          sum = fmaf(dd.y, a.y, sum);
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (half == 0) {
+        Ds[r] = sum;
+        if (r < nq && blockIdx.z == 0) delta[r * p.st[kDelta][2]] = sum;
+      }
+    }
+    consumer_sync();
+
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int r0 = warp * 16 + g;
+    float l2[2], d_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      l2[r] = row < nq ? lse[row * p.st[kLse][2]] * kLog2e : 0.f;
+      d_r[r] = Ds[row];
+    }
+    float acc[2][32];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[hf][i] = 0.f;
+    }
+    for (int it = 0; it < tiles; ++it) {
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      slice_products<64>(sc, nsl, it * per_tile, s0, bars);
+      slice_products<64>(dp, nsl, it * per_tile + nsl, s0, bars);
+      fence_regs(sc);
+      fence_regs(dp);
+      const int k0 = it * kTile;
+      const bool ragged = k0 + kTile > p.M;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pv = ex2(fmaf(__fmul_rn(p.sc2, sc[4 * j + e]), kLog2e, -l2[e >> 1]));
+          if (ragged && k0 + j * 8 + t4 * 2 + (e & 1) >= p.M) pv = 0.f;
+          sc[4 * j + e] = pv * (dp[4 * j + e] - d_r[e >> 1]);
+        }
+      }
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) a_from_c(a[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+      // dQ[:, chunk] += dS K[:, chunk], the chunk read MN-major
+      const int i = it * per_tile + 2 * nsl;
+      const int st = i % kWStages;
+      mbar_wait(bars + 8 * st, (i / kWStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        Wgmma<64>::rs(acc[0], a[kk], Chunk::mn_major(stage(st), kk, 0));
+        if (hi) Wgmma<64>::rs(acc[1], a[kk], Chunk::mn_major(stage(st), kk, 1));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      mbar_arrive(bars + 8 * (kWStages + st));
+    }
+    store_chunk(base<bf16>(p, kDQ, b, h) + q0 * p.st[kDQ][2], p.st[kDQ][2], nq, r0, t4, acc,
+                p.sc2, c0, p.d);
+  }
+}
+
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_bwd_dkv_bf16_wide(BwdParams p, const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tdo) {
+  using Chunk = SwTile<128, kWideBQ>;  // [32 queries, 128]: two 4 KB halves
+  const int nsl = kSlices(p.d);
+  const int per_tile = 2 * nsl + 1;
+  const int c0 = blockIdx.z * 128;
+  const bool hi = c0 + 64 < p.d;
+  unsigned char* smem = aligned_smem();
+  const uint32_t s0 = smem_addr(smem);
+  float* vec = reinterpret_cast<float*>(smem + kWVec);  // [stage][lse*log2e, D][kWideBQ]
+  const uint32_t bars = s0 + kWBars;
+  auto stage = [&](int st) { return s0 + st * kWStage; };
+
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  const int k0 = blockIdx.x * kTile;
+  const int nk = min(kTile, p.M - k0);
+  const int tiles = (p.N + kWideBQ - 1) / kWideBQ;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kWStages; ++st) {
+      mbar_init(bars + 8 * st, 32);  // the producer warp's lanes
+      mbar_init(bars + 8 * (kWStages + st), kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    const float* lse = base<const float>(p, kLse, b, h);
+    const float* delta = base<const float>(p, kDelta, b, h);
+    for (int i = 0; i < tiles * per_tile; ++i) {
+      const int st = i % kWStages;
+      const uint32_t full = bars + 8 * st;
+      if (i >= kWStages) mbar_wait(bars + 8 * (kWStages + st), ((i / kWStages) & 1) ^ 1);
+      const int it = i / per_tile, j = i % per_tile;
+      if (j == 2 * nsl) {  // the chunk item carries the tile's lse and D
+        float* ls = vec + st * 2 * kWideBQ;
+        const int q = it * kWideBQ + lane;
+        ls[lane] = q < p.N ? lse[q * p.st[kLse][2]] * kLog2e : 0.f;
+        ls[kWideBQ + lane] = q < p.N ? delta[q * p.st[kDelta][2]] : 0.f;
+      }
+      if (lane == 0) {
+        if (j < 2 * nsl) {
+          const int col = (j % nsl) * 64;
+          mbar_arrive_expect_tx(full, kHalf + kWideBQ * 128);
+          tma_load_4d(stage(st), j < nsl ? &tk : &tv, col, k0, h, b, full);
+          tma_load_4d(stage(st) + kHalf, j < nsl ? &tq : &tdo, col, it * kWideBQ, h, b, full);
+        } else {  // dO's chunk at 0, Q's at kHalf, each two halves of 4 KB
+          mbar_arrive_expect_tx(full, (hi ? 4 : 2) * Chunk::HALF_BYTES);
+          for (int hf = 0; hf < (hi ? 2 : 1); ++hf) {
+            tma_load_4d(stage(st) + hf * Chunk::HALF_BYTES, &tdo, c0 + hf * 64, it * kWideBQ, h,
+                        b, full);
+            tma_load_4d(stage(st) + kHalf + hf * Chunk::HALF_BYTES, &tq, c0 + hf * 64,
+                        it * kWideBQ, h, b, full);
+          }
+        }
+      } else {
+        mbar_arrive(full);
+      }
+    }
+  } else {  // the consumer warpgroup: rows are this block's 64 keys
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    float acck[2][32], accv[2][32];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acck[hf][i] = accv[hf][i] = 0.f;
+    }
+    for (int it = 0; it < tiles; ++it) {
+      float sc[kWideBQ / 2], dp[kWideBQ / 2];
+#pragma unroll
+      for (int i = 0; i < kWideBQ / 2; ++i) sc[i] = dp[i] = 0.f;
+      slice_products<kWideBQ>(sc, nsl, it * per_tile, s0, bars);
+      slice_products<kWideBQ>(dp, nsl, it * per_tile + nsl, s0, bars);
+      fence_regs(sc);
+      fence_regs(dp);
+      const int i = it * per_tile + 2 * nsl;
+      const int st = i % kWStages;
+      mbar_wait(bars + 8 * st, (i / kWStages) & 1);
+      const float* ls = vec + st * 2 * kWideBQ;
+      const int q0 = it * kWideBQ;
+      const bool ragged = q0 + kWideBQ > p.N;
+#pragma unroll
+      for (int j = 0; j < kWideBQ / 8; ++j) {
+        const int col = j * 8 + t4 * 2;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+        const float2 dd = *reinterpret_cast<const float2*>(ls + kWideBQ + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lc = (e & 1) ? l2.y : l2.x;
+          const float dc = (e & 1) ? dd.y : dd.x;
+          float pv = ex2(fmaf(__fmul_rn(p.sc2, sc[4 * j + e]), kLog2e, -lc));
+          float ds = pv * (dp[4 * j + e] - dc);
+          if (ragged && q0 + col + (e & 1) >= p.N) pv = ds = 0.f;
+          sc[4 * j + e] = pv;
+          dp[4 * j + e] = ds;
+        }
+      }
+      uint32_t pa[kWideBQ / 16][4], da[kWideBQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kWideBQ / 16; ++kk) {
+        a_from_c(pa[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+        a_from_c(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+      }
+      // dV[:, chunk] += P^T dO[:, chunk] and dK[:, chunk] += dS^T Q[:, chunk]
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWideBQ / 16; ++kk) {
+        Wgmma<64>::rs(accv[0], pa[kk], Chunk::mn_major(stage(st), kk, 0));
+        Wgmma<64>::rs(acck[0], da[kk], Chunk::mn_major(stage(st) + kHalf, kk, 0));
+        if (hi) {
+          Wgmma<64>::rs(accv[1], pa[kk], Chunk::mn_major(stage(st), kk, 1));
+          Wgmma<64>::rs(acck[1], da[kk], Chunk::mn_major(stage(st) + kHalf, kk, 1));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        fence_regs(acck[hf]);
+        fence_regs(accv[hf]);
+      }
+      mbar_arrive(bars + 8 * (kWStages + st));
+    }
+    const int r0 = warp * 16 + g;
+    store_chunk(base<bf16>(p, kDK, b, h) + k0 * p.st[kDK][2], p.st[kDK][2], nk, r0, t4, acck,
+                p.sc2, c0, p.d);
+    store_chunk(base<bf16>(p, kDV, b, h) + k0 * p.st[kDV][2], p.st[kDV][2], nk, r0, t4, accv,
+                1.f, c0, p.d);
+  }
+}
+
+// ---- f32 ----
+// 32 rows a block, four lanes a row; columns [c0, c0 + DC) of the gradient
+// per block (c0 = DC * blockIdx.z); lane `sub` takes columns 4 i + sub of
+// each DC-wide slice, and sums over d are reduced over the four lanes with
+// shuffles.
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
+template <int DC>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(BwdParams p) {
-  constexpr int DP = D / 4;
-  __shared__ float Ks[kTile32][D];
-  __shared__ float Vs[kTile32][D];
+  constexpr int DP = DC / 4;
+  __shared__ float Ks[kTile32][DC];
+  __shared__ float Vs[kTile32][DC];
 
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
   const int row = blockIdx.x * kTile32 + (threadIdx.x >> 2);
   const int sub = threadIdx.x & 3;
+  const int c0 = blockIdx.z * DC;
   const bool valid = row < p.N;
   const float* q = base<const float>(p, kQ, b, h) + row * p.st[kQ][2];
   const float* o = base<const float>(p, kO, b, h) + row * p.st[kO][2];
@@ -499,40 +867,58 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(BwdParams p) {
   const float* k = base<const float>(p, kK, b, h);
   const float* v = base<const float>(p, kV, b, h);
 
-  float qr[DP], dor[DP], acc[DP];
   float dsum = 0.f;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    qr[i] = valid ? q[4 * i + sub] : 0.f;
-    dor[i] = valid ? dout[4 * i + sub] : 0.f;
-    dsum = fmaf(dor[i], valid ? o[4 * i + sub] : 0.f, dsum);
-    acc[i] = 0.f;
+  for (int col = sub; col < p.d; col += 4) {
+    dsum = fmaf(valid ? dout[col] : 0.f, valid ? o[col] : 0.f, dsum);
   }
   dsum = quad_sum(dsum);
-  if (valid && sub == 0) base<float>(p, kDelta, b, h)[row * p.st[kDelta][2]] = dsum;
+  if (valid && sub == 0 && blockIdx.z == 0)
+    base<float>(p, kDelta, b, h)[row * p.st[kDelta][2]] = dsum;
   const float l = valid ? base<const float>(p, kLse, b, h)[row * p.st[kLse][2]] : 0.f;
+  float acc[DP];
+#pragma unroll
+  for (int i = 0; i < DP; ++i) acc[i] = 0.f;
 
   for (int k0 = 0; k0 < p.M; k0 += kTile32) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTile32 * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
-      const bool ok = k0 + j < p.M;
-      Ks[j][d] = ok ? k[(k0 + j) * p.st[kK][2] + d] : 0.f;
-      Vs[j][d] = ok ? v[(k0 + j) * p.st[kV][2] + d] : 0.f;
-    }
-    __syncthreads();
-    const int nk = min(kTile32, p.M - k0);  // the same for the whole block
-    for (int j = 0; j < nk; ++j) {
-      float sp = 0.f, dpp = 0.f;
+    float sp[kTile32], dpp[kTile32];
+#pragma unroll
+    for (int j = 0; j < kTile32; ++j) sp[j] = dpp[j] = 0.f;
+    for (int s0 = 0; s0 < p.d; s0 += DC) {
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < kTile32 * DC; idx += kThreads) {
+        const int j = idx / DC, c = idx % DC;
+        const bool ok = k0 + j < p.M && s0 + c < p.d;
+        Ks[j][c] = ok ? k[(k0 + j) * p.st[kK][2] + s0 + c] : 0.f;
+        Vs[j][c] = ok ? v[(k0 + j) * p.st[kV][2] + s0 + c] : 0.f;
+      }
+      __syncthreads();
 #pragma unroll
       for (int i = 0; i < DP; ++i) {
-        sp = fmaf(qr[i], Ks[j][4 * i + sub], sp);
-        dpp = fmaf(dor[i], Vs[j][4 * i + sub], dpp);
+        const int col = s0 + 4 * i + sub;
+        const bool in = valid && col < p.d;
+        const float qv = in ? q[col] : 0.f;
+        const float dv = in ? dout[col] : 0.f;
+#pragma unroll
+        for (int j = 0; j < kTile32; ++j) {
+          sp[j] = fmaf(qv, Ks[j][4 * i + sub], sp[j]);
+          dpp[j] = fmaf(dv, Vs[j][4 * i + sub], dpp[j]);
+        }
       }
-      sp = quad_sum(sp);
-      dpp = quad_sum(dpp);
-      const float pj = expf(__fmul_rn(p.sc2, sp) - l);
-      const float ds = pj * (dpp - dsum);
+    }
+    if (p.d > DC) {  // K's columns of this block's chunk
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < kTile32 * DC; idx += kThreads) {
+        const int j = idx / DC, c = idx % DC;
+        Ks[j][c] = k0 + j < p.M && c0 + c < p.d ? k[(k0 + j) * p.st[kK][2] + c0 + c] : 0.f;
+      }
+      __syncthreads();
+    }
+    const int nk = min(kTile32, p.M - k0);  // the same for the whole block
+#pragma unroll
+    for (int j = 0; j < kTile32; ++j) {
+      if (j >= nk) break;
+      const float pj = expf(__fmul_rn(p.sc2, quad_sum(sp[j])) - l);
+      const float ds = pj * (quad_sum(dpp[j]) - dsum);
 #pragma unroll
       for (int i = 0; i < DP; ++i) acc[i] = fmaf(ds, Ks[j][4 * i + sub], acc[i]);
     }
@@ -540,15 +926,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(BwdParams p) {
   if (valid) {
     float* out = base<float>(p, kDQ, b, h) + row * p.st[kDQ][2];
 #pragma unroll
-    for (int i = 0; i < DP; ++i) out[4 * i + sub] = p.sc2 * acc[i];
+    for (int i = 0; i < DP; ++i) {
+      if (c0 + 4 * i + sub < p.d) out[c0 + 4 * i + sub] = p.sc2 * acc[i];
+    }
   }
 }
 
-template <int D>
+template <int DC>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(BwdParams p) {
-  constexpr int DP = D / 4;
-  __shared__ float Qs[kTile32][D];
-  __shared__ float dOs[kTile32][D];
+  constexpr int DP = DC / 4;
+  __shared__ float Qs[kTile32][DC];
+  __shared__ float dOs[kTile32][DC];
   __shared__ float Ls[kTile32];
   __shared__ float Dl[kTile32];
 
@@ -556,6 +944,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(BwdParams p) {
   const int h = blockIdx.y % p.H;
   const int key = blockIdx.x * kTile32 + (threadIdx.x >> 2);
   const int sub = threadIdx.x & 3;
+  const int c0 = blockIdx.z * DC;
   const bool valid = key < p.M;
   const float* k = base<const float>(p, kK, b, h) + key * p.st[kK][2];
   const float* v = base<const float>(p, kV, b, h) + key * p.st[kV][2];
@@ -564,41 +953,58 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(BwdParams p) {
   const float* lse = base<const float>(p, kLse, b, h);
   const float* delta = base<const float>(p, kDelta, b, h);
 
-  float kr[DP], vr[DP], acck[DP], accv[DP];
+  float acck[DP], accv[DP];
 #pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    kr[i] = valid ? k[4 * i + sub] : 0.f;
-    vr[i] = valid ? v[4 * i + sub] : 0.f;
-    acck[i] = accv[i] = 0.f;
-  }
+  for (int i = 0; i < DP; ++i) acck[i] = accv[i] = 0.f;
 
   for (int q0 = 0; q0 < p.N; q0 += kTile32) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTile32 * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
-      const bool ok = q0 + j < p.N;
-      Qs[j][d] = ok ? q[(q0 + j) * p.st[kQ][2] + d] : 0.f;
-      dOs[j][d] = ok ? dout[(q0 + j) * p.st[kDO][2] + d] : 0.f;
-    }
-    if (threadIdx.x < kTile32) {
-      const int j = threadIdx.x;
-      const bool ok = q0 + j < p.N;
-      Ls[j] = ok ? lse[(q0 + j) * p.st[kLse][2]] : 0.f;
-      Dl[j] = ok ? delta[(q0 + j) * p.st[kDelta][2]] : 0.f;
-    }
-    __syncthreads();
-    const int nq = min(kTile32, p.N - q0);  // queries past N are skipped
-    for (int j = 0; j < nq; ++j) {
-      float sp = 0.f, dpp = 0.f;
+    float sp[kTile32], dpp[kTile32];
+#pragma unroll
+    for (int j = 0; j < kTile32; ++j) sp[j] = dpp[j] = 0.f;
+    for (int s0 = 0; s0 < p.d; s0 += DC) {
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < kTile32 * DC; idx += kThreads) {
+        const int j = idx / DC, c = idx % DC;
+        const bool ok = q0 + j < p.N && s0 + c < p.d;
+        Qs[j][c] = ok ? q[(q0 + j) * p.st[kQ][2] + s0 + c] : 0.f;
+        dOs[j][c] = ok ? dout[(q0 + j) * p.st[kDO][2] + s0 + c] : 0.f;
+      }
+      if (s0 == 0 && threadIdx.x < kTile32) {
+        const int j = threadIdx.x;
+        const bool ok = q0 + j < p.N;
+        Ls[j] = ok ? lse[(q0 + j) * p.st[kLse][2]] : 0.f;
+        Dl[j] = ok ? delta[(q0 + j) * p.st[kDelta][2]] : 0.f;
+      }
+      __syncthreads();
 #pragma unroll
       for (int i = 0; i < DP; ++i) {
-        sp = fmaf(kr[i], Qs[j][4 * i + sub], sp);
-        dpp = fmaf(vr[i], dOs[j][4 * i + sub], dpp);
+        const int col = s0 + 4 * i + sub;
+        const bool in = valid && col < p.d;
+        const float kv = in ? k[col] : 0.f;
+        const float vv = in ? v[col] : 0.f;
+#pragma unroll
+        for (int j = 0; j < kTile32; ++j) {
+          sp[j] = fmaf(kv, Qs[j][4 * i + sub], sp[j]);
+          dpp[j] = fmaf(vv, dOs[j][4 * i + sub], dpp[j]);
+        }
       }
-      sp = quad_sum(sp);
-      dpp = quad_sum(dpp);
-      const float pj = expf(__fmul_rn(p.sc2, sp) - Ls[j]);
-      const float ds = pj * (dpp - Dl[j]);
+    }
+    if (p.d > DC) {  // Q's and dO's columns of this block's chunk
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < kTile32 * DC; idx += kThreads) {
+        const int j = idx / DC, c = idx % DC;
+        const bool ok = q0 + j < p.N && c0 + c < p.d;
+        Qs[j][c] = ok ? q[(q0 + j) * p.st[kQ][2] + c0 + c] : 0.f;
+        dOs[j][c] = ok ? dout[(q0 + j) * p.st[kDO][2] + c0 + c] : 0.f;
+      }
+      __syncthreads();
+    }
+    const int nq = min(kTile32, p.N - q0);  // queries past N are skipped
+#pragma unroll
+    for (int j = 0; j < kTile32; ++j) {
+      if (j >= nq) break;
+      const float pj = expf(__fmul_rn(p.sc2, quad_sum(sp[j])) - Ls[j]);
+      const float ds = pj * (quad_sum(dpp[j]) - Dl[j]);
 #pragma unroll
       for (int i = 0; i < DP; ++i) {
         accv[i] = fmaf(pj, dOs[j][4 * i + sub], accv[i]);
@@ -611,74 +1017,103 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(BwdParams p) {
     float* vo = base<float>(p, kDV, b, h) + key * p.st[kDV][2];
 #pragma unroll
     for (int i = 0; i < DP; ++i) {
-      ko[4 * i + sub] = p.sc2 * acck[i];
-      vo[4 * i + sub] = accv[i];
+      const int col = c0 + 4 * i + sub;
+      if (col < p.d) {
+        ko[col] = p.sc2 * acck[i];
+        vo[col] = accv[i];
+      }
     }
   }
 }
 
-template <typename Kernel>
-int set_smem(Kernel kernel, int bytes, bool* done) {
-  if (*done) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  *done = true;
-  return 0;
-}
-
-// which: 0 = dQ (and D), 1 = dK/dV
-template <int D>
-int launch_bf16(int which, const BwdParams& p, int B, cudaStream_t stream) {
-  const int rows = which == 0 ? p.N : p.M;
-  const dim3 grid((rows + kTile - 1) / kTile, B * p.H);
-  CUtensorMap res[2], loop[2];
-  // resident tiles: q, dO (dQ) or k, v (dK/dV); looped: k, v or q, dO
+// The TMA maps of one bf16 kernel, in boxes of W columns: the resident
+// operands (q, dO for dQ; k, v for dK/dV) by 64 rows, the looped ones (k, v;
+// q, dO) by `lrows`.
+int encode_maps(CUtensorMap* res, CUtensorMap* loop, int which, const BwdParams& p, int B,
+                int W, int lrows) {
   const int res_ops[2] = {which == 0 ? kQ : kK, which == 0 ? kDO : kV};
   const int loop_ops[2] = {which == 0 ? kK : kQ, which == 0 ? kV : kDO};
   const int res_tokens = which == 0 ? p.N : p.M;
   const int loop_tokens = which == 0 ? p.M : p.N;
-  const int lrows = loop_rows(which);
   int err;
   for (int i = 0; i < 2; ++i) {
-    if ((err = encode<D>(&res[i], p.ptr[res_ops[i]], p.st[res_ops[i]], B, p.H, res_tokens,
-                         kTile)) != 0)
+    if ((err = encode(&res[i], p.ptr[res_ops[i]], p.st[res_ops[i]], p.d, B, p.H, res_tokens,
+                      kTile, W)) != 0)
       return err;
-    if ((err = encode<D>(&loop[i], p.ptr[loop_ops[i]], p.st[loop_ops[i]], B, p.H,
-                         loop_tokens, lrows)) != 0)
+    if ((err = encode(&loop[i], p.ptr[loop_ops[i]], p.st[loop_ops[i]], p.d, B, p.H,
+                      loop_tokens, lrows, W)) != 0)
       return err;
   }
+  return 0;
+}
+
+// which: 0 = dQ (and D), 1 = dK/dV
+template <int D, bool PAD>
+int launch_bf16(int which, const BwdParams& p, int B, cudaStream_t stream) {
+  const int rows = which == 0 ? p.N : p.M;
+  const dim3 grid((rows + kTile - 1) / kTile, B * p.H);
+  CUtensorMap res[2], loop[2];
+  int err;
+  if ((err = encode_maps(res, loop, which, p, B, SwTile<D, kTile>::W, loop_rows(which))) != 0)
+    return err;
   if (which == 0) {
     constexpr int smem = BwdSmem<D, loop_rows(0), ring_stages<D>(0)>::kBytes;
     static bool attr = false;
-    if ((err = set_smem(flash_bwd_dq_bf16<D>, smem, &attr)) != 0) return err;
-    flash_bwd_dq_bf16<D><<<grid, kBf16Threads, smem, stream>>>(p, res[0], res[1], loop[0],
-                                                                loop[1]);
+    if ((err = set_smem(flash_bwd_dq_bf16<D, PAD>, smem, &attr)) != 0) return err;
+    flash_bwd_dq_bf16<D, PAD><<<grid, kBf16Threads, smem, stream>>>(p, res[0], res[1],
+                                                                     loop[0], loop[1]);
   } else {
     constexpr int smem = BwdSmem<D, loop_rows(1), ring_stages<D>(1)>::kBytes;
     static bool attr = false;
-    if ((err = set_smem(flash_bwd_dkv_bf16<D>, smem, &attr)) != 0) return err;
-    flash_bwd_dkv_bf16<D><<<grid, kBf16Threads, smem, stream>>>(p, res[0], res[1], loop[0],
-                                                                 loop[1]);
+    if ((err = set_smem(flash_bwd_dkv_bf16<D, PAD>, smem, &attr)) != 0) return err;
+    flash_bwd_dkv_bf16<D, PAD><<<grid, kBf16Threads, smem, stream>>>(p, res[0], res[1],
+                                                                      loop[0], loop[1]);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16_wide(int which, const BwdParams& p, int B, cudaStream_t stream) {
+  const int rows = which == 0 ? p.N : p.M;
+  const dim3 grid((rows + kTile - 1) / kTile, B * p.H, (p.d + 127) / 128);
+  CUtensorMap res[2], loop[2];
+  int err;
+  if ((err = encode_maps(res, loop, which, p, B, 64, which == 0 ? kTile : kWideBQ)) != 0)
+    return err;
+  if (which == 0) {
+    static bool attr = false;
+    if ((err = set_smem(flash_bwd_dq_bf16_wide, kWideSmem, &attr)) != 0) return err;
+    flash_bwd_dq_bf16_wide<<<grid, kBf16Threads, kWideSmem, stream>>>(p, res[0], res[1],
+                                                                     loop[0], loop[1]);
+  } else {
+    static bool attr = false;
+    if ((err = set_smem(flash_bwd_dkv_bf16_wide, kWideSmem, &attr)) != 0) return err;
+    flash_bwd_dkv_bf16_wide<<<grid, kBf16Threads, kWideSmem, stream>>>(p, res[0], res[1],
+                                                                      loop[0], loop[1]);
   }
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(int which, int is_bf16, const BwdParams& p, int B, cudaStream_t stream) {
-  if (is_bf16) return launch_bf16<D>(which, p, B, stream);
+int launch_narrow(int which, const BwdParams& p, int B, cudaStream_t stream) {
+  return p.d == D ? launch_bf16<D, false>(which, p, B, stream)
+                  : launch_bf16<D, true>(which, p, B, stream);
+}
+
+template <int DC>
+int launch_f32(int which, const BwdParams& p, int B, cudaStream_t stream) {
   const int rows = which == 0 ? p.N : p.M;
-  const dim3 grid((rows + kTile32 - 1) / kTile32, B * p.H);
+  const dim3 grid((rows + kTile32 - 1) / kTile32, B * p.H, (p.d + DC - 1) / DC);
   if (which == 0) {
-    flash_bwd_dq_f32<D><<<grid, kThreads, 0, stream>>>(p);
+    flash_bwd_dq_f32<DC><<<grid, kThreads, 0, stream>>>(p);
   } else {
-    flash_bwd_dkv_f32<D><<<grid, kThreads, 0, stream>>>(p);
+    flash_bwd_dkv_f32<DC><<<grid, kThreads, 0, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
 
 int dispatch(int which, int is_bf16, void* const* ptrs, int B, int H, int N,
              int M, int D, const long long* strides, float sc2, void* stream) {
+  if (D < 8 || D > 1024 || D % 8) return (int)cudaErrorInvalidValue;
   BwdParams p;
   for (int i = 0; i < kOperands; ++i) {
     p.ptr[i] = ptrs[i];
@@ -687,15 +1122,20 @@ int dispatch(int which, int is_bf16, void* const* ptrs, int B, int H, int N,
   p.H = H;
   p.N = N;
   p.M = M;
+  p.d = D;
   p.sc2 = sc2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(which, is_bf16, p, B, st);
-    case 32: return launch<32>(which, is_bf16, p, B, st);
-    case 64: return launch<64>(which, is_bf16, p, B, st);
-    case 128: return launch<128>(which, is_bf16, p, B, st);
-    default: return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    if (D <= 16) return launch_narrow<16>(which, p, B, st);
+    if (D <= 32) return launch_narrow<32>(which, p, B, st);
+    if (D <= 64) return launch_narrow<64>(which, p, B, st);
+    if (D <= 128) return launch_narrow<128>(which, p, B, st);
+    return launch_bf16_wide(which, p, B, st);
   }
+  if (D <= 16) return launch_f32<16>(which, p, B, st);
+  if (D <= 32) return launch_f32<32>(which, p, B, st);
+  if (D <= 64) return launch_f32<64>(which, p, B, st);
+  return launch_f32<128>(which, p, B, st);
 }
 
 }  // namespace
@@ -704,9 +1144,9 @@ int dispatch(int which, int is_bf16, void* const* ptrs, int B, int H, int N,
 // and lse, delta ([B, H, N] f32); strides[30]: (batch, head, token) element
 // strides of each, in the same order. is_bf16: 1 for bfloat16, 0 for
 // float32. sc2 is s^2, the square of the forward's scale taken in double
-// and rounded to f32 once, as the TPU kernels' sc2 = scale * scale is. D in
-// {16, 32, 64, 128}; any other D returns cudaErrorInvalidValue without
-// launching. bfloat16 reads q, k, v and dO through TMA: their addresses and
+// and rounded to f32 once, as the TPU kernels' sc2 = scale * scale is. D a
+// multiple of 8 up to 1,024; any other D returns cudaErrorInvalidValue
+// without launching. bfloat16 reads q, k, v and dO through TMA: their addresses and
 // strides are multiples of 16 bytes, and no stride along a dim longer than 1
 // is 0 (else 10000 + CUDA_ERROR_INVALID_VALUE, without launching).
 //

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the flash-attention kernels, forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): warpgroup
-// matrix multiplies (wgmma) with their shared-memory descriptors and fences,
-// mbarriers, TMA tile loads and the host-side encoder of their 4-D tensor
-// maps.
+// (flash_attention.cu) and backward (flash_attention_bwd.cu), and the GEGLU
+// MLP (geglu_mlp.cu): warpgroup matrix multiplies (wgmma) with their
+// shared-memory descriptors and fences, mbarriers, TMA tile loads and the
+// host-side encoders of their 4-D and 2-D tensor maps.
 //
 // wgmma m64nNk16, bf16 in, f32 accumulate, issued by one warpgroup (four
 // consecutive warps, the first a multiple of 4). The accumulator d[N/2] of
@@ -108,8 +108,9 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // wgmma m64nNk16 for the N the kernels use, each spelled out (the
 // instruction names every accumulator register): ss() reads A and B from
 // shared memory, both K-major, and overwrites d where accumulate is 0 (N =
-// 32, 64: the score tiles); rs() takes A from registers and B MN-major, and
-// accumulates (N = 16, 32, 64: the head dim, or half of d = 128).
+// 32, 64: the score tiles; 64, 128: the GEGLU products); rs() takes A from
+// registers and B MN-major, and accumulates (N = 16, 32, 64: the head dim,
+// or a 64-column half of a wider one).
 template <int N>
 struct Wgmma;
 
@@ -183,6 +184,27 @@ struct Wgmma<64> {
   }
 };
 
+template <>
+struct Wgmma<128> {
+  // d[64] (+)= A(64x16, smem desc a) * B(16x128, smem desc b), both K-major
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate)
+        : "memory");
+  }
+};
+
 // mbarriers (shared::cta). wait(parity) returns once the phase of that
 // parity has completed: the k-th completion (k = 0, 1, ...) has parity k & 1.
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -217,6 +239,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// One TMA box of a 2-D tensor map (column, row) into shared memory at dst,
+// completing `bar`'s transaction count.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
 // One TMA box of a 4-D tensor map (d, token, head, batch) into shared
 // memory at dst, completing `bar`'s transaction count.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
@@ -236,7 +269,21 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// ---- host side: the 4-D tensor maps of the TMA loads ----
+// ---- host side ----
+
+// Lets `kernel` take `bytes` of dynamic shared memory, once (*done records
+// it). Returns 0 or the CUDA error.
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes, bool* done) {
+  if (*done) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  *done = true;
+  return 0;
+}
+
+// The tensor maps of the TMA loads.
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -262,23 +309,23 @@ inline EncodeTiled encode_tiled() {
 // An entry point returns this plus the CUresult where a map cannot be encoded.
 constexpr int kEncodeError = 10000;
 
-// The 4-D map (d, token, head, batch) of a bf16 tensor [B, H, tokens, D]
+// The 4-D map (d, token, head, batch) of a bf16 tensor [B, H, tokens, d]
 // at `ptr` with element strides st = (batch, head, token) and a unit-stride
-// head dim, in boxes of (min(D, 64), rows, 1, 1) with the swizzle of
-// SwTile<D, rows>. A dim of extent 1 takes the stride that a packed tensor
-// would have (the kernels never step along it); a zero stride along a
-// longer dim is refused (the wrappers copy such an operand). Returns 0 or
-// kEncodeError + the CUresult.
-template <int D>
-int encode(CUtensorMap* map, void* ptr, const long long* st, int B, int H, int tokens,
-           int rows) {
+// head dim, in boxes of (W, rows, 1, 1) with the swizzle of a W-column tile
+// (W = 16, 32 or 64: SwTile<D, rows>::W). A box that reaches past d or past
+// the last token is zero-filled, so a kernel compiled for a wider head dim
+// reads d's columns and zeros. A dim of extent 1 takes the stride that a
+// packed tensor would have (the kernels never step along it); a zero stride
+// along a longer dim is refused (the wrappers copy such an operand).
+// Returns 0 or kEncodeError + the CUresult.
+inline int encode(CUtensorMap* map, void* ptr, const long long* st, int d, int B, int H,
+                  int tokens, int rows, int W) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
-  constexpr int W = D < 64 ? D : 64;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)tokens, (cuuint64_t)H, (cuuint64_t)B};
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)tokens, (cuuint64_t)H, (cuuint64_t)B};
   const long long by_dim[3] = {st[2], st[1], st[0]};  // token, head, batch
   cuuint64_t strides[3];
-  long long packed = D;
+  long long packed = d;
   for (int i = 0; i < 3; ++i) {
     const long long s = dims[i + 1] == 1 ? packed : by_dim[i];
     if (s <= 0) return kEncodeError + (int)CUDA_ERROR_INVALID_VALUE;
@@ -293,6 +340,25 @@ int encode(CUtensorMap* map, void* ptr, const long long* st, int B, int H, int t
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box,
                           unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + (int)res;
+}
+
+// The 2-D map (column, row) of a row-major bf16 matrix [rows, cols] at
+// `ptr` (row stride cols, a multiple of 8), in boxes of 64 columns (128
+// bytes, SWIZZLE_128B: the layout of SwTile<64, box_rows>) by box_rows rows;
+// a box that reaches past the matrix is zero-filled. Returns 0 or
+// kEncodeError + the CUresult.
+inline int encode_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  cuuint32_t unit[2] = {1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kEncodeError + (int)res;
 }

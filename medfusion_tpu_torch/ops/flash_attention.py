@@ -20,8 +20,13 @@ custom VJPs ``_flash`` and ``_flash_mha`` do.
 * A CPU tensor goes through :func:`naive_attention_reference` and, for the
   gradient, :func:`flash_attention_backward_reference`.
 * A CUDA tensor launches the kernels or raises: there is no fallback. The
-  kernels take head dims 16, 32, 64 and 128, float32 and bfloat16, and any
-  N, M >= 1.
+  kernels take every head dim that is a multiple of 8 up to 1,024
+  (:data:`MAX_HEAD_DIM`), float32 and bfloat16, and any N, M >= 1. In
+  bfloat16 a head dim under 128 runs the kernel compiled for the next of
+  16, 32, 64 and 128 on zero-filled columns, and a wider one splits the
+  output's columns into 128-wide chunks over blocks (``csrc/*.cu``). Head
+  dims that are not multiples of 8 break the kernels' 16-byte rows and TMA's
+  16-byte strides; the JAX package runs them, the port refuses them.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ TOKEN_LAUNCHES = 0  # token layout, flash_attention_tokens
 BWD_DQ_LAUNCHES = 0  # backward, the dQ kernel (either layout)
 BWD_DKV_LAUNCHES = 0  # backward, the dK/dV kernel (either layout)
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIM_MULTIPLE = 8  # 16-byte rows in bf16
+MAX_HEAD_DIM = 1024
 _IS_BF16 = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
@@ -109,9 +115,9 @@ def _check(q, k, v):
     if k.shape != (b, h, m, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head dims {HEAD_DIMS}, "
-                         f"got {d}")
+    if d % HEAD_DIM_MULTIPLE or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernel takes head dims that are multiples "
+                         f"of {HEAD_DIM_MULTIPLE} up to {MAX_HEAD_DIM}, got {d}")
     if q.dtype not in _IS_BF16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention kernel takes float32/bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")

@@ -9,10 +9,13 @@ with h in columns [:F] and the gate in [F:], w2 [F, C].
 
 * A CPU tensor goes through :func:`geglu_mlp_reference`.
 * A CUDA tensor launches ``csrc/geglu_mlp.cu`` or raises: there is no
-  fallback. The kernel takes float32/bfloat16, any M, and C, F multiples of
-  16 with C <= 1024. Every launch adds one to :data:`LAUNCHES`; where F is
-  split over blocks (:func:`launch_shape`), the launch is two kernels, the
-  second adding the f32 partial sums.
+  fallback. The kernels take float32/bfloat16, any M, and C, F multiples of
+  16 with C <= 1024 (bfloat16 keeps the LayerNormed [rows, C] tile in
+  shared memory: 128 KB at C = 1,024). In bfloat16 a call is two kernels,
+  the LayerNorm + up-projection + gate writing g [M, F] to a workspace and
+  the down-projection reading it (:func:`launch_shape`); in float32 one.
+  Each call of :func:`geglu_mlp_cuda` adds one to :data:`LAUNCHES`, however
+  many CUDA kernels it runs.
 * The gradient recomputes through the plain version with autograd, as the
   JAX custom VJP ``_fused_bwd`` recomputes through its reference.
 """
@@ -21,34 +24,58 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 # Launches of the CUDA kernel since import (or since a caller reset it).
 LAUNCHES = 0
 
-MAX_CHANNELS = 1024  # the [BM, C] accumulator lives in registers
-F_CHUNK = 64  # F columns per step of the bf16 kernel
+MAX_CHANNELS = 1024  # the bf16 kernel's LayerNormed [rows, C] tile: 128 KB
+N_TILE = 128  # F columns of an up-projection n-tile (and C columns of a down tile)
+DOWN_ROWS = 128  # rows of a down-projection tile
+_PROLOGUE_TILES = 0.5  # a block's LayerNorm prologue, in n-tiles of work
 _IS_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+_ENCODE_ERROR = 10000  # the entry returns this plus the CUresult of a failed encode
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_void_p])
 
 
-def launch_shape(m: int, c: int, f: int, dtype, sms: int):
-    """(rows per block, F splits) of a launch. bf16: 64, 32 or 16 rows as C
-    is <= 256, <= 512 or <= 1024 (the block's [rows, C] f32 accumulator
-    stays within 64 registers a thread); F is split over blocks only when
-    the row blocks fill at most half the SMs (measured on an H100: a split
-    of 128 row blocks lost to the partial sums' round trip), into enough
-    parts for two blocks per SM. float32: min(64, 8192 / C) rows, no
-    split."""
+class LaunchShape(NamedTuple):
+    """How ``csrc/geglu_mlp.cu`` is launched for one call."""
+
+    block_rows: int  # rows of an up-projection block (f32: of the one kernel)
+    tiles_per_block: int  # 128-column n-tiles of F per up-projection block
+    up_grid: Tuple[int, int]  # (runs of n-tiles, row tiles); f32: (row tiles, 1)
+    down_grid: Optional[Tuple[int, int]]  # (C tiles, 128-row tiles); f32: None
+    workspace: Optional[Tuple[int, int]]  # g [M, F] in bf16; f32: None
+
+
+def launch_shape(m: int, c: int, f: int, dtype, sms: int) -> LaunchShape:
+    """The launch of one call on a card with ``sms`` SMs. bf16: the
+    up-projection's blocks take 128 rows for 256 < C <= 512 and 64 else
+    (their LayerNormed rows stay in shared memory; at C <= 256 two blocks
+    share an SM, above one), and each takes a run of 128-column n-tiles of
+    F. The run is all of F unless the row tiles alone cannot fill the card;
+    then the run is the one that minimises waves x (run + the LayerNorm
+    prologue, about half an n-tile), the larger run on a tie. The
+    down-projection takes 128 x 128 output tiles; g [M, F] bf16 passes
+    between the two. float32: one kernel, min(64, 8192 / C) rows a block."""
     if dtype == torch.float32:
-        return min(64, 8192 // c), 1
-    rows = 64 if c <= 256 else (32 if c <= 512 else 16)
-    blocks = -(-m // rows)
-    if 2 * blocks > sms:
-        return rows, 1
-    return rows, min(-(-f // F_CHUNK), -(-2 * sms // blocks))
+        rows = min(64, 8192 // c)
+        return LaunchShape(rows, 1, (-(-m // rows), 1), None, None)
+    rows = 128 if 256 < c <= 512 else 64
+    slots = sms * (2 if c <= 256 else 1)  # blocks the card holds at once
+    row_tiles = -(-m // rows)
+    n_tiles = -(-f // N_TILE)
+    run = n_tiles
+    if row_tiles < slots:
+        def cost(t):
+            return -(-row_tiles * -(-n_tiles // t) // slots) * (t + _PROLOGUE_TILES)
+
+        run = min(range(n_tiles, 0, -1), key=cost)
+    return LaunchShape(rows, run, (-(-n_tiles // run), row_tiles),
+                       (-(-c // N_TILE), -(-m // DOWN_ROWS)), (m, f))
 
 
 def layer_norm_f32(x, scale, bias, eps: float = 1e-5):
@@ -103,37 +130,57 @@ def _check(x, ln_scale, ln_bias, w1, b1, w2, b2):
         raise ValueError("geglu_mlp needs at least one row")
 
 
+def _aligned(t):
+    """``t`` contiguous with a 16-byte aligned start (the kernels read rows
+    in 16-byte chunks and through TMA), copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def geglu_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2):
-    """Launch the CUDA kernel on the current stream (no autograd)."""
+    """Launch the CUDA kernels on the current stream (no autograd): in
+    bfloat16 the up-projection and the down-projection with g [M, F] in a
+    workspace between them, in float32 one kernel. One call counts as one
+    launch in :data:`LAUNCHES`."""
     global LAUNCHES
     from medfusion_tpu_torch.ops.build import function
 
     _check(x, ln_scale, ln_bias, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"geglu_mlp_cuda takes a CUDA tensor, got {x.device}")
+    out = launch(function("geglu_mlp", "mf_geglu_mlp", _ARGTYPES),
+                 x, ln_scale, ln_bias, w1, b1, w2, b2)
+    LAUNCHES += 1
+    return out
+
+
+def launch(fn, x, ln_scale, ln_bias, w1, b1, w2, b2):
+    """Lay the checked CUDA operands out as ``csrc/geglu_mlp.cu``'s entry
+    ``fn`` takes them, allocate the output and the workspace, and launch."""
     c = x.shape[-1]
     f = w2.shape[0]
-    x2 = x.reshape(-1, c).contiguous()
+    x2 = _aligned(x.reshape(-1, c))
     # nn.Linear layout: a no-op for w1 = linear.weight.t()
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
-    ln_scale, ln_bias, b1, b2 = (t.contiguous() for t in (ln_scale, ln_bias, b1, b2))
+    w1t, w2t = _aligned(w1.t()), _aligned(w2.t())
+    ln_scale, ln_bias, b1, b2 = (_aligned(t) for t in (ln_scale, ln_bias, b1, b2))
     m = x2.shape[0]
     out = torch.empty_like(x2)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows, splits = launch_shape(m, c, f, x.dtype, sms)
-    partial = (torch.empty((splits, m, c), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    fn = function("geglu_mlp", "mf_geglu_mlp", _ARGTYPES)
+    plan = launch_shape(m, c, f, x.dtype, sms)
+    g = (torch.empty(plan.workspace, dtype=x.dtype, device=x.device)
+         if plan.workspace else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_IS_BF16[x.dtype], x2.data_ptr(), ln_scale.data_ptr(),
                  ln_bias.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
                  w2t.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                 None if partial is None else partial.data_ptr(), m, c, f,
-                 rows, splits, 1e-5, stream)
+                 None if g is None else g.data_ptr(), m, c, f,
+                 plan.block_rows, plan.tiles_per_block, 1e-5, stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"geglu_mlp: a TMA tensor map could not be encoded "
+                           f"(CUresult {err - _ENCODE_ERROR})")
     if err != 0:
         raise RuntimeError(f"geglu_mlp launch failed: CUDA error {err}")
-    LAUNCHES += 1
     return out.reshape(x.shape)
 
 

@@ -94,6 +94,37 @@ def test_plain_version_matches_jax_token_layout(n, m, d):
                                atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("d", [8, 48, 256, 512])
+def test_plain_version_matches_jax_at_the_kernels_head_widths(d):
+    """Head widths the CUDA kernels reach only by zero-filled columns (8,
+    48) or by 128-column chunks (256, 512): the plain forward against JAX
+    ``naive_attention`` and the interpret-mode ``_fwd_call`` (f32, 2e-5:
+    sums over up to 512 products in another order), and in bfloat16 against
+    ``_fwd_call`` on the same bf16 inputs, which rounds at the same points
+    (o within one bf16 ulp of max|o|, lse within 1e-4)."""
+    n, m = 64, 96
+    q, k, v = _qkv(1, 2, n, m, d, seed=d)
+    scale = d ** -0.25
+    o, lse = _port_heads(q, k, v, scale)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    np.testing.assert_allclose(o, np.asarray(jax_fa.naive_attention(jq, jk, jv, scale)),
+                               atol=2e-5, rtol=2e-5)
+    flat = [a.reshape(2, -1, d) for a in (jq, jk, jv)]
+    po, plse = jax_fa._fwd_call(*flat, scale, 32, 32, True)
+    np.testing.assert_allclose(o.reshape(2, n, d), np.asarray(po), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.reshape(2, n), np.asarray(plse)[..., 0], atol=2e-5,
+                               rtol=2e-5)
+    tb = [torch.from_numpy(a).bfloat16() for a in (q, k, v)]
+    ob, lseb = FA.flash_attention(*tb, scale)
+    jb = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16).reshape(2, -1, d) for t in tb]
+    pob, plseb = jax_fa._fwd_call(*jb, scale, 32, 32, True)
+    pob = np.asarray(pob.astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(pob).max())) - 7)
+    np.testing.assert_allclose(ob.float().numpy().reshape(2, n, d), pob, atol=ulp, rtol=0)
+    np.testing.assert_allclose(lseb.numpy().reshape(2, n), np.asarray(plseb)[..., 0],
+                               atol=1e-4, rtol=1e-4)
+
+
 def test_plain_version_takes_ragged_and_odd_shapes():
     """Any N, M >= 1 and any head dim on the CPU (the kernel's ragged tiles
     are masked; its head dims are checked at launch)."""
@@ -145,7 +176,7 @@ def test_launchers_refuse_cpu_tensors_and_unsupported_head_dims():
     with pytest.raises(ValueError, match="CUDA tensor"):
         FA.flash_attention_tokens_cuda(torch.randn(1, 8, 64), torch.randn(1, 8, 64),
                                        torch.randn(1, 8, 64), 2, 0.5)
-    for d in (8, 48, 256):
+    for d in (4, 12, 2048):  # not a multiple of 8, or wider than 1,024
         x = torch.randn(1, 2, 8, d)
         with pytest.raises(ValueError, match="head dims"):
             FA.flash_attention_cuda(x, x, x, 0.5)

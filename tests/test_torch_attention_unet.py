@@ -40,6 +40,9 @@ UNET_CFGS = {
     # and token-layout Pallas kernels (hd % 128 == 0) and the fused GEGLU
     # kernel (C % 128 == 0) take these shapes
     "lane": dict(hid=(128, 128, 128), groups=32, shape=(2, 32, 32, 2), t_dim=32),
+    # widths that 32 heads divide: 2 heads give d = 16 and 32, 32 heads d = 1
+    # and 2 (the chest UNet's attn_heads 2 and 32 at narrow widths)
+    "heads": dict(hid=(32, 32, 64), groups=4, shape=(2, 16, 16, 2), t_dim=32),
 }
 
 
@@ -70,8 +73,8 @@ def _unet_kw(cfg, attention):
                 deep_supervision=0, use_attention=attention)
 
 
-def _unet_pair(cfg, attention, seed=5):
-    kw = _unet_kw(cfg, attention)
+def _unet_pair(cfg, attention, seed=5, attn_heads=8):
+    kw = dict(_unet_kw(cfg, attention), attn_heads=attn_heads)
     jax_unet = JaxUNet(**kw)
     shape = UNET_CFGS[cfg]["shape"]
     x0 = jnp.zeros((1,) + shape[1:], jnp.float32)
@@ -106,6 +109,28 @@ def test_unet_with_attention_matches_jax(attention, cfg, kernels, pallas_spy):
     with torch.no_grad():
         ty, _ = unet(nchw(x), torch.from_numpy(t).long(), torch.from_numpy(c).long(),
                      torch.from_numpy(mask))
+    assert np.abs(np.asarray(y)).max() > 1e-2
+    np.testing.assert_allclose(nhwc(ty), np.asarray(y), rtol=3e-4, atol=3e-5)
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["xla", "kernels_on"])
+@pytest.mark.parametrize("heads", [2, 32])
+def test_spatial_unet_matches_jax_at_other_head_counts(heads, kernels):
+    """The spatial UNet at ``attn_heads`` 2 and 32 (head widths 16/32 and
+    1/2 here; on the chest UNet 128-512 and 8-32) against the JAX UNet
+    with its flash-attention and fused-GEGLU switches off and on, at the
+    attention UNet's tolerances."""
+    jax_ops.enable_flash_attention(kernels)
+    jax_ops.enable_fused_geglu(kernels)
+    jax_unet, params, unet = _unet_pair("heads", "spatial", attn_heads=heads)
+    shape = UNET_CFGS["heads"]["shape"]
+    x = np.random.default_rng(heads).standard_normal(shape).astype(np.float32)
+    t = np.asarray([5, 9], np.int32)
+    c = np.asarray([1, 0], np.int32)
+    y, _ = jax.jit(jax_unet.apply)({"params": params}, jnp.asarray(x), jnp.asarray(t),
+                                   jnp.asarray(c))
+    with torch.no_grad():
+        ty, _ = unet(nchw(x), torch.from_numpy(t).long(), torch.from_numpy(c).long())
     assert np.abs(np.asarray(y)).max() > 1e-2
     np.testing.assert_allclose(nhwc(ty), np.asarray(y), rtol=3e-4, atol=3e-5)
 

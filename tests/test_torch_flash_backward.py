@@ -145,6 +145,37 @@ def test_plain_backward_matches_grad_of_naive_attention(n, m):
 
 
 @pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [8, 48, 256, 512])
+def test_plain_backward_matches_jax_at_the_kernels_head_widths(name, d, bwd_spy):
+    """Head widths the CUDA kernels reach only by zero-filled columns (8,
+    48) or by 128-column chunks (256, 512): the plain backward against the
+    interpret-mode ``_flash_bwd`` on its own forward's o and lse, and (f32)
+    against ``jax.grad`` of ``naive_attention``."""
+    bh, n, m = 2, 64, 96
+    scale = d ** -0.25
+    q, k, v, do = _arrays([(bh, n, d), (bh, m, d), (bh, m, d), (bh, n, d)], 5 * d)
+    (tq, jq), (tk, jk), (tv, jv), (tdo, jdo) = (_pair(a, name) for a in (q, k, v, do))
+    jo, jlse = jax_fa._fwd_call(jq, jk, jv, scale, 32, 32, True)
+    jdq, jdk, jdv = jax_fa._flash_bwd(scale, 32, 32, True, (jq, jk, jv, jo, jlse), jdo)
+    assert {"_bwd_dq_kernel", "_bwd_dkv_kernel"} <= set(bwd_spy)
+    to, tlse = _pair(_np(jo), name)[0], torch.from_numpy(_np(jlse)[..., 0])
+    grads = FA.flash_attention_backward_reference(
+        *(t[None] for t in (tq, tk, tv, to, tlse, tdo)), scale)
+    for what, g, r in zip(("dq", "dk", "dv"), grads, (jdq, jdk, jdv)):
+        _close(g[0], r, name, what)
+    if name == "f32":
+        def loss(q_, k_, v_):
+            return jnp.sum(jax_fa.naive_attention(q_, k_, v_, scale) * jdo)
+
+        ref = jax.grad(loss, argnums=(0, 1, 2))(jq[None], jk[None], jv[None])
+        o, lse = FA.naive_attention_reference(*(t[None] for t in (tq, tk, tv)), scale)
+        grads = FA.flash_attention_backward_reference(
+            *(t[None] for t in (tq, tk, tv)), o, lse, tdo[None], scale)
+        for what, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            _close(g, r, name, what)
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
 def test_autograd_head_entry_matches_jax_grad(name, bwd_spy):
     b, h, n, m, d = 2, 2, 64, 96, 32
     scale = d ** -0.25
@@ -219,7 +250,7 @@ def test_backward_launchers_refuse_cpu_tensors_and_bad_operands():
         FA.flash_attention_backward_operands(q, q, q, o, lse, q[..., :16])
     with pytest.raises(ValueError, match="do "):
         FA.flash_attention_backward_operands(q, q, q, o, lse, q.bfloat16())
-    x = torch.randn(1, 2, 8, 48)
+    x = torch.randn(1, 2, 8, 12)  # not a multiple of 8
     with pytest.raises(ValueError, match="head dims"):
         FA.flash_attention_backward_operands(x, x, x, x, lse, x)
     # a misaligned do is copied, not refused

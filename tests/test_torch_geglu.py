@@ -66,13 +66,32 @@ def test_layer_norm_clamps_negative_variance():
 
 
 def test_launch_shape_splits_f_only_when_row_blocks_cannot_fill_the_card():
-    bf = torch.bfloat16
-    assert G.launch_shape(16384, 256, 1024, bf, 132) == (64, 1)  # 256 row blocks
-    assert G.launch_shape(4096, 512, 2048, bf, 132) == (32, 1)  # 128 row blocks
-    assert G.launch_shape(4096, 256, 1024, bf, 132) == (64, 5)  # 64 row blocks
-    assert G.launch_shape(1024, 1024, 4096, bf, 132) == (16, 5)  # 64 row blocks
-    assert G.launch_shape(100, 16, 64, bf, 132) == (64, 1)  # one F chunk
-    assert G.launch_shape(4096, 1024, 4096, torch.float32, 132) == (8, 1)
+    """bf16: 128 rows an up-projection block for 256 < C <= 512, else 64
+    (two blocks an SM at C <= 256, one above); each block takes all of F's
+    128-column n-tiles unless its row tiles are fewer than the blocks the
+    card holds, then the run of n-tiles with the fewest waves x (run + half
+    a tile of LayerNorm); down-projection tiles of 128 x 128; a g [M, F]
+    workspace between them. float32: one kernel, no workspace."""
+    bf, sms = torch.bfloat16, 132
+    # 1,024 row tiles of 64: no split
+    assert G.launch_shape(65536, 256, 1024, bf, sms) == (
+        64, 8, (1, 1024), (2, 512), (65536, 1024))
+    # 128 row tiles of 128 rows: one run of 16 tiles fills 128 SMs in one wave
+    assert G.launch_shape(16384, 512, 2048, bf, sms) == (
+        128, 16, (1, 128), (4, 128), (16384, 2048))
+    # 64 row tiles of 64 rows (C = 1,024): two runs of 16 (one wave of 128
+    # blocks) beat three of 11 (192 blocks, two waves)
+    assert G.launch_shape(4096, 1024, 4096, bf, sms) == (
+        64, 16, (2, 64), (8, 32), (4096, 4096))
+    # the sampling batch's 8^2 level: 16 row tiles, runs of 4 n-tiles
+    assert G.launch_shape(1024, 1024, 4096, bf, sms) == (
+        64, 4, (8, 16), (8, 8), (1024, 4096))
+    # 64 row tiles at C = 256: 256 blocks in the card's 264 slots
+    assert G.launch_shape(4096, 256, 1024, bf, sms).up_grid == (4, 64)
+    assert G.launch_shape(1024, 512, 2048, bf, sms).tiles_per_block == 1
+    assert G.launch_shape(100, 16, 64, bf, sms) == (64, 1, (1, 2), (1, 1), (100, 64))
+    assert G.launch_shape(4096, 1024, 4096, torch.float32, sms) == (
+        8, 1, (512, 1), None, None)
 
 
 def test_cpu_wrapper_takes_the_plain_version(monkeypatch):

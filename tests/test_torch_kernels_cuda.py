@@ -32,8 +32,14 @@ Tolerances:
   another order, so an element of ds, and so of the gradient, may land one
   ulp apart.
 
-GEGLU is held at the rows of two UNet rows and of the sampling batch's 16
-(8 samples under CFG), since its launch splits F by the row count.
+GEGLU is held at the rows of two UNet rows, of the sampling batch's 16 (8
+samples under CFG) and of the flagship's 64, since its launch plan depends
+on the row count.
+
+The chest-spatial UNet at other head counts: its f32 forward on the card
+against the same weights' forward on the CPU (the plain versions),
+atol = rtol = 1e-3 of max|ref| (f32 convs, projections and kernels summed
+in another order through some 40 layers, no TF32).
 """
 
 import math
@@ -193,8 +199,34 @@ def test_flash_attention_takes_strided_head_views(cuda):
     torch.testing.assert_close(o.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+# head widths off the compiled 16/32/64/128 (zero-filled columns) and
+# above 128 (128-column chunks; at d = 136 the last chunk's second half
+# lies wholly past d and is not loaded), at N and M off the 64-row blocks
+WIDE_CASES = [(n, m, d) for d in (8, 24, 136, 256, 512, 1024)
+              for n, m in ((77, 45), (129, 127))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 48, 256])
+@DTYPES
+@pytest.mark.parametrize("n,m,d", WIDE_CASES)
+def test_flash_attention_any_head_width_matches_plain_version(cuda, dtype, n, m, d):
+    """Both layouts, two heads of width d."""
+    q, k, v = _attn_inputs(cuda, 2, n, m, 2 * d, dtype)
+    scale = d ** -0.25
+    qh, kh, vh = (FA._heads(t, 2) for t in (q, k, v))
+    ro, rlse = FA.naive_attention_reference(qh, kh, vh, scale)
+    o, lse = FA.flash_attention_tokens(q, k, v, 2, scale)
+    oh, lseh = FA.flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(), scale)
+    torch.cuda.synchronize()
+    atol, rtol = _attn_o_tol(ro)
+    ltol = ATTN_LSE_TOL[dtype]
+    for out, lo in ((FA._heads(o, 2), lse.transpose(1, 2)), (oh, lseh)):
+        torch.testing.assert_close(out.float(), ro.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(lo, rlse, atol=ltol, rtol=ltol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 12, 2048])
 def test_flash_attention_refuses_unsupported_head_dims(cuda, d):
     x = torch.randn((1, 2, 16, d), device="cuda")
     with pytest.raises(ValueError, match="head dims"):
@@ -262,6 +294,25 @@ def test_flash_attention_backward_matches_plain_version(cuda, dtype, layout, n, 
 
 @pytest.mark.cuda
 @DTYPES
+@pytest.mark.parametrize("layout", ["head", "tokens"])
+@pytest.mark.parametrize("n,m,d", WIDE_CASES)
+def test_flash_attention_backward_any_head_width_matches_plain_version(cuda, dtype, layout,
+                                                                      n, m, d):
+    """The forward and both backward kernels at two heads of width d."""
+    q = torch.randn((2, n, 2 * d), generator=cuda, device="cuda").to(dtype)
+    k, v = (torch.randn((2, m, 2 * d), generator=cuda, device="cuda").to(dtype)
+            for _ in range(2))
+    do = torch.randn((2, n, 2 * d), generator=cuda, device="cuda").to(dtype)
+    grads, refs = _attention_grads(q, k, v, do, 2, layout)
+    torch.cuda.synchronize()
+    for what, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        atol, rtol = _bwd_tol(r)
+        torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=rtol,
+                                   msg=lambda msg, w=what: f"{w}: {msg}")
+
+
+@pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("n,layout", [(256, "tokens"), (1024, "head")])
 def test_flash_attention_backward_is_deterministic(cuda, dtype, n, layout):
     """No atomics: two runs give the same bits (d = 32, as at the 32^2 and
@@ -315,6 +366,13 @@ def _side_stream_attention(gen):
                                       else (ATTN_LSE_TOL[torch.bfloat16],) * 2)
 
 
+def _side_stream_geglu(gen):
+    """Both bf16 GEGLU kernels (up- and down-projection, g between them)."""
+    args = _geglu_inputs(gen, 4096, 512, torch.bfloat16)
+    return (lambda: [GL.geglu_mlp_cuda(*args)], lambda: [GL.geglu_mlp_reference(*args)],
+            lambda r: (GEGLU_TOL[torch.bfloat16],) * 2)
+
+
 def _side_stream_attention_backward(gen):
     """Both backward kernels (bf16, token layout) on their operands."""
     q, k, v, do = (torch.randn((2, 256, 256), generator=gen, device="cuda").bfloat16()
@@ -335,12 +393,13 @@ def _side_stream_attention_backward(gen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["group_norm_silu", "flash_attention",
-                                    "flash_attention_backward"])
+                                    "flash_attention_backward", "geglu_mlp"])
 def test_launch_on_a_side_stream(cuda, kernel):
     """A launch goes on the caller's current stream, not the default one."""
     make = {"group_norm_silu": _side_stream_group_norm,
             "flash_attention": _side_stream_attention,
-            "flash_attention_backward": _side_stream_attention_backward}[kernel]
+            "flash_attention_backward": _side_stream_attention_backward,
+            "geglu_mlp": _side_stream_geglu}[kernel]
     run, plain, tol = make(cuda)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -364,10 +423,11 @@ def _geglu_inputs(gen, rows, c, dtype):
 
 @pytest.mark.cuda
 @DTYPES
-@pytest.mark.parametrize("rows,c", [(2048, 256), (512, 512), (512, 256), (128, 1024),
-                                    (128, 512), (16384, 256), (4096, 512), (4096, 256),
-                                    (1024, 1024), (1024, 512), (77, 256), (130, 16),
-                                    (33, 48)])
+@pytest.mark.parametrize("rows,c", [
+    (2048, 256), (512, 512), (512, 256), (128, 1024), (128, 512),  # 2 UNet rows
+    (16384, 256), (4096, 512), (4096, 256), (1024, 1024), (1024, 512),  # 16 (B=8)
+    (65536, 256), (16384, 512), (4096, 1024),  # 64 (B=64; 16384 x 256, 4096 x 512 above)
+    (77, 256), (130, 16), (1000, 1024), (1000, 512), (130, 1024), (33, 48)])
 def test_geglu_mlp_matches_plain_version(cuda, dtype, rows, c):
     args = _geglu_inputs(cuda, rows, c, dtype)
     before = GL.LAUNCHES
@@ -378,6 +438,45 @@ def test_geglu_mlp_matches_plain_version(cuda, dtype, rows, c):
     assert out.dtype == dtype and out.shape == (rows, c)
     tol = GEGLU_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", [(16384, 256), (1000, 1024)])
+def test_geglu_mlp_is_deterministic(cuda, rows, c):
+    """No atomics: two bf16 launches give the same bits."""
+    args = _geglu_inputs(cuda, rows, c, torch.bfloat16)
+    assert torch.equal(GL.geglu_mlp_cuda(*args), GL.geglu_mlp_cuda(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [1, 2, 4, 32])
+def test_chest_spatial_unet_at_other_head_counts_matches_the_cpu(cuda, heads):
+    """The chest UNet with spatial attention at ``attn_heads`` 1, 2, 4 and
+    32 (head widths up to 1,024, down to 8): an f32 forward of 2 rows on the
+    card (every kernel) against the CPU's (every plain version), same
+    weights; and the attention entries were launched."""
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_unet
+
+    torch.manual_seed(heads)
+    cpu = build_unet(PRESETS["chest"], attention="spatial", attn_heads=heads).eval()
+    with torch.no_grad():
+        for prm in cpu.parameters():  # away from the zero-initialised heads
+            prm.add_(0.02 * torch.randn(prm.shape))
+    card = build_unet(PRESETS["chest"], attention="spatial", attn_heads=heads).cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 8, 32, 32))
+    t = torch.tensor([999, 10])
+    c = torch.tensor([0, 1])
+    before = ops.launch_counts()
+    with torch.no_grad():
+        ref, _ = cpu(x, t, c)
+        out, _ = card(x.cuda(), t.cuda(), c.cuda())
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["flash_attention"] > before["flash_attention"]
+    assert after["flash_attention_tokens"] > before["flash_attention_tokens"]
+    tol = 1e-3 * ref.abs().max().item()
+    torch.testing.assert_close(out.cpu(), ref, atol=tol, rtol=1e-3)
 
 
 @pytest.mark.cuda

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Compare builds of the flash-attention kernels on one CUDA card.
+"""Compare builds of the flash-attention or GEGLU kernels on one CUDA card.
 
 Each variant is a directory holding the kernel's source
 (``flash_attention.cu`` for the forward, ``flash_attention_bwd.cu`` for the
-backward) and its headers (a copy of ``medfusion_tpu_torch/csrc`` with a
-change, or the package's own), plus optional ``-D`` macros. Every variant is
-built with the package's nvcc flags (its bf16 ptxas registers, spills and
-warnings printed), checked against the plain version at ragged and path
-shapes in bf16 (the forward's o within two bf16 ulps of max|o| and its lse
-within 1e-4, the backward's gradients within two ulps of the largest, as
-``chip_smoke.py``), and timed at the path's five shapes in turns, A B ... B
-A, the faster of each variant's two turns kept: the forward at the
-flagship sampling batch (B=64 UNet rows) beside
-``F.scaled_dot_product_attention`` on the same inputs, the backward at the
-training batch (B=32). Run from the repository root:
+backward, ``geglu_mlp.cu`` for GEGLU) and its headers (a copy of
+``medfusion_tpu_torch/csrc`` with a change, or the package's own), plus
+optional ``-D`` macros. Every variant is built with the package's nvcc
+flags (its ptxas registers, spills and warnings printed), checked against
+the plain version at ragged and path shapes in bf16 (the forward's o within
+two bf16 ulps of max|o| and its lse within 1e-4, the backward's gradients
+within two ulps of the largest, GEGLU within 3e-2, as ``chip_smoke.py``),
+and timed at the path's five shapes in turns, A B ... B A, the faster of
+each variant's two turns kept: the forward at the flagship sampling batch
+(B=64 UNet rows) beside ``F.scaled_dot_product_attention`` on the same
+inputs, the backward at the training batch (B=32), GEGLU at B=64 and at
+the sampling batch (16 UNet rows), with each variant's device time split
+by kernel (up- and down-projection, from a profile of a few eager calls)
+and the sum per CFG UNet forward at B=64. Run from the repository root:
 
     python3 tools/compare_attn_builds.py --kernel fwd \\
         now=medfusion_tpu_torch/csrc other=path/to/copy:MACRO=1,OTHER
@@ -36,16 +39,22 @@ CHECKS = [(1024, 1024, 256, 8, "head"), (256, 256, 512, 8, "tokens"),
           (1, 64, 64, 4, "tokens"), (64, 3, 512, 4, "head")]
 SOURCES = {"fwd": ("flash_attention.cu", ["mf_flash_attention_fwd"]),
            "bwd": ("flash_attention_bwd.cu",
-                   ["mf_flash_attention_bwd_dq", "mf_flash_attention_bwd_dkv"])}
+                   ["mf_flash_attention_bwd_dq", "mf_flash_attention_bwd_dkv"]),
+           "geglu": ("geglu_mlp.cu", ["mf_geglu_mlp"])}
+# GEGLU (rows, C): path shapes at 2, 16 and 64 UNet rows, ragged rows, and
+# the narrow widths
+GEGLU_CHECKS = [(2048, 256), (16384, 256), (4096, 512), (1024, 1024), (4096, 1024),
+                (77, 256), (1000, 1024), (130, 16), (33, 48)]
 
 
 def build(kernel, variants, out_dir):
     """{name: [entry points]}; prints each build's bf16 ptxas lines."""
     from medfusion_tpu_torch.ops import build as B
     from medfusion_tpu_torch.ops import flash_attention as FA
+    from medfusion_tpu_torch.ops import geglu as GL
 
     source, symbols = SOURCES[kernel]
-    argtypes = FA._ARGTYPES if kernel == "fwd" else FA._BWD_ARGTYPES
+    argtypes = {"fwd": FA._ARGTYPES, "bwd": FA._BWD_ARGTYPES, "geglu": GL._ARGTYPES}[kernel]
     procs = {}
     for name, (src, macros) in variants.items():
         lib = out_dir / f"{name}.so"
@@ -63,6 +72,7 @@ def build(kernel, variants, out_dir):
         for line in log.splitlines():
             if "Compiling entry" in line:
                 entry = line.split("'")[1] if "bf16" in line else None
+                entry = entry and entry.split("_GLOBAL__N__")[-1]
             elif entry and ("registers" in line or "spill" in line):
                 print(f"   {entry[-60:]}: {line.strip()}")
             elif "warning" in line.lower():
@@ -124,11 +134,87 @@ def bwd_operands(CS, FA, b, n, m, c, heads, layout, gen):
     return CS.bwd_operands(FA, q, k, v, heads, layout, do)
 
 
+def check_geglu(CS, fns, gen):
+    """Each GEGLU variant against the plain version at GEGLU_CHECKS."""
+    from medfusion_tpu_torch.ops import geglu as GL
+
+    import torch
+
+    ok_all = True
+    tol = CS.GEGLU_TOL["bfloat16"]
+    for rows, c in GEGLU_CHECKS:
+        args = CS.geglu_inputs(rows, c, torch.bfloat16, gen)
+        ref = GL.geglu_mlp_reference(*args)
+        for name, (fn,) in fns.items():
+            out = GL.launch(fn, *args)
+            again = GL.launch(fn, *args)
+            err = (out.float() - ref.float()).abs()
+            ok = bool((err <= tol + tol * ref.float().abs()).all()) and torch.equal(out, again)
+            ok_all &= ok
+            print(f"check geglu M={rows} C={c}: {name} {'ok' if ok else 'FAIL'} "
+                  f"{err.max().item():.2e}", flush=True)
+    return ok_all
+
+
+def geglu_split(fn_run):
+    """Device ms of the up- and down-projection kernels per call (a profile
+    of five eager calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn_run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn_run()
+        torch.cuda.synchronize()
+    split = {"up": 0.0, "down": 0.0}
+    for e in prof.key_averages():
+        for part in split:
+            if f"geglu_{part}" in e.key:
+                split[part] += e.self_device_time_total / 1e3 / 5
+    return split
+
+
+def times_geglu(CS, fns, gen):
+    """Each GEGLU variant at the path's shapes, B=64 and the sampling
+    batch, in turns, beside the plain version."""
+    import torch
+
+    from medfusion_tpu_torch.ops import geglu as GL
+
+    per_fwd = dict.fromkeys(fns, 0.0)
+    for rows_per_image in (CS.TIMING_BATCH["unet"], 2 * CS.N_SAMPLES):
+        for n, c, _, launches, _ in CS.ATTN_SHAPES:
+            rows = rows_per_image * n
+            args = CS.geglu_inputs(rows, c, torch.bfloat16, gen)
+            best = {}
+            for name in list(fns) + list(fns)[::-1]:
+                t = CS.graph_ms(lambda f=fns[name][0]: GL.launch(f, *args), 10)
+                best[name] = min(best.get(name, t), t)
+            plain = CS.graph_ms(lambda: GL.geglu_mlp_reference(*args), 3)
+            bound = 6 * rows * c * 4 * c / CS.BF16_FLOPS_PER_S * 1e3
+            splits = {name: geglu_split(lambda f=fns[name][0]: GL.launch(f, *args))
+                      for name in fns}
+            if rows_per_image == CS.TIMING_BATCH["unet"]:
+                for name, t in best.items():
+                    per_fwd[name] += launches * t
+            print(f"ms geglu M={rows} C={c}: " + "; ".join(
+                f"{name} {t:.4f} ({bound / t:.1%} of bound; up {splits[name]['up']:.4f}, "
+                f"down {splits[name]['down']:.4f})" for name, t in best.items())
+                + f"; plain {plain:.4f}; bound {bound:.4f}", flush=True)
+            del args
+    print("per CFG UNet forward (B=64): " + "; ".join(
+        f"{name} {t:.4f}" for name, t in per_fwd.items()))
+
+
 def check(kernel, CS, FA, fns, gen):
     """Each variant against the plain version at CHECKS; returns False if
     any fails."""
     import torch
 
+    if kernel == "geglu":
+        return check_geglu(CS, fns, gen)
     ok_all = True
     for n, m, c, heads, layout in CHECKS:
         if kernel == "fwd":
@@ -162,6 +248,8 @@ def times(kernel, CS, FA, fns, gen):
     import torch
     import torch.nn.functional as F
 
+    if kernel == "geglu":
+        return times_geglu(CS, fns, gen)
     totals = {name: [0.0] * len(entries) for name, entries in fns.items()}
     sdpa_total = 0.0
     for n, c, heads, _, layout in CS.ATTN_SHAPES:
