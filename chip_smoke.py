@@ -11,13 +11,17 @@ Phases (each raises on failure, so any failure exits non-zero):
 2. build every kernel under ``medfusion_tpu_torch/csrc/`` from source (each
    library's seconds, ptxas registers and spills);
 3. each kernel against its plain PyTorch version on the card, at every shape
-   of the main paths (flash attention in both layouts, with its lse, and its
-   two backward kernels, also at head widths off 16/32/64/128 and above
-   128; GEGLU also at the sampling batch, whose launch plan differs), in
-   float32 and bfloat16;
+   of the main paths (GroupNorm also at every route of its launch plan:
+   registers of a block, clusters of 2 to 16 blocks, a partly resident
+   group, ragged runs, each bit for bit across two launches; flash
+   attention in both layouts, with its lse, and its two backward kernels,
+   also at head widths off 16/32/64/128, above 128 and off multiples of 8
+   (4 and 12, on zero-padded copies); GEGLU also at the sampling batch,
+   whose launch plan differs), in float32 and bfloat16;
 4. kernel times at the flagship batch (kernel, plain version, one PyTorch
    library call where one computes the same function, and the card's bound
-   for the same work), each timed launch also held to its plain version;
+   for the same work; GroupNorm with its route, cluster size and the card's
+   resident clusters), each timed launch also held to its plain version;
    the attention kernels (forward at the flagship batch, backward at the
    training batch) with the tensor rate each reaches and the SFU time of its
    exponentials, which their bounds include; the attention forward at the
@@ -123,10 +127,20 @@ TRAIN_EXPECTED_PER_STEP = {
     "flash_attention_bwd_dkv": TRANSFORMERS,
     "geglu_mlp": TRANSFORMERS,
 }
-# head widths the attention kernels reach by zero-filled columns (8, 24) or
-# by 128-column chunks (136 and up; at 136 the last chunk is one half),
-# held to the plain versions in phase 3
-WIDE_HEAD_DIMS = (8, 24, 136, 256, 512, 1024)
+# head widths the attention kernels reach by zero-padded copies (4, 12:
+# not multiples of 8), by zero-filled columns (8, 24) or by 128-column
+# chunks (136 and up; at 136 the last chunk is one half), held to the plain
+# versions in phase 3
+WIDE_HEAD_DIMS = (4, 12, 8, 24, 136, 256, 512, 1024)
+# GroupNorm plans beyond the path's shapes, held to the plain version in
+# phase 3 at B=2: (C, G, side, max_cluster): eight one-warp groups a block
+# and four two-warp groups a block; clusters of 2, 4, 8 and 16 blocks
+# (bf16; f32 doubles the cluster up to 16); a 2 MB f32 group on 8 blocks,
+# partly resident; ragged runs on a block (n = 588) and on a cluster (n =
+# 50,700)
+GN_ROUTE_CASES = ((256, 32, 8, 16), (512, 32, 8, 16), (512, 8, 32, 16), (256, 8, 64, 16),
+                  (128, 8, 128, 16), (64, 8, 256, 16), (64, 8, 256, 8), (48, 4, 7, 16),
+                  (24, 8, 130, 16))
 # the flagship batch's attention shapes at attn_heads 4, 2 and 1 (tokens N,
 # width C, heads), timed in phase 4 beside SDPA, recorded and not judged
 WIDE_ATTN_SHAPES = ((64, 1024, 4), (256, 512, 2), (64, 1024, 2), (1024, 256, 1),
@@ -230,6 +244,7 @@ def gn_inputs(b, s, c, dtype, gen):
     import torch
 
     side = int(round(s ** 0.5))
+    assert side * side == s
     x = torch.randn((b, c, side, side), generator=gen, device="cuda") * 2.0 + 1.0
     scale = 1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
     bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
@@ -332,7 +347,9 @@ def attn_bwd_tol(ref):
 def bwd_operands(FA, q, k, v, heads, layout, do):
     """The backward kernels' operands for token-layout q/k/v/do [B, N, C]:
     the forward kernel's o and lse, in the head layout (contiguous [B, H, N,
-    D] copies) or the token layout ([B, H, N, D] views)."""
+    D] copies) or the token layout ([B, H, N, D] views); at a D off
+    multiples of 8, zero-padded copies (``pad_head_dim``, as the entries
+    make them), so the gradients' padded columns are checked to be zero."""
     scale = (q.shape[2] // heads) ** -0.25
     if layout == "head":
         qh, kh, vh, doh = (FA._heads(t, heads).contiguous() for t in (q, k, v, do))
@@ -341,6 +358,7 @@ def bwd_operands(FA, q, k, v, heads, layout, do):
         o, lse = FA.flash_attention_tokens_cuda(q, k, v, heads, scale)
         qh, kh, vh, doh = (FA._heads(t, heads) for t in (q, k, v, do))
         o, lse = FA._heads(o, heads), lse.transpose(1, 2)
+    qh, kh, vh, o, doh = FA.pad_head_dim(qh, kh, vh, o, doh)
     return FA.flash_attention_backward_operands(qh, kh, vh, o, lse, doh), scale
 
 
@@ -397,6 +415,41 @@ def torch_sms():
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
+def gn_route(G, b, c, s, g, dtype, plan=None):
+    """The GroupNorm plan's route in words."""
+    plan = plan or G._plan_for(b, c, s, g, dtype, True)
+    if plan["route"] == "block":
+        return (f"block: {plan['group_threads']} threads a group, {plan['groups_per_block']} "
+                f"a block, {plan['units']} vectors a thread")
+    return (f"cluster of {plan['cluster']}: {plan['slice']} a block, {plan['resident']} "
+            f"resident, {plan['smem_bytes']} B shared, "
+            f"{G.max_active_clusters(plan, dtype)} clusters resident on the card")
+
+
+def check_gn_route(G, c, g, side, max_cluster, dtype, gen):
+    """One GroupNorm plan (GN_ROUTE_CASES) at B=2 against the plain version,
+    SiLU on and off, and the same bits from a second launch; returns the
+    largest error."""
+    import torch
+
+    name = str(dtype).split(".")[-1]
+    tol = TOL[name]
+    s = side * side
+    plan = G.launch_plan(2, c, s, g, dtype, max_cluster=max_cluster)
+    worst = 0.0
+    for silu in (True, False):
+        x, scale, bias = gn_inputs(2, s, c, dtype, gen)
+        out = G.group_norm_silu_cuda(x, scale, bias, g, apply_silu=silu, plan=plan)
+        again = G.group_norm_silu_cuda(x, scale, bias, g, apply_silu=silu, plan=plan)
+        ref = G.group_norm_silu_reference(x, scale, bias, g, apply_silu=silu)
+        worst = max(worst, close(f"gn route C={c} G={g} S={s}", out, ref, tol, tol))
+        if not torch.equal(out, again):
+            raise RuntimeError(f"gn C={c} G={g} S={s} {name}: two launches differ")
+    log(f"  gn route C={c} G={g} S={s} {name} ({gn_route(G, 2, c, s, g, dtype, plan)}): "
+        f"max|d|={worst:.3e} (atol=rtol={tol}), bitwise equal across two launches")
+    return worst
+
+
 def phase_kernel_checks(G, FA, GL):
     """Phase 3: kernel vs plain version at every path shape. GroupNorm and
     attention at B=2 (they take the same tiles at any batch); GEGLU at
@@ -416,8 +469,12 @@ def phase_kernel_checks(G, FA, GL):
                 ref = G.group_norm_silu_reference(x, scale, bias, g, apply_silu=silu)
                 err = close(f"gn {where} S={s} C={c}", out, ref, tol, tol)
                 keep(worst, "group_norm_silu", name, err)
-                log(f"  gn {where} S={s} C={c} G={g} {name} silu={silu}: "
-                    f"max|d|={err:.3e} (atol=rtol={tol})")
+                log(f"  gn {where} S={s} C={c} G={g} {name} silu={silu} "
+                    f"({gn_route(G, 2, c, s, g, dtype)}): max|d|={err:.3e} "
+                    f"(atol=rtol={tol})")
+        for c, g, side, max_cluster in GN_ROUTE_CASES:
+            keep(worst, "group_norm_silu", name,
+                 check_gn_route(G, c, g, side, max_cluster, dtype, gen))
         # every attention shape of the path, the smoke preset's head dims,
         # and N and M off the bf16 kernel's 64-row blocks and tiles at head
         # dims 16 to 128
@@ -449,7 +506,9 @@ def phase_kernel_checks(G, FA, GL):
 
 
 def phase_kernel_times(G):
-    """Phase 4: GroupNorm+SiLU times at the path's batch, bf16 with SiLU."""
+    """Phase 4: GroupNorm+SiLU times at the path's batch, bf16 with SiLU,
+    each shape with its launch plan's route (below 50 MB the replayed
+    launches find x in the 50 MB L2)."""
     import torch
     import torch.nn.functional as F
 
@@ -464,12 +523,14 @@ def phase_kernel_times(G):
         p = graph_ms(lambda: G.group_norm_silu_reference(x, scale, bias, g), reps)
         lib = graph_ms(lambda: F.silu(F.group_norm(x, g, scale, bias, 1e-5)), reps)
         nbytes = 2 * x.numel() * x.element_size() + 2 * c * x.element_size()
+        plan = G._plan_for(b, c, s, g, x.dtype, True)
         rows.append(dict(where=where, B=b, S=s, C=c, G=g, launches_per_call=per_call,
+                         route=plan["route"], cluster=plan["cluster"],
                          ms=k, eager_ms=eager, plain_ms=p, library_ms=lib,
                          **bounds(0, nbytes)))
         bound = rows[-1]["bound_ms"]
-        log(f"  gn {where} B={b} S={s} C={c} G={g}: kernel {k:.4f} ms (eager "
-            f"{eager:.4f}), plain "
+        log(f"  gn {where} B={b} S={s} C={c} G={g} ({gn_route(G, b, c, s, g, x.dtype)}): "
+            f"kernel {k:.4f} ms (eager {eager:.4f}), plain "
             f"{p:.4f} ms, library {lib:.4f} ms, bound {bound:.4f} ms "
             f"({bound / k:.1%} of bound)")
         del x
@@ -933,7 +994,7 @@ def device_kernels(prof):
 
 def kind_of(kernel_name):
     name = kernel_name.lower()
-    if "gn_stats_kernel" in name or "gn_apply_kernel" in name:
+    if "gn_block_kernel" in name or "gn_cluster_kernel" in name:
         return "group_norm_silu"
     if "flash_fwd" in name:
         return "flash_attention"

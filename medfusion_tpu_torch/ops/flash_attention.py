@@ -24,9 +24,12 @@ custom VJPs ``_flash`` and ``_flash_mha`` do.
   (:data:`MAX_HEAD_DIM`), float32 and bfloat16, and any N, M >= 1. In
   bfloat16 a head dim under 128 runs the kernel compiled for the next of
   16, 32, 64 and 128 on zero-filled columns, and a wider one splits the
-  output's columns into 128-wide chunks over blocks (``csrc/*.cu``). Head
-  dims that are not multiples of 8 break the kernels' 16-byte rows and TMA's
-  16-byte strides; the JAX package runs them, the port refuses them.
+  output's columns into 128-wide chunks over blocks (``csrc/*.cu``). A head
+  dim that is not a multiple of 8 would break the kernels' 16-byte rows and
+  TMA's 16-byte strides, so the entries run the kernels on zero-padded
+  copies (:func:`pad_head_dim`) and return the first d columns: zero
+  columns add nothing to q k^T and give only zero columns of o and of the
+  gradients, so the function is the same.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 # Launches of the CUDA kernel through each entry since import (or since a
 # caller reset them).
@@ -115,9 +119,12 @@ def _check(q, k, v):
     if k.shape != (b, h, m, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not match")
-    if d % HEAD_DIM_MULTIPLE or not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash attention kernel takes head dims that are multiples "
-                         f"of {HEAD_DIM_MULTIPLE} up to {MAX_HEAD_DIM}, got {d}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernel takes head dims up to {MAX_HEAD_DIM}, "
+                         f"got {d}")
+    if d % HEAD_DIM_MULTIPLE:
+        raise ValueError(f"flash attention kernel operands take head dims that are "
+                         f"multiples of {HEAD_DIM_MULTIPLE} (pad_head_dim), got {d}")
     if q.dtype not in _IS_BF16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention kernel takes float32/bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -164,6 +171,19 @@ def _launch(q, k, v, o, lse, scale):
                            f"(CUresult {err - _ENCODE_ERROR})")
     if err != 0:
         raise RuntimeError(f"flash attention launch failed: CUDA error {err}")
+
+
+def pad_head_dim(*ts):
+    """[B, H, N|M, d] tensors as the kernels take them: each one whose d is
+    not a multiple of 8 (and at most :data:`MAX_HEAD_DIM`) becomes a fresh
+    contiguous [B, H, N|M, d'] copy, d' the next multiple of 8, the added
+    columns zero; the others are returned as they are."""
+    def pad(t):
+        d = t.shape[-1]
+        if d % HEAD_DIM_MULTIPLE == 0 or d > MAX_HEAD_DIM:
+            return t
+        return F.pad(t, (0, -d % HEAD_DIM_MULTIPLE))
+    return tuple(pad(t) for t in ts)
 
 
 def flash_attention_forward_operands(q, k, v, num_heads=None):
@@ -272,39 +292,52 @@ def flash_attention_bwd_dkv(ops, scale: float):
 def flash_attention_backward_cuda(q, k, v, o, lse, do, scale: float):
     """The backward on the card, on [B, H, N|M, D] views (any strides with
     a unit head stride) and lse [B, H, N]: the dQ kernel, then the dK/dV
-    kernel. Returns (dq, dk, dv) with q's, k's and v's strides."""
+    kernel. Returns (dq, dk, dv) with q's, k's and v's strides (at a D that
+    is not a multiple of 8: the first D columns of the padded kernels'
+    outputs)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward_cuda takes CUDA tensors, "
                          f"got {q.device}")
+    d = q.shape[3]
+    q, k, v, o, do = pad_head_dim(q, k, v, o, do)
     ops = flash_attention_backward_operands(q, k, v, o, lse, do)
     flash_attention_bwd_dq(ops, scale)
     flash_attention_bwd_dkv(ops, scale)
-    return ops[5], ops[6], ops[7]
+    return tuple(g[..., :d] for g in ops[5:8])
 
 
 def flash_attention_cuda(q, k, v, scale: float):
     """Head layout on the card: q [B, H, N, D], k/v [B, H, M, D] (any
-    strides with a unit head stride) -> (o like q, lse [B, H, N] f32)."""
+    strides with a unit head stride) -> (o like q, lse [B, H, N] f32); a D
+    that is not a multiple of 8 runs on zero-padded copies
+    (:func:`pad_head_dim`) and o is the first D columns of their output."""
     global LAUNCHES
-    ops = flash_attention_forward_operands(q, k, v)
+    d = q.shape[-1]
+    ops = flash_attention_forward_operands(*pad_head_dim(q, k, v))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda takes a CUDA tensor, got {q.device}")
     _launch(*ops, scale)
     LAUNCHES += 1
-    return ops[3], ops[4]
+    return ops[3][..., :d], ops[4]
 
 
 def flash_attention_tokens_cuda(q, k, v, num_heads: int, scale: float):
     """Token layout on the card: q [B, N, H*D], k/v [B, M, H*D] ->
     (o [B, N, H*D], lse [B, N, H] f32), through the same kernel."""
     global TOKEN_LAUNCHES
-    ops = flash_attention_forward_operands(q, k, v, num_heads)
+    qh = _heads(q, num_heads)
+    d = qh.shape[3]
+    if d % HEAD_DIM_MULTIPLE:  # zero-padded [B, H, N|M, d'] copies
+        ops = flash_attention_forward_operands(
+            *pad_head_dim(qh, *(_heads(t, num_heads) for t in (k, v))))
+    else:
+        ops = flash_attention_forward_operands(q, k, v, num_heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_tokens_cuda takes a CUDA tensor, "
                          f"got {q.device}")
     _launch(*ops, scale)
     TOKEN_LAUNCHES += 1
-    return ops[3].transpose(1, 2).flatten(2), ops[4].transpose(1, 2)
+    return ops[3][..., :d].transpose(1, 2).flatten(2), ops[4].transpose(1, 2)
 
 
 def _heads(x, num_heads):

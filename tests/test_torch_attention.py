@@ -176,15 +176,67 @@ def test_launchers_refuse_cpu_tensors_and_unsupported_head_dims():
     with pytest.raises(ValueError, match="CUDA tensor"):
         FA.flash_attention_tokens_cuda(torch.randn(1, 8, 64), torch.randn(1, 8, 64),
                                        torch.randn(1, 8, 64), 2, 0.5)
-    for d in (4, 12, 2048):  # not a multiple of 8, or wider than 1,024
+    x = torch.randn(1, 2, 8, 2048)  # wider than 1,024
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_attention_cuda(x, x, x, 0.5)
+    for d in (4, 12):  # not a multiple of 8: padded (pad_head_dim), then the device check
         x = torch.randn(1, 2, 8, d)
-        with pytest.raises(ValueError, match="head dims"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
             FA.flash_attention_cuda(x, x, x, 0.5)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            FA.flash_attention_tokens_cuda(*(torch.randn(1, 8, 2 * d) for _ in "qkv"), 2, 0.5)
     with pytest.raises(TypeError, match="float32/bfloat16"):
         FA.flash_attention_cuda(q.double(), q.double(), q.double(), 0.5)
     with pytest.raises(ValueError, match="divisible"):
         FA.flash_attention_tokens_cuda(torch.randn(1, 8, 60), torch.randn(1, 8, 60),
                                        torch.randn(1, 8, 60), 8, 0.5)
+
+
+@pytest.mark.parametrize("d", [1, 4, 12, 20, 8, 16])
+def test_pad_head_dim_copies_with_zero_columns(d):
+    """A head dim that is not a multiple of 8 becomes a fresh contiguous
+    [B, H, N|M, d'] copy (d' the next multiple of 8) whose added columns are
+    zero; any other tensor is passed through as it is."""
+    q = FA._heads(torch.randn(2, 5, 3 * d), 3)  # a strided [B, H, N, d] view
+    k = torch.randn(2, 3, 7, d)
+    pq, pk = FA.pad_head_dim(q, k)
+    if d % 8 == 0:
+        assert pq is q and pk is k
+        return
+    dp = -(-d // 8) * 8
+    for t, p, n in ((q, pq, 5), (k, pk, 7)):
+        assert p.shape == (2, 3, n, dp) and p.dtype == t.dtype
+        assert p.stride() == (3 * n * dp, n * dp, dp, 1)
+        assert p.data_ptr() != t.data_ptr()
+        assert torch.equal(p[..., :d], t)
+        assert not p[..., d:].any()
+    wide = torch.randn(1, 1, 2, 1030)  # past MAX_HEAD_DIM: left for _check to refuse
+    assert FA.pad_head_dim(wide)[0] is wide
+
+
+@pytest.mark.parametrize("d", [1, 4, 12, 20])
+def test_padded_head_dim_gives_the_same_function(d):
+    """What the CUDA entries do at d % 8 != 0, run through the plain
+    versions on the CPU (float32): attention and its backward on the
+    zero-padded copies, sliced back to d columns, equal attention at d (o,
+    lse, dq, dk, dv within 1e-6: the zero columns add exact zeros, the sums
+    may be blocked differently); the padded columns of o and of the
+    gradients are zero."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, n, d)).astype(np.float32))
+               for n in (24, 40, 40))
+    do = torch.from_numpy(rng.standard_normal((2, 3, 24, d)).astype(np.float32))
+    scale = d ** -0.25
+    o, lse = FA.naive_attention_reference(q, k, v, scale)
+    grads = FA.flash_attention_backward_reference(q, k, v, o, lse, do, scale)
+    qp, kp, vp, dop = FA.pad_head_dim(q, k, v, do)
+    op, lsep = FA.naive_attention_reference(qp, kp, vp, scale)
+    (pop,) = FA.pad_head_dim(op[..., :d])
+    gradsp = FA.flash_attention_backward_reference(qp, kp, vp, pop, lsep, dop, scale)
+    torch.testing.assert_close(lsep, lse, atol=1e-6, rtol=1e-6)
+    for out, ref in zip((op, *gradsp), (o, *grads)):
+        torch.testing.assert_close(out[..., :d], ref, atol=1e-6, rtol=1e-6)
+        assert not out[..., d:].any()
 
 
 # ---- modules against flax -------------------------------------------------

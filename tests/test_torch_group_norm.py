@@ -4,7 +4,8 @@ reference and its Pallas kernel (interpret mode on the CPU).
 Tolerance: atol = rtol = 1e-5 in float32 (the statistics are summed in
 another order by each implementation). The CUDA kernel itself is compared
 with the plain version on the card by ``chip_smoke.py`` and by
-``tests/test_torch_kernels_cuda.py``.
+``tests/test_torch_kernels_cuda.py``; its launch plan (``launch_plan``,
+plain Python) is checked here at every path shape and at ragged ones.
 """
 
 import jax
@@ -96,3 +97,97 @@ def test_gradient_matches_jax_autodiff(silu):
                                atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(st.grad.numpy(), np.asarray(jgs), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(bt.grad.numpy(), np.asarray(jgb), atol=1e-5, rtol=1e-5)
+
+
+# (B, C, S, G): the chest path's nine shapes (UNet at B=64, VAE at B=32),
+# ragged spatial sizes (S = 49, 15) and group widths (C/G = 1, 3, 5, 12), a
+# ragged run past the block budget, and a group past 16 blocks' shared
+# memory
+PLAN_SHAPES = [(64, 256, 1024, 32), (64, 512, 256, 32), (64, 1024, 64, 32),
+               (64, 512, 64, 32), (64, 256, 256, 32), (32, 512, 1024, 8),
+               (32, 256, 4096, 8), (32, 128, 16384, 8), (32, 64, 65536, 8),
+               (2, 48, 49, 4), (2, 32, 15, 32), (2, 96, 15, 32), (2, 40, 10000, 8),
+               (2, 24, 16900, 8), (1, 64, 262144, 8)]
+
+
+def _check_plan(plan, b, c, s, g, dtype):
+    es = torch.finfo(dtype).bits // 8
+    vec = 16 // es
+    n = (c // g) * s
+    assert plan["n"] == n and plan["groups"] == b * g
+    assert plan["vector"] == (n % vec == 0)
+    assert plan["route"] == ("cluster" if n > G.BLOCK_BUDGET else "block")
+    assert 32 <= plan["threads"] <= 1024 and plan["threads"] % 32 == 0
+    if plan["route"] == "block":
+        assert plan["threads"] <= G.BLOCK_MAX_THREADS  # the kernel's launch bound
+    if plan["route"] == "block":
+        gt, units = plan["group_threads"], plan["units"]
+        assert gt % 32 == 0 and gt * plan["groups_per_block"] == plan["threads"]
+        assert units in ((1, 2, 4, 8) if es == 4 else (1, 2, 4))
+        assert units * vec <= G.BLOCK_MAX_VALUES_PER_THREAD  # registers a thread
+        # the fewest threads (up to 512) at the aimed values a thread, then
+        # the fewest vectors that cover the run
+        assert gt == 32 or gt * G.BLOCK_VALUES_PER_THREAD < 2 * n or gt == 512
+        assert gt * units * vec >= n and (units == 1 or gt * units * vec < 2 * n)
+        assert plan["blocks"] * plan["groups_per_block"] >= b * g
+        assert plan["smem_bytes"] == 0
+        return
+    cs, slice_, res = plan["cluster"], plan["slice"], plan["resident"]
+    assert cs in (2, 4, 8, 16) and plan["blocks"] == b * g * cs
+    assert slice_ % vec == 0 and 0 < res <= slice_ and res % vec == 0
+    covered = np.zeros(n, np.int8)  # each rank's [r*slice, (r+1)*slice) cut at n
+    for r in range(cs):
+        covered[r * slice_:(r + 1) * slice_] += 1
+        assert r * slice_ < n  # no rank without work
+    assert (covered == 1).all()
+    assert plan["smem_bytes"] == res * es
+    assert plan["smem_bytes"] + G.CLUSTER_STATIC_SMEM <= 227 * 1024
+    # the resident part is the whole slice wherever it fits
+    assert (res == slice_) == (slice_ * es + G.CLUSTER_STATIC_SMEM <= 227 * 1024)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,c,s,g", PLAN_SHAPES)
+def test_launch_plan_covers_each_run_within_the_cards_limits(b, c, s, g, dtype):
+    _check_plan(G.launch_plan(b, c, s, g, dtype), b, c, s, g, dtype)
+
+
+def test_launch_plan_at_the_chest_path():
+    """The routes the path takes: every UNet shape in registers, every VAE
+    shape on a cluster (bf16 256^2 x 64, a 1 MB group: 16 blocks of 64 KB);
+    f32 there is a 2 MB group, resident on 16 blocks of 128 KB, or under a
+    cluster of 8 partly resident."""
+    for b, c, s, g in PLAN_SHAPES[:5]:
+        assert G.launch_plan(b, c, s, g, torch.bfloat16)["route"] == "block"
+    assert G.launch_plan(64, 512, 64, 32, torch.bfloat16)["groups_per_block"] == 4
+    warp = G.launch_plan(2, 256, 64, 32, torch.bfloat16)  # n = 512: a group a warp
+    assert (warp["group_threads"], warp["groups_per_block"]) == (32, 8)
+    for b, c, s, g in PLAN_SHAPES[5:9]:
+        assert G.launch_plan(b, c, s, g, torch.bfloat16)["route"] == "cluster"
+    top = G.launch_plan(32, 64, 65536, 8, torch.bfloat16)
+    assert (top["cluster"], top["smem_bytes"]) == (16, 65536)
+    f32 = G.launch_plan(32, 64, 65536, 8, torch.float32)
+    assert (f32["cluster"], f32["resident"], f32["smem_bytes"]) == (16, 32768, 131072)
+    f32_8 = G.launch_plan(32, 64, 65536, 8, torch.float32, max_cluster=8)
+    assert f32_8["cluster"] == 8 and f32_8["resident"] < f32_8["slice"]
+    _check_plan(f32_8, 32, 64, 65536, 8, torch.float32)
+    assert not G.launch_plan(2, 48, 49, 4, torch.bfloat16)["vector"]  # n = 588
+
+
+def test_card_plan_halves_a_cluster_the_card_cannot_hold(monkeypatch):
+    """The wrapper's plan asks the card (an occupancy query, not a failed
+    launch) and halves a cluster that cannot be resident."""
+    asked = []
+
+    def occupancy(plan, dtype):
+        asked.append(plan["cluster"])
+        return 0 if plan["cluster"] > 8 else 3
+
+    monkeypatch.setattr(G, "max_active_clusters", occupancy)
+    monkeypatch.setattr(G, "_PLANS", {})
+    plan = G._plan_for(32, 64, 65536, 8, torch.bfloat16, True)
+    assert asked == [16, 8] and plan["cluster"] == 8 and plan["smem_bytes"] == 131072
+    assert G._plan_for(32, 64, 65536, 8, torch.bfloat16, True) is plan  # cached
+    assert G._plan_for(64, 256, 1024, 32, torch.bfloat16, True)["route"] == "block"
+    assert asked == [16, 8]  # no query for the block route
+    assert not G._plan_for(2, 40, 10000, 8, torch.bfloat16, False)["vector"]

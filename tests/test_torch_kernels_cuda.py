@@ -42,6 +42,7 @@ atol = rtol = 1e-3 of max|ref| (f32 convs, projections and kernels summed
 in another order through some 40 layers, no TF32).
 """
 
+import copy
 import math
 
 import pytest
@@ -97,6 +98,38 @@ def test_group_norm_silu_matches_plain_version(cuda, dtype, c, g, side):
         torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                    rtol=TOL[dtype])
     assert G.LAUNCHES == before + 2
+
+
+# (C, G, side, max_cluster): one of each route and plan at B=2: blocks of
+# eight one-warp groups and of four two-warp groups; clusters of 2, 4, 8
+# and 16 blocks (bf16; f32 doubles the cluster up to 16); a 2 MB f32 group
+# on 8 blocks, partly resident; a ragged run (n = 50,700, no 16-byte
+# vectors in bf16) on a cluster
+ROUTE_CASES = [(256, 32, 8, 16), (512, 32, 8, 16), (512, 8, 32, 16), (256, 8, 64, 16),
+               (128, 8, 128, 16), (64, 8, 256, 16), (64, 8, 256, 8), (24, 8, 130, 16)]
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("c,g,side,max_cluster", ROUTE_CASES)
+def test_group_norm_silu_each_route_matches_plain_version(cuda, dtype, c, g, side,
+                                                          max_cluster):
+    """Every route of the launch plan, SiLU on and off, against the plain
+    version; one launch a call; two launches give the same bits."""
+    plan = G.launch_plan(2, c, side * side, g, dtype, max_cluster=max_cluster)
+    if plan["route"] == "cluster":
+        assert G.max_active_clusters(plan, dtype) > 0
+    for silu in (True, False):
+        x, scale, bias = _inputs(cuda, 2, c, side, dtype)
+        before = G.LAUNCHES
+        out = G.group_norm_silu_cuda(x, scale, bias, g, apply_silu=silu, plan=plan)
+        again = G.group_norm_silu_cuda(x, scale, bias, g, apply_silu=silu, plan=plan)
+        ref = G.group_norm_silu_reference(x, scale, bias, g, apply_silu=silu)
+        torch.cuda.synchronize()
+        assert G.LAUNCHES == before + 2
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+        assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
@@ -226,7 +259,41 @@ def test_flash_attention_any_head_width_matches_plain_version(cuda, dtype, n, m,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [4, 12, 2048])
+@DTYPES
+@pytest.mark.parametrize("d", [4, 12, 20])
+@pytest.mark.parametrize("layout", ["head", "tokens"])
+def test_flash_attention_head_width_off_8_matches_plain_version(cuda, dtype, d, layout):
+    """d % 8 != 0: the kernels on zero-padded copies, forward (o, lse) and
+    backward (dq, dk, dv through autograd), two heads, N and M off the
+    blocks, against the plain versions at d."""
+    q, k, v = _attn_inputs(cuda, 2, 77, 45, 2 * d, dtype)
+    do = torch.randn((2, 77, 2 * d), generator=cuda, device="cuda").to(dtype)
+    scale = d ** -0.25
+    ro, rlse = FA.naive_attention_reference(*(FA._heads(t, 2) for t in (q, k, v)), scale)
+    before = ops.launch_counts()
+    grads, refs = _attention_grads(q, k, v, do, 2, layout)
+    if layout == "head":
+        o, lse = FA.flash_attention(*(FA._heads(t, 2) for t in (q, k, v)), scale)
+    else:
+        o, lse = FA.flash_attention_tokens(q, k, v, 2, scale)
+        o, lse = FA._heads(o, 2), lse.transpose(1, 2)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    entry = "flash_attention" if layout == "head" else "flash_attention_tokens"
+    assert after[entry] == before[entry] + 2
+    assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    assert o.shape == ro.shape and lse.shape == rlse.shape
+    torch.testing.assert_close(o.float(), ro.float(), atol=_attn_o_tol(ro)[0],
+                               rtol=_attn_o_tol(ro)[1])
+    torch.testing.assert_close(lse, rlse, atol=ATTN_LSE_TOL[dtype], rtol=ATTN_LSE_TOL[dtype])
+    for gr, r in zip(grads, refs):
+        assert gr.shape == r.shape
+        torch.testing.assert_close(gr.float(), r.float(), atol=_bwd_tol(r)[0],
+                                   rtol=_bwd_tol(r)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048])
 def test_flash_attention_refuses_unsupported_head_dims(cuda, d):
     x = torch.randn((1, 2, 16, d), device="cuda")
     with pytest.raises(ValueError, match="head dims"):
@@ -448,23 +515,16 @@ def test_geglu_mlp_is_deterministic(cuda, rows, c):
     assert torch.equal(GL.geglu_mlp_cuda(*args), GL.geglu_mlp_cuda(*args))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("heads", [1, 2, 4, 32])
-def test_chest_spatial_unet_at_other_head_counts_matches_the_cpu(cuda, heads):
-    """The chest UNet with spatial attention at ``attn_heads`` 1, 2, 4 and
-    32 (head widths up to 1,024, down to 8): an f32 forward of 2 rows on the
-    card (every kernel) against the CPU's (every plain version), same
-    weights; and the attention entries were launched."""
-    from medfusion_tpu_torch.cli.presets import PRESETS, build_unet
-
-    torch.manual_seed(heads)
-    cpu = build_unet(PRESETS["chest"], attention="spatial", attn_heads=heads).eval()
+def _unet_card_vs_cpu(cpu, shape, entries):
+    """An f32 forward of 2 rows of ``cpu``'s UNet on the card (every kernel)
+    against the CPU's (every plain version), same weights, perturbed away
+    from the zero-initialised heads; the attention ``entries`` were
+    launched."""
     with torch.no_grad():
-        for prm in cpu.parameters():  # away from the zero-initialised heads
+        for prm in cpu.parameters():
             prm.add_(0.02 * torch.randn(prm.shape))
-    card = build_unet(PRESETS["chest"], attention="spatial", attn_heads=heads).cuda().eval()
-    card.load_state_dict(cpu.state_dict())
-    x = torch.randn((2, 8, 32, 32))
+    card = copy.deepcopy(cpu).cuda()
+    x = torch.randn((2, *shape))
     t = torch.tensor([999, 10])
     c = torch.tensor([0, 1])
     before = ops.launch_counts()
@@ -473,10 +533,43 @@ def test_chest_spatial_unet_at_other_head_counts_matches_the_cpu(cuda, heads):
         out, _ = card(x.cuda(), t.cuda(), c.cuda())
     torch.cuda.synchronize()
     after = ops.launch_counts()
-    assert after["flash_attention"] > before["flash_attention"]
-    assert after["flash_attention_tokens"] > before["flash_attention_tokens"]
+    for entry in entries:
+        assert after[entry] > before[entry]
     tol = 1e-3 * ref.abs().max().item()
     torch.testing.assert_close(out.cpu(), ref, atol=tol, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads", [((32, 32, 64), 32)])
+def test_narrow_spatial_unet_at_head_widths_off_8_matches_the_cpu(cuda, hid, heads):
+    """A narrow spatial UNet (the ``heads`` configuration of
+    tests/test_torch_attention_unet.py: widths 32 and 64, 4 groups, 16x16
+    input, so 256 and 64 tokens: the token-layout entry) at 32 heads: head
+    widths 1 and 2, on zero-padded copies."""
+    from medfusion_tpu_torch.models.unet import UNet
+
+    torch.manual_seed(heads)
+    n = len(hid)
+    cpu = UNet(in_ch=2, out_ch=2, hid_chs=hid, kernel_sizes=(3,) * n,
+               strides=(1,) + (2,) * (n - 1), time_emb_dim=32, cond_emb_num_classes=2,
+               norm_name=("GROUP", {"num_groups": 4, "affine": True}), deep_supervision=0,
+               use_attention="spatial", attn_heads=heads).eval()
+    _unet_card_vs_cpu(cpu, (2, 16, 16), ("flash_attention_tokens",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [1, 2, 4, 32, 64])
+def test_chest_spatial_unet_at_other_head_counts_matches_the_cpu(cuda, heads):
+    """The chest UNet with spatial attention at ``attn_heads`` 1, 2, 4, 32
+    and 64 (head widths up to 1,024, down to 4, which runs on zero-padded
+    copies): an f32 forward of 2 rows on the card (every kernel) against
+    the CPU's (every plain version), same weights; and the attention
+    entries were launched."""
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_unet
+
+    torch.manual_seed(heads)
+    cpu = build_unet(PRESETS["chest"], attention="spatial", attn_heads=heads).eval()
+    _unet_card_vs_cpu(cpu, (8, 32, 32), ("flash_attention", "flash_attention_tokens"))
 
 
 @pytest.mark.cuda

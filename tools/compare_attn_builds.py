@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
-"""Compare builds of the flash-attention or GEGLU kernels on one CUDA card.
+"""Compare builds of the flash-attention, GEGLU or GroupNorm kernels on one
+CUDA card.
 
 Each variant is a directory holding the kernel's source
 (``flash_attention.cu`` for the forward, ``flash_attention_bwd.cu`` for the
-backward, ``geglu_mlp.cu`` for GEGLU) and its headers (a copy of
-``medfusion_tpu_torch/csrc`` with a change, or the package's own), plus
-optional ``-D`` macros. Every variant is built with the package's nvcc
+backward, ``geglu_mlp.cu`` for GEGLU, ``group_norm_silu.cu`` for GroupNorm)
+and its headers (a copy of ``medfusion_tpu_torch/csrc`` with a change, or
+the package's own), plus optional ``-D`` macros (upper-case names) and, for
+GroupNorm, launch-plan settings (lower-case ``key=value``, the keyword
+arguments of ``ops/group_norm.py::launch_plan``: ``max_cluster``,
+``values_per_thread``, ``block_threads``, ``cluster_threads``,
+``slice_bytes``). Every variant is built with the package's nvcc
 flags (its ptxas registers, spills and warnings printed), checked against
 the plain version at ragged and path shapes in bf16 (the forward's o within
 two bf16 ulps of max|o| and its lse within 1e-4, the backward's gradients
@@ -16,10 +21,18 @@ each variant's two turns kept: the forward at the flagship sampling batch
 inputs, the backward at the training batch (B=32), GEGLU at B=64 and at
 the sampling batch (16 UNet rows), with each variant's device time split
 by kernel (up- and down-projection, from a profile of a few eager calls)
-and the sum per CFG UNet forward at B=64. Run from the repository root:
+and the sum per CFG UNet forward at B=64. GroupNorm is checked in f32 and
+bf16 (2e-5 and 1e-2, SiLU on and off, bit for bit across two launches) at
+the path's shapes and ``chip_smoke.GN_ROUTE_CASES`` at B=2, and timed in
+bf16 with SiLU at the path's nine shapes at the flagship batch (B=64 UNet,
+B=32 VAE) beside ``F.group_norm`` + ``F.silu``, each variant's plan (route,
+cluster, threads) and the card's resident clusters printed, with the sums
+per CFG UNet forward and per decode. Run from the repository root:
 
     python3 tools/compare_attn_builds.py --kernel fwd \\
         now=medfusion_tpu_torch/csrc other=path/to/copy:MACRO=1,OTHER
+    python3 tools/compare_attn_builds.py --kernel gn \\
+        c16=medfusion_tpu_torch/csrc c8=medfusion_tpu_torch/csrc:max_cluster=8
 """
 
 from __future__ import annotations
@@ -40,7 +53,11 @@ CHECKS = [(1024, 1024, 256, 8, "head"), (256, 256, 512, 8, "tokens"),
 SOURCES = {"fwd": ("flash_attention.cu", ["mf_flash_attention_fwd"]),
            "bwd": ("flash_attention_bwd.cu",
                    ["mf_flash_attention_bwd_dq", "mf_flash_attention_bwd_dkv"]),
-           "geglu": ("geglu_mlp.cu", ["mf_geglu_mlp"])}
+           "geglu": ("geglu_mlp.cu", ["mf_geglu_mlp"]),
+           "gn": ("group_norm_silu.cu", ["mf_group_norm_silu",
+                                         "mf_group_norm_silu_max_clusters"])}
+GN_PLAN_KEYS = ("max_cluster", "values_per_thread", "block_threads", "cluster_threads",
+                "slice_bytes")
 # GEGLU (rows, C): path shapes at 2, 16 and 64 UNet rows, ragged rows, and
 # the narrow widths
 GEGLU_CHECKS = [(2048, 256), (16384, 256), (4096, 512), (1024, 1024), (4096, 1024),
@@ -52,9 +69,11 @@ def build(kernel, variants, out_dir):
     from medfusion_tpu_torch.ops import build as B
     from medfusion_tpu_torch.ops import flash_attention as FA
     from medfusion_tpu_torch.ops import geglu as GL
+    from medfusion_tpu_torch.ops import group_norm as G
 
     source, symbols = SOURCES[kernel]
-    argtypes = {"fwd": FA._ARGTYPES, "bwd": FA._BWD_ARGTYPES, "geglu": GL._ARGTYPES}[kernel]
+    argtypes = {"fwd": [FA._ARGTYPES], "bwd": [FA._BWD_ARGTYPES] * 2,
+                "geglu": [GL._ARGTYPES], "gn": [G._ARGTYPES, [ctypes.c_int] * 5]}[kernel]
     procs = {}
     for name, (src, macros) in variants.items():
         lib = out_dir / f"{name}.so"
@@ -71,7 +90,7 @@ def build(kernel, variants, out_dir):
         entry = None
         for line in log.splitlines():
             if "Compiling entry" in line:
-                entry = line.split("'")[1] if "bf16" in line else None
+                entry = line.split("'")[1] if "bf16" in line or "bfloat16" in line else None
                 entry = entry and entry.split("_GLOBAL__N__")[-1]
             elif entry and ("registers" in line or "spill" in line):
                 print(f"   {entry[-60:]}: {line.strip()}")
@@ -79,9 +98,9 @@ def build(kernel, variants, out_dir):
                 print(f"   {line.strip()}")
         cdll = ctypes.CDLL(str(lib))
         fns[name] = []
-        for symbol in symbols:
+        for symbol, types in zip(symbols, argtypes):
             fn = getattr(cdll, symbol)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fn.argtypes, fn.restype = types, ctypes.c_int
             fns[name].append(fn)
     return fns
 
@@ -208,13 +227,114 @@ def times_geglu(CS, fns, gen):
         f"{name} {t:.4f}" for name, t in per_fwd.items()))
 
 
-def check(kernel, CS, FA, fns, gen):
+def gn_plan(G, plans, name, b, c, s, g, dtype, max_cluster=None):
+    """Variant ``name``'s launch plan: ``launch_plan`` with its settings
+    (a case's own ``max_cluster`` unless the variant sets one)."""
+    kw = dict(plans[name])
+    if max_cluster is not None:
+        kw.setdefault("max_cluster", max_cluster)
+    return G.launch_plan(b, c, s, g, dtype, **kw)
+
+
+def gn_plan_text(G, plan, occupancy, dtype):
+    if plan["route"] == "block":
+        return (f"block {plan['group_threads']}x{plan['groups_per_block']} "
+                f"u{plan['units']}")
+    got = occupancy(G._IS_BF16[dtype], int(plan["vector"]), plan["threads"],
+                    plan["cluster"], plan["smem_bytes"])
+    return (f"cluster {plan['cluster']} x {plan['threads']} thr, {plan['smem_bytes']} B, "
+            f"{got} resident")
+
+
+def check_gn(CS, fns, plans, gen):
+    """Each GroupNorm variant against the plain version at the path's
+    shapes and GN_ROUTE_CASES (B=2), f32 and bf16, SiLU on and off, and bit
+    for bit across two launches. A variant whose launch fails is reported
+    and dropped from ``fns``."""
+    import torch
+
+    from medfusion_tpu_torch.ops import group_norm as G
+
+    cases = ([(c, g, int(round(s ** 0.5)), None) for _, s, c, g, _ in CS.GN_SHAPES]
+             + list(CS.GN_ROUTE_CASES))
+    ok_all = True
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = CS.TOL[str(dtype).split(".")[-1]]
+        for c, g, side, max_cluster in cases:
+            s = side * side
+            x, scale, bias = CS.gn_inputs(2, s, c, dtype, gen)
+            for name, (fn, occupancy) in list(fns.items()):
+                plan = gn_plan(G, plans, name, 2, c, s, g, dtype, max_cluster)
+                ok, worst = True, 0.0
+                for silu in (True, False):
+                    try:
+                        out = G.launch(fn, x, scale, bias, g, 1e-5, silu, plan)
+                        again = G.launch(fn, x, scale, bias, g, 1e-5, silu, plan)
+                    except RuntimeError as err:
+                        print(f"check gn C={c} G={g} S={s} {dtype}: {name} FAIL ({err}; "
+                              f"plan {plan}): dropped", flush=True)
+                        del fns[name]
+                        ok_all = False
+                        break
+                    ref = G.group_norm_silu_reference(x, scale, bias, g, apply_silu=silu)
+                    err = (out.float() - ref.float()).abs()
+                    worst = max(worst, err.max().item())
+                    ok &= bool((err <= tol + tol * ref.float().abs()).all())
+                    ok &= torch.equal(out, again)
+                if name not in fns:
+                    continue
+                ok_all &= ok
+                print(f"check gn C={c} G={g} S={s} {dtype}: {name} "
+                      f"({gn_plan_text(G, plan, occupancy, dtype)}) "
+                      f"{'ok' if ok else 'FAIL'} {worst:.2e}", flush=True)
+    return ok_all
+
+
+def times_gn(CS, fns, plans, gen):
+    """Each GroupNorm variant at the path's nine shapes (bf16, SiLU, B=64
+    UNet / B=32 VAE), in turns, beside F.group_norm + F.silu; sums per CFG
+    UNet forward and per decode."""
+    import torch
+    import torch.nn.functional as F
+
+    from medfusion_tpu_torch.ops import group_norm as G
+
+    per = {where: dict.fromkeys(fns, 0.0) for where in ("unet", "vae")}
+    for where, s, c, g, per_call in CS.GN_SHAPES:
+        b = CS.TIMING_BATCH[where]
+        x, scale, bias = CS.gn_inputs(b, s, c, torch.bfloat16, gen)
+        reps = 20 if x.numel() < 2**26 else 5
+        plan = {name: gn_plan(G, plans, name, b, c, s, g, torch.bfloat16) for name in fns}
+        best = {}
+        for name in list(fns) + list(fns)[::-1]:
+            t = CS.graph_ms(lambda f=fns[name][0], p=plan[name]: G.launch(
+                f, x, scale, bias, g, 1e-5, True, p), reps)
+            best[name] = min(best.get(name, t), t)
+        lib = CS.graph_ms(lambda: F.silu(F.group_norm(x, g, scale, bias, 1e-5)), reps)
+        bound = CS.bounds(0, 2 * x.numel() * 2 + 2 * c * 2)["bound_ms"]
+        for name, t in best.items():
+            per[where][name] += per_call * t
+        print(f"ms gn {where} B={b} S={s} C={c} G={g}: " + "; ".join(
+            f"{name} {t:.4f} ({bound / t:.1%} of bound; "
+            f"{gn_plan_text(G, plan[name], fns[name][1], torch.bfloat16)})"
+            for name, t in best.items())
+            + f"; library {lib:.4f}; bound {bound:.4f}", flush=True)
+        del x
+    print("per CFG UNet forward (B=64): " + "; ".join(
+        f"{name} {t:.4f}" for name, t in per["unet"].items())
+        + "; per decode (B=32): " + "; ".join(
+        f"{name} {t:.4f}" for name, t in per["vae"].items()))
+
+
+def check(kernel, CS, FA, fns, gen, plans=None):
     """Each variant against the plain version at CHECKS; returns False if
     any fails."""
     import torch
 
     if kernel == "geglu":
         return check_geglu(CS, fns, gen)
+    if kernel == "gn":
+        return check_gn(CS, fns, plans, gen)
     ok_all = True
     for n, m, c, heads, layout in CHECKS:
         if kernel == "fwd":
@@ -242,7 +362,7 @@ def check(kernel, CS, FA, fns, gen):
     return ok_all
 
 
-def times(kernel, CS, FA, fns, gen):
+def times(kernel, CS, FA, fns, gen, plans=None):
     """Each variant's time at the path's shapes, in turns; the forward also
     beside SDPA on the same inputs."""
     import torch
@@ -250,6 +370,8 @@ def times(kernel, CS, FA, fns, gen):
 
     if kernel == "geglu":
         return times_geglu(CS, fns, gen)
+    if kernel == "gn":
+        return times_gn(CS, fns, plans, gen)
     totals = {name: [0.0] * len(entries) for name, entries in fns.items()}
     sdpa_total = 0.0
     for n, c, heads, _, layout in CS.ATTN_SHAPES:
@@ -286,7 +408,8 @@ def times(kernel, CS, FA, fns, gen):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernel", choices=sorted(SOURCES), default="fwd")
-    parser.add_argument("variants", nargs="+", help="name=dir[:MACRO,MACRO=1]")
+    parser.add_argument("variants", nargs="+",
+                        help="name=dir[:MACRO,MACRO=1,plan_key=value]")
     args = parser.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -296,16 +419,20 @@ def main():
     import chip_smoke as CS
     from medfusion_tpu_torch.ops import flash_attention as FA
 
-    variants = {}
+    variants, plans = {}, {}
     for spec in args.variants:
         name, rest = spec.split("=", 1)
         src, _, macros = rest.partition(":")
-        variants[name] = (Path(src).resolve(), [m for m in macros.split(",") if m])
+        items = [m for m in macros.split(",") if m]
+        plans[name] = {k: int(v) for k, _, v in (m.partition("=") for m in items)
+                       if k in GN_PLAN_KEYS}
+        variants[name] = (Path(src).resolve(),
+                          [m for m in items if m.partition("=")[0] not in GN_PLAN_KEYS])
     with tempfile.TemporaryDirectory() as tmp:
         fns = build(args.kernel, variants, Path(tmp))
         gen = torch.Generator(device="cuda").manual_seed(0)
-        ok = check(args.kernel, CS, FA, fns, gen)
-        times(args.kernel, CS, FA, fns, gen)
+        ok = check(args.kernel, CS, FA, fns, gen, plans)
+        times(args.kernel, CS, FA, fns, gen, plans)
     print(CS.card_line())
     return 0 if ok else 1
 
