@@ -45,7 +45,21 @@ Phases (each raises on failure, so any failure exits non-zero):
    data, with the launches counted from zero and checked, a bf16 step's
    gradients against an f32 step's (and the same check shown to flag
    planted faults in the backward kernels), ms per step and samples/s, and
-   a profiled step with its device time by kind.
+   a profiled step with its device time by kind;
+9. the two-stage program (slice 8): first the smoke autoencoder's two
+   training steps on the card against the CPU (f32); then through its
+   CLIs, chest preset at full width, on a CheXpert_2 tree of grey PNGs
+   written here: GroupNorm at the
+   autoencoder's four f32 shapes at B=8 against its plain version, with the
+   plan that runs there; ``cli.train_autoencoder`` (B=8, f32, 3 steps,
+   checkpoints at 2 and 3, a reconstruction grid), a resume from step 2
+   (restored state bit-equal, step-3 loss held); the autoencoder step's
+   ms, peak memory, breakdown and GroupNorm backward recompute;
+   ``cli.train_diffusion --vae-ckpt`` (B=32, bf16, EMA, 3 steps; its VAE
+   bit-equal to the checkpoint); ``cli.sample --ckpt --ema`` (150 DDIM
+   steps, CFG 8) bit-equal to a direct call; each CLI's launches counted
+   from zero and checked; the loader's ms an image and a batch, in this
+   process and in worker processes.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -149,6 +163,28 @@ WIDE_ATTN_SHAPES = ((64, 1024, 4), (256, 512, 2), (64, 1024, 2), (1024, 256, 1),
 # 16^2, 512 and 256 at 8^2): same launches as at 8 heads
 WIDE_SAMPLE_HEADS = 2
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# The two-stage program (phase 9): the CLIs on a CheXpert_2 tree of PNGs at
+# the chest preset's full width. The autoencoder trains at B=8 in f32; each
+# step's forward launches the encoder's and the decoder's GroupNorms (the
+# backward recomputes through the plain version and launches nothing), and
+# so does the reconstruction grid at step AE_STEPS. The diffusion stage
+# trains at B=32 in bf16 from the autoencoder's checkpoint (UNet forward +
+# frozen encoder a step), then cli.sample draws --n 4 per condition (0, 1,
+# unconditioned): 150 DDIM steps, CFG 8 on the labelled ones, one decode
+# each.
+TWO_STAGE_IMAGES, TWO_STAGE_SIDE = 48, (320, 288)  # H, W: resized and cropped
+AE_BATCH, AE_STEPS, AE_CKPT_EVERY = 8, 3, 2
+AE_GN_PER_STEP = VAE_GN_PER_ENCODE + VAE_GN_PER_DECODE  # 16
+DIFF_STEPS, SAMPLE_N = 3, 4
+# the four GroupNorm shapes of the autoencoder (C, side), G=8, f32, B=8
+AE_GN_SHAPES = ((64, 256), (128, 128), (256, 64), (512, 32))
+# the resumed autoencoder run's step-3 loss against the uninterrupted one:
+# the same restored weights, batch and draws; cuDNN's forward is
+# deterministic for one algorithm, its backward is not, so the weights
+# after the step are compared and reported, and the loss is held to f32
+# rounding
+AE_RESUME_LOSS_RTOL = 1e-6
+LOADER_WORKERS = (4, 7)  # the card host has 8 cores
 # attention lse: f32 sums of the same products in another order (bfloat16:
 # of the same bf16 q*s and k*s); o's tolerance is attn_o_tol's
 ATTN_LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
@@ -1004,8 +1040,11 @@ def kind_of(kernel_name):
         return "optimizer"
     if "geglu_" in name:
         return "geglu_mlp"
+    # cuDNN's FFT engines (f32 convs): the transforms, the complex products
+    # and their complex GEMMs
     if any(k in name for k in ("conv", "cudnn", "implicit", "wgrad", "dgrad",
-                               "fprop", "nchwtonhwc", "nhwctonchw")):
+                               "fprop", "nchwtonhwc", "nhwctonchw", "fft", "complex",
+                               "cf32")):
         return "conv"
     if any(k in name for k in ("gemm", "xmma", "cutlass", "gemv", "sm90_", "nvjet")):
         return "matmul"
@@ -1252,6 +1291,385 @@ def phase_train_breakdown(train, step_ms):
         f"{by_kind['optimizer']:.1f} ms")
 
 
+def write_chexpert_tree(root, n, side, seed):
+    """A CheXpert_2 tree as ``CheXpert_2_Dataset`` reads it: the two label
+    CSVs (labels 0 and 1 only) and ``n`` seeded 8-bit grey PNGs of ``side``
+    (H, W), smooth with noise, with all five row filters."""
+    import numpy as np
+
+    from medfusion_tpu_torch.data.png import write_png
+
+    rng = np.random.default_rng(seed)
+    (root / "labels").mkdir(parents=True)
+    (root / "data").mkdir()
+    rows, truth = ["Path,Image Index,fold"], ["Path,Frontal/Lateral,Cardiomegaly"]
+    yy, xx = np.mgrid[:side[0], :side[1]]
+    for i in range(n):
+        path = f"CheXpert-v1.0/train/patient{i:05d}/study1/view1_frontal.jpg"
+        rows.append(f"{path},{i + 1},train")
+        truth.append(f"{path},Frontal,{float(i % 2)}")
+        img = (128 + 60 * np.sin(xx / (9 + i)) * np.cos(yy / 13)
+               + rng.normal(0, 12, side)).clip(0, 255).astype(np.uint8)
+        write_png(root / "data" / f"{i + 1:06d}.png", img, filters=(0, 1, 2, 3, 4))
+    (root / "labels" / "cheXPert_label.csv").write_text("\n".join(rows) + "\n")
+    (root / "labels" / "train.csv").write_text("\n".join(truth) + "\n")
+
+
+def check_gn_ae_shapes(G, worst):
+    """Kernel 1 against its plain version at the autoencoder's four f32
+    shapes at B=8, SiLU on and off, with the plan that ran there."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tol = TOL["float32"]
+    for c, side in AE_GN_SHAPES:
+        s = side * side
+        for silu in (True, False):
+            x, scale, bias = gn_inputs(AE_BATCH, s, c, torch.float32, gen)
+            out = G.group_norm_silu_cuda(x, scale, bias, 8, apply_silu=silu)
+            ref = G.group_norm_silu_reference(x, scale, bias, 8, apply_silu=silu)
+            keep(worst, "group_norm_silu", "float32",
+                 close(f"gn ae C={c} S={s}", out, ref, tol, tol))
+        log(f"  gn ae B={AE_BATCH} C={c} S={side}^2 G=8 f32 "
+            f"({gn_route(G, AE_BATCH, c, s, 8, torch.float32)}): "
+            f"max|d|<={worst['group_norm_silu']['float32']:.3e} (atol=rtol={tol})")
+        del x, out, ref
+
+
+def gn_recompute_ms(G):
+    """The plain-version recompute of one autoencoder step's GroupNorm
+    backward at B=8, f32 (CUDA events): each shape's backward, times the
+    launches of the step at that shape (4: two in the encoder, two in the
+    decoder)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    total = 0.0
+    for c, side in AE_GN_SHAPES:
+        x, scale, bias = gn_inputs(AE_BATCH, side * side, c, torch.float32, gen)
+        x.requires_grad_(True)
+        y = G.group_norm_silu(x, scale, bias, 8)
+        dy = torch.randn_like(y)
+        ms = cuda_ms(lambda: torch.autograd.grad(y, x, dy, retain_graph=True), 5)
+        total += 4 * ms
+        del x, y, dy
+    return total
+
+
+def loader_times(root, seed):
+    """Decode + transform ms per 256^2 item and per B=32 batch in this
+    process, and per batch with each of LOADER_WORKERS worker processes:
+    of 6 x workers batches, the last 4 x workers (after the start-up and
+    the first round of prefetches)."""
+    import numpy as np
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset
+    from medfusion_tpu_torch.data import SimpleDataModule
+
+    ds = build_dataset(PRESETS["chest"], str(root), seed=seed)
+    t0 = time.perf_counter()
+    for i in range(TRAIN_BATCH):
+        ds[i % len(ds)]
+    item_ms = (time.perf_counter() - t0) / TRAIN_BATCH * 1e3
+    out = {"item_ms": item_ms, "batch_ms": item_ms * TRAIN_BATCH}
+    for workers in LOADER_WORKERS:
+        dm = SimpleDataModule(ds, batch_size=TRAIN_BATCH, seed=seed, num_workers=workers)
+        order = np.arange(6 * workers * TRAIN_BATCH) % len(ds)
+        it = dm.batches(ds, order)
+        for _ in range(2 * workers):
+            next(it)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in it)
+        out[f"batch_ms_{workers}_workers"] = (time.perf_counter() - t0) / n * 1e3
+    return out
+
+
+def step_ms_and_breakdown(step, state, batch, arg, reps):
+    """ms per step (host clock around ``reps`` synchronised steps after one
+    warm-up), peak memory, and one profiled step's device time by kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, batch, arg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(state, batch, arg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, arg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kind = dict.fromkeys(KINDS, 0.0)
+    kernels = device_kernels(prof)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:90]}")
+    for e in kernels:
+        by_kind[kind_of(e.key)] += e.self_device_time_total / 1e3
+    return ms, peak, wall_ms, by_kind
+
+
+def fmt_kinds(by_kind):
+    busy = sum(by_kind.values())
+    return f"device busy {busy:.1f} ms: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in by_kind.items() if v)
+
+
+def check_counts(what, launches, expected):
+    log(f"  {what}: launches {launches} (expected {expected})")
+    for kernel, n in launches.items():
+        if n != expected.get(kernel, 0):
+            raise RuntimeError(f"{what}: {kernel} launched {n} times, expected "
+                               f"{expected.get(kernel, 0)}")
+
+
+def phase_smoke_ae_vs_cpu():
+    """Phase 9, first: the smoke preset's autoencoder with one
+    deep-supervision head, f32, two Adam steps on the card and on the CPU
+    from the same weights, batch and reparameterisation draws: both losses
+    within rtol 1e-4 (the second one is of the updated weights) and the
+    first step's gradients within 1e-4 of the largest |g|, as in
+    :func:`phase_smoke_train_vs_cpu`. The weights after the steps are not
+    held: Adam moves an element by about lr whatever its gradient, so the
+    elements whose gradient is rounding noise (the loss sums 3 x 32^2
+    elements an image) land up to 2 lr a step apart."""
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_vae
+    from medfusion_tpu_torch.train import TrainState
+    from medfusion_tpu_torch.train.autoencoder import (
+        AutoencoderTrainer,
+        make_autoencoder_train_step,
+    )
+
+    p = dataclasses.replace(PRESETS["smoke"], ae_deep_supervision=1)
+    gen = torch.Generator().manual_seed(6)
+    torch.manual_seed(0)
+    cpu = build_vae(p)
+    perturb_(cpu, gen)
+    with torch.device("cuda"):
+        card = build_vae(p)
+    card.load_state_dict(cpu.state_dict())
+    b = p.ae_batch_size
+    batches = [torch.rand((b, p.image_size, p.image_size, 3), generator=gen) * 2 - 1
+               for _ in range(2)]
+    noises = [torch.randn((b, *p.latent_shape), generator=gen) for _ in range(2)]
+    results = {}
+    for name, vae in (("cpu", cpu), ("card", card)):
+        dev = next(vae.parameters()).device
+        state = TrainState(vae, lr=p.ae_lr, weight_decay=0.0)
+        step = make_autoencoder_train_step(AutoencoderTrainer(
+            vae, pixel_loss=p.ae_loss, embedding_loss_weight=p.ae_embedding_loss_weight))
+        losses, grads = [], None
+        for x, noise in zip(batches, noises):
+            m = step(state, {"source": x.to(dev)}, noise.to(dev))
+            losses.append(float(m["loss"]))
+            if grads is None:
+                grads = {k: q.grad.detach().cpu().clone() for k, q in vae.named_parameters()}
+        results[name] = (losses, grads)
+    (l_ref, g_ref), (l_out, g_out) = results["cpu"], results["card"]
+    log(f"  smoke autoencoder training card vs cpu: losses {l_out} vs {l_ref}")
+    torch.testing.assert_close(torch.tensor(l_out), torch.tensor(l_ref), rtol=1e-4, atol=0)
+    top = max(g.abs().max().item() for g in g_ref.values())
+    gerr = max((g_out[k] - g_ref[k]).abs().max().item() for k in g_ref)
+    log(f"  smoke autoencoder step 1 gradients: max|d| {gerr:.3e} (limit 1e-4 x max|g| "
+        f"= {1e-4 * top:.3e})")
+    if not gerr <= 1e-4 * top:
+        raise RuntimeError(f"card autoencoder gradients depart from the CPU's by {gerr}")
+
+
+def phase_two_stage(ops, G, worst):
+    """Phase 9: the two-stage program through its CLIs on PNG files, chest
+    preset, full width: the autoencoder (B=8, f32) with checkpoints and a
+    resume, the diffusion model (B=32, bf16, EMA) from its checkpoint, and
+    cli.sample from the diffusion checkpoint's EMA; each run's launches
+    counted from zero and held to the counts derived here."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from medfusion_tpu_torch.cli import sample, train_autoencoder, train_diffusion
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset, build_pipeline, build_vae
+    from medfusion_tpu_torch.train import TrainState, make_lr_schedule
+    from medfusion_tpu_torch.train.autoencoder import (
+        AutoencoderTrainer,
+        make_autoencoder_train_step,
+    )
+    from medfusion_tpu_torch.train.diffusion import make_diffusion_train_step
+    from medfusion_tpu_torch.utils import checkpoint as C
+
+    p = PRESETS["chest"]
+    phase_smoke_ae_vs_cpu()
+    check_gn_ae_shapes(G, worst)
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="two_stage_") as tmp:
+        tmp = Path(tmp)
+        root, ae, ae_b = tmp / "chexpert", tmp / "ae", tmp / "ae_resumed"
+        diff, out = tmp / "diffusion", tmp / "samples"
+        t0 = time.perf_counter()
+        write_chexpert_tree(root, TWO_STAGE_IMAGES, TWO_STAGE_SIDE, seed=0)
+        log(f"  wrote {TWO_STAGE_IMAGES} grey PNGs of {TWO_STAGE_SIDE[0]}x{TWO_STAGE_SIDE[1]} "
+            f"(row filters 0-4) in {time.perf_counter() - t0:.1f} s")
+
+        # stage 1: the autoencoder, with a checkpoint at step 2 and the end
+        common = ["--preset", "chest", "--data-root", str(root), "--device", "cuda",
+                  "--ckpt-every", str(AE_CKPT_EVERY), "--sample-every", str(AE_STEPS)]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, losses = train_autoencoder.main([*common, "--out", str(ae), "--max-steps",
+                                                str(AE_STEPS)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_counts("autoencoder CLI", ops.launch_counts(),
+                     {"group_norm_silu": AE_GN_PER_STEP * (AE_STEPS + 1)})
+        result["ae_launches"] = ops.launch_counts()["group_norm_silu"]
+        log(f"  autoencoder CLI: {AE_STEPS} steps at B={AE_BATCH} (f32, 256^2) in {seconds:.1f} s "
+            f"with loading and checkpoints; losses {losses}")
+        if not all(math.isfinite(v) for v in losses) or state.step != AE_STEPS:
+            raise RuntimeError(f"autoencoder: step {state.step}, losses {losses}")
+        for c, side in AE_GN_SHAPES:
+            plan = G._plan_for(AE_BATCH, c, side * side, 8, torch.float32, True)
+            log(f"  plan that ran at C={c} S={side}^2: {plan['route']}, cluster "
+                f"{plan['cluster']}, slice {plan['slice']}, resident {plan['resident']}")
+
+        # resume: a run that holds only step 2 takes step 3
+        (ae_b / "checkpoints").mkdir(parents=True)
+        for name in ("step_2.pt", C.CONFIG_FILE):
+            shutil.copy(ae / "checkpoints" / name, ae_b / "checkpoints" / name)
+        saved = C.load_payload(ae / "checkpoints", AE_CKPT_EVERY)
+        with torch.device("cuda"):
+            restored = TrainState(build_vae(p), lr=p.ae_lr, weight_decay=0.0,
+                                  lr_schedule=make_lr_schedule("const"))
+        C.restore_checkpoint(ae_b / "checkpoints", restored)
+        for k, v in restored.state_dict()["model"].items():
+            if not torch.equal(v.cpu(), saved["state"]["model"][k]):
+                raise RuntimeError(f"restored {k} differs from the saved step 2")
+        for k, v in restored.optimizer.state_dict()["state"].items():
+            for name, t in v.items():
+                if not torch.equal(t.cpu(), saved["state"]["optimizer"]["state"][k][name]):
+                    raise RuntimeError(f"restored Adam state {k}/{name} differs")
+        state_b, losses_b = train_autoencoder.main([*common, "--out", str(ae_b),
+                                                    "--max-steps", str(AE_STEPS), "--resume"])
+        final_a = C.load_payload(ae / "checkpoints")["state"]["model"]
+        final_b = C.load_payload(ae_b / "checkpoints")["state"]["model"]
+        d = max((final_a[k] - final_b[k]).abs().max().item() for k in final_a)
+        log(f"  resume at step {AE_CKPT_EVERY}: step counter {state_b.step} (uninterrupted "
+            f"{state.step}); restored weights and Adam moments bit-equal to the saved step; "
+            f"step-{AE_STEPS} loss {losses_b[0]!r} vs {losses[-1]!r}; weights after it "
+            f"max|d| = {d:.3e}")
+        if state_b.step != state.step or len(losses_b) != 1:
+            raise RuntimeError(f"resumed run at step {state_b.step}, losses {losses_b}")
+        if abs(losses_b[0] - losses[-1]) > AE_RESUME_LOSS_RTOL * abs(losses[-1]):
+            raise RuntimeError(f"resumed step-{AE_STEPS} loss {losses_b[0]} departs from "
+                               f"{losses[-1]}")
+
+        # the autoencoder step alone: ms, peak memory, breakdown
+        ds = build_dataset(p, str(root))
+        batch = {"source": torch.stack([torch.from_numpy(ds[i]["source"])
+                                        for i in range(AE_BATCH)]).cuda()}
+        noise = torch.randn((AE_BATCH, *p.latent_shape), device="cuda")
+        ae_step = make_autoencoder_train_step(AutoencoderTrainer(
+            state.model, pixel_loss=p.ae_loss, embedding_loss_weight=p.ae_embedding_loss_weight))
+        ms, peak, wall, kinds = step_ms_and_breakdown(ae_step, state, batch, noise, 5)
+        recompute = gn_recompute_ms(G)
+        log(f"  autoencoder step (B={AE_BATCH}, f32, 256^2): {ms:.1f} ms/step, peak memory "
+            f"{peak:.2f} GiB; profiled step wall {wall:.1f} ms, {fmt_kinds(kinds)}; "
+            f"GroupNorm backward's plain recompute {recompute:.2f} ms a step "
+            f"({recompute / ms:.1%} of the step)")
+        result.update(ae_ms=ms, ae_peak=peak, ae_kinds=kinds, ae_recompute=recompute)
+        del batch, ae_step, state, state_b, restored
+        torch.cuda.empty_cache()
+
+        # stage 2: the diffusion model from the autoencoder's checkpoint
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        dstate, dlosses, pipe = train_diffusion.main([
+            "--preset", "chest", "--data-root", str(root), "--vae-ckpt", str(ae),
+            "--out", str(diff), "--bf16", "--use-ema", "--max-steps", str(DIFF_STEPS),
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        per_step = UNET_GN_PER_FORWARD + VAE_GN_PER_ENCODE
+        check_counts("diffusion CLI", ops.launch_counts(),
+                     {"group_norm_silu": per_step * DIFF_STEPS})
+        result["diff_launches"] = ops.launch_counts()["group_norm_silu"]
+        vae_saved = C.load_payload(ae / "checkpoints")["state"]["model"]
+        loaded = pipe.latent_embedder.state_dict()
+        if set(loaded) != set(vae_saved) or not all(
+                torch.equal(loaded[k].cpu(), vae_saved[k]) for k in vae_saved):
+            raise RuntimeError("the diffusion stage's VAE differs from the autoencoder's")
+        log(f"  diffusion CLI: {DIFF_STEPS} steps at B={TRAIN_BATCH} (bf16, EMA) in "
+            f"{seconds:.1f} s with loading; losses {dlosses}; its VAE equals the "
+            f"autoencoder checkpoint bit for bit ({len(vae_saved)} tensors)")
+        if not all(math.isfinite(v) for v in dlosses) or dstate.step != DIFF_STEPS:
+            raise RuntimeError(f"diffusion: step {dstate.step}, losses {dlosses}")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        items = [ds[i] for i in range(TRAIN_BATCH)]
+        dbatch = {"source": torch.from_numpy(np.stack([it["source"] for it in items])).cuda(),
+                  "target": torch.tensor([it["target"] for it in items]).cuda()}
+        draws = pipe.train_draws(TRAIN_BATCH, p.latent_shape, generator=gen)
+        dstep = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
+        dms, dpeak, dwall, dkinds = step_ms_and_breakdown(dstep, dstate, dbatch, draws, 3)
+        log(f"  diffusion step (B={TRAIN_BATCH}, bf16, no attention): {dms:.1f} ms/step, "
+            f"peak memory {dpeak:.2f} GiB; profiled step wall {dwall:.1f} ms, "
+            f"{fmt_kinds(dkinds)}")
+        result.update(diff_ms=dms)
+        del dstate, pipe, dstep, dbatch, draws
+        torch.cuda.empty_cache()
+
+        # stage 3: samples from the diffusion checkpoint's EMA
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        images = sample.main(["--preset", "chest", "--ckpt", str(diff), "--ema",
+                              "--vae-ckpt", str(ae), "--n", str(SAMPLE_N), "--out", str(out),
+                              "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_counts("sample CLI", ops.launch_counts(),
+                     {"group_norm_silu": 3 * (STEPS * UNET_GN_PER_FORWARD + VAE_GN_PER_DECODE)})
+        result["sample_launches"] = ops.launch_counts()["group_norm_silu"]
+        ema = C.load_payload(diff / "checkpoints")["state"]["ema"]
+        direct = build_pipeline(p, device="cuda", compute_dtype=torch.bfloat16, seed=0,
+                                unet_state=ema, vae_ckpt=ae)
+        for cond in (0, 1, None):
+            c = None if cond is None else torch.full((SAMPLE_N,), cond, device="cuda")
+            want = direct.sample(SAMPLE_N, p.latent_shape, condition=c,
+                                 generator=torch.Generator(device="cuda").manual_seed(0),
+                                 steps=min(STEPS, p.timesteps),
+                                 guidance_scale=1.0 if cond is None else GUIDANCE,
+                                 eta=1.0).float().cpu().numpy()
+            got = images[cond]
+            side = p.image_size
+            if got.shape != (SAMPLE_N, side, side, 3) or not np.isfinite(got).all():
+                raise RuntimeError(f"samples of condition {cond}: {got.shape}, non-finite")
+            if not np.array_equal(got, want):
+                raise RuntimeError(f"cli.sample condition {cond} departs from the direct "
+                                   f"call by {np.abs(got - want).max()}")
+        log(f"  sample CLI: {SAMPLE_N} images x 3 conditions, {STEPS} DDIM steps, CFG "
+            f"{GUIDANCE}, in {seconds:.1f} s; equal to a direct call with the restored EMA "
+            f"UNet and VAE, bit for bit")
+        del direct
+        torch.cuda.empty_cache()
+
+        loader = loader_times(root, seed=0)
+        log("  loading (decode + transform, 320x288 grey PNG -> 256^2 RGB): "
+            f"{loader['item_ms']:.1f} ms an item, {loader['batch_ms']:.0f} ms a B={TRAIN_BATCH} "
+            f"batch in this process; "
+            + ", ".join(f"{w} workers {loader[f'batch_ms_{w}_workers']:.0f} ms a batch"
+                        for w in LOADER_WORKERS)
+            + f"; the diffusion step {dms:.1f} ms")
+        result["loader"] = loader
+    return result
+
+
 def kernel_row(name, source, replaces, launches, err, rows):
     """One entry of the kernels line: times summed over one launch at each
     of ``rows``' shapes."""
@@ -1336,6 +1754,9 @@ def main():
     del train
     torch.cuda.empty_cache()
 
+    log("[9] two-stage program: chest, PNG files, autoencoder -> diffusion -> samples")
+    two_stage = phase_two_stage(ops, G, worst)
+
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
     attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
@@ -1383,7 +1804,9 @@ def main():
     log(f"  worst errors by kernel and dtype: {worst}")
     log(f"  launches: chest none {launches_none}, chest spatial {launches}, chest spatial "
         f"at {WIDE_SAMPLE_HEADS} heads {launches_wide}, chest-spatial training "
-        f"{train_launches}")
+        f"{train_launches}; two-stage group_norm_silu: autoencoder CLI "
+        f"{two_stage['ae_launches']}, diffusion CLI {two_stage['diff_launches']}, sample "
+        f"CLI {two_stage['sample_launches']}")
     log("  wide heads (ms kernel / sdpa): " + ", ".join(
         f"N={r['N']} d={r['d']} {r['ms']:.4f}/{r['library_ms']:.4f}" for r in wide_rows))
     log(f"  total {time.perf_counter() - t_all:.1f} s")

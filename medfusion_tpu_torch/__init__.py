@@ -1,8 +1,9 @@
 """PyTorch / CUDA port of medfusion-tpu for NVIDIA Hopper (H100).
 
 The JAX package ``medfusion_tpu`` is the reference; this package mirrors its
-module layout (``core``, ``nn``, ``ops``, ``models``, ``pipelines``, ``cli``)
-with NCHW ``nn.Module``s and hand-written CUDA kernels under ``csrc/``.
+module layout (``core``, ``nn``, ``ops``, ``models``, ``pipelines``, ``data``,
+``losses``, ``train``, ``utils``, ``cli``) with NCHW ``nn.Module``s and
+hand-written CUDA kernels under ``csrc/``.
 
 Entry points run on the card unless the caller asks for the CPU: a device of
 ``None`` resolves to ``cuda`` and raises when CUDA is absent. Nothing falls

@@ -1,7 +1,7 @@
 """Named presets (port of ``medfusion_tpu/cli/presets.py``),
 :func:`build_pipeline`, which makes a seeded sampling pipeline on a device,
-and :func:`build_train_pipeline`, which makes the training pipeline of the
-JAX package's training CLI.
+:func:`build_train_pipeline`, which makes the training pipeline of the
+JAX package's training CLI, and :func:`build_dataset`, the preset's dataset.
 
 chest  — CheXpert 256x256, latent 8x32x32
 eye    — AIROGS 256x256, latent 4x32x32
@@ -36,20 +36,29 @@ class Preset:
     cfg_dropout: float = 0.5
     diffusion_batch_size: int = 32
     diffusion_lr: float = 1e-4
+    ae_batch_size: int = 8
+    ae_lr: float = 1e-4
+    ae_loss: str = "l2"  # the reference trains the chest VAE with MSE
+    ae_embedding_loss_weight: float = 1e-6
     ae_deep_supervision: int = 1
+    dataset: str = "chexpert_2"
 
 
 PRESETS = {
     "chest": Preset(name="chest", image_size=256, in_channels=3,
-                    latent_shape=(32, 32, 8), emb_channels=8, num_classes=2),
+                    latent_shape=(32, 32, 8), emb_channels=8, num_classes=2,
+                    dataset="chexpert_2"),
     "eye": Preset(name="eye", image_size=256, in_channels=3,
-                  latent_shape=(32, 32, 4), emb_channels=4, num_classes=2),
+                  latent_shape=(32, 32, 4), emb_channels=4, num_classes=2,
+                  dataset="airogs"),
     "colon": Preset(name="colon", image_size=512, in_channels=3,
-                    latent_shape=(64, 64, 4), emb_channels=4, num_classes=2),
+                    latent_shape=(64, 64, 4), emb_channels=4, num_classes=2,
+                    dataset="msivsmss_2"),
     "smoke": Preset(name="smoke", image_size=32, in_channels=3,
                     latent_shape=(8, 8, 2), emb_channels=2, num_classes=2,
                     vae_hid_chs=(8, 16, 32), unet_hid_chs=(16, 32),
-                    timesteps=20, diffusion_batch_size=4, ae_deep_supervision=0),
+                    timesteps=20, diffusion_batch_size=4, ae_batch_size=4,
+                    dataset="synthetic", ae_deep_supervision=0),
 }
 
 
@@ -91,11 +100,14 @@ def build_scheduler(p: Preset, device="cpu"):
         beta_start=p.beta_start, beta_end=p.beta_end, device=device)
 
 
-def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params,
-                   vae_params):
+def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params=None,
+                   vae_params=None, unet_state=None, vae_ckpt=None):
     """(UNet, VAE, device): the modules on ``device``, with a seeded torch
-    initialisation, or the JAX package's flax params (nested numpy dicts)
-    when given."""
+    initialisation, then the JAX package's flax params (nested numpy dicts)
+    or a port state dict of the UNet, and a VAE checkpoint
+    (``utils/checkpoint.py::restore_ae_params``) where given, each loaded
+    with ``strict=True``."""
+    from medfusion_tpu_torch.utils.checkpoint import restore_ae_params
     from medfusion_tpu_torch.utils.weights import load_jax_params
 
     dev = resolve_device(device)
@@ -108,43 +120,82 @@ def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params,
         load_jax_params(unet, unet_params, kind="unet")
     if vae_params is not None:
         load_jax_params(vae, vae_params, kind="vae")
+    if unet_state is not None:
+        unet.load_state_dict(unet_state, strict=True)
+    if vae_ckpt is not None:
+        restore_ae_params(vae_ckpt, vae)
     return unet, vae, dev
 
 
 def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
                    unet_params=None, vae_params=None, attention: str = "none",
-                   attn_heads: int = 8):
-    """Sampling pipeline as ``medfusion_tpu/cli/sample.py`` builds it (eps
-    objective, no x0 clipping), on ``device`` (default ``cuda``; raises
-    without CUDA), with both modules cast to ``compute_dtype``. Weights are
-    a seeded torch initialisation, or the JAX package's flax params (nested
-    numpy dicts) when given. ``attention`` and ``attn_heads`` configure the
-    UNet (:func:`build_unet`)."""
+                   attn_heads: int = 8, unet_state=None, vae_ckpt=None,
+                   objective: str = "x_T", latent_scale: float = 1.0,
+                   latent_shift: float = 0.0):
+    """Sampling pipeline as ``medfusion_tpu/cli/sample.py`` builds it (no
+    x0 clipping; ``objective`` the estimator's, eps by default), on
+    ``device`` (default ``cuda``; raises without CUDA), with both modules
+    cast to ``compute_dtype``. Weights are a seeded torch initialisation,
+    or what :func:`_build_modules` loads. ``attention`` and ``attn_heads``
+    configure the UNet (:func:`build_unet`); the diffusion runs on (z -
+    ``latent_shift``) * ``latent_scale``."""
     from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
 
     unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads,
-                                    unet_params, vae_params)
+                                    unet_params, vae_params, unet_state, vae_ckpt)
     if compute_dtype is not None:
         unet.to(compute_dtype)
         vae.to(compute_dtype)
     return DiffusionPipeline(scheduler=build_scheduler(p, dev),
                              noise_estimator=unet.eval(), latent_embedder=vae.eval(),
-                             clip_x0=False, compute_dtype=compute_dtype)
+                             estimator_objective=objective, clip_x0=False,
+                             compute_dtype=compute_dtype, latent_scale=latent_scale,
+                             latent_shift=latent_shift)
 
 
 def build_train_pipeline(p: Preset, device=None, attention: str = "none",
                          attn_heads: int = 8, objective: str = "x_T",
-                         compute_dtype=None, seed: int = 0):
+                         compute_dtype=None, seed: int = 0, vae_ckpt=None,
+                         latent_scale: float = 1.0, latent_shift: float = 0.0):
     """Training pipeline as ``medfusion_tpu/cli/train_diffusion.py`` builds
     it: CFG dropout ``p.cfg_dropout``, no input centering, no x0 clipping,
     L1 loss, ``objective`` ('x_T', 'x_0' or 'v'). Both modules stay float32
     (the estimator holds the master weights; the train step casts both to
-    ``compute_dtype``); the VAE is frozen."""
+    ``compute_dtype``); the VAE is frozen, loaded from ``vae_ckpt`` where
+    given. The diffusion runs on (z - ``latent_shift``) * ``latent_scale``."""
     from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
 
-    unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads, None, None)
+    unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads,
+                                    vae_ckpt=vae_ckpt)
     return DiffusionPipeline(
         scheduler=build_scheduler(p, dev),
         noise_estimator=unet, latent_embedder=vae.eval().requires_grad_(False),
         estimator_objective=objective, classifier_free_guidance_dropout=p.cfg_dropout,
-        do_input_centering=False, clip_x0=False, loss="l1", compute_dtype=compute_dtype)
+        do_input_centering=False, clip_x0=False, loss="l1", compute_dtype=compute_dtype,
+        latent_scale=latent_scale, latent_shift=latent_shift)
+
+
+def build_dataset(p: Preset, data_root: Optional[str], n_synthetic: int = 64, seed: int = 0):
+    """The preset's training set under ``data_root`` (resized and centre
+    cropped to the preset's size, with horizontal flips), or the synthetic
+    set when there is no ``data_root`` or the preset has no dataset."""
+    from medfusion_tpu_torch.data import (
+        AIROGSDataset,
+        CheXpert_2_Dataset,
+        MSIvsMSS_2_Dataset,
+        SyntheticDataset2D,
+    )
+
+    if p.dataset == "synthetic" or data_root is None:
+        return SyntheticDataset2D(n=n_synthetic, image_size=p.image_size,
+                                  channels=p.in_channels, num_classes=p.num_classes,
+                                  seed=seed)
+    common = dict(image_resize=p.image_size, image_crop=p.image_size,
+                  augment_horizontal_flip=True)
+    if p.dataset == "chexpert_2":
+        return CheXpert_2_Dataset(data_root, **common)
+    if p.dataset == "airogs":
+        return AIROGSDataset(data_root, crawler_ext="jpg", **common)
+    if p.dataset == "msivsmss_2":
+        return MSIvsMSS_2_Dataset(data_root, crawler_ext="jpg", **common)
+    raise ValueError(f"unknown dataset {p.dataset!r}")

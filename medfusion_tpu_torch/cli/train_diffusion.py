@@ -1,66 +1,129 @@
 """Train the latent diffusion model with the PyTorch port.
 
-The counterpart of ``medfusion_tpu/cli/train_diffusion.py`` on synthetic
-data: a seeded random VAE (frozen) and UNet, T=1000 scaled-linear schedule,
-CFG dropout 0.5, L1 loss, AdamW (lr 1e-4, weight decay 0.01) over the UNet
-only, optional EMA, batch 32 for the chest preset. ``--bf16`` trains with
-bf16 compute and float32 master weights, optimizer state and loss. The
-random draws of each step come from one ``torch.Generator`` seeded by
-``--seed``.
+The counterpart of ``medfusion_tpu/cli/train_diffusion.py``: the preset's
+dataset under ``--data-root`` (weighted as the JAX package weights it) or
+synthetic data, a frozen VAE (``--vae-ckpt``: a port autoencoder run, or an
+``.npz`` of the JAX VAE's flax params; else a seeded random VAE), the UNet,
+T=1000 scaled-linear schedule, CFG dropout 0.5, L1 loss, AdamW (lr 1e-4,
+weight decay 0.01) over the UNet only, optional EMA, batch 32 for the chest
+preset. ``--bf16`` trains with bf16 compute and float32 master weights,
+optimizer state and loss. A checkpoint every ``--ckpt-every`` steps and at
+the end (the latest 2 kept, the best on the loss pointed to and kept), the
+metrics in ``<out>/logs/metrics.jsonl``, and every ``--sample-every``
+steps 4 images of a 50-step DDIM sample from the EMA (or the model) in
+``<out>/images``. Without ``--out`` nothing is written.
+
+Step s draws from a generator seeded by (``--seed``, s), and ``--resume``
+continues the data stream where the run stopped (``train/loop.py``), so a
+resumed run equals an uninterrupted one. ``--resume`` refuses a run saved
+with another ``--use-ema``, ``--objective``, ``--attention`` or
+``--attention-heads``. A batch label outside the preset's classes raises
+on the host.
 
 Usage:
   python -m medfusion_tpu_torch.cli.train_diffusion --preset chest \\
-      --attention spatial --bf16 --max-steps 5
+      --data-root /data/CheXpert --vae-ckpt runs/ae --out runs/diffusion \\
+      --bf16 --use-ema
   python -m medfusion_tpu_torch.cli.train_diffusion --preset smoke \\
       --device cpu --max-steps 2
 
 Without ``--device cpu`` it runs on the card and raises when there is none.
 On the card every self-attention runs its forward and backward through the
-hand-written kernels. Not ported: ``--data-root`` (real datasets),
-checkpoint save and resume, ``--sample-every``, ``--family flow``, the
-grain loader and ``--auto-restart``.
+hand-written kernels. Not ported: ``--family flow``, ``--zero-terminal-snr``,
+``--min-snr-gamma``, the other estimators, ``--remat`` and the grain loader.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+from pathlib import Path
 
 import torch
 
-from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline
-from medfusion_tpu_torch.data import SimpleDataModule, SyntheticDataset2D
+from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset, build_train_pipeline
+from medfusion_tpu_torch.data import SimpleDataModule
 from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
 from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step, make_lr_schedule
+from medfusion_tpu_torch.train.loop import (
+    SAMPLE_KEY,
+    batch_stream,
+    check_labels,
+    data_state,
+    restore_data_state,
+    step_generator,
+)
+from medfusion_tpu_torch.utils import checkpoint as C
+from medfusion_tpu_torch.utils.logging import MetricsWriter, save_image_grid
+from medfusion_tpu_torch.utils.resilience import run_with_auto_restore
+
+# what --resume must find unchanged in the saved config
+RESUME_KEYS = ("use_ema", "objective", "attention", "attention_heads")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", choices=sorted(PRESETS), default="chest")
+    ap.add_argument("--data-root", default=None,
+                    help="the preset's dataset root (default: synthetic data)")
+    ap.add_argument("--vae-ckpt", default=None,
+                    help="a port autoencoder run (or its checkpoints directory), or "
+                         "an .npz of the JAX VAE's flax params")
+    ap.add_argument("--out", default=None,
+                    help="run directory (checkpoints, logs, images); none: write nothing")
     ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none")
     ap.add_argument("--attention-heads", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--max-steps", type=int, default=200000)
+    ap.add_argument("--ckpt-every", type=int, default=1000)
+    ap.add_argument("--sample-every", type=int, default=0, help="0 = off")
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 estimator forward/backward, float32 master "
                          "weights, optimizer state and loss")
     ap.add_argument("--use-ema", action="store_true")
     ap.add_argument("--objective", choices=("x_T", "x_0", "v"), default="x_T")
+    ap.add_argument("--latent-scale", type=float, default=1.0,
+                    help="the diffusion runs on (z - shift) * scale")
+    ap.add_argument("--latent-shift", type=float, default=0.0)
     ap.add_argument("--lr-schedule", choices=("const", "cosine", "lambda_linear"),
                     default="const")
     ap.add_argument("--warmup-steps", type=int, default=0)
+    ap.add_argument("--num-workers", type=int, default=0,
+                    help="worker processes that read and transform the images "
+                         "(0: in this process, in the JAX package's order)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--auto-restart", type=int, default=0, metavar="N",
+                    help="on a crash, restart up to N times from the latest checkpoint")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.attention_heads != 8 and args.attention == "none":
         ap.error("--attention-heads has no effect without attention layers; "
                  "add --attention spatial|linear")
+    if (args.resume or args.auto_restart) and args.out is None:
+        ap.error("--resume and --auto-restart need --out")
+    if args.auto_restart:
+        return run_with_auto_restore(lambda resume: _train(args, args.resume or resume),
+                                     max_restarts=args.auto_restart)
+    return _train(args, args.resume)
 
+
+def run_config(p, args) -> dict:
+    return {**dataclasses.asdict(p), "use_ema": args.use_ema, "objective": args.objective,
+            "attention": args.attention, "attention_heads": args.attention_heads,
+            "latent_scale": args.latent_scale, "latent_shift": args.latent_shift}
+
+
+def _train(args, resume: bool):
+    """Returns (state, losses, pipeline)."""
     p = PRESETS[args.preset]
     batch_size = args.batch_size or p.diffusion_batch_size
     pipe = build_train_pipeline(p, device=args.device, attention=args.attention,
-                                attn_heads=args.attention_heads,
-                                objective=args.objective, seed=args.seed)
+                                attn_heads=args.attention_heads, objective=args.objective,
+                                seed=args.seed, vae_ckpt=args.vae_ckpt,
+                                latent_scale=args.latent_scale,
+                                latent_shift=args.latent_shift)
     dev = pipe.device
     state = TrainState(pipe.noise_estimator, lr=p.diffusion_lr, weight_decay=1e-2,
                        use_ema=args.use_ema,
@@ -68,31 +131,65 @@ def main(argv=None):
                                                     args.max_steps))
     step_fn = make_diffusion_train_step(
         pipe, compute_dtype=torch.bfloat16 if args.bf16 else None)
-    ds = SyntheticDataset2D(n=max(batch_size * 4, 16), image_size=p.image_size,
-                            channels=p.in_channels, num_classes=p.num_classes,
-                            seed=args.seed)
-    dm = SimpleDataModule(ds, batch_size=batch_size, seed=args.seed)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    ds = build_dataset(p, args.data_root, n_synthetic=max(batch_size * 4, 16), seed=args.seed)
+    dm = SimpleDataModule(ds, batch_size=batch_size, seed=args.seed,
+                          weights=ds.get_weights(), num_workers=args.num_workers)
+
+    out = None if args.out is None else Path(args.out)
+    ckpt_dir = None if out is None else out / "checkpoints"
+    config = run_config(p, args)
+    if resume and C.latest_step(ckpt_dir) is not None:
+        C.check_config(ckpt_dir, {k: config[k] for k in RESUME_KEYS},
+                       "--resume config mismatch")
+        restore_data_state(ds, C.restore_checkpoint(ckpt_dir, state))
+        print(f"resumed from step {state.step}")
+    writer = None if out is None else MetricsWriter(out / "logs")
 
     losses = []
-    step, epoch, t_start = 0, 0, time.time()
-    while step < args.max_steps:
-        for batch in dm.train_dataloader(epoch=epoch):
+    step, t_start = state.step, time.time()
+    stream = batch_stream(dm, step)
+    try:
+        while step < args.max_steps:
+            batch = next(stream)
             dev_batch = {"source": torch.from_numpy(batch["source"]).to(dev)}
             if "target" in batch and p.num_classes:
+                check_labels(batch["target"], p.num_classes)
                 dev_batch["target"] = torch.from_numpy(batch["target"]).long().to(dev)
-            draws = pipe.train_draws(batch_size, p.latent_shape, generator=gen)
+            draws = pipe.train_draws(batch_size, p.latent_shape,
+                                     generator=step_generator(dev, args.seed, step))
             metrics = step_fn(state, dev_batch, draws)
             losses.append(metrics["loss"])
             step += 1
             if step % 50 == 0 or step == 1:
+                if writer is not None:
+                    writer.log_scalars(step, metrics)
                 print(f"step {step} loss {float(metrics['loss']):.4f} "
                       f"({time.time() - t_start:.1f}s)")
-            if step >= args.max_steps:
-                break
-        epoch += 1
-    print(f"done: {step} steps")
-    return state, [float(v) for v in losses]
+            if ckpt_dir is not None and (step % args.ckpt_every == 0 or step == args.max_steps):
+                C.save_checkpoint(ckpt_dir, state, step, config=config, keep_top_k=2,
+                                  extra=data_state(ds))
+                C.save_best_checkpoint(ckpt_dir, step, float(metrics["loss"]), state=state)
+            if out is not None and args.sample_every and step % args.sample_every == 0:
+                save_samples(pipe, state, p, args.seed, step,
+                             out / "images" / f"sample_{step}.png")
+    finally:
+        stream.close()
+        if writer is not None:
+            writer.close()
+    print(f"done: {step} steps" + ("" if ckpt_dir is None else f" -> {ckpt_dir}"))
+    return state, [float(v) for v in losses], pipe
+
+
+def save_samples(pipe, state, p, seed: int, step: int, path) -> None:
+    """4 images of a 50-step DDIM sample (labels 0, 1, 0, 1) from the EMA
+    copy, or the model without one, as one PNG grid."""
+    sampler = dataclasses.replace(pipe, noise_estimator=state.inference_model)
+    dev = pipe.device
+    cond = (torch.arange(4, device=dev) % p.num_classes) if p.num_classes else None
+    imgs = sampler.sample(4, p.latent_shape, condition=cond,
+                          generator=step_generator(dev, seed, SAMPLE_KEY, step),
+                          steps=min(50, p.timesteps), use_ddim=True)
+    save_image_grid(imgs.float().cpu().numpy(), path)
 
 
 if __name__ == "__main__":

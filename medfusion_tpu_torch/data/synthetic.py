@@ -42,3 +42,6 @@ class SyntheticDataset2D:
             item["target"] = k
         item["source"] = np.clip(img, -1, 1)
         return item
+
+    def get_weights(self):
+        return None

@@ -99,6 +99,15 @@ class VAE(nn.Module):
             h = self.decoders[i](h)
         return self.outc(h), out_hor[::-1]
 
+    def forward(self, x, noise: Optional[torch.Tensor] = None, sample: bool = True):
+        """The training forward (JAX ``VAE.__call__(train=True)``): (pred,
+        deep-supervision outputs lowest resolution first, KL). ``noise`` is
+        the standard-normal draw [B, emb_channels, h, w] of the
+        reparameterisation, needed when ``sample``."""
+        z, kl = diagonal_gaussian(self.moments(x), noise, sample=sample)
+        pred, pred_vertical = self.decode_with_vertical(z)
+        return pred, pred_vertical, kl
+
     def decode(self, z):
         h = self.inc_dec(z)
         for i in range(len(self.decoders) - 1, -1, -1):

@@ -1,5 +1,7 @@
-"""Diffusion training (port of ``medfusion_tpu/train``): the train state
-with AdamW and EMA, learning-rate schedules, and the train step."""
+"""Training (port of ``medfusion_tpu/train``): the train state with AdamW
+and EMA, learning-rate schedules, and the diffusion train step; the
+autoencoder's step is in ``train/autoencoder.py``, what the training CLIs
+share around their steps in ``train/loop.py``."""
 
 from medfusion_tpu_torch.train.diffusion import make_diffusion_train_step
 from medfusion_tpu_torch.train.ema import ema_decay, ema_update

@@ -1,0 +1,96 @@
+"""Autoencoder training, the VAE flavour (port of
+``medfusion_tpu/train/autoencoder.py``).
+
+The loss of the reference's ``VAE.rec_loss``: the elementwise pixel loss
+plus each image's (1 - SSIM) broadcast over its elements, summed over all
+elements and divided by the batch; each deep-supervision output adds the
+same term against the target shrunk with 'nearest-exact'; then
+``embedding_loss_weight`` times the KL. Not ported: the perceptual (LPIPS)
+term and the VQVAE flavour (pyramid-weighted means).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Tuple
+
+import torch
+
+from medfusion_tpu_torch.losses.ssim import ssim
+from medfusion_tpu_torch.nn.functional import interpolate_nearest_exact
+from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw
+from medfusion_tpu_torch.train.state import TrainState
+
+
+def _pixel_elems(pred, target, kind: str):
+    if kind == "l1":
+        return (pred - target).abs()
+    return (pred - target) ** 2
+
+
+def ssim_loss_per_image(pred, target):
+    """1 - relu(ssim) per image, [B, 1, 1, 1]; pred is clamped to [0, 1]
+    after de-centring, target is not."""
+    s = ssim(torch.clamp((pred + 1) / 2, 0, 1), (target + 1) / 2, data_range=1.0,
+             size_average=False, nonnegative_ssim=True)
+    return (1.0 - s).reshape(-1, *([1] * (pred.ndim - 1)))
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoencoderTrainer:
+    """The AE loss of ``autoencoder`` (a :class:`VAE`)."""
+
+    autoencoder: torch.nn.Module
+    flavor: str = "vae"
+    pixel_loss: str = "l1"
+    perceiver: object = None
+    embedding_loss_weight: float = 1e-6
+
+    def __post_init__(self):
+        if self.flavor != "vae":
+            raise NotImplementedError(
+                f"the {self.flavor!r} autoencoder flavour is not ported yet (ROADMAP)")
+        if self.perceiver is not None:
+            raise NotImplementedError("the perceptual (LPIPS) loss is not ported yet (ROADMAP)")
+        if self.pixel_loss not in ("l1", "l2"):
+            raise ValueError(f"unknown pixel loss {self.pixel_loss!r}")
+
+    def _level_elems(self, pred, target):
+        return _pixel_elems(pred, target, self.pixel_loss) + ssim_loss_per_image(pred, target)
+
+    def rec_loss(self, pred, pred_vertical, target):
+        b = pred.shape[0]
+        loss = self._level_elems(pred, target).sum() / b
+        for pred_i in pred_vertical:
+            target_i = interpolate_nearest_exact(target, pred_i.shape[2:])
+            loss = loss + self._level_elems(pred_i, target_i).sum() / b
+        return loss
+
+    def loss(self, x: torch.Tensor,
+             noise: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) of NCHW images ``x`` with the reparameterisation
+        draw ``noise`` (NCHW latent shape)."""
+        pred, pred_vertical, emb_loss = self.autoencoder(x, noise)
+        loss = self.rec_loss(pred, pred_vertical, x) + emb_loss * self.embedding_loss_weight
+        with torch.no_grad():
+            metrics = {"loss": loss, "emb_loss": emb_loss,
+                       "L1": (pred - x).abs().mean(), "L2": ((pred - x) ** 2).mean(),
+                       "ssim": ssim((pred + 1) / 2, (x + 1) / 2, data_range=1.0)}
+        return loss, metrics
+
+
+def make_autoencoder_train_step(trainer: AutoencoderTrainer) -> Callable:
+    """Returns ``step_fn(state, batch, noise) -> metrics``: the loss and
+    gradient of ``state.model`` on ``batch["source"]`` [B, H, W, C] with
+    the channels-last reparameterisation draw ``noise`` [B, h, w, emb],
+    one optimizer update of ``state``, and the detached metrics."""
+
+    def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor],
+                noise: torch.Tensor) -> Dict[str, torch.Tensor]:
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = trainer.loss(_to_nchw(batch["source"]), _to_nchw(noise))
+        loss.backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step_fn

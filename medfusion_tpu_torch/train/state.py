@@ -1,15 +1,19 @@
 """Train state (port of ``medfusion_tpu/train/state.py``): the step count,
-the float32 estimator, its AdamW optimizer and an optional EMA copy.
+the float32 model, its AdamW optimizer, an optional learning-rate schedule
+and an optional EMA copy.
 
 The JAX package keeps these in one immutable pytree; here the module, the
 optimizer and the EMA copy are updated in place. ``torch.optim.AdamW`` gives
 optax ``adamw``'s update: decoupled weight decay on the parameters before
-the step, and bias-corrected m / (sqrt(v) + eps)."""
+the step, and bias-corrected m / (sqrt(v) + eps); with ``weight_decay=0``
+it is optax ``adam``, which the autoencoder trains with.
+:meth:`TrainState.state_dict` holds all of it in tensors, numbers and
+strings, for ``torch.load(weights_only=True)``."""
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -39,3 +43,32 @@ class TrainState:
         if self.ema is not None:
             ema_update(self.ema, self.model, ema_decay(self.step))
         self.step += 1
+
+    @property
+    def inference_model(self) -> torch.nn.Module:
+        """The EMA copy where there is one, else the model."""
+        return self.ema if self.ema is not None else self.model
+
+    def state_dict(self) -> Dict:
+        return {"step": self.step,
+                "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "lr_scheduler": (None if self.lr_scheduler is None
+                                 else self.lr_scheduler.state_dict()),
+                "ema": None if self.ema is None else self.ema.state_dict()}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Restore :meth:`state_dict`'s content in place; raises when the
+        checkpoint and this state disagree on the EMA or the schedule."""
+        if (sd["ema"] is None) != (self.ema is None):
+            raise ValueError(f"the checkpoint {'has' if sd['ema'] is not None else 'has no'} "
+                             f"EMA, this state {'has' if self.ema is not None else 'has none'}")
+        if (sd["lr_scheduler"] is None) != (self.lr_scheduler is None):
+            raise ValueError("the checkpoint and this state disagree on the lr schedule")
+        self.model.load_state_dict(sd["model"], strict=True)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.load_state_dict(sd["lr_scheduler"])
+        if self.ema is not None:
+            self.ema.load_state_dict(sd["ema"], strict=True)
+        self.step = int(sd["step"])

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import medfusion_tpu_torch
-from medfusion_tpu_torch.cli import presets, sample
+from medfusion_tpu_torch.cli import presets, sample, train_autoencoder, train_diffusion
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "medfusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -54,6 +54,26 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sample.main(["--preset", "smoke", "--steps", "2", "--n", "1"])
     assert medfusion_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("cli", [train_autoencoder, train_diffusion, sample],
+                         ids=["train_autoencoder", "train_diffusion", "sample"])
+def test_every_cli_defaults_to_the_card(monkeypatch, cli):
+    """Each CLI's --device defaults to cuda and raises without a card."""
+    _without_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--preset", "smoke", "--max-steps", "1"] if cli is not sample
+                 else ["--preset", "smoke", "--steps", "1", "--n", "1"])
+
+
+def test_autoencoder_cli_runs_on_cpu(tmp_path, capsys):
+    state, losses = train_autoencoder.main(["--preset", "smoke", "--device", "cpu",
+                                            "--max-steps", "2"])
+    assert state.step == 2 and len(losses) == 2 and np.isfinite(losses).all()
+    assert "done: 2 steps" in capsys.readouterr().out
+    for flag in (["--gan"], ["--lpips"], ["--model", "vqvae"]):
+        with pytest.raises(SystemExit):
+            train_autoencoder.main(["--preset", "smoke", "--device", "cpu", *flag])
 
 
 def test_sample_cli_runs_on_cpu(tmp_path):

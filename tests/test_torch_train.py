@@ -344,7 +344,7 @@ def test_synthetic_data_and_batches_match_jax():
                                         "--lr-schedule", "cosine"]],
                          ids=["defaults", "spatial-bf16-ema"])
 def test_train_cli_runs_on_cpu(flags, capsys):
-    state, losses = train_diffusion.main(["--preset", "smoke", "--device", "cpu",
+    state, losses, _ = train_diffusion.main(["--preset", "smoke", "--device", "cpu",
                                           "--max-steps", "2", *flags])
     assert state.step == 2 and len(losses) == 2 and np.isfinite(losses).all()
     assert (state.ema is not None) == ("--use-ema" in flags)
