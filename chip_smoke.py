@@ -72,6 +72,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -185,6 +186,30 @@ AE_GN_SHAPES = ((64, 256), (128, 128), (256, 64), (512, 32))
 # rounding
 AE_RESUME_LOSS_RTOL = 1e-6
 LOADER_WORKERS = (4, 7)  # the card host has 8 cores
+# The adversarial autoencoder (phase 10): the CLI on phase 9's tree, chest at
+# full width, B=8, f32, one discriminator per pyramid level (2). Each of the
+# conv discriminator's 5 BasicBlocks launches one GroupNorm+SiLU (G=32, 1
+# to 16 channels a group); a step with the GAN on runs D(pred) in the
+# generator's step and D(real), D(fake) in the discriminator's, at both
+# levels; the PatchGAN has BatchNorm and launches none. The VQVAE has the
+# VAE's GroupNorms.
+DISC_GN_PER_FORWARD = 5
+GAN_GN_PER_STEP = {"off": AE_GN_PER_STEP,  # 16
+                   "conv": AE_GN_PER_STEP + 2 * 3 * DISC_GN_PER_FORWARD,  # 46
+                   "patch": AE_GN_PER_STEP}  # 16
+# the conv discriminator's GroupNorm shapes (C, side), G=32, f32: level 0
+# (256^2 input), then level 1 (128^2); 128^2 x 32 is a group of exactly the
+# block route's budget (16,384)
+DISC_GN_SHAPES = ((32, 256), (64, 128), (128, 64), (256, 32), (512, 16),
+                  (32, 128), (64, 64), (128, 32), (256, 16), (512, 8))
+# the VAEGAN run: 3 batches with --start-gan-step 1, so the generator's
+# (optimizer steps 2 and 4) and the discriminator's terms (3 and 5) are on
+# in batches 2 and 3; checkpoints at 2 and 3, a resume from 2
+GAN_STEPS, GAN_START = 3, 1
+# the smoke adversarial step, card against CPU: both steps' metrics at rtol
+# 1e-4, the first step's gradients of each player within 1e-4 of its
+# largest |g| (f32 convs summed in another order, no TF32)
+GAN_SMOKE_RTOL = 1e-4
 # attention lse: f32 sums of the same products in another order (bfloat16:
 # of the same bf16 q*s and k*s); o's tolerance is attn_o_tol's
 ATTN_LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
@@ -821,7 +846,7 @@ def perturb_(module, gen):
                 for p in (m.weight, m.bias):
                     p.copy_((torch.rand(p.shape, generator=gen, device=p.device)
                              * 2 - 1) * bound)
-            elif isinstance(m, (Norm, torch.nn.LayerNorm)):
+            elif isinstance(m, (Norm, torch.nn.LayerNorm, torch.nn.BatchNorm2d)):
                 for p, base in ((m.weight, 1.0), (m.bias, 0.0)):
                     p.copy_(base + 0.1 * torch.randn(p.shape, generator=gen,
                                                      device=p.device))
@@ -1484,14 +1509,14 @@ def phase_smoke_ae_vs_cpu():
         raise RuntimeError(f"card autoencoder gradients depart from the CPU's by {gerr}")
 
 
-def phase_two_stage(ops, G, worst):
-    """Phase 9: the two-stage program through its CLIs on PNG files, chest
-    preset, full width: the autoencoder (B=8, f32) with checkpoints and a
-    resume, the diffusion model (B=32, bf16, EMA) from its checkpoint, and
-    cli.sample from the diffusion checkpoint's EMA; each run's launches
-    counted from zero and held to the counts derived here."""
+def phase_two_stage(ops, G, worst, tmp, root):
+    """Phase 9: the two-stage program through its CLIs on PNG files (the
+    CheXpert_2 tree ``root``; runs under ``tmp``), chest preset, full width:
+    the autoencoder (B=8, f32) with checkpoints and a resume, the diffusion
+    model (B=32, bf16, EMA) from its checkpoint, and cli.sample from the
+    diffusion checkpoint's EMA; each run's launches counted from zero and
+    held to the counts derived here."""
     import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -1510,163 +1535,432 @@ def phase_two_stage(ops, G, worst):
     phase_smoke_ae_vs_cpu()
     check_gn_ae_shapes(G, worst)
     result = {}
-    with tempfile.TemporaryDirectory(prefix="two_stage_") as tmp:
-        tmp = Path(tmp)
-        root, ae, ae_b = tmp / "chexpert", tmp / "ae", tmp / "ae_resumed"
-        diff, out = tmp / "diffusion", tmp / "samples"
-        t0 = time.perf_counter()
-        write_chexpert_tree(root, TWO_STAGE_IMAGES, TWO_STAGE_SIDE, seed=0)
-        log(f"  wrote {TWO_STAGE_IMAGES} grey PNGs of {TWO_STAGE_SIDE[0]}x{TWO_STAGE_SIDE[1]} "
-            f"(row filters 0-4) in {time.perf_counter() - t0:.1f} s")
+    ae, ae_b = tmp / "ae", tmp / "ae_resumed"
+    diff, out = tmp / "diffusion", tmp / "samples"
 
-        # stage 1: the autoencoder, with a checkpoint at step 2 and the end
-        common = ["--preset", "chest", "--data-root", str(root), "--device", "cuda",
-                  "--ckpt-every", str(AE_CKPT_EVERY), "--sample-every", str(AE_STEPS)]
+    # stage 1: the autoencoder, with a checkpoint at step 2 and the end
+    common = ["--preset", "chest", "--data-root", str(root), "--device", "cuda",
+              "--ckpt-every", str(AE_CKPT_EVERY), "--sample-every", str(AE_STEPS)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses = train_autoencoder.main([*common, "--out", str(ae), "--max-steps",
+                                            str(AE_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_counts("autoencoder CLI", ops.launch_counts(),
+                 {"group_norm_silu": AE_GN_PER_STEP * (AE_STEPS + 1)})
+    result["ae_launches"] = ops.launch_counts()["group_norm_silu"]
+    log(f"  autoencoder CLI: {AE_STEPS} steps at B={AE_BATCH} (f32, 256^2) in {seconds:.1f} s "
+        f"with loading and checkpoints; losses {losses}")
+    if not all(math.isfinite(v) for v in losses) or state.step != AE_STEPS:
+        raise RuntimeError(f"autoencoder: step {state.step}, losses {losses}")
+    for c, side in AE_GN_SHAPES:
+        plan = G._plan_for(AE_BATCH, c, side * side, 8, torch.float32, True)
+        log(f"  plan that ran at C={c} S={side}^2: {plan['route']}, cluster "
+            f"{plan['cluster']}, slice {plan['slice']}, resident {plan['resident']}")
+
+    # resume: a run that holds only step 2 takes step 3
+    (ae_b / "checkpoints").mkdir(parents=True)
+    for name in ("step_2.pt", C.CONFIG_FILE):
+        shutil.copy(ae / "checkpoints" / name, ae_b / "checkpoints" / name)
+    saved = C.load_payload(ae / "checkpoints", AE_CKPT_EVERY)
+    with torch.device("cuda"):
+        restored = TrainState(build_vae(p), lr=p.ae_lr, weight_decay=0.0,
+                              lr_schedule=make_lr_schedule("const"))
+    C.restore_checkpoint(ae_b / "checkpoints", restored)
+    for k, v in restored.state_dict()["model"].items():
+        if not torch.equal(v.cpu(), saved["state"]["model"][k]):
+            raise RuntimeError(f"restored {k} differs from the saved step 2")
+    for k, v in restored.optimizer.state_dict()["state"].items():
+        for name, t in v.items():
+            if not torch.equal(t.cpu(), saved["state"]["optimizer"]["state"][k][name]):
+                raise RuntimeError(f"restored Adam state {k}/{name} differs")
+    state_b, losses_b = train_autoencoder.main([*common, "--out", str(ae_b),
+                                                "--max-steps", str(AE_STEPS), "--resume"])
+    final_a = C.load_payload(ae / "checkpoints")["state"]["model"]
+    final_b = C.load_payload(ae_b / "checkpoints")["state"]["model"]
+    d = max((final_a[k] - final_b[k]).abs().max().item() for k in final_a)
+    log(f"  resume at step {AE_CKPT_EVERY}: step counter {state_b.step} (uninterrupted "
+        f"{state.step}); restored weights and Adam moments bit-equal to the saved step; "
+        f"step-{AE_STEPS} loss {losses_b[0]!r} vs {losses[-1]!r}; weights after it "
+        f"max|d| = {d:.3e}")
+    if state_b.step != state.step or len(losses_b) != 1:
+        raise RuntimeError(f"resumed run at step {state_b.step}, losses {losses_b}")
+    if abs(losses_b[0] - losses[-1]) > AE_RESUME_LOSS_RTOL * abs(losses[-1]):
+        raise RuntimeError(f"resumed step-{AE_STEPS} loss {losses_b[0]} departs from "
+                           f"{losses[-1]}")
+
+    # the autoencoder step alone: ms, peak memory, breakdown
+    ds = build_dataset(p, str(root))
+    batch = {"source": torch.stack([torch.from_numpy(ds[i]["source"])
+                                    for i in range(AE_BATCH)]).cuda()}
+    noise = torch.randn((AE_BATCH, *p.latent_shape), device="cuda")
+    ae_step = make_autoencoder_train_step(AutoencoderTrainer(
+        state.model, pixel_loss=p.ae_loss, embedding_loss_weight=p.ae_embedding_loss_weight))
+    ms, peak, wall, kinds = step_ms_and_breakdown(ae_step, state, batch, noise, 5)
+    recompute = gn_recompute_ms(G)
+    log(f"  autoencoder step (B={AE_BATCH}, f32, 256^2): {ms:.1f} ms/step, peak memory "
+        f"{peak:.2f} GiB; profiled step wall {wall:.1f} ms, {fmt_kinds(kinds)}; "
+        f"GroupNorm backward's plain recompute {recompute:.2f} ms a step "
+        f"({recompute / ms:.1%} of the step)")
+    result.update(ae_ms=ms, ae_peak=peak, ae_kinds=kinds, ae_recompute=recompute)
+    del batch, ae_step, state, state_b, restored
+    torch.cuda.empty_cache()
+
+    # stage 2: the diffusion model from the autoencoder's checkpoint
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dstate, dlosses, pipe = train_diffusion.main([
+        "--preset", "chest", "--data-root", str(root), "--vae-ckpt", str(ae),
+        "--out", str(diff), "--bf16", "--use-ema", "--max-steps", str(DIFF_STEPS),
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    per_step = UNET_GN_PER_FORWARD + VAE_GN_PER_ENCODE
+    check_counts("diffusion CLI", ops.launch_counts(),
+                 {"group_norm_silu": per_step * DIFF_STEPS})
+    result["diff_launches"] = ops.launch_counts()["group_norm_silu"]
+    vae_saved = C.load_payload(ae / "checkpoints")["state"]["model"]
+    loaded = pipe.latent_embedder.state_dict()
+    if set(loaded) != set(vae_saved) or not all(
+            torch.equal(loaded[k].cpu(), vae_saved[k]) for k in vae_saved):
+        raise RuntimeError("the diffusion stage's VAE differs from the autoencoder's")
+    log(f"  diffusion CLI: {DIFF_STEPS} steps at B={TRAIN_BATCH} (bf16, EMA) in "
+        f"{seconds:.1f} s with loading; losses {dlosses}; its VAE equals the "
+        f"autoencoder checkpoint bit for bit ({len(vae_saved)} tensors)")
+    if not all(math.isfinite(v) for v in dlosses) or dstate.step != DIFF_STEPS:
+        raise RuntimeError(f"diffusion: step {dstate.step}, losses {dlosses}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    items = [ds[i] for i in range(TRAIN_BATCH)]
+    dbatch = {"source": torch.from_numpy(np.stack([it["source"] for it in items])).cuda(),
+              "target": torch.tensor([it["target"] for it in items]).cuda()}
+    draws = pipe.train_draws(TRAIN_BATCH, p.latent_shape, generator=gen)
+    dstep = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
+    dms, dpeak, dwall, dkinds = step_ms_and_breakdown(dstep, dstate, dbatch, draws, 3)
+    log(f"  diffusion step (B={TRAIN_BATCH}, bf16, no attention): {dms:.1f} ms/step, "
+        f"peak memory {dpeak:.2f} GiB; profiled step wall {dwall:.1f} ms, "
+        f"{fmt_kinds(dkinds)}")
+    result.update(diff_ms=dms)
+    del dstate, pipe, dstep, dbatch, draws
+    torch.cuda.empty_cache()
+
+    # stage 3: samples from the diffusion checkpoint's EMA
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    images = sample.main(["--preset", "chest", "--ckpt", str(diff), "--ema",
+                          "--vae-ckpt", str(ae), "--n", str(SAMPLE_N), "--out", str(out),
+                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_counts("sample CLI", ops.launch_counts(),
+                 {"group_norm_silu": 3 * (STEPS * UNET_GN_PER_FORWARD + VAE_GN_PER_DECODE)})
+    result["sample_launches"] = ops.launch_counts()["group_norm_silu"]
+    ema = C.load_payload(diff / "checkpoints")["state"]["ema"]
+    direct = build_pipeline(p, device="cuda", compute_dtype=torch.bfloat16, seed=0,
+                            unet_state=ema, vae_ckpt=ae)
+    for cond in (0, 1, None):
+        c = None if cond is None else torch.full((SAMPLE_N,), cond, device="cuda")
+        want = direct.sample(SAMPLE_N, p.latent_shape, condition=c,
+                             generator=torch.Generator(device="cuda").manual_seed(0),
+                             steps=min(STEPS, p.timesteps),
+                             guidance_scale=1.0 if cond is None else GUIDANCE,
+                             eta=1.0).float().cpu().numpy()
+        got = images[cond]
+        side = p.image_size
+        if got.shape != (SAMPLE_N, side, side, 3) or not np.isfinite(got).all():
+            raise RuntimeError(f"samples of condition {cond}: {got.shape}, non-finite")
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"cli.sample condition {cond} departs from the direct "
+                               f"call by {np.abs(got - want).max()}")
+    log(f"  sample CLI: {SAMPLE_N} images x 3 conditions, {STEPS} DDIM steps, CFG "
+        f"{GUIDANCE}, in {seconds:.1f} s; equal to a direct call with the restored EMA "
+        f"UNet and VAE, bit for bit")
+    del direct
+    torch.cuda.empty_cache()
+
+    loader = loader_times(root, seed=0)
+    log("  loading (decode + transform, 320x288 grey PNG -> 256^2 RGB): "
+        f"{loader['item_ms']:.1f} ms an item, {loader['batch_ms']:.0f} ms a B={TRAIN_BATCH} "
+        f"batch in this process; "
+        + ", ".join(f"{w} workers {loader[f'batch_ms_{w}_workers']:.0f} ms a batch"
+                    for w in LOADER_WORKERS)
+        + f"; the diffusion step {dms:.1f} ms")
+    result["loader"] = loader
+    return result
+
+
+def phase_smoke_gan_vs_cpu(disc):
+    """Phase 10, first: the smoke autoencoder with one deep-supervision head
+    and two ``disc`` discriminators, both players on from the first batch,
+    two adversarial steps on the card and on the CPU from the same perturbed
+    weights, batches and draws (f32): every metric of both steps (losses,
+    lambdas, discriminator losses) and the first step's gradients of each
+    player (GAN_SMOKE_RTOL)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_discriminators, build_vae
+    from medfusion_tpu_torch.train import GANTrainState
+    from medfusion_tpu_torch.train.adversarial import (
+        AdversarialTrainer,
+        make_adversarial_train_step,
+    )
+    from medfusion_tpu_torch.train.autoencoder import AutoencoderTrainer
+
+    p = dataclasses.replace(PRESETS["smoke"], ae_deep_supervision=1)
+    gen = torch.Generator().manual_seed(7)
+    torch.manual_seed(0)
+    vae, discs = build_vae(p), build_discriminators(p, disc)
+    perturb_(vae, gen)
+    perturb_(discs, gen)
+    b, side = p.ae_batch_size, p.image_size
+    batches = [torch.rand((b, side, side, 3), generator=gen) * 2 - 1 for _ in range(2)]
+    noises = [torch.randn((b, *p.latent_shape), generator=gen) for _ in range(2)]
+    results = {}
+    for dev in ("cpu", "cuda"):
+        v, d = copy.deepcopy(vae).to(dev), copy.deepcopy(discs).to(dev)
+        state = GANTrainState(v, d, lr=1e-4)
+        step = make_adversarial_train_step(AdversarialTrainer(
+            AutoencoderTrainer(v, pixel_loss=p.ae_loss,
+                               embedding_loss_weight=p.ae_embedding_loss_weight),
+            d, start_gan_train_step=-1))
+        metrics, grads = [], None
+        for x, noise in zip(batches, noises):
+            m = step(state, {"source": x.to(dev)}, noise.to(dev))
+            metrics.append({k: float(val) for k, val in m.items()})
+            if grads is None:
+                grads = [{k: q.grad.detach().cpu().clone() for k, q in mod.named_parameters()}
+                         for mod in (v, d)]
+        results[dev] = metrics, grads
+    (m_ref, g_ref), (m_out, g_out) = results["cpu"], results["cuda"]
+    worst_m = max(abs(out[k] - ref[k]) / max(abs(ref[k]), 1e-6)
+                  for ref, out in zip(m_ref, m_out) for k in ref)
+    log(f"  smoke adversarial steps ({disc}) card vs cpu: step 1 loss {m_out[0]['loss']!r} vs "
+        f"{m_ref[0]['loss']!r}, lambda_0 {m_out[0]['lambda_0']:.6g} vs "
+        f"{m_ref[0]['lambda_0']:.6g}, lambda_1 {m_out[0]['lambda_1']:.6g} vs "
+        f"{m_ref[0]['lambda_1']:.6g}, loss_1 {m_out[0]['loss_1']:.6g} vs "
+        f"{m_ref[0]['loss_1']:.6g}; worst relative metric difference {worst_m:.2e}")
+    for ref, out in zip(m_ref, m_out):
+        if not (ref["lambda_0"] > 0 and ref["loss_1"] > 0):
+            raise RuntimeError(f"smoke adversarial step: a closed term {ref}")
+        for k in ref:
+            torch.testing.assert_close(out[k], ref[k], rtol=GAN_SMOKE_RTOL, atol=1e-6,
+                                       msg=lambda m, k=k: f"smoke {disc} {k}: {m}")
+    for name, ref, out in zip(("generator", "discriminators"), g_ref, g_out):
+        top = max(g.abs().max().item() for g in ref.values())
+        gerr = max((out[k] - ref[k]).abs().max().item() for k in ref)
+        log(f"  smoke adversarial step 1 ({disc}) {name} gradients: max|d| {gerr:.3e} (limit "
+            f"{GAN_SMOKE_RTOL:g} x max|g| = {GAN_SMOKE_RTOL * top:.3e})")
+        if not gerr <= GAN_SMOKE_RTOL * top:
+            raise RuntimeError(f"card {name} gradients ({disc}) depart from the CPU's by {gerr}")
+
+
+def check_gn_disc_shapes(G, worst):
+    """Kernel 1 against its plain version at the conv discriminator's ten
+    f32 shapes at B=8 (G=32), SiLU on and off, with the plan that runs
+    there, and the same bits from a second launch."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tol = TOL["float32"]
+    for c, side in DISC_GN_SHAPES:
+        s = side * side
+        err = 0.0
+        for silu in (True, False):
+            x, scale, bias = gn_inputs(AE_BATCH, s, c, torch.float32, gen)
+            out = G.group_norm_silu_cuda(x, scale, bias, 32, apply_silu=silu)
+            again = G.group_norm_silu_cuda(x, scale, bias, 32, apply_silu=silu)
+            ref = G.group_norm_silu_reference(x, scale, bias, 32, apply_silu=silu)
+            err = max(err, close(f"gn disc C={c} S={s}", out, ref, tol, tol))
+            if not torch.equal(out, again):
+                raise RuntimeError(f"gn disc C={c} S={side}^2: two launches differ")
+        keep(worst, "group_norm_silu", "float32", err)
+        log(f"  gn disc B={AE_BATCH} C={c} S={side}^2 G=32 f32 (n={c // 32 * s}; "
+            f"{gn_route(G, AE_BATCH, c, s, 32, torch.float32)}): max|d|={err:.3e} "
+            f"(atol=rtol={tol}), bitwise equal across two launches")
+        del x, out, again, ref
+
+
+def gan_recompute_ms(G):
+    """The plain-version recompute of one adversarial step's GroupNorm
+    backward at B=8, f32 (CUDA events): the autoencoder's (as phase 9's) and
+    the conv discriminators', each of the ten shapes backward 4 times (the
+    lambda's and the generator's backward through D(pred), and the
+    discriminator's through D(real) and D(fake))."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    total = 0.0
+    for c, side in DISC_GN_SHAPES:
+        x, scale, bias = gn_inputs(AE_BATCH, side * side, c, torch.float32, gen)
+        x.requires_grad_(True)
+        y = G.group_norm_silu(x, scale, bias, 32)
+        dy = torch.randn_like(y)
+        total += 4 * cuda_ms(lambda: torch.autograd.grad(y, x, dy, retain_graph=True), 5)
+        del x, y, dy
+    return gn_recompute_ms(G) + total
+
+
+def gan_step_setup(p, disc, start, model="vae"):
+    """A chest GANTrainState on the card (seeded) and its step function."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import build_discriminators, build_vae
+    from medfusion_tpu_torch.train import GANTrainState
+    from medfusion_tpu_torch.train.adversarial import (
+        AdversarialTrainer,
+        make_adversarial_train_step,
+    )
+    from medfusion_tpu_torch.train.autoencoder import AutoencoderTrainer
+
+    with torch.device("cuda"):
+        torch.manual_seed(0)
+        vae, discs = build_vae(p, model), build_discriminators(p, disc)
+    state = GANTrainState(vae, discs, lr=1e-6)
+    step = make_adversarial_train_step(AdversarialTrainer(
+        AutoencoderTrainer(vae, flavor=model, pixel_loss=p.ae_loss,
+                           embedding_loss_weight=p.ae_embedding_loss_weight),
+        discs, start_gan_train_step=start))
+    return state, step
+
+
+def phase_adversarial(ops, G, worst, tmp, root):
+    """Phase 10: the adversarial autoencoder and the VQVAE family through
+    ``cli.train_autoencoder`` on phase 9's tree (chest, full width, B=8,
+    f32): VAEGAN with the conv discriminators (3 steps, the GAN on in the
+    last two) and a resume; VAEGAN with the PatchGAN; the VQVAE with and
+    without the GAN; ``cli.train_diffusion --vae-ckpt`` from the VAEGAN run.
+    Also kernel 1 at the discriminators' shapes, the adversarial step's ms,
+    memory and breakdown, and its GroupNorm launches per step."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from medfusion_tpu_torch.cli import train_autoencoder, train_diffusion
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset
+    from medfusion_tpu_torch.utils import checkpoint as C
+
+    p = PRESETS["chest"]
+    for disc in ("conv", "patch"):
+        phase_smoke_gan_vs_cpu(disc)
+    check_gn_disc_shapes(G, worst)
+    result = {}
+    gan, gan_b = tmp / "vaegan", tmp / "vaegan_resumed"
+    common = ["--preset", "chest", "--data-root", str(root), "--device", "cuda"]
+
+    def run(what, argv, expected):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        state, losses = train_autoencoder.main([*common, "--out", str(ae), "--max-steps",
-                                                str(AE_STEPS)])
+        state, losses = train_autoencoder.main([*common, *argv])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        check_counts("autoencoder CLI", ops.launch_counts(),
-                     {"group_norm_silu": AE_GN_PER_STEP * (AE_STEPS + 1)})
-        result["ae_launches"] = ops.launch_counts()["group_norm_silu"]
-        log(f"  autoencoder CLI: {AE_STEPS} steps at B={AE_BATCH} (f32, 256^2) in {seconds:.1f} s "
-            f"with loading and checkpoints; losses {losses}")
-        if not all(math.isfinite(v) for v in losses) or state.step != AE_STEPS:
-            raise RuntimeError(f"autoencoder: step {state.step}, losses {losses}")
-        for c, side in AE_GN_SHAPES:
-            plan = G._plan_for(AE_BATCH, c, side * side, 8, torch.float32, True)
-            log(f"  plan that ran at C={c} S={side}^2: {plan['route']}, cluster "
-                f"{plan['cluster']}, slice {plan['slice']}, resident {plan['resident']}")
+        check_counts(what, ops.launch_counts(), {"group_norm_silu": expected})
+        log(f"  {what}: {len(losses)} steps in {seconds:.1f} s with loading; losses {losses}")
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"{what}: losses {losses}")
+        result[f"{what} launches"] = expected
+        return state, losses
 
-        # resume: a run that holds only step 2 takes step 3
-        (ae_b / "checkpoints").mkdir(parents=True)
-        for name in ("step_2.pt", C.CONFIG_FILE):
-            shutil.copy(ae / "checkpoints" / name, ae_b / "checkpoints" / name)
-        saved = C.load_payload(ae / "checkpoints", AE_CKPT_EVERY)
-        with torch.device("cuda"):
-            restored = TrainState(build_vae(p), lr=p.ae_lr, weight_decay=0.0,
-                                  lr_schedule=make_lr_schedule("const"))
-        C.restore_checkpoint(ae_b / "checkpoints", restored)
-        for k, v in restored.state_dict()["model"].items():
-            if not torch.equal(v.cpu(), saved["state"]["model"][k]):
-                raise RuntimeError(f"restored {k} differs from the saved step 2")
-        for k, v in restored.optimizer.state_dict()["state"].items():
-            for name, t in v.items():
-                if not torch.equal(t.cpu(), saved["state"]["optimizer"]["state"][k][name]):
-                    raise RuntimeError(f"restored Adam state {k}/{name} differs")
-        state_b, losses_b = train_autoencoder.main([*common, "--out", str(ae_b),
-                                                    "--max-steps", str(AE_STEPS), "--resume"])
-        final_a = C.load_payload(ae / "checkpoints")["state"]["model"]
-        final_b = C.load_payload(ae_b / "checkpoints")["state"]["model"]
-        d = max((final_a[k] - final_b[k]).abs().max().item() for k in final_a)
-        log(f"  resume at step {AE_CKPT_EVERY}: step counter {state_b.step} (uninterrupted "
-            f"{state.step}); restored weights and Adam moments bit-equal to the saved step; "
-            f"step-{AE_STEPS} loss {losses_b[0]!r} vs {losses[-1]!r}; weights after it "
-            f"max|d| = {d:.3e}")
-        if state_b.step != state.step or len(losses_b) != 1:
-            raise RuntimeError(f"resumed run at step {state_b.step}, losses {losses_b}")
-        if abs(losses_b[0] - losses[-1]) > AE_RESUME_LOSS_RTOL * abs(losses[-1]):
-            raise RuntimeError(f"resumed step-{AE_STEPS} loss {losses_b[0]} departs from "
-                               f"{losses[-1]}")
+    # VAEGAN, conv discriminators: batch 1 off, batches 2 and 3 on, the grid
+    gn = GAN_GN_PER_STEP
+    state, losses = run("VAEGAN CLI (conv)", [
+        "--gan", "--start-gan-step", str(GAN_START), "--max-steps", str(GAN_STEPS),
+        "--out", str(gan), "--ckpt-every", str(AE_CKPT_EVERY), "--sample-every",
+        str(GAN_STEPS)], gn["off"] + 2 * gn["conv"] + AE_GN_PER_STEP)
+    d_steps = {int(s["step"]) for s in state.disc.optimizer.state.values()}
+    if state.step != 2 * GAN_STEPS or d_steps != {GAN_STEPS - 1}:
+        raise RuntimeError(f"VAEGAN: step {state.step}, discriminator Adam steps {d_steps}")
+    # resume: a run that holds only step 2 takes step 3
+    (gan_b / "checkpoints").mkdir(parents=True)
+    for name in ("step_2.pt", C.CONFIG_FILE):
+        shutil.copy(gan / "checkpoints" / name, gan_b / "checkpoints" / name)
+    saved = C.load_payload(gan / "checkpoints", AE_CKPT_EVERY)["state"]
+    state_b, losses_b = train_autoencoder.main([
+        *common, "--gan", "--start-gan-step", str(GAN_START), "--max-steps", str(GAN_STEPS),
+        "--out", str(gan_b), "--resume", "--sample-every", "0"])
+    restored = C.load_payload(gan_b / "checkpoints", GAN_STEPS)["state"]
+    final = C.load_payload(gan / "checkpoints", GAN_STEPS)["state"]
+    d = max((final[who]["model"][k].float() - restored[who]["model"][k].float()).abs().max().item()
+            for who in ("gen", "disc") for k in final[who]["model"])
+    log(f"  VAEGAN resume at step {AE_CKPT_EVERY}: counters {state_b.step} (uninterrupted "
+        f"{state.step}), saved step 2 holds {len(saved['disc']['optimizer']['state'])} "
+        f"discriminator Adam states; step-{GAN_STEPS} loss {losses_b[0]!r} vs "
+        f"{losses[-1]!r}; both players after it max|d| = {d:.3e}")
+    if state_b.step != state.step or len(losses_b) != 1:
+        raise RuntimeError(f"resumed VAEGAN at step {state_b.step}, losses {losses_b}")
+    if abs(losses_b[0] - losses[-1]) > AE_RESUME_LOSS_RTOL * abs(losses[-1]):
+        raise RuntimeError(f"resumed VAEGAN step-{GAN_STEPS} loss {losses_b[0]} departs "
+                           f"from {losses[-1]}")
+    del state, state_b
+    torch.cuda.empty_cache()
 
-        # the autoencoder step alone: ms, peak memory, breakdown
-        ds = build_dataset(p, str(root))
-        batch = {"source": torch.stack([torch.from_numpy(ds[i]["source"])
-                                        for i in range(AE_BATCH)]).cuda()}
-        noise = torch.randn((AE_BATCH, *p.latent_shape), device="cuda")
-        ae_step = make_autoencoder_train_step(AutoencoderTrainer(
-            state.model, pixel_loss=p.ae_loss, embedding_loss_weight=p.ae_embedding_loss_weight))
-        ms, peak, wall, kinds = step_ms_and_breakdown(ae_step, state, batch, noise, 5)
-        recompute = gn_recompute_ms(G)
-        log(f"  autoencoder step (B={AE_BATCH}, f32, 256^2): {ms:.1f} ms/step, peak memory "
-            f"{peak:.2f} GiB; profiled step wall {wall:.1f} ms, {fmt_kinds(kinds)}; "
-            f"GroupNorm backward's plain recompute {recompute:.2f} ms a step "
-            f"({recompute / ms:.1%} of the step)")
-        result.update(ae_ms=ms, ae_peak=peak, ae_kinds=kinds, ae_recompute=recompute)
-        del batch, ae_step, state, state_b, restored
-        torch.cuda.empty_cache()
+    # the PatchGAN: batch 1 D only, batch 2 both; BatchNorm moves 5 times
+    state, _ = run("VAEGAN CLI (patch)", ["--gan", "--disc", "patch", "--start-gan-step", "0",
+                                          "--max-steps", "2", "--sample-every", "0"],
+                   2 * gn["patch"])
+    tracked = {int(b) for k, b in state.disc.model.named_buffers()
+               if k.endswith("num_batches_tracked")}
+    if tracked != {5}:
+        raise RuntimeError(f"PatchGAN BatchNorm updates {tracked}, expected 5")
+    del state
+    run("VQVAE CLI", ["--model", "vqvae", "--max-steps", "2", "--sample-every", "0"],
+        2 * gn["off"])
+    run("VQGAN CLI (conv)", ["--model", "vqvae", "--gan", "--start-gan-step", "0",
+                             "--max-steps", "2", "--sample-every", "0"],
+        gn["off"] + 4 * DISC_GN_PER_FORWARD + gn["conv"])
+    torch.cuda.empty_cache()
 
-        # stage 2: the diffusion model from the autoencoder's checkpoint
+    # the diffusion stage from the VAEGAN run's generator
+    ops.reset_launch_counts()
+    dstate, dlosses, pipe = train_diffusion.main([
+        "--preset", "chest", "--data-root", str(root), "--vae-ckpt", str(gan), "--bf16",
+        "--max-steps", "2", "--device", "cuda"])
+    torch.cuda.synchronize()
+    check_counts("diffusion CLI from the VAEGAN run", ops.launch_counts(),
+                 {"group_norm_silu": 2 * (UNET_GN_PER_FORWARD + VAE_GN_PER_ENCODE)})
+    loaded = pipe.latent_embedder.state_dict()
+    if not all(torch.equal(loaded[k].cpu(), v) for k, v in final["gen"]["model"].items()):
+        raise RuntimeError("the diffusion stage's VAE differs from the VAEGAN generator")
+    log(f"  diffusion CLI --vae-ckpt <VAEGAN run>: losses {dlosses}; its VAE equals the "
+        f"generator of the VAEGAN checkpoint bit for bit")
+    if not all(math.isfinite(v) for v in dlosses):
+        raise RuntimeError(f"diffusion from the VAEGAN run: losses {dlosses}")
+    del dstate, pipe
+    torch.cuda.empty_cache()
+
+    # the adversarial step alone: launches a step by configuration, then ms
+    ds = build_dataset(p, str(root))
+    batch = {"source": torch.from_numpy(np.stack([ds[i]["source"]
+                                                  for i in range(AE_BATCH)])).cuda()}
+    noise = torch.randn((AE_BATCH, *p.latent_shape), device="cuda")
+    per_step = {}
+    for name, disc, start in (("off", "conv", 10**9), ("patch", "patch", -1),
+                              ("conv", "conv", -1)):
+        state, step = gan_step_setup(p, disc, start)
         ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        dstate, dlosses, pipe = train_diffusion.main([
-            "--preset", "chest", "--data-root", str(root), "--vae-ckpt", str(ae),
-            "--out", str(diff), "--bf16", "--use-ema", "--max-steps", str(DIFF_STEPS),
-            "--device", "cuda"])
+        step(state, batch, noise)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        per_step = UNET_GN_PER_FORWARD + VAE_GN_PER_ENCODE
-        check_counts("diffusion CLI", ops.launch_counts(),
-                     {"group_norm_silu": per_step * DIFF_STEPS})
-        result["diff_launches"] = ops.launch_counts()["group_norm_silu"]
-        vae_saved = C.load_payload(ae / "checkpoints")["state"]["model"]
-        loaded = pipe.latent_embedder.state_dict()
-        if set(loaded) != set(vae_saved) or not all(
-                torch.equal(loaded[k].cpu(), vae_saved[k]) for k in vae_saved):
-            raise RuntimeError("the diffusion stage's VAE differs from the autoencoder's")
-        log(f"  diffusion CLI: {DIFF_STEPS} steps at B={TRAIN_BATCH} (bf16, EMA) in "
-            f"{seconds:.1f} s with loading; losses {dlosses}; its VAE equals the "
-            f"autoencoder checkpoint bit for bit ({len(vae_saved)} tensors)")
-        if not all(math.isfinite(v) for v in dlosses) or dstate.step != DIFF_STEPS:
-            raise RuntimeError(f"diffusion: step {dstate.step}, losses {dlosses}")
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        items = [ds[i] for i in range(TRAIN_BATCH)]
-        dbatch = {"source": torch.from_numpy(np.stack([it["source"] for it in items])).cuda(),
-                  "target": torch.tensor([it["target"] for it in items]).cuda()}
-        draws = pipe.train_draws(TRAIN_BATCH, p.latent_shape, generator=gen)
-        dstep = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
-        dms, dpeak, dwall, dkinds = step_ms_and_breakdown(dstep, dstate, dbatch, draws, 3)
-        log(f"  diffusion step (B={TRAIN_BATCH}, bf16, no attention): {dms:.1f} ms/step, "
-            f"peak memory {dpeak:.2f} GiB; profiled step wall {dwall:.1f} ms, "
-            f"{fmt_kinds(dkinds)}")
-        result.update(diff_ms=dms)
-        del dstate, pipe, dstep, dbatch, draws
-        torch.cuda.empty_cache()
-
-        # stage 3: samples from the diffusion checkpoint's EMA
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        images = sample.main(["--preset", "chest", "--ckpt", str(diff), "--ema",
-                              "--vae-ckpt", str(ae), "--n", str(SAMPLE_N), "--out", str(out),
-                              "--device", "cuda"])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        check_counts("sample CLI", ops.launch_counts(),
-                     {"group_norm_silu": 3 * (STEPS * UNET_GN_PER_FORWARD + VAE_GN_PER_DECODE)})
-        result["sample_launches"] = ops.launch_counts()["group_norm_silu"]
-        ema = C.load_payload(diff / "checkpoints")["state"]["ema"]
-        direct = build_pipeline(p, device="cuda", compute_dtype=torch.bfloat16, seed=0,
-                                unet_state=ema, vae_ckpt=ae)
-        for cond in (0, 1, None):
-            c = None if cond is None else torch.full((SAMPLE_N,), cond, device="cuda")
-            want = direct.sample(SAMPLE_N, p.latent_shape, condition=c,
-                                 generator=torch.Generator(device="cuda").manual_seed(0),
-                                 steps=min(STEPS, p.timesteps),
-                                 guidance_scale=1.0 if cond is None else GUIDANCE,
-                                 eta=1.0).float().cpu().numpy()
-            got = images[cond]
-            side = p.image_size
-            if got.shape != (SAMPLE_N, side, side, 3) or not np.isfinite(got).all():
-                raise RuntimeError(f"samples of condition {cond}: {got.shape}, non-finite")
-            if not np.array_equal(got, want):
-                raise RuntimeError(f"cli.sample condition {cond} departs from the direct "
-                                   f"call by {np.abs(got - want).max()}")
-        log(f"  sample CLI: {SAMPLE_N} images x 3 conditions, {STEPS} DDIM steps, CFG "
-            f"{GUIDANCE}, in {seconds:.1f} s; equal to a direct call with the restored EMA "
-            f"UNet and VAE, bit for bit")
-        del direct
-        torch.cuda.empty_cache()
-
-        loader = loader_times(root, seed=0)
-        log("  loading (decode + transform, 320x288 grey PNG -> 256^2 RGB): "
-            f"{loader['item_ms']:.1f} ms an item, {loader['batch_ms']:.0f} ms a B={TRAIN_BATCH} "
-            f"batch in this process; "
-            + ", ".join(f"{w} workers {loader[f'batch_ms_{w}_workers']:.0f} ms a batch"
-                        for w in LOADER_WORKERS)
-            + f"; the diffusion step {dms:.1f} ms")
-        result["loader"] = loader
+        per_step[name] = ops.launch_counts()
+        check_counts(f"adversarial step, GAN {name}", per_step[name],
+                     {"group_norm_silu": gn[name]})
+        if name != "conv":
+            del state, step
+            torch.cuda.empty_cache()
+    ms, peak, wall, kinds = step_ms_and_breakdown(step, state, batch, noise, 5)
+    recompute = gan_recompute_ms(G)
+    log(f"  adversarial step (VAEGAN, conv discriminators, GAN on, B={AE_BATCH}, f32, 256^2): "
+        f"{ms:.1f} ms/step, peak memory {peak:.2f} GiB; profiled step wall {wall:.1f} ms, "
+        f"{fmt_kinds(kinds)}; GroupNorm backward's plain recompute {recompute:.2f} ms a step "
+        f"({recompute / ms:.1%} of the step); GroupNorm launches a step: GAN off "
+        f"{per_step['off']['group_norm_silu']}, PatchGAN {per_step['patch']['group_norm_silu']}, "
+        f"conv {per_step['conv']['group_norm_silu']}")
+    result.update(gan_ms=ms, gan_peak=peak, gan_kinds=kinds, gan_recompute=recompute,
+                  gan_launches={k: v["group_norm_silu"] for k, v in per_step.items()})
+    del state, step, batch
+    torch.cuda.empty_cache()
     return result
 
 
@@ -1754,8 +2048,17 @@ def main():
     del train
     torch.cuda.empty_cache()
 
-    log("[9] two-stage program: chest, PNG files, autoencoder -> diffusion -> samples")
-    two_stage = phase_two_stage(ops, G, worst)
+    with tempfile.TemporaryDirectory(prefix="two_stage_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "chexpert"
+        t0 = time.perf_counter()
+        write_chexpert_tree(root, TWO_STAGE_IMAGES, TWO_STAGE_SIDE, seed=0)
+        log("[9] two-stage program: chest, PNG files, autoencoder -> diffusion -> samples; "
+            f"wrote {TWO_STAGE_IMAGES} grey PNGs of {TWO_STAGE_SIDE[0]}x{TWO_STAGE_SIDE[1]} "
+            f"(row filters 0-4) in {time.perf_counter() - t0:.1f} s")
+        two_stage = phase_two_stage(ops, G, worst, tmp, root)
+        log("[10] adversarial autoencoder and the VQVAE family: chest, PNG files, B=8, f32")
+        adversarial = phase_adversarial(ops, G, worst, tmp, root)
 
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
@@ -1806,7 +2109,8 @@ def main():
         f"at {WIDE_SAMPLE_HEADS} heads {launches_wide}, chest-spatial training "
         f"{train_launches}; two-stage group_norm_silu: autoencoder CLI "
         f"{two_stage['ae_launches']}, diffusion CLI {two_stage['diff_launches']}, sample "
-        f"CLI {two_stage['sample_launches']}")
+        f"CLI {two_stage['sample_launches']}; adversarial step group_norm_silu "
+        f"{adversarial['gan_launches']}")
     log("  wide heads (ms kernel / sdpa): " + ", ".join(
         f"N={r['N']} d={r['d']} {r['ms']:.4f}/{r['library_ms']:.4f}" for r in wide_rows))
     log(f"  total {time.perf_counter() - t_all:.1f} s")

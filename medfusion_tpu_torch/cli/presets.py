@@ -62,17 +62,45 @@ PRESETS = {
 }
 
 
-def build_vae(p: Preset):
-    """The in-house KL autoencoder ('vae' kind)."""
-    from medfusion_tpu_torch.models.latent_embedders import VAE
+AE_KINDS = ("vae", "vqvae")
 
+
+def build_vae(p: Preset, kind: str = "vae"):
+    """The in-house latent embedder by kind: 'vae' (KL) or 'vqvae' (a
+    codebook of 8,192, beta 0.25), at the preset's widths. The diffusers
+    family ('diffusers_kl', 'diffusers_vq') is not ported (ROADMAP Queue 1)."""
+    from medfusion_tpu_torch.models.latent_embedders import VAE, VQVAE
+
+    if kind not in AE_KINDS:
+        raise ValueError(f"latent embedder {kind!r} is not ported; expected one of "
+                         f"{AE_KINDS}")
     n_groups = 8 if min(p.vae_hid_chs) >= 8 else min(p.vae_hid_chs)
     n = len(p.vae_hid_chs)
-    return VAE(in_channels=p.in_channels, out_channels=p.in_channels,
-               emb_channels=p.emb_channels, hid_chs=p.vae_hid_chs,
-               kernel_sizes=(3,) * n, strides=(1,) + (2,) * (n - 1),
-               deep_supervision=p.ae_deep_supervision,
-               norm_name=("GROUP", {"num_groups": n_groups, "affine": True}))
+    common = dict(in_channels=p.in_channels, out_channels=p.in_channels,
+                  emb_channels=p.emb_channels, hid_chs=p.vae_hid_chs,
+                  kernel_sizes=(3,) * n, strides=(1,) + (2,) * (n - 1),
+                  deep_supervision=p.ae_deep_supervision,
+                  norm_name=("GROUP", {"num_groups": n_groups, "affine": True}))
+    if kind == "vqvae":
+        return VQVAE(num_embeddings=8192, beta=0.25, **common)
+    return VAE(**common)
+
+
+def build_discriminators(p: Preset, disc: str = "conv"):
+    """One discriminator for each pyramid level of the preset's autoencoder
+    (``ae_deep_supervision + 1``), in an ``nn.ModuleList``: 'conv', the
+    reference's ``Discriminator``, or 'patch', its ``NLayerDiscriminator``,
+    each at its own default widths."""
+    import torch.nn as nn
+
+    from medfusion_tpu_torch.models.latent_embedders import (
+        Discriminator,
+        NLayerDiscriminator,
+    )
+
+    cls = {"conv": Discriminator, "patch": NLayerDiscriminator}[disc]
+    return nn.ModuleList([cls(in_channels=p.in_channels, spatial_dims=2)
+                          for _ in range(p.ae_deep_supervision + 1)])
 
 
 def build_unet(p: Preset, attention: str = "none", attn_heads: int = 8):

@@ -7,7 +7,10 @@ checkpoint loads here with ``strict=True`` (see ``utils/weights.py``).
 GROUP norm always runs through :func:`medfusion_tpu_torch.ops.group_norm.
 group_norm_silu` (the CUDA kernel on the card), and a BasicBlock whose
 epilogue is exactly GroupNorm -> SiLU folds the SiLU into the same call, as
-the JAX package's BasicBlock does with its fused-GroupNorm switch on.
+the JAX package's BasicBlock does with its fused-GroupNorm switch on. BATCH
+norm (the PatchGAN discriminator's) is an ``nn.BatchNorm2d``. The down and
+up blocks take attention ('linear' or 'spatial', 8 heads of ch/8, depth 1)
+before their conv block, as the JAX package's do.
 Dropout, the space-to-depth tail and the fused 2x up-conv are not ported:
 the last two are exact rewrites of the plain conv used here.
 """
@@ -64,7 +67,7 @@ class Norm(nn.Module):
         kind, kw = _parse(norm_name)
         if kind != "group":
             raise NotImplementedError(
-                f"norm {norm_name!r}: only GROUP is ported")
+                f"norm {norm_name!r}: only GROUP and BATCH are ported")
         self.num_groups = kw.get("num_groups", 32)
         self.eps = kw.get("eps", 1e-5)
         self.fuse_silu = fuse_silu
@@ -79,6 +82,18 @@ class Norm(nn.Module):
     def forward(self, x):
         return group_norm_silu(x, self.weight, self.bias, self.num_groups,
                                self.eps, apply_silu=self.fuse_silu)
+
+
+def make_norm(norm_name: NormName, channels: int, fuse_silu: bool = False) -> nn.Module:
+    """:class:`Norm` for GROUP; ``nn.BatchNorm2d`` for BATCH, with flax's
+    momentum 0.9 as torch's 0.1. BatchNorm normalises by the batch's
+    statistics in train mode, in which the adversarial trainer always runs
+    the discriminators (as Lightning does); torch updates ``running_var``
+    with the unbiased batch variance, flax with the biased one."""
+    kind, kw = _parse(norm_name)
+    if kind == "batch":
+        return nn.BatchNorm2d(channels, eps=kw.get("eps", 1e-5), momentum=0.1)
+    return Norm(norm_name, channels, fuse_silu=fuse_silu)
 
 
 def conv_nd(in_channels: int, out_channels: int, kernel_size=3, stride=1,
@@ -108,7 +123,7 @@ class BasicBlock(nn.Module):
         act_kind, _ = _parse(act_name)
         fuse = norm_kind == "group" and act_kind in ("swish", "silu")
         if norm_name is not None:
-            self.norm = Norm(norm_name, out_channels, fuse_silu=fuse)
+            self.norm = make_norm(norm_name, out_channels, fuse_silu=fuse)
         self.act = None if fuse else make_act(act_name)
 
     def forward(self, x):
@@ -225,21 +240,39 @@ def _conv_block(use_res_block: bool):
     return UnetResBlock if use_res_block else UnetBasicBlock
 
 
+def _attention(spatial_dims: int, channels: int, norm_name: NormName,
+               use_attention: str, emb_channels: Optional[int]):
+    """The blocks' attention: 8 heads of ``channels // 8``, depth 1, the
+    block's norm; ``None`` for 'none'."""
+    from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES, Attention
+
+    if use_attention not in ATTENTION_TYPES:
+        raise ValueError(f"unknown attention type {use_attention!r}; "
+                         f"expected one of {ATTENTION_TYPES}")
+    if use_attention == "none":
+        return None
+    if channels < 8:
+        raise ValueError(f"attention of 8 heads needs at least 8 channels, got {channels}")
+    return Attention(spatial_dims, channels, num_heads=8, ch_per_head=channels // 8,
+                     norm_name=norm_name, emb_dim=emb_channels, depth=1,
+                     attention_type=use_attention)
+
+
 class DownBlock(nn.Module):
-    """Down -> ConvBlock (attention 'none')."""
+    """Down -> Attention -> ConvBlock."""
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
                  kernel_size, stride, downsample_kernel_size, norm_name: NormName,
                  act_name: ActName, use_res_block: bool = False,
                  use_attention: str = "none", emb_channels: Optional[int] = None):
         super().__init__()
-        _no_attention(use_attention)
         n = spatial_dims
         self.enable_down = FN.ensure_tuple(stride, n) != FN.ensure_tuple(1, n)
         if self.enable_down:
             self.down_op = BasicDown(n, in_channels, out_channels,
                                      downsample_kernel_size, stride)
         ch = out_channels if self.enable_down else in_channels
+        self.attention = _attention(n, ch, norm_name, use_attention, emb_channels)
         self.conv_block = _conv_block(use_res_block)(
             n, ch, out_channels, kernel_size, 1, norm_name, act_name,
             emb_channels=emb_channels)
@@ -247,24 +280,26 @@ class DownBlock(nn.Module):
     def forward(self, x, emb=None):
         if self.enable_down:
             x = self.down_op(x)
+        if self.attention is not None:
+            x = self.attention(x, emb)
         return self.conv_block(x, emb)
 
 
 class UpBlock(nn.Module):
-    """Up -> additive skip -> ConvBlock (attention 'none')."""
+    """Up -> additive skip -> Attention -> ConvBlock."""
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
                  kernel_size, stride, upsample_kernel_size, norm_name: NormName,
                  act_name: ActName, use_res_block: bool = False,
                  use_attention: str = "none", emb_channels: Optional[int] = None):
         super().__init__()
-        _no_attention(use_attention)
         n = spatial_dims
         self.enable_up = FN.ensure_tuple(stride, n) != FN.ensure_tuple(1, n)
         if self.enable_up:
             self.up_op = BasicUp(n, in_channels, out_channels,
                                  upsample_kernel_size, stride)
         ch = out_channels if self.enable_up else in_channels
+        self.attention = _attention(n, ch, norm_name, use_attention, emb_channels)
         self.conv_block = _conv_block(use_res_block)(
             n, ch, out_channels, kernel_size, 1, norm_name, act_name,
             emb_channels=emb_channels)
@@ -273,11 +308,6 @@ class UpBlock(nn.Module):
         x = self.up_op(x_enc) if self.enable_up else x_enc
         if x_skip is not None:
             x = x + x_skip
+        if self.attention is not None:
+            x = self.attention(x, emb)
         return self.conv_block(x, emb)
-
-
-def _no_attention(use_attention):
-    if use_attention != "none":
-        raise NotImplementedError(
-            f"use_attention={use_attention!r}: attention inside the VAE's "
-            f"down/up blocks is not ported (ROADMAP Queue 1); only 'none'")

@@ -47,6 +47,14 @@ def interpolate_nearest_exact(x: torch.Tensor, size: Sequence[int]) -> torch.Ten
     return F.interpolate(x, size=tuple(size), mode="nearest-exact")
 
 
+def interpolate_area(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """torch ``F.interpolate(mode='area')`` on [B, C, H, W]: the mean over
+    bin [floor(b*in/out), ceil((b+1)*in/out)) of each axis."""
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    return F.adaptive_avg_pool2d(x, tuple(size))
+
+
 def save_add(*args):
     """None-tolerant sum."""
     args = [a for a in args if a is not None]

@@ -1,18 +1,20 @@
-"""Autoencoder training, the VAE flavour (port of
+"""Autoencoder training, the VAE and VQVAE flavours (port of
 ``medfusion_tpu/train/autoencoder.py``).
 
-The loss of the reference's ``VAE.rec_loss``: the elementwise pixel loss
-plus each image's (1 - SSIM) broadcast over its elements, summed over all
-elements and divided by the batch; each deep-supervision output adds the
-same term against the target shrunk with 'nearest-exact'; then
-``embedding_loss_weight`` times the KL. Not ported: the perceptual (LPIPS)
-term and the VQVAE flavour (pyramid-weighted means).
+The loss of each pyramid level is the elementwise pixel loss plus each
+image's (1 - SSIM) broadcast over its elements; each deep-supervision output
+is held against the target shrunk with 'nearest-exact'. The 'vae' flavour
+(the reference's ``VAE.rec_loss``) sums each level's elements and divides by
+the batch; the 'vqvae' flavour (``VQVAE.rec_loss``) takes each level's mean,
+weighted by 1/2^i normalised to sum 1. Then ``embedding_loss_weight`` times
+the KL or the quantiser's commitment loss. Not ported: the perceptual
+(LPIPS) term, which waits for VGG16 weights in the repository.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -36,9 +38,13 @@ def ssim_loss_per_image(pred, target):
     return (1.0 - s).reshape(-1, *([1] * (pred.ndim - 1)))
 
 
+FLAVORS = ("vae", "vqvae")
+
+
 @dataclasses.dataclass(frozen=True)
 class AutoencoderTrainer:
-    """The AE loss of ``autoencoder`` (a :class:`VAE`)."""
+    """The AE loss of ``autoencoder`` (a :class:`VAE` for 'vae', a
+    :class:`VQVAE` for 'vqvae')."""
 
     autoencoder: torch.nn.Module
     flavor: str = "vae"
@@ -47,9 +53,9 @@ class AutoencoderTrainer:
     embedding_loss_weight: float = 1e-6
 
     def __post_init__(self):
-        if self.flavor != "vae":
-            raise NotImplementedError(
-                f"the {self.flavor!r} autoencoder flavour is not ported yet (ROADMAP)")
+        if self.flavor not in FLAVORS:
+            raise ValueError(f"unknown autoencoder flavour {self.flavor!r}; expected one "
+                             f"of {FLAVORS}")
         if self.perceiver is not None:
             raise NotImplementedError("the perceptual (LPIPS) loss is not ported yet (ROADMAP)")
         if self.pixel_loss not in ("l1", "l2"):
@@ -59,18 +65,29 @@ class AutoencoderTrainer:
         return _pixel_elems(pred, target, self.pixel_loss) + ssim_loss_per_image(pred, target)
 
     def rec_loss(self, pred, pred_vertical, target):
-        b = pred.shape[0]
-        loss = self._level_elems(pred, target).sum() / b
-        for pred_i in pred_vertical:
-            target_i = interpolate_nearest_exact(target, pred_i.shape[2:])
-            loss = loss + self._level_elems(pred_i, target_i).sum() / b
-        return loss
+        levels = [(pred, target)] + [
+            (pred_i, interpolate_nearest_exact(target, pred_i.shape[2:]))
+            for pred_i in pred_vertical]
+        if self.flavor == "vae":
+            b = pred.shape[0]
+            return sum(self._level_elems(p, t).sum() / b for p, t in levels)
+        weights = [1 / 2**i for i in range(len(levels))]
+        return sum(self._level_elems(p, t).mean() * (w / sum(weights))
+                   for (p, t), w in zip(levels, weights))
 
-    def loss(self, x: torch.Tensor,
-             noise: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
+        """The autoencoder's training forward: (pred, deep-supervision
+        outputs, KL or commitment loss); ``noise`` is the VAE's
+        reparameterisation draw (the VQVAE takes none)."""
+        if self.flavor == "vqvae":
+            return self.autoencoder(x)
+        return self.autoencoder(x, noise)
+
+    def loss(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of NCHW images ``x`` with the reparameterisation
-        draw ``noise`` (NCHW latent shape)."""
-        pred, pred_vertical, emb_loss = self.autoencoder(x, noise)
+        draw ``noise`` (NCHW latent shape; None for the VQVAE)."""
+        pred, pred_vertical, emb_loss = self.forward(x, noise)
         loss = self.rec_loss(pred, pred_vertical, x) + emb_loss * self.embedding_loss_weight
         with torch.no_grad():
             metrics = {"loss": loss, "emb_loss": emb_loss,
@@ -79,16 +96,21 @@ class AutoencoderTrainer:
         return loss, metrics
 
 
+def _nchw_or_none(t):
+    return None if t is None else _to_nchw(t)
+
+
 def make_autoencoder_train_step(trainer: AutoencoderTrainer) -> Callable:
     """Returns ``step_fn(state, batch, noise) -> metrics``: the loss and
     gradient of ``state.model`` on ``batch["source"]`` [B, H, W, C] with
-    the channels-last reparameterisation draw ``noise`` [B, h, w, emb],
-    one optimizer update of ``state``, and the detached metrics."""
+    the channels-last reparameterisation draw ``noise`` [B, h, w, emb]
+    (None for the VQVAE), one optimizer update of ``state``, and the
+    detached metrics."""
 
     def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor],
-                noise: torch.Tensor) -> Dict[str, torch.Tensor]:
+                noise: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = trainer.loss(_to_nchw(batch["source"]), _to_nchw(noise))
+        loss, metrics = trainer.loss(_to_nchw(batch["source"]), _nchw_or_none(noise))
         loss.backward()
         state.apply_gradients()
         return {k: v.detach() for k, v in metrics.items()}

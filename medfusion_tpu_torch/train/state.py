@@ -8,7 +8,8 @@ optax ``adamw``'s update: decoupled weight decay on the parameters before
 the step, and bias-corrected m / (sqrt(v) + eps); with ``weight_decay=0``
 it is optax ``adam``, which the autoencoder trains with.
 :meth:`TrainState.state_dict` holds all of it in tensors, numbers and
-strings, for ``torch.load(weights_only=True)``."""
+strings, for ``torch.load(weights_only=True)``. :class:`GANTrainState` holds
+two of them, the autoencoder's and the discriminators'."""
 
 from __future__ import annotations
 
@@ -71,4 +72,33 @@ class TrainState:
             self.lr_scheduler.load_state_dict(sd["lr_scheduler"])
         if self.ema is not None:
             self.ema.load_state_dict(sd["ema"], strict=True)
+        self.step = int(sd["step"])
+
+
+class GANTrainState:
+    """The two-player state of adversarial autoencoder training (port of
+    ``medfusion_tpu/train/adversarial.py::GANTrainState``): ``step`` counts
+    optimizer steps, two a batch (the reference's "step increases with each
+    optimizer"); ``gen`` is the autoencoder's :class:`TrainState`, ``disc``
+    the discriminators' (one ``nn.ModuleList``, one per pyramid level), each
+    on Adam (``weight_decay=0``) at ``lr`` under ``lr_schedule``. The
+    BatchNorm buffers of a PatchGAN discriminator are in ``disc``'s module
+    state."""
+
+    def __init__(self, generator: torch.nn.Module, discriminators: torch.nn.ModuleList,
+                 lr: float = 1e-6, lr_schedule: Optional[Callable[[int], float]] = None):
+        self.step = 0
+        self.gen = TrainState(generator, lr=lr, weight_decay=0.0, lr_schedule=lr_schedule)
+        self.disc = TrainState(discriminators, lr=lr, weight_decay=0.0,
+                               lr_schedule=lr_schedule)
+
+    def state_dict(self) -> Dict:
+        return {"step": self.step, "gen": self.gen.state_dict(),
+                "disc": self.disc.state_dict()}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        if "gen" not in sd:
+            raise ValueError("the checkpoint holds no two-player (--gan) state")
+        self.gen.load_state_dict(sd["gen"])
+        self.disc.load_state_dict(sd["disc"])
         self.step = int(sd["step"])

@@ -10,7 +10,9 @@ Layout of a checkpoint directory::
   <dir>_best/step_<n>.pt    the best step's own copy (a sibling store)
 
 ``state`` is :meth:`TrainState.state_dict` (model, optimizer, schedule, EMA
-and step); ``extra`` holds what the CLI needs to continue its data stream.
+and step), or :meth:`GANTrainState.state_dict` (the step and a
+:class:`TrainState`'s for each player, ``gen`` and ``disc``); ``extra``
+holds what the CLI needs to continue its data stream.
 Each file is written to a temporary name and moved into place with
 ``os.replace``, so a crash during a save leaves no half file that
 :func:`latest_step` would pick. Every file loads with
@@ -156,9 +158,11 @@ def ckpt_dir_of(path: Path) -> Path:
 
 def restore_ae_params(path, vae: torch.nn.Module, step: Optional[int] = None) -> Path:
     """Load autoencoder weights into ``vae`` with ``strict=True``: from a port
-    autoencoder run (its directory or its ``checkpoints`` directory; the
-    latest step, or ``step``), or from an ``.npz`` of the JAX VAE's flax
-    params (paths joined by '/', bare or under ``latent_embedder/``). Raises
+    autoencoder run, plain or adversarial (its directory or its
+    ``checkpoints`` directory; the latest step, or ``step``; a GAN run's
+    generator), or from an ``.npz`` of the JAX VAE's flax params (paths
+    joined by '/', bare, under ``latent_embedder/`` or a GAN state's
+    ``gen/params/``). Raises
     ValueError on any missing, unexpected or misshapen tensor: a silent
     fallback would train diffusion on a random VAE's latents. Returns the
     file it loaded."""
@@ -168,12 +172,13 @@ def restore_ae_params(path, vae: torch.nn.Module, step: Optional[int] = None) ->
     if path.suffix == ".npz":
         with np.load(path) as f:
             tree = unflatten_npz({k: f[k] for k in f.files})
-        tree = tree.get("latent_embedder", tree)
+        tree = tree["gen"]["params"] if "gen" in tree else tree.get("latent_embedder", tree)
         sd, src = jax_params_to_state_dict(tree, kind="vae"), path
     else:
         ckpt_dir = ckpt_dir_of(path)
         step = latest_step(ckpt_dir) if step is None else step
-        sd = load_payload(ckpt_dir, step)["state"]["model"]
+        state = load_payload(ckpt_dir, step)["state"]
+        sd = (state["gen"] if "gen" in state else state)["model"]
         src = step_file(ckpt_dir, step)
     want = vae.state_dict()
     missing = sorted(set(want) - set(sd))

@@ -3,16 +3,20 @@
 The port's own copy of the export direction of
 ``medfusion_tpu/utils/torch_compat.py`` (``flax_path_to_torch_key``,
 ``_to_torch_leaf``, ``to_torch_state_dict``), with the rules of the modules
-ported so far (UNet with its attention blocks, VAE): a nested dict of numpy
-arrays, keyed as the flax param tree, becomes a state dict with the
-reference's torch key names, with conv kernels moved from HWIO to OIHW and
-dense kernels to [out, in]. The flax tree is flattened by plain recursion.
+ported so far (UNet with its attention blocks, VAE and VQVAE with theirs, the
+two discriminators): a nested dict of numpy arrays, keyed as the flax param
+tree, becomes a state dict with the reference's torch key names, with conv
+kernels moved from HWIO to OIHW and dense kernels to [out, in]. A BatchNorm's
+flax ``batch_stats`` (mean, var) become ``running_mean``/``running_var``,
+with a ``num_batches_tracked`` of 0: flax keeps no count, and torch reads it
+only with ``momentum=None``, which the port never sets. The flax tree is
+flattened by plain recursion.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +47,8 @@ def flax_path_to_torch_key(path: str, kind: str = "unet") -> str:
     k = re.sub(r"^decoders_(\d+)/", r"decoders.\1.", k)
     k = re.sub(r"^out_enc_0/", "out_enc.0.", k)
     k = re.sub(r"^out_enc_1/", "out_enc.1.", k)
+    k = re.sub(r"^quantizer/codebook$", "quantizer.embedder.weight", k)
+    k = re.sub(r"^encoder_(\d+)/", r"encoder.\1.", k)  # a discriminator's stack
     # attention-scoped rules before the generic block_i rule: block_i inside
     # a SpatialTransformer ('attention/block_i/') is a transformer block, in
     # a UNet conv block it is block_seq.i
@@ -104,6 +110,34 @@ def jax_params_to_state_dict(params: Mapping, kind: str = "unet") -> Dict[str, t
         leaf = _to_torch_leaf(path, np.asarray(val))
         out[tkey] = torch.from_numpy(np.array(leaf, dtype=np.float32))
     return out
+
+
+def jax_variables_to_state_dict(variables: Mapping, kind: str = "vae") -> Dict[str, torch.Tensor]:
+    """A flax variable dict ({"params": .., ["batch_stats": ..]}) -> the
+    port's state dict, the BatchNorms' buffers included: each
+    ``.../norm/norm/{mean,var}`` becomes ``running_{mean,var}``, with a
+    ``num_batches_tracked`` of 0."""
+    sd = jax_params_to_state_dict(variables["params"], kind)
+    for path, val in _flatten(variables.get("batch_stats", {})):
+        stem, leaf = flax_path_to_torch_key(path, kind=kind).rsplit(".", 1)
+        sd[f"{stem}.running_{leaf}"] = torch.from_numpy(np.array(val, dtype=np.float32))
+        sd[f"{stem}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def jax_gan_to_state_dicts(gen_params: Mapping, disc_params: Mapping,
+                           disc_stats: Optional[Mapping] = None) -> Tuple[Dict, Dict]:
+    """A JAX ``GANTrainState``'s trees -> (the generator's state dict, the
+    discriminators' as one ``nn.ModuleList``'s): ``disc_params`` and
+    ``disc_stats`` are keyed ``disc_{i}``, as ``init_discriminators`` makes
+    them."""
+    disc_sd = {}
+    for name, params in disc_params.items():
+        i = int(name.rsplit("_", 1)[1])
+        level = {"params": params, "batch_stats": (disc_stats or {}).get(name, {})}
+        disc_sd.update({f"{i}.{k}": v for k, v in
+                        jax_variables_to_state_dict(level, kind="vae").items()})
+    return jax_params_to_state_dict(gen_params, kind="vae"), disc_sd
 
 
 def load_jax_params(module: torch.nn.Module, params: Mapping,

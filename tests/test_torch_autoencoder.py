@@ -140,11 +140,14 @@ def test_autoencoder_loss_and_metrics_match_jax(fixed_noise, pixel_loss):
 
 
 def test_autoencoder_refuses_what_is_not_ported():
+    """LPIPS waits for VGG16 weights; an unknown flavour is refused (the
+    'vqvae' flavour runs: tests/test_torch_vqvae.py)."""
     _, _, vae = _pair()
-    with pytest.raises(NotImplementedError, match="vqvae"):
-        AutoencoderTrainer(vae, flavor="vqvae")
+    with pytest.raises(ValueError, match="flavour"):
+        AutoencoderTrainer(vae, flavor="vq")
     with pytest.raises(NotImplementedError, match="LPIPS"):
         AutoencoderTrainer(vae, perceiver=object())
+    assert AutoencoderTrainer(vae, flavor="vqvae").flavor == "vqvae"
 
 
 def _vae_tree(tree):

@@ -3,14 +3,15 @@
 * ``utils/checkpoint.py``: save and restore bit for bit (model, AdamW
   moments, schedule, EMA, step), ``keep_top_k``, the best pointer and its
   sibling store.
-* Both training CLIs on a small CheXpert_2 tree (PNG files, weighted
+* Both training CLIs (the autoencoder's also with ``--gan`` for the resume) on a small CheXpert_2 tree (PNG files, weighted
   sampling, flips): 4 steps straight equal 2 steps and a ``--resume`` to 4,
   bit for bit, with the resume inside an epoch and the run crossing into
   the next; the same after a crash injected at step 3 under
   ``--auto-restart``. ``--resume`` refuses another ``--use-ema``.
-* ``--vae-ckpt`` from a port autoencoder run and from an ``.npz`` of the
-  JAX VAE's params (bare or under ``latent_embedder/``), refused on a shape
-  mismatch; ``cli.sample --ckpt --ema`` equal to a direct call with the
+* ``--vae-ckpt`` from a port autoencoder run, plain or adversarial (its
+  generator), and from an ``.npz`` of the JAX VAE's params (bare, under
+  ``latent_embedder/`` or under a GAN state's ``gen/params/``), refused on
+  a shape mismatch; ``cli.train_diffusion --vae-ckpt`` from a GAN run; ``cli.sample --ckpt --ema`` equal to a direct call with the
   restored EMA estimator and VAE; a label outside the preset's classes
   (CheXpert_2's 2) refused on the host.
 """
@@ -123,6 +124,10 @@ def test_keep_top_k_and_the_best_pointer(tmp_path):
 CLIS = {
     "autoencoder": (train_autoencoder, "make_autoencoder_train_step", []),
     "diffusion": (train_diffusion, "make_diffusion_train_step", ["--use-ema"]),
+    # the adversarial terms on from the second batch (optimizer steps 2 and
+    # 3), so both players have trained before the resume at batch 2
+    "vaegan": (train_autoencoder, "make_adversarial_train_step",
+               ["--gan", "--start-gan-step", "1"]),
 }
 
 
@@ -150,7 +155,7 @@ def test_resume_equals_an_uninterrupted_run(tmp_path, image_preset, cli):
     assert (tmp_path / "a" / "images" / "sample_4.png").read_bytes()[:4] == b"\x89PNG"
 
 
-@pytest.mark.parametrize("cli", CLIS)
+@pytest.mark.parametrize("cli", ["autoencoder", "diffusion"])
 def test_auto_restart_recovers_from_a_crash_at_step_3(tmp_path, image_preset, cli,
                                                       monkeypatch, capsys):
     root = write_chexpert_2(tmp_path / "data")
@@ -236,7 +241,7 @@ def test_vae_ckpt_from_a_port_run_or_an_npz(tmp_path):
 
     params = _jax_vae_params("smoke")
     want = jax_params_to_state_dict(params, kind="vae")
-    for prefix in ("", "latent_embedder/"):
+    for prefix in ("", "latent_embedder/", "gen/params/"):
         npz = tmp_path / f"vae{len(prefix)}.npz"
         np.savez(npz, **_flat(params, prefix))
         pipe = presets.build_train_pipeline(SMOKE, device="cpu", vae_ckpt=npz)
@@ -254,6 +259,32 @@ def test_vae_ckpt_from_a_port_run_or_an_npz(tmp_path):
         presets.build_train_pipeline(SMOKE, device="cpu", vae_ckpt=tmp_path / "short.npz")
     with pytest.raises(FileNotFoundError):
         presets.build_train_pipeline(SMOKE, device="cpu", vae_ckpt=tmp_path / "none")
+
+
+def test_vae_ckpt_from_a_gan_run(tmp_path):
+    """The diffusion stage takes a VAEGAN run's generator, through
+    ``build_train_pipeline`` and through ``cli.train_diffusion --vae-ckpt``."""
+    ae = tmp_path / "vaegan"
+    state, _ = train_autoencoder.main(["--preset", "smoke", "--device", "cpu", "--out",
+                                       str(ae), "--max-steps", "1", "--gan",
+                                       "--start-gan-step", "-1"])
+    saved = C.load_payload(ae / "checkpoints")["state"]
+    assert set(saved) == {"step", "gen", "disc"} and saved["step"] == 2
+    _equal_trees(saved["gen"]["model"], state.gen.model.state_dict())
+    pipe = presets.build_train_pipeline(SMOKE, device="cpu", vae_ckpt=ae)
+    _equal_trees(pipe.latent_embedder.state_dict(), saved["gen"]["model"])
+    _, losses, pipe = train_diffusion.main(["--preset", "smoke", "--device", "cpu",
+                                            "--max-steps", "1", "--vae-ckpt", str(ae)])
+    assert np.isfinite(losses).all()
+    _equal_trees(pipe.latent_embedder.state_dict(), saved["gen"]["model"])
+    with pytest.raises(ValueError, match="two-player"):  # a GAN resume of a plain run
+        plain = tmp_path / "plain"
+        train_autoencoder.main(["--preset", "smoke", "--device", "cpu", "--out", str(plain),
+                                "--max-steps", "1"])
+        C.restore_checkpoint(plain / "checkpoints", state)
+    with pytest.raises(SystemExit, match="gan=False"):
+        train_autoencoder.main(["--preset", "smoke", "--device", "cpu", "--out", str(plain),
+                                "--max-steps", "2", "--gan", "--resume"])
 
 
 def test_sample_cli_from_checkpoints_equals_a_direct_call(tmp_path):

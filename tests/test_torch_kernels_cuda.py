@@ -589,3 +589,93 @@ def test_geglu_mlp_refuses_unsupported_widths(cuda):
     args = _geglu_inputs(cuda, 8, 1040, torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 16"):
         GL.fused_geglu_mlp(*args)
+
+
+# the conv discriminator's GroupNorm shapes (C, side) at the chest preset's
+# two pyramid levels (256^2 and 128^2 inputs), G=32: 1 to 16 channels a
+# group; 128^2 x 32 is a group of exactly the block route's budget
+DISC_GN_SHAPES = [(32, 256), (64, 128), (128, 64), (256, 32), (512, 16),
+                  (32, 128), (64, 64), (128, 32), (256, 16), (512, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,side", DISC_GN_SHAPES)
+def test_group_norm_silu_at_the_discriminator_shapes(cuda, c, side):
+    """Kernel 1 at each f32 shape of the conv discriminator (B=2), SiLU on
+    and off, with the plan the card runs there, against the plain version;
+    two launches give the same bits."""
+    g = 32
+    plan = G._plan_for(2, c, side * side, g, torch.float32, True)
+    assert plan["route"] == ("block" if c // g * side * side <= G.BLOCK_BUDGET else "cluster")
+    for silu in (True, False):
+        x, scale, bias = _inputs(cuda, 2, c, side, torch.float32)
+        out = G.group_norm_silu_cuda(x, scale, bias, g, apply_silu=silu)
+        again = G.group_norm_silu_cuda(x, scale, bias, g, apply_silu=silu)
+        ref = G.group_norm_silu_reference(x, scale, bias, g, apply_silu=silu)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+        assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("disc", ["conv", "patch"])
+def test_smoke_adversarial_step_matches_the_cpu(cuda, disc):
+    """Two adversarial steps of the smoke autoencoder with one
+    deep-supervision head (so two discriminators), both players on from the
+    first batch, f32, on the card and on the CPU from the same perturbed
+    weights, batches and draws: every metric of both steps (losses, lambdas,
+    discriminator losses) within rtol 1e-4, and the first step's gradients
+    of each player within 1e-4 of its largest |g| (f32 convs summed in
+    another order, no TF32); the conv discriminator's GroupNorms ran on the
+    kernel."""
+    import dataclasses
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_discriminators, build_vae
+    from medfusion_tpu_torch.nn.blocks import Norm
+    from medfusion_tpu_torch.train import GANTrainState
+    from medfusion_tpu_torch.train.adversarial import (
+        AdversarialTrainer,
+        make_adversarial_train_step,
+    )
+    from medfusion_tpu_torch.train.autoencoder import AutoencoderTrainer
+
+    p = dataclasses.replace(PRESETS["smoke"], ae_deep_supervision=1)
+    torch.manual_seed(0)
+    vae, discs = build_vae(p), build_discriminators(p, disc)
+    with torch.no_grad():
+        for prm in [*vae.parameters(), *discs.parameters()]:
+            prm.add_(0.02 * torch.randn(prm.shape))
+    b, side = p.ae_batch_size, p.image_size
+    batches = [torch.rand((b, side, side, 3)) * 2 - 1 for _ in range(2)]
+    noises = [torch.randn((b, *p.latent_shape)) for _ in range(2)]
+    results = {}
+    for dev in ("cpu", "cuda"):
+        v, d = copy.deepcopy(vae).to(dev), copy.deepcopy(discs).to(dev)
+        state = GANTrainState(v, d, lr=1e-4)
+        step = make_adversarial_train_step(AdversarialTrainer(
+            AutoencoderTrainer(v, pixel_loss=p.ae_loss,
+                               embedding_loss_weight=p.ae_embedding_loss_weight),
+            d, start_gan_train_step=-1))
+        before = G.LAUNCHES
+        metrics, grads = [], None
+        for x, noise in zip(batches, noises):
+            m = step(state, {"source": x.to(dev)}, noise.to(dev))
+            metrics.append({k: float(val) for k, val in m.items()})
+            if grads is None:
+                grads = [{k: q.grad.detach().cpu().clone() for k, q in mod.named_parameters()}
+                         for mod in (v, d)]
+        launches = G.LAUNCHES - before
+        results[dev] = metrics, grads
+    # a step: the autoencoder's forward, then D(pred), D(real) and D(fake)
+    # at both levels
+    norms = [sum(isinstance(m, Norm) for m in mod.modules()) for mod in (vae, discs[0])]
+    assert launches == 2 * (norms[0] + 3 * 2 * norms[1]) and norms[1] == (5 if disc == "conv" else 0)
+    (m_ref, g_ref), (m_out, g_out) = results["cpu"], results["cuda"]
+    for ref, out in zip(m_ref, m_out):
+        assert set(ref) == set(out) and ref["lambda_0"] > 0 and ref["loss_1"] > 0
+        for k in ref:
+            torch.testing.assert_close(out[k], ref[k], rtol=1e-4, atol=1e-6, msg=k)
+    for ref, out in zip(g_ref, g_out):
+        top = max(g.abs().max().item() for g in ref.values())
+        for k in ref:
+            torch.testing.assert_close(out[k], ref[k], atol=1e-4 * top, rtol=0, msg=k)

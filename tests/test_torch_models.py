@@ -188,11 +188,20 @@ def test_state_dict_keys_cover_the_module():
 
 
 def test_vae_blocks_reject_attention():
-    """The VAE's down/up blocks take no attention yet; the UNet's attention
-    is tested in tests/test_torch_attention_unet.py."""
+    """The VAE's down/up blocks take 'linear' and 'spatial' attention (held
+    to JAX in tests/test_torch_vqvae.py) and reject an unknown type and a
+    width too narrow for 8 heads."""
+    from medfusion_tpu_torch.nn.attention import LinearTransformer, SpatialTransformer
     from medfusion_tpu_torch.nn.blocks import DownBlock, UpBlock
 
+    norm = ("GROUP", {"num_groups": 4})
     for block in (DownBlock, UpBlock):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            block(2, 8, 8, 3, 2, 2, ("GROUP", {"num_groups": 4}), "SWISH",
+        for kind, cls in (("linear", LinearTransformer), ("spatial", SpatialTransformer)):
+            b = block(2, 8, 8, 3, 2, 2, norm, "SWISH", use_attention=kind)
+            assert isinstance(b.attention.attention, cls)
+        assert block(2, 8, 8, 3, 2, 2, norm, "SWISH").attention is None
+        with pytest.raises(ValueError, match="unknown attention"):
+            block(2, 8, 8, 3, 2, 2, norm, "SWISH", use_attention="linaer")
+        with pytest.raises(ValueError, match="8 heads"):
+            block(2, 4, 4, 3, 2, 2, ("GROUP", {"num_groups": 2}), "SWISH",
                   use_attention="linear")

@@ -67,13 +67,45 @@ def test_every_cli_defaults_to_the_card(monkeypatch, cli):
 
 
 def test_autoencoder_cli_runs_on_cpu(tmp_path, capsys):
+    """The plain VAE runs; what is not ported (LPIPS, the diffusers family)
+    is refused with a message that says why."""
     state, losses = train_autoencoder.main(["--preset", "smoke", "--device", "cpu",
                                             "--max-steps", "2"])
     assert state.step == 2 and len(losses) == 2 and np.isfinite(losses).all()
     assert "done: 2 steps" in capsys.readouterr().out
-    for flag in (["--gan"], ["--lpips"], ["--model", "vqvae"]):
+    for flag, why in ((["--lpips"], "VGG16"), (["--model", "diffusers_kl"], "Queue 1"),
+                      (["--model", "diffusers_vq"], "Queue 1")):
         with pytest.raises(SystemExit):
             train_autoencoder.main(["--preset", "smoke", "--device", "cpu", *flag])
+        assert why in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--gan"], ["--gan", "--disc", "patch"],
+                                   ["--model", "vqvae"], ["--model", "vqvae", "--gan"]],
+                         ids=["vaegan-conv", "vaegan-patch", "vqvae", "vqgan-conv"])
+def test_autoencoder_cli_families_run_on_cpu(monkeypatch, capsys, flags):
+    """--gan (either discriminator) and --model vqvae (with and without the
+    GAN) on the smoke networks with one deep-supervision head, so two
+    discriminators; one batch, the adversarial terms on from the start
+    (--start-gan-step -1: optimizer steps 0 and 1)."""
+    import dataclasses
+
+    monkeypatch.setitem(presets.PRESETS, "smoke_ds",
+                        dataclasses.replace(presets.PRESETS["smoke"], ae_deep_supervision=1))
+    gan = "--gan" in flags
+    state, losses = train_autoencoder.main(
+        ["--preset", "smoke_ds", "--device", "cpu", "--max-steps", "1",
+         "--start-gan-step", "-1", *flags])
+    assert len(losses) == 1 and np.isfinite(losses).all()
+    assert "done: 1 steps" in capsys.readouterr().out
+    if gan:
+        assert state.step == 2 and state.gen.step == state.disc.step == 1
+        assert len(state.disc.model) == 2
+        moved = [state.disc.optimizer.state[p]["step"] for p in state.disc.model.parameters()]
+        assert len(moved) == len(list(state.disc.model.parameters()))
+        assert all(int(s) == 1 for s in moved)  # the discriminators took their step
+    else:
+        assert state.step == 1
 
 
 def test_sample_cli_runs_on_cpu(tmp_path):
