@@ -59,7 +59,19 @@ Phases (each raises on failure, so any failure exits non-zero):
    bit-equal to the checkpoint); ``cli.sample --ckpt --ema`` (150 DDIM
    steps, CFG 8) bit-equal to a direct call; each CLI's launches counted
    from zero and checked; the loader's ms an image and a batch, in this
-   process and in worker processes.
+   process and in worker processes;
+10. adversarial autoencoder training and the VQVAE (slice 9) through the
+    autoencoder CLI on phase 9's tree, with the smoke adversarial steps card
+    against CPU and GroupNorm at the conv discriminator's shapes;
+11. the diffusion family's options (slice 10): every new sampler and option
+    on the smoke preset card against CPU (SMOKE_TOL); at the chest preset's
+    full width, ``cli.sample`` with DPM++ 25, EDM 18 Heun, the fast sampler
+    (150 steps, encoder every 3) and DPM++ 25 with spatial attention, and
+    ``cli.sample_dataset`` at B=32 with its PNG tree read back and its
+    samples/s, each run's launches held to the counts derived from the
+    module structure; one full-option training step (v, zero-terminal-SNR,
+    Min-SNR 5, self-conditioning, learned variance, deep supervision) with
+    its bf16 gradients against f32 and its ms beside the plain step's.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -236,6 +248,28 @@ PLANTED_FAULTS = (
     ("dk zeroed at d=64, head 0", "flash_attention_bwd_dkv", 6, 64, 0),
     ("dv zeroed at d=64, head 0", "flash_attention_bwd_dkv", 7, 64, 0),
 )
+# The diffusion family's options (phase 11). Smoke card-vs-CPU comparisons
+# at the smoke sampling check's tolerance (phase 5): 1e-4 x max(1, max|ref|), rtol 1e-4.
+SMOKE_TOL = 1e-4
+# cli.sample at the chest preset: (name, flags, UNet forwards a sampling;
+# None for the fast sampler, whose key steps run the whole UNet and whose
+# other steps the middle and decoder alone). EDM's Heun skips its
+# correction on the last transition: 2 x 18 - 1 forwards.
+FAST_STEPS, FAST_KEY = 150, 3
+OPTION_RUNS = (
+    ("dpmpp-25", ["--sampler", "dpmpp", "--steps", "25"], 25),
+    ("edm-18-heun", ["--sampler", "edm", "--steps", "18"], 2 * 18 - 1),
+    ("fast-150-key3", ["--steps", str(FAST_STEPS), "--encoder-key-every", str(FAST_KEY)],
+     None),
+    ("dpmpp-25-spatial", ["--sampler", "dpmpp", "--steps", "25", "--attention", "spatial"],
+     25),
+)
+# cli.sample_dataset at B=32 (guidance 1: one forward a step, no CFG rows):
+# (name, flags, forwards a chunk)
+DATASET_CHUNK = 32
+DATASET_RUNS = (("ddim-150", ["--steps-list", "150"], 150),
+                ("dpmpp-25", ["--sampler", "dpmpp", "--steps-list", "25"], 25))
+OPT_TRAIN_STEPS = 3
 
 
 def log(msg):
@@ -1693,9 +1727,15 @@ def phase_smoke_gan_vs_cpu(disc):
     """Phase 10, first: the smoke autoencoder with one deep-supervision head
     and two ``disc`` discriminators, both players on from the first batch,
     two adversarial steps on the card and on the CPU from the same perturbed
-    weights, batches and draws (f32): every metric of both steps (losses,
-    lambdas, discriminator losses) and the first step's gradients of each
-    player (GAN_SMOKE_RTOL)."""
+    weights, batches and draws (f32), the card's second step from the CPU's
+    state after the first: every metric of both steps (losses, lambdas,
+    discriminator losses), the first step's gradients of each player
+    (GAN_SMOKE_RTOL) and the card's own first update (check_first_update).
+    Adam's first update moves each weight by about lr x sign(g), so a
+    gradient that is rounding noise on both devices moves its weight 2 lr
+    apart, and a second step from each device's own state departed by up to
+    5.7e-4 relative (conv discriminators, 3 of 4 runs on an H100); from the
+    same state it agrees to 3e-6."""
     import copy
     import dataclasses
 
@@ -1718,21 +1758,25 @@ def phase_smoke_gan_vs_cpu(disc):
     b, side = p.ae_batch_size, p.image_size
     batches = [torch.rand((b, side, side, 3), generator=gen) * 2 - 1 for _ in range(2)]
     noises = [torch.randn((b, *p.latent_shape), generator=gen) for _ in range(2)]
-    results = {}
+    results, firsts, lr = {}, {}, 1e-4
     for dev in ("cpu", "cuda"):
         v, d = copy.deepcopy(vae).to(dev), copy.deepcopy(discs).to(dev)
-        state = GANTrainState(v, d, lr=1e-4)
+        state = GANTrainState(v, d, lr=lr)
         step = make_adversarial_train_step(AdversarialTrainer(
             AutoencoderTrainer(v, pixel_loss=p.ae_loss,
                                embedding_loss_weight=p.ae_embedding_loss_weight),
             d, start_gan_train_step=-1))
         metrics, grads = [], None
-        for x, noise in zip(batches, noises):
+        for i, (x, noise) in enumerate(zip(batches, noises)):
+            if i == 1 and dev == "cuda":
+                state.load_state_dict(firsts["cpu"])
             m = step(state, {"source": x.to(dev)}, noise.to(dev))
             metrics.append({k: float(val) for k, val in m.items()})
             if grads is None:
                 grads = [{k: q.grad.detach().cpu().clone() for k, q in mod.named_parameters()}
                          for mod in (v, d)]
+            if i == 0:
+                firsts[dev] = copy.deepcopy(state.state_dict())
         results[dev] = metrics, grads
     (m_ref, g_ref), (m_out, g_out) = results["cpu"], results["cuda"]
     worst_m = max(abs(out[k] - ref[k]) / max(abs(ref[k]), 1e-6)
@@ -1755,6 +1799,50 @@ def phase_smoke_gan_vs_cpu(disc):
             f"{GAN_SMOKE_RTOL:g} x max|g| = {GAN_SMOKE_RTOL * top:.3e})")
         if not gerr <= GAN_SMOKE_RTOL * top:
             raise RuntimeError(f"card {name} gradients ({disc}) depart from the CPU's by {gerr}")
+    check_first_update(disc, firsts["cpu"], firsts["cuda"], g_ref, lr)
+
+
+def check_first_update(disc, cpu, card, g_ref, lr):
+    """The card's own first adversarial step (both players' weights and
+    Adam moments) against the CPU's, with bounds that follow from the
+    gradient check (|g_card - g_cpu| <= GAN_SMOKE_RTOL x max|g|, a player's
+    max) and Adam's first update, lr g / (|g| + eps): every weight within
+    2 lr (1 + GAN_SMOKE_RTOL) + GAN_SMOKE_RTOL |w| (a noise gradient may
+    flip its sign; a step on the CPU with one thread against eight reaches
+    1.999 lr); a
+    weight whose CPU gradient exceeds twice that limit and 1e-5 (its sign
+    settled, |g| >> eps) within lr / 100 + GAN_SMOKE_RTOL |w|, so a skipped
+    or garbled update fails; the moments in gradient units, m / (1 - b1)
+    and sqrt(v / (1 - b2)), within the gradient limit."""
+    import torch
+
+    for key, name, grads in zip(("gen", "disc"), ("generator", "discriminators"), g_ref):
+        top = max(g.abs().max().item() for g in grads.values())
+        limit = GAN_SMOKE_RTOL * top
+        worst_all = worst_set = worst_m = 0.0
+        n_set = n_all = 0
+        for i, (k, g) in enumerate(grads.items()):
+            w_ref, w_out = cpu[key]["model"][k], card[key]["model"][k].cpu()
+            over = (w_out - w_ref).abs() - GAN_SMOKE_RTOL * w_ref.abs()
+            settled = g.abs() > max(2 * limit, 1e-5)
+            worst_all = max(worst_all, over.max().item() / lr)
+            if settled.any():
+                worst_set = max(worst_set, over[settled].max().item() / lr)
+            n_set, n_all = n_set + int(settled.sum()), n_all + g.numel()
+            s_ref, s_out = cpu[key]["optimizer"]["state"][i], card[key]["optimizer"]["state"][i]
+            for moment, units in (("exp_avg", lambda m: m / 0.1),
+                                  ("exp_avg_sq", lambda v: torch.sqrt(v / 1e-3))):
+                err = (units(s_out[moment].cpu()) - units(s_ref[moment])).abs().max().item()
+                worst_m = max(worst_m, err)
+        log(f"  smoke adversarial step 1 ({disc}) {name}: the card's own update, "
+            f"max(|dw| - {GAN_SMOKE_RTOL:g}|w|) {worst_all:.3f} lr over all {n_all} weights "
+            f"(limit 2(1 + {GAN_SMOKE_RTOL:g}) lr), {worst_set:.2e} lr over the {n_set} with a "
+            f"settled sign (limit "
+            f"0.01 lr); Adam moments in gradient units max|d| {worst_m:.3e} (limit {limit:.3e})")
+        if not (worst_all <= 2.0 * (1 + GAN_SMOKE_RTOL) and worst_set <= 0.01 and worst_m <= limit and n_set > 0):
+            raise RuntimeError(f"the card's first {name} update ({disc}) departs from the "
+                               f"CPU's: {worst_all} lr, {worst_set} lr settled ({n_set}), "
+                               f"moments {worst_m} > {limit}")
 
 
 def check_gn_disc_shapes(G, worst):
@@ -1964,6 +2052,313 @@ def phase_adversarial(ops, G, worst, tmp, root):
     return result
 
 
+def smoke_option_pair(self_cond=False, zero_snr=False, objective="x_T"):
+    """Phase 11: the smoke preset's pipeline on the CPU and on the card from
+    the same perturbed weights; a self-conditioning UNet and a
+    zero-terminal-SNR schedule where asked."""
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline, build_unet
+
+    p = PRESETS["smoke"]
+    pipes = {}
+    for dev in ("cpu", "cuda"):
+        pipe = build_pipeline(p, device=dev, seed=0, objective=objective,
+                              zero_terminal_snr=zero_snr)
+        if self_cond:
+            with torch.device(dev):
+                unet = build_unet(p, use_self_conditioning=True).eval()
+            pipe = dataclasses.replace(pipe, noise_estimator=unet,
+                                       use_self_conditioning=True)
+        pipes[dev] = pipe
+    gen = torch.Generator().manual_seed(11)
+    for part in ("noise_estimator", "latent_embedder"):
+        perturb_(getattr(pipes["cpu"], part), gen)
+        getattr(pipes["cuda"], part).load_state_dict(getattr(pipes["cpu"], part).state_dict())
+    return pipes["cpu"], pipes["cuda"]
+
+
+def phase_smoke_options_vs_cpu():
+    """Phase 11, first: each new sampler and option on the smoke preset, f32,
+    on the card against the CPU from the same perturbed weights and the same
+    injected draws (B=4, labels 0, 1, 0, 1, CFG 3 with ``un_cond`` where
+    given), decoded images within SMOKE_TOL x max(1, max|ref|), rtol
+    SMOKE_TOL (the smoke sampling check's tolerance)."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS
+    from medfusion_tpu_torch.pipelines.diffusion import repaint_op_schedule
+
+    p = PRESETS["smoke"]
+    b, n = 4, 10
+    lat = (b, *p.latent_shape)
+    gen = torch.Generator().manual_seed(12)
+    rnd = lambda *shape: torch.randn(shape, generator=gen)
+    x_T, known = rnd(*lat), rnd(*lat)
+    image = torch.rand((b, p.image_size, p.image_size, p.in_channels), generator=gen) * 2 - 1
+    cond = torch.tensor([0, 1, 0, 1])
+    mask = torch.zeros((*lat[:3], 1))
+    mask[:, :, : lat[2] // 2] = 1.0
+    n_ops = len(repaint_op_schedule(n, 2, 2))
+    draws = dict(x_T=x_T, known=known, image=image, cond=cond, un_cond=1 - cond, mask=mask,
+                 noise2=rnd(n, 2, *lat), noise_rp=rnd(n_ops, 3, *lat), churn=rnd(6, *lat),
+                 fast=rnd(n, *lat), enc=rnd(*lat), x_noise=rnd(*lat))
+    cfg = lambda d: dict(condition=d["cond"], guidance_scale=3.0, un_cond=d["un_cond"])
+    cases = (
+        ("DDIM, self-conditioning, un_cond, cold diffusion, v", dict(self_cond=True, objective="v"),
+         lambda pipe, d: pipe.denoise(d["x_T"], steps=n, cold_diffusion=True,
+                                      noise=d["noise2"], **cfg(d))),
+        ("DDIM RePaint (inpainting, resample 2, jump 2)", dict(),
+         lambda pipe, d: pipe.denoise(d["x_T"], steps=n, known=d["known"], mask=d["mask"],
+                                      resample_steps=2, jump_length=2, noise=d["noise_rp"],
+                                      **cfg(d))),
+        ("DDIM trailing, zero-terminal-SNR, v", dict(zero_snr=True, objective="v"),
+         lambda pipe, d: pipe.denoise(d["x_T"], steps=n, timestep_spacing="trailing",
+                                      noise=d["noise2"], **cfg(d))),
+        ("DPM++(2M) 10 steps", dict(),
+         lambda pipe, d: pipe.denoise_dpmpp(d["x_T"], steps=n, **cfg(d))),
+        ("DPM++(2M) 10 steps trailing, zero-terminal-SNR, v", dict(zero_snr=True, objective="v"),
+         lambda pipe, d: pipe.denoise_dpmpp(d["x_T"], steps=n, timestep_spacing="trailing",
+                                            **cfg(d))),
+        ("EDM 6 steps, Heun, churn 1", dict(),
+         lambda pipe, d: pipe.denoise_edm(d["x_T"], steps=6, s_churn=1.0,
+                                          churn_noise=d["churn"], **cfg(d))),
+        ("fast sampler, encoder every 3, eta 1", dict(),
+         lambda pipe, d: pipe.denoise_fast(d["x_T"], steps=n, encoder_key_every=3, eta=1.0,
+                                           noise=d["fast"], **cfg(d))),
+        ("img2img, strength 0.6", dict(),
+         lambda pipe, d: pipe.img2img(d["image"], strength=0.6, steps=n,
+                                      enc_noise=d["enc"], x_noise=d["x_noise"],
+                                      noise=d["noise2"], **cfg(d))),
+        ("invert -> denoise (eta 0)", dict(),
+         lambda pipe, d: pipe.denoise(pipe.invert(d["known"], steps=n, **cfg(d)), steps=n,
+                                      eta=0.0, noise=d["noise2"], **cfg(d))),
+    )
+    for name, settings, run in cases:
+        cpu, card = smoke_option_pair(**settings)
+        ref = run(cpu, draws)
+        out = run(card, {k: v.cuda() for k, v in draws.items()}).cpu()
+        scale = max(1.0, ref.abs().max().item())
+        err = (out - ref).abs().max().item()
+        log(f"  smoke {name}: card vs cpu max|d| = {err:.3e} (limit {SMOKE_TOL} x "
+            f"max(1, max|ref|) = {SMOKE_TOL * scale:.3e})")
+        if not torch.isfinite(ref).all():
+            raise RuntimeError(f"{name}: non-finite CPU result")
+        torch.testing.assert_close(out, ref, atol=SMOKE_TOL * scale, rtol=SMOKE_TOL)
+
+
+@contextlib.contextmanager
+def timed_calls(module, name):
+    """Within the block, each call of ``module.name`` is timed (host clock,
+    after a synchronize before and after); yields the list of seconds."""
+    import torch
+
+    real, seconds = getattr(module, name), []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, real)
+
+
+def forward_launches(attention):
+    """Launches of one chest UNet forward, by kernel (EXPECTED less the
+    decode, over the steps)."""
+    return {k: (v - (VAE_GN_PER_DECODE if k == "group_norm_silu" else 0)) // STEPS
+            for k, v in EXPECTED[attention].items()}
+
+
+def encoder_group_norms():
+    """GroupNorms of the chest UNet's in conv and encoder (counted on a
+    meta-device build), and of the whole UNet."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_unet
+    from medfusion_tpu_torch.nn.blocks import Norm
+
+    with torch.device("meta"):
+        unet = build_unet(PRESETS["chest"])
+    enc = sum(isinstance(m, Norm) for part in (unet.in_conv, unet.in_blocks)
+              for m in part.modules())
+    return enc, sum(isinstance(m, Norm) for m in unet.modules())
+
+
+def option_expected(forwards, attention="none", decoder_only=0, enc_gn=0, samplings=1):
+    """Launches of ``samplings`` samplings of ``forwards`` full UNet forwards
+    (and ``decoder_only`` forwards of the middle and decoder alone) and one
+    decode each."""
+    per = forward_launches(attention)
+    out = {k: samplings * forwards * v for k, v in per.items()}
+    out["group_norm_silu"] += samplings * (
+        decoder_only * (per["group_norm_silu"] - enc_gn) + VAE_GN_PER_DECODE)
+    return out
+
+
+def phase_option_samplers(ops, tmp):
+    """Phase 11, continued: the chest preset at full width through
+    ``cli.sample`` (bf16, 8 images a condition, conditions 0 and 1 under CFG
+    8 and None without, seeded weights) with each new sampler, its launches
+    counted from zero and held to the count derived from the module
+    structure, its seconds a sampling; then ``cli.sample_dataset`` at B=32
+    (labels 0 and 1, guidance 1), its PNG tree read back and its samples/s
+    on the host clock."""
+    import numpy as np
+    import torch
+
+    from medfusion_tpu_torch.cli import sample, sample_dataset
+    from medfusion_tpu_torch.data.png import read_png
+
+    enc_gn, total = encoder_group_norms()
+    if total != UNET_GN_PER_FORWARD:
+        raise RuntimeError(f"the chest UNet has {total} GroupNorms, the counts assume "
+                           f"{UNET_GN_PER_FORWARD}")
+    n_key = -(-FAST_STEPS // FAST_KEY)
+    log(f"  the chest UNet's encoder holds {enc_gn} of its {total} GroupNorms; the fast "
+        f"sampler at {FAST_STEPS} steps, key every {FAST_KEY}: {n_key} full forwards and "
+        f"{FAST_STEPS - n_key} decoder-only ones")
+    report = {}
+    for name, flags, forwards in OPTION_RUNS:
+        attention = "spatial" if "spatial" in flags else "none"
+        if forwards is None:
+            per_sampling = option_expected(n_key, decoder_only=FAST_STEPS - n_key,
+                                           enc_gn=enc_gn)
+        else:
+            per_sampling = option_expected(forwards, attention)
+        expected = {k: 3 * v for k, v in per_sampling.items()}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with timed_calls(sample, "run_sampler") as seconds:
+            results = sample.main(["--preset", "chest", "--n", str(N_SAMPLES),
+                                   "--out", str(tmp / name), *flags])
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        log(f"  cli.sample {name}: seconds a sampling (conditions 0, 1, None) "
+            f"{[round(s, 3) for s in seconds]}, CLI {wall:.1f} s; per sampling derived "
+            f"{per_sampling}")
+        check_counts(f"cli.sample {name} (3 samplings)", launches, expected)
+        for c, imgs in results.items():
+            if imgs.shape != (N_SAMPLES, 256, 256, 3) or not np.isfinite(imgs).all():
+                raise RuntimeError(f"{name} condition {c}: images {imgs.shape}, or non-finite")
+        if not (tmp / name / "sample_diff.png").exists():
+            raise RuntimeError(f"{name}: no sample_diff.png")
+        report[name] = (seconds, launches)
+    for name, flags, forwards in DATASET_RUNS:
+        out = tmp / f"fake_{name}"
+        expected = option_expected(forwards, samplings=2)
+        ops.reset_launch_counts()
+        with timed_calls(sample_dataset, "run_sampler") as seconds:
+            dirs = sample_dataset.main(["--preset", "chest", "--chunk", str(DATASET_CHUNK),
+                                        "--n-samples", str(DATASET_CHUNK), "--out", str(out),
+                                        *flags])
+        check_counts(f"cli.sample_dataset {name} (labels 0 and 1)", ops.launch_counts(),
+                     expected)
+        for (steps, label), d in sorted(dirs.items()):
+            files = sorted(d.iterdir())
+            imgs = [read_png(f) for f in files]
+            if (len(files) != DATASET_CHUNK
+                    or {f.name for f in files} != {f"fake_{i}.png" for i in range(DATASET_CHUNK)}
+                    or any(im.shape != (256, 256, 3) or im.dtype != np.uint8 for im in imgs)):
+                raise RuntimeError(f"{d}: {len(files)} files, not {DATASET_CHUNK} 256x256 RGB")
+        log(f"  cli.sample_dataset {name}: tree {sorted(dirs)} of {DATASET_CHUNK} uint8 "
+            f"256x256x3 PNGs each, read back; B={DATASET_CHUNK} sampling seconds "
+            f"{[round(s, 3) for s in seconds]} = "
+            f"{[round(DATASET_CHUNK / s, 2) for s in seconds]} samples/s (host clock, "
+            f"decode included, PNG writing not)")
+        report[f"dataset {name}"] = seconds
+    return report
+
+
+def phase_option_training(ops):
+    """Phase 11, last: one training step of a chest UNet with
+    self-conditioning, a learned variance and two deep-supervision heads,
+    the v objective on a zero-terminal-SNR schedule with Min-SNR 5, B=32,
+    bf16 compute on f32 masters, through the pipeline: loss finite; the
+    bf16 gradients against the f32 ones per tensor under
+    TRAIN_GRAD_REL_LIMIT; GroupNorm launches a step (UNet, the
+    self-conditioning pre-pass and the frozen encoder) counted; ms a step
+    beside the plain chest step's (no option, no attention)."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import (
+        PRESETS,
+        build_scheduler,
+        build_train_pipeline,
+        build_unet,
+        build_vae,
+    )
+    from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
+    from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step
+
+    p = PRESETS["chest"]
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        unet = build_unet(p, use_self_conditioning=True, estimate_variance=True,
+                          deep_supervision=True)
+        vae = build_vae(p)
+    options = DiffusionPipeline(
+        scheduler=build_scheduler(p, "cuda", zero_terminal_snr=True), noise_estimator=unet,
+        latent_embedder=vae.eval().requires_grad_(False), estimator_objective="v",
+        estimate_variance=True, use_self_conditioning=True, min_snr_gamma=5.0,
+        classifier_free_guidance_dropout=p.cfg_dropout, do_input_centering=False,
+        clip_x0=False, loss="l1")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    perturb_(unet, gen)
+    perturb_(vae, gen)
+    log(f"  full-option chest UNet: {len(unet.outc_ver)} deep-supervision heads, out "
+        f"channels {unet.outc.conv.conv.out_channels}, in conv channels "
+        f"{unet.in_conv.conv.in_channels}")
+    batches = train_batches(p, 1 + OPT_TRAIN_STEPS, seed=1)
+    draws = [options.train_draws(TRAIN_BATCH, p.latent_shape, generator=gen)
+             for _ in batches]
+    l32, g32 = grads_of(options, batches[0], draws[0], None)
+    l16, g16 = grads_of(options, batches[0], draws[0], torch.bfloat16)
+    worst, glob = grad_departure(g16, g32)
+    del g16, g32
+    log(f"  full-option step bf16 vs f32: loss {l16.item():.5f} vs {l32.item():.5f}; "
+        f"gradients: worst tensors |d|_2/|g32|_2 = {fmt_worst(worst)} (limit "
+        f"{TRAIN_GRAD_REL_LIMIT}); max|d|/max|g32| over all = {glob:.3e}")
+    if not (torch.isfinite(l16) and torch.isfinite(l32)):
+        raise RuntimeError(f"non-finite full-option loss {l16.item()} / {l32.item()}")
+    if not worst[0][0] < TRAIN_GRAD_REL_LIMIT:
+        raise RuntimeError(f"full-option bf16 gradients depart from f32: {fmt_worst(worst)}")
+    per_step = {"group_norm_silu": 2 * UNET_GN_PER_FORWARD + VAE_GN_PER_ENCODE}
+    ms = {}
+    plain = build_train_pipeline(p, device="cuda", seed=0)
+    for name, pipe, expected in (("full-option", options, per_step),
+                                 ("plain", plain, {"group_norm_silu": UNET_GN_PER_FORWARD
+                                                   + VAE_GN_PER_ENCODE})):
+        state = TrainState(pipe.noise_estimator, lr=p.diffusion_lr, weight_decay=1e-2)
+        step = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
+        step(state, batches[0], draws[0])  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step(state, b, d)["loss"] for b, d in zip(batches[1:], draws[1:])]
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / OPT_TRAIN_STEPS * 1e3
+        losses = [float(v) for v in losses]
+        log(f"  {name} chest step, B={TRAIN_BATCH}, bf16: {ms[name]:.1f} ms/step, losses "
+            f"{[round(v, 5) for v in losses]}")
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"{name}: non-finite loss {losses}")
+        check_counts(f"{name} training, {OPT_TRAIN_STEPS} steps", ops.launch_counts(),
+                     {k: v * OPT_TRAIN_STEPS for k, v in expected.items()})
+        del state, step
+        torch.cuda.empty_cache()
+    return ms
+
+
 def kernel_row(name, source, replaces, launches, err, rows):
     """One entry of the kernels line: times summed over one launch at each
     of ``rows``' shapes."""
@@ -2060,6 +2455,13 @@ def main():
         log("[10] adversarial autoencoder and the VQVAE family: chest, PNG files, B=8, f32")
         adversarial = phase_adversarial(ops, G, worst, tmp, root)
 
+    with tempfile.TemporaryDirectory(prefix="options_") as tmp:
+        log("[11] the diffusion family's options: samplers, editing, zero-terminal-SNR, "
+            "self-conditioning, learned variance, deep supervision, Min-SNR")
+        phase_smoke_options_vs_cpu()
+        option_report = phase_option_samplers(ops, Path(tmp))
+        option_train_ms = phase_option_training(ops)
+
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
     attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
@@ -2113,6 +2515,11 @@ def main():
         f"{adversarial['gan_launches']}")
     log("  wide heads (ms kernel / sdpa): " + ", ".join(
         f"N={r['N']} d={r['d']} {r['ms']:.4f}/{r['library_ms']:.4f}" for r in wide_rows))
+    log("  slice 10 on the card: " + "; ".join(
+        f"{k} {[round(v, 3) for v in (r[0] if isinstance(r, tuple) else r)]} s"
+        for k, r in option_report.items())
+        + f"; full-option training step {option_train_ms['full-option']:.1f} ms, plain "
+        f"{option_train_ms['plain']:.1f} ms")
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -103,29 +103,35 @@ def build_discriminators(p: Preset, disc: str = "conv"):
                           for _ in range(p.ae_deep_supervision + 1)])
 
 
-def build_unet(p: Preset, attention: str = "none", attn_heads: int = 8):
+def build_unet(p: Preset, attention: str = "none", attn_heads: int = 8, **options):
     """The reference 'unet2' estimator ('unet' family). ``attention`` is the
     reference's ``use_attention`` ('none' | 'linear' | 'spatial'; 'spatial'
-    is the eye/colon attention config) and ``attn_heads`` its head count."""
+    is the eye/colon attention config) and ``attn_heads`` its head count;
+    ``options`` override the UNet's other arguments (``deep_supervision``,
+    ``estimate_variance``, ``use_self_conditioning``), which the CLIs leave
+    at the preset's."""
     from medfusion_tpu_torch.models.unet import UNet
 
     n = len(p.unet_hid_chs)
     n_groups = 32 if min(p.unet_hid_chs) >= 32 else min(p.unet_hid_chs) // 2
-    return UNet(in_ch=p.emb_channels, out_ch=p.emb_channels,
-                hid_chs=p.unet_hid_chs, kernel_sizes=(3,) * n,
-                strides=(1,) + (2,) * (n - 1), time_emb_dim=p.unet_hid_chs[-1],
-                cond_emb_num_classes=p.num_classes, deep_supervision=0,
-                use_attention=attention, attn_heads=attn_heads,
-                use_res_block=True,
-                norm_name=("GROUP", {"num_groups": n_groups, "affine": True}))
+    kw = dict(in_ch=p.emb_channels, out_ch=p.emb_channels,
+              hid_chs=p.unet_hid_chs, kernel_sizes=(3,) * n,
+              strides=(1,) + (2,) * (n - 1), time_emb_dim=p.unet_hid_chs[-1],
+              cond_emb_num_classes=p.num_classes, deep_supervision=0,
+              use_attention=attention, attn_heads=attn_heads,
+              use_res_block=True,
+              norm_name=("GROUP", {"num_groups": n_groups, "affine": True}))
+    return UNet(**{**kw, **options})
 
 
-def build_scheduler(p: Preset, device="cpu"):
+def build_scheduler(p: Preset, device="cpu", zero_terminal_snr: bool = False):
+    """The preset's schedule; ``zero_terminal_snr`` rescales it to abar_T = 0."""
     from medfusion_tpu_torch.core.schedules import GaussianDiffusionSchedule
 
     return GaussianDiffusionSchedule.create(
         timesteps=p.timesteps, schedule_strategy=p.schedule,
-        beta_start=p.beta_start, beta_end=p.beta_end, device=device)
+        beta_start=p.beta_start, beta_end=p.beta_end, device=device,
+        zero_terminal_snr=zero_terminal_snr)
 
 
 def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params=None,
@@ -159,9 +165,10 @@ def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
                    unet_params=None, vae_params=None, attention: str = "none",
                    attn_heads: int = 8, unet_state=None, vae_ckpt=None,
                    objective: str = "x_T", latent_scale: float = 1.0,
-                   latent_shift: float = 0.0):
+                   latent_shift: float = 0.0, zero_terminal_snr: bool = False):
     """Sampling pipeline as ``medfusion_tpu/cli/sample.py`` builds it (no
-    x0 clipping; ``objective`` the estimator's, eps by default), on
+    x0 clipping; ``objective`` the estimator's, eps by default; a
+    zero-terminal-SNR schedule with ``zero_terminal_snr``), on
     ``device`` (default ``cuda``; raises without CUDA), with both modules
     cast to ``compute_dtype``. Weights are a seeded torch initialisation,
     or what :func:`_build_modules` loads. ``attention`` and ``attn_heads``
@@ -174,7 +181,7 @@ def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
     if compute_dtype is not None:
         unet.to(compute_dtype)
         vae.to(compute_dtype)
-    return DiffusionPipeline(scheduler=build_scheduler(p, dev),
+    return DiffusionPipeline(scheduler=build_scheduler(p, dev, zero_terminal_snr),
                              noise_estimator=unet.eval(), latent_embedder=vae.eval(),
                              estimator_objective=objective, clip_x0=False,
                              compute_dtype=compute_dtype, latent_scale=latent_scale,
@@ -184,10 +191,15 @@ def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
 def build_train_pipeline(p: Preset, device=None, attention: str = "none",
                          attn_heads: int = 8, objective: str = "x_T",
                          compute_dtype=None, seed: int = 0, vae_ckpt=None,
-                         latent_scale: float = 1.0, latent_shift: float = 0.0):
+                         latent_scale: float = 1.0, latent_shift: float = 0.0,
+                         zero_terminal_snr: bool = False,
+                         min_snr_gamma: Optional[float] = None):
     """Training pipeline as ``medfusion_tpu/cli/train_diffusion.py`` builds
     it: CFG dropout ``p.cfg_dropout``, no input centering, no x0 clipping,
-    L1 loss, ``objective`` ('x_T', 'x_0' or 'v'). Both modules stay float32
+    L1 loss, ``objective`` ('x_T', 'x_0' or 'v'), no learned variance and no
+    self-conditioning, a zero-terminal-SNR schedule with
+    ``zero_terminal_snr``, Min-SNR weighting with ``min_snr_gamma``. Both
+    modules stay float32
     (the estimator holds the master weights; the train step casts both to
     ``compute_dtype``); the VAE is frozen, loaded from ``vae_ckpt`` where
     given. The diffusion runs on (z - ``latent_shift``) * ``latent_scale``."""
@@ -196,11 +208,11 @@ def build_train_pipeline(p: Preset, device=None, attention: str = "none",
     unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads,
                                     vae_ckpt=vae_ckpt)
     return DiffusionPipeline(
-        scheduler=build_scheduler(p, dev),
+        scheduler=build_scheduler(p, dev, zero_terminal_snr),
         noise_estimator=unet, latent_embedder=vae.eval().requires_grad_(False),
         estimator_objective=objective, classifier_free_guidance_dropout=p.cfg_dropout,
         do_input_centering=False, clip_x0=False, loss="l1", compute_dtype=compute_dtype,
-        latent_scale=latent_scale, latent_shift=latent_shift)
+        min_snr_gamma=min_snr_gamma, latent_scale=latent_scale, latent_shift=latent_shift)
 
 
 def build_dataset(p: Preset, data_root: Optional[str], n_synthetic: int = 64, seed: int = 0):

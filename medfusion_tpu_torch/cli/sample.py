@@ -2,8 +2,20 @@
 
 For each condition in {0, 1} (and unconditioned), sample ``--n`` images with
 150-step DDIM and classifier-free guidance 8, as ``medfusion_tpu.cli.sample``
-does, and write them as ``.npy`` arrays ([n, H, W, C] float32) plus a PNG
-grid written by ``data/png.py``.
+does, and write them as ``.npy`` arrays ([n, H, W, C] float32) plus PNG
+grids ``sample_cond_{0,1,None}.png`` and ``sample_diff.png`` written by
+``data/png.py``.
+
+``--sampler dpmpp`` is DPM-Solver++(2M) (deterministic; 25-50 steps),
+``--sampler edm`` the Karras Heun sampler (``--edm-churn``, ``--edm-rho``),
+``--encoder-key-every k > 1`` the encoder-propagation DDIM sampler
+(approximate; deterministic, eta 0, as in the JAX CLI, so ``--eta`` is
+refused with it). ``--zero-terminal-snr`` is for a checkpoint trained with it
+(trailing spacing by default); ``--timestep-spacing`` and
+``--guidance-rescale`` are as in the JAX CLI. The same draws come from one
+generator seeded by ``--seed`` for every condition. Refused, with a message
+naming ROADMAP Queue 1: ``--sampler consistency``, ``--family flow`` and
+``--classifier-ckpt``.
 
 Usage:
   python -m medfusion_tpu_torch.cli.sample --preset chest --n 8 \
@@ -11,6 +23,7 @@ Usage:
   python -m medfusion_tpu_torch.cli.sample --preset chest --n 8 \
       [--attention spatial] [--attention-heads 8] \
       [--params weights.npz] [--dtype bf16] [--device cuda] --out results/samples
+  python -m medfusion_tpu_torch.cli.sample --preset chest --sampler dpmpp --steps 25
 
 ``--ckpt`` is a port diffusion run (or its ``checkpoints`` directory): the
 UNet of its latest step, or with ``--ema`` that step's EMA copy. It must
@@ -75,13 +88,83 @@ def load_unet_state(path, ema: bool, flags: dict):
     return state["ema"] if ema else state["model"]
 
 
+def check_args(ap, args) -> None:
+    """The refusals shared with ``cli.sample_dataset``: the JAX CLI's, and
+    what the port does not have yet; the default spacing."""
+    if args.attention_heads != 8 and args.attention == "none":
+        ap.error("--attention-heads has no effect without attention layers; "
+                 "add --attention spatial|linear")
+    if args.ema and not args.ckpt:
+        ap.error("--ema needs --ckpt")
+    if args.family == "flow":
+        ap.error("--family flow is not ported yet (ROADMAP Queue 1, item 3)")
+    if args.sampler == "consistency":
+        ap.error("--sampler consistency is not ported yet: it comes with "
+                 "distillation (ROADMAP Queue 1, item 6)")
+    if args.classifier_ckpt:
+        ap.error("--classifier-ckpt (classifier guidance) is not ported yet "
+                 "(ROADMAP Queue 1, item 3)")
+    if args.guidance_rescale > 0 and args.encoder_key_every > 1:
+        ap.error("--guidance-rescale is not wired into the encoder-"
+                 "propagation fast sampler; drop --encoder-key-every")
+    if args.timestep_spacing is None:
+        args.timestep_spacing = "trailing" if args.zero_terminal_snr else "linspace"
+
+
+def add_sampler_args(ap) -> None:
+    """The sampler flags shared with ``cli.sample_dataset``."""
+    ap.add_argument("--sampler", choices=("ddim", "dpmpp", "edm", "consistency"),
+                    default="ddim",
+                    help="dpmpp = DPM-Solver++(2M) (arXiv:2211.01095), 25-50 steps; "
+                         "edm = Karras Heun (arXiv:2206.00364); consistency is "
+                         "not ported")
+    ap.add_argument("--edm-churn", type=float, default=0.0,
+                    help="EDM S_churn (> 0 adds stochastic churn)")
+    ap.add_argument("--edm-rho", type=float, default=7.0,
+                    help="EDM sigma-grid warp exponent (the paper's 7)")
+    ap.add_argument("--encoder-key-every", type=int, default=1,
+                    help="> 1: the encoder-propagation fast sampler (approximate)")
+    ap.add_argument("--zero-terminal-snr", action="store_true",
+                    help="the checkpoint was trained with --zero-terminal-snr")
+    ap.add_argument("--timestep-spacing", choices=("linspace", "trailing"), default=None,
+                    help="grid spacing; trailing by default with --zero-terminal-snr")
+    ap.add_argument("--guidance-rescale", type=float, default=0.0,
+                    help="CFG rescale phi (arXiv:2305.08891 §3.4; 0 = off)")
+    ap.add_argument("--family", choices=("diffusion", "flow"), default="diffusion",
+                    help="flow is not ported")
+    ap.add_argument("--classifier-ckpt", default=None,
+                    help="classifier guidance; not ported")
+
+
+def run_sampler(pipe, args, p, n, steps, condition, gs, gen, un_cond=None, eta=1.0):
+    """Channels-last images of one sampler call; every draw from ``gen``,
+    the initial latent first; ``eta`` for DDIM and the fast sampler."""
+    x_T = torch.randn((n, *p.latent_shape), generator=gen, device=pipe.device)
+    common = dict(condition=condition, steps=steps, guidance_scale=gs, un_cond=un_cond)
+    if args.sampler == "edm":
+        return pipe.denoise_edm(x_T, s_churn=args.edm_churn, rho=args.edm_rho,
+                                guidance_rescale=args.guidance_rescale, generator=gen,
+                                **common)
+    spacing = dict(timestep_spacing=args.timestep_spacing)
+    if args.sampler == "dpmpp":
+        return pipe.denoise_dpmpp(x_T, guidance_rescale=args.guidance_rescale,
+                                  **spacing, **common)
+    if args.encoder_key_every > 1:
+        return pipe.denoise_fast(x_T, eta=eta, generator=gen,
+                                 encoder_key_every=args.encoder_key_every,
+                                 **spacing, **common)
+    return pipe.denoise(x_T, use_ddim=True, eta=eta, generator=gen,
+                        guidance_rescale=args.guidance_rescale, **spacing, **common)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", choices=sorted(PRESETS), default="chest")
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--steps", type=int, default=150)
     ap.add_argument("--guidance", type=float, default=8.0)
-    ap.add_argument("--eta", type=float, default=1.0)
+    ap.add_argument("--eta", type=float, default=None,
+                    help="DDIM eta (default 1); the fast sampler runs at 0")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none",
@@ -101,15 +184,15 @@ def main(argv=None):
     ap.add_argument("--latent-shift", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="results/samples")
+    add_sampler_args(ap)
     args = ap.parse_args(argv)
-    if args.attention_heads != 8 and args.attention == "none":
-        ap.error("--attention-heads has no effect without attention layers; "
-                 "add --attention spatial|linear")
-
-    if args.ema and not args.ckpt:
-        ap.error("--ema needs --ckpt")
+    check_args(ap, args)
     if args.params and (args.ckpt or args.vae_ckpt):
         ap.error("--params holds both networks; give it alone or --ckpt/--vae-ckpt")
+    if args.eta is not None and args.encoder_key_every > 1:
+        ap.error("--eta does not apply to --encoder-key-every: the fast sampler "
+                 "runs deterministic DDIM (eta 0), as the JAX CLI does")
+    eta = 0.0 if args.encoder_key_every > 1 else (1.0 if args.eta is None else args.eta)
 
     p = PRESETS[args.preset]
     unet_params = vae_params = unet_state = None
@@ -119,13 +202,14 @@ def main(argv=None):
         unet_state = load_unet_state(args.ckpt, args.ema, {
             "attention": args.attention, "attention_heads": args.attention_heads,
             "objective": args.objective, "latent_scale": args.latent_scale,
-            "latent_shift": args.latent_shift})
+            "latent_shift": args.latent_shift, "zero_terminal_snr": args.zero_terminal_snr})
     pipe = build_pipeline(p, device=args.device, compute_dtype=DTYPES[args.dtype],
                           seed=args.seed, unet_params=unet_params,
                           vae_params=vae_params, attention=args.attention,
                           attn_heads=args.attention_heads, unet_state=unet_state,
                           vae_ckpt=args.vae_ckpt, objective=args.objective,
-                          latent_scale=args.latent_scale, latent_shift=args.latent_shift)
+                          latent_scale=args.latent_scale, latent_shift=args.latent_shift,
+                          zero_terminal_snr=args.zero_terminal_snr)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     steps = min(args.steps, p.timesteps)
@@ -136,8 +220,7 @@ def main(argv=None):
         # the same noise for every condition
         gen = torch.Generator(device=pipe.device).manual_seed(args.seed)
         gs = args.guidance if cond_val is not None else 1.0
-        imgs = pipe.sample(args.n, p.latent_shape, condition=cond, generator=gen,
-                           steps=steps, guidance_scale=gs, eta=args.eta)
+        imgs = run_sampler(pipe, args, p, args.n, steps, cond, gs, gen, eta=eta)
         results[cond_val] = imgs.float().cpu().numpy()
         np.save(out / f"sample_cond_{cond_val}.npy", results[cond_val])
         write_png(out / f"sample_cond_{cond_val}.png", image_grid(results[cond_val]))

@@ -1,0 +1,133 @@
+"""Bulk sampling of evaluation sets with the PyTorch port.
+
+The counterpart of ``medfusion_tpu/cli/sample_dataset.py``: for each step
+count of ``--steps-list`` and each label (0 .. num_classes-1, or None for an
+unconditional preset), sample ``--n-samples`` images in chunks of
+``--chunk`` on one card (guidance ``--guidance``, 1 by default, with
+``un_cond = 1 - label``) and write ``<out>/steps_{s}/label_{l}/fake_{i}.png``
+as uint8 ``(clip(x, -1, 1) + 1) * 127.5`` (grey for one channel), with the
+port's own PNG writer. Every sampler of ``cli.sample`` is accepted
+(``--sampler ddim|dpmpp|edm``, ``--encoder-key-every``, ``--zero-terminal-snr``,
+``--timestep-spacing``, ``--guidance-rescale``); DDIM and the fast sampler
+run at eta 1, as the JAX package's bulk sampler does.
+
+Seeding: the JAX CLI folds (steps, label, chunk) into its key; torch has no
+``fold_in``, so each chunk draws from a ``torch.Generator`` seeded by
+``np.random.SeedSequence([seed, steps, label_id, chunk_idx])``, with
+``label_id = num_classes`` for the unconditional case, as in the JAX CLI.
+The streams therefore differ from the JAX CLI's, and are as independent.
+
+Sharding the chunks over several cards waits for ROADMAP Queue 1 item 9.
+
+Usage:
+  python -m medfusion_tpu_torch.cli.sample_dataset --preset chest --ckpt runs/diffusion \\
+      --ema --vae-ckpt runs/ae --n-samples 7869 --chunk 200 --steps-list 50 100 150
+  python -m medfusion_tpu_torch.cli.sample_dataset --preset chest --sampler dpmpp \\
+      --steps-list 25 --n-samples 8 --chunk 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
+from medfusion_tpu_torch.cli.sample import (
+    DTYPES,
+    add_sampler_args,
+    check_args,
+    load_unet_state,
+    run_sampler,
+)
+from medfusion_tpu_torch.data.png import write_png
+from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
+
+
+def to_uint8(imgs: np.ndarray) -> np.ndarray:
+    """[-1, 1] images -> uint8, as the JAX bulk sampler converts them."""
+    return ((np.clip(imgs, -1, 1) + 1) * 127.5).astype(np.uint8)
+
+
+def chunk_generator(device, seed: int, steps: int, label_id: int, chunk_idx: int):
+    state = np.random.SeedSequence([seed, steps, label_id, chunk_idx]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--preset", choices=sorted(PRESETS), default="chest")
+    ap.add_argument("--ckpt", default=None, help="a port diffusion run")
+    ap.add_argument("--ema", action="store_true", help="--ckpt's EMA copy")
+    ap.add_argument("--vae-ckpt", default=None,
+                    help="a port autoencoder run, or an .npz of the JAX VAE's params")
+    ap.add_argument("--out", default="results/fake")
+    ap.add_argument("--n-samples", type=int, default=7869)
+    ap.add_argument("--chunk", type=int, default=200)
+    ap.add_argument("--steps-list", type=int, nargs="+", default=[50, 100, 150, 200, 250])
+    ap.add_argument("--guidance", type=float, default=1.0)
+    ap.add_argument("--objective", choices=("x_T", "x_0", "v"), default="x_T")
+    ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none")
+    ap.add_argument("--attention-heads", type=int, default=8)
+    ap.add_argument("--latent-scale", type=float, default=1.0)
+    ap.add_argument("--latent-shift", type=float, default=0.0)
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    add_sampler_args(ap)
+    args = ap.parse_args(argv)
+    check_args(ap, args)
+    if args.n_samples < 1 or args.chunk < 1:
+        ap.error("--n-samples and --chunk must be >= 1")
+
+    p = PRESETS[args.preset]
+    unet_state = None
+    if args.ckpt:
+        unet_state = load_unet_state(args.ckpt, args.ema, {
+            "attention": args.attention, "attention_heads": args.attention_heads,
+            "objective": args.objective, "latent_scale": args.latent_scale,
+            "latent_shift": args.latent_shift, "zero_terminal_snr": args.zero_terminal_snr})
+    pipe = build_pipeline(p, device=args.device, compute_dtype=DTYPES[args.dtype],
+                          seed=args.seed, attention=args.attention,
+                          attn_heads=args.attention_heads, unet_state=unet_state,
+                          vae_ckpt=args.vae_ckpt, objective=args.objective,
+                          latent_scale=args.latent_scale, latent_shift=args.latent_shift,
+                          zero_terminal_snr=args.zero_terminal_snr)
+    dev = pipe.device
+    labels = list(range(p.num_classes)) if p.num_classes else [None]
+    written_dirs = {}
+    for steps in args.steps_list:
+        steps = min(steps, p.timesteps)
+        for label in labels:
+            out_dir = Path(args.out) / f"steps_{steps}" / f"label_{label}"
+            out_dir.mkdir(parents=True, exist_ok=True)
+            label_id = label if label is not None else (p.num_classes or 0)
+            written, chunk_idx, t0 = 0, 0, time.perf_counter()
+            while written < args.n_samples:
+                n = min(args.chunk, args.n_samples - written)
+                cond = un_cond = None
+                if label is not None:
+                    cond = torch.full((n,), label, dtype=torch.long, device=dev)
+                    un_cond = torch.full((n,), 1 - label, dtype=torch.long, device=dev)
+                gen = chunk_generator(dev, args.seed, steps, label_id, chunk_idx)
+                imgs = run_sampler(pipe, args, p, n, steps, cond, args.guidance, gen,
+                                   un_cond=un_cond, eta=1.0)
+                imgs = to_uint8(imgs.float().cpu().numpy())
+                for i, img in enumerate(imgs):
+                    write_png(out_dir / f"fake_{written + i}.png",
+                              img[..., 0] if img.shape[-1] == 1 else img)
+                written += n
+                chunk_idx += 1
+            seconds = time.perf_counter() - t0
+            print(f"steps={steps} label={label}: {written} samples -> {out_dir} "
+                  f"in {seconds:.3f} s")
+            written_dirs[(steps, label)] = out_dir
+    return written_dirs
+
+
+if __name__ == "__main__":
+    main()

@@ -16,9 +16,17 @@ steps 4 images of a 50-step DDIM sample from the EMA (or the model) in
 Step s draws from a generator seeded by (``--seed``, s), and ``--resume``
 continues the data stream where the run stopped (``train/loop.py``), so a
 resumed run equals an uninterrupted one. ``--resume`` refuses a run saved
-with another ``--use-ema``, ``--objective``, ``--attention`` or
-``--attention-heads``. A batch label outside the preset's classes raises
-on the host.
+with another ``--use-ema``, ``--objective``, ``--attention``,
+``--attention-heads``, ``--zero-terminal-snr`` or ``--min-snr-gamma``. A
+batch label outside the preset's classes raises on the host.
+
+``--zero-terminal-snr`` rescales the schedule to abar_T = 0
+(arXiv:2305.08891; needs ``--objective v`` or ``x_0``; sample with
+``cli.sample --zero-terminal-snr``, trailing spacing by default);
+``--min-snr-gamma`` weights each sample's loss by Min-SNR-gamma
+(arXiv:2303.09556). Self-conditioning, a learned variance and
+deep-supervision terms are options of ``DiffusionPipeline`` and the UNet,
+as in the JAX package, which gives them no flags either.
 
 Usage:
   python -m medfusion_tpu_torch.cli.train_diffusion --preset chest \\
@@ -29,8 +37,8 @@ Usage:
 
 Without ``--device cpu`` it runs on the card and raises when there is none.
 On the card every self-attention runs its forward and backward through the
-hand-written kernels. Not ported: ``--family flow``, ``--zero-terminal-snr``,
-``--min-snr-gamma``, the other estimators, ``--remat`` and the grain loader.
+hand-written kernels. Not ported (ROADMAP Queue 1): ``--family flow``
+(refused), the other estimators, ``--remat`` and the grain loader.
 """
 
 from __future__ import annotations
@@ -59,7 +67,8 @@ from medfusion_tpu_torch.utils.logging import MetricsWriter, save_image_grid
 from medfusion_tpu_torch.utils.resilience import run_with_auto_restore
 
 # what --resume must find unchanged in the saved config
-RESUME_KEYS = ("use_ema", "objective", "attention", "attention_heads")
+RESUME_KEYS = ("use_ema", "objective", "attention", "attention_heads", "zero_terminal_snr",
+               "min_snr_gamma")
 
 
 def main(argv=None):
@@ -83,6 +92,14 @@ def main(argv=None):
                          "weights, optimizer state and loss")
     ap.add_argument("--use-ema", action="store_true")
     ap.add_argument("--objective", choices=("x_T", "x_0", "v"), default="x_T")
+    ap.add_argument("--family", choices=("diffusion", "flow"), default="diffusion",
+                    help="flow is not ported")
+    ap.add_argument("--zero-terminal-snr", action="store_true",
+                    help="rescale the schedule so that abar_T = 0 exactly "
+                         "(arXiv:2305.08891); needs --objective v or x_0")
+    ap.add_argument("--min-snr-gamma", type=float, default=None,
+                    help="Min-SNR-gamma loss weighting (arXiv:2303.09556; the "
+                         "paper's default is 5); off when unset")
     ap.add_argument("--latent-scale", type=float, default=1.0,
                     help="the diffusion runs on (z - shift) * scale")
     ap.add_argument("--latent-shift", type=float, default=0.0)
@@ -101,6 +118,11 @@ def main(argv=None):
     if args.attention_heads != 8 and args.attention == "none":
         ap.error("--attention-heads has no effect without attention layers; "
                  "add --attention spatial|linear")
+    if args.family == "flow":
+        ap.error("--family flow is not ported yet (ROADMAP Queue 1, item 3)")
+    if args.zero_terminal_snr and args.objective == "x_T":
+        ap.error("--zero-terminal-snr cannot train the eps ('x_T') objective: x_0 "
+                 "is unrecoverable from eps at abar_T = 0; use --objective v or x_0")
     if (args.resume or args.auto_restart) and args.out is None:
         ap.error("--resume and --auto-restart need --out")
     if args.auto_restart:
@@ -112,6 +134,8 @@ def main(argv=None):
 def run_config(p, args) -> dict:
     return {**dataclasses.asdict(p), "use_ema": args.use_ema, "objective": args.objective,
             "attention": args.attention, "attention_heads": args.attention_heads,
+            "zero_terminal_snr": args.zero_terminal_snr,
+            "min_snr_gamma": args.min_snr_gamma,
             "latent_scale": args.latent_scale, "latent_shift": args.latent_shift}
 
 
@@ -123,7 +147,9 @@ def _train(args, resume: bool):
                                 attn_heads=args.attention_heads, objective=args.objective,
                                 seed=args.seed, vae_ckpt=args.vae_ckpt,
                                 latent_scale=args.latent_scale,
-                                latent_shift=args.latent_shift)
+                                latent_shift=args.latent_shift,
+                                zero_terminal_snr=args.zero_terminal_snr,
+                                min_snr_gamma=args.min_snr_gamma)
     dev = pipe.device
     state = TrainState(pipe.noise_estimator, lr=p.diffusion_lr, weight_decay=1e-2,
                        use_ema=args.use_ema,

@@ -4,6 +4,11 @@ The tables are built in float64 numpy exactly as the JAX package builds them
 and stored as float32 tensors, so both packages hold bit-equal buffers. Every
 step function is a plain function of ``(schedule, tensors)``; tensors may be
 in any layout, since the math is elementwise per sample.
+
+A zero-terminal-SNR schedule (``create(zero_terminal_snr=True)``) has
+abar_T = 0 exactly, so its reciprocal tables hold +inf at the terminal step
+by construction, as the JAX package's do; nothing is clamped. The ``_safe``
+and ``_from_v`` inversions stay finite there.
 """
 
 from __future__ import annotations
@@ -35,6 +40,16 @@ def _make_betas(timesteps: int, schedule_strategy: str, beta_start: float,
     raise NotImplementedError(f"unknown schedule_strategy {schedule_strategy!r}")
 
 
+def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
+    """Betas whose terminal SNR is exactly zero (arXiv:2305.08891 Alg. 1):
+    sqrt(abar) shifted to 0 at T and rescaled to keep sqrt(abar_1)."""
+    b = np.asarray(betas, dtype=np.float64)
+    abar_sqrt = np.sqrt(np.cumprod(1.0 - b))
+    a0, aT = abar_sqrt[0], abar_sqrt[-1]
+    abar = ((abar_sqrt - aT) * (a0 / (a0 - aT))) ** 2
+    return 1.0 - np.concatenate([abar[:1], abar[1:] / abar[:-1]])
+
+
 @dataclasses.dataclass(frozen=True)
 class GaussianDiffusionSchedule:
     """Float32 schedule tables of length T on one device."""
@@ -52,33 +67,41 @@ class GaussianDiffusionSchedule:
     posterior_variance: torch.Tensor
     timesteps: int = 1000
     T: int = 1000
+    zero_terminal_snr: bool = False
 
     @classmethod
     def create(cls, timesteps: int = 1000, schedule_strategy: str = "cosine",
                beta_start: float = 0.0001, beta_end: float = 0.02,
                betas: Optional[Sequence[float]] = None,
-               device="cpu") -> "GaussianDiffusionSchedule":
+               device="cpu", zero_terminal_snr: bool = False) -> "GaussianDiffusionSchedule":
         b = _make_betas(timesteps, schedule_strategy, beta_start, beta_end, betas)
+        if zero_terminal_snr:
+            b = rescale_zero_terminal_snr(b)
         alphas = 1.0 - b
         ac = np.cumprod(alphas)
         ac_prev = np.concatenate([[1.0], ac[:-1]])
-        tables = dict(
-            betas=b,
-            alphas=alphas,
-            alphas_cumprod=ac,
-            alphas_cumprod_prev=ac_prev,
-            sqrt_alphas_cumprod=np.sqrt(ac),
-            sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - ac),
-            sqrt_recip_alphas_cumprod=np.sqrt(1.0 / ac),
-            sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / ac - 1.0),
-            posterior_mean_coef1=b * np.sqrt(ac_prev) / (1.0 - ac),
-            posterior_mean_coef2=(1.0 - ac_prev) * np.sqrt(alphas) / (1.0 - ac),
-            posterior_variance=b * (1.0 - ac_prev) / (1.0 - ac),
-        )
+        with np.errstate(divide="ignore"):  # 1/abar_T = inf at zero terminal SNR
+            tables = dict(
+                betas=b,
+                alphas=alphas,
+                alphas_cumprod=ac,
+                alphas_cumprod_prev=ac_prev,
+                sqrt_alphas_cumprod=np.sqrt(ac),
+                sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - ac),
+                sqrt_recip_alphas_cumprod=np.sqrt(1.0 / ac),
+                sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / ac - 1.0),
+                posterior_mean_coef1=b * np.sqrt(ac_prev) / (1.0 - ac),
+                posterior_mean_coef2=(1.0 - ac_prev) * np.sqrt(alphas) / (1.0 - ac),
+                posterior_variance=b * (1.0 - ac_prev) / (1.0 - ac),
+            )
         as_t = lambda v: torch.from_numpy(
             np.asarray(v, np.float64).astype(np.float32)).to(device)
         return cls(**{k: as_t(v) for k, v in tables.items()},
-                   timesteps=timesteps, T=timesteps)
+                   timesteps=timesteps, T=timesteps, zero_terminal_snr=zero_terminal_snr)
+
+    def timesteps_host(self) -> np.ndarray:
+        """The ancestral grid [0 .. T-1] (int64 numpy)."""
+        return np.linspace(0, self.T - 1, self.timesteps).astype(np.int64)
 
     def ddim_timesteps_host(self, steps: int, spacing: str = "linspace") -> np.ndarray:
         """Ascending sub-sampled grid of length ``steps`` (int32 numpy)."""
@@ -140,12 +163,25 @@ def posterior_mean(sched, x_t, x_0, t):
             + extract(sched.posterior_mean_coef2, t, ndim) * x_t)
 
 
-def posterior_log_variance(sched, t, ndim: int, var_scale=0.0, eps: float = 1e-20):
-    """Log posterior variance, interpolated between the posterior (min) and
-    beta (max) by ``var_scale``."""
-    min_log = torch.log(torch.clamp(extract(sched.posterior_variance, t, ndim), min=eps))
-    max_log = torch.log(torch.clamp(extract(sched.betas, t, ndim), min=eps))
-    return var_scale * max_log + (1 - var_scale) * min_log
+def estimate_x_T_safe(sched, x_t, x_0, t, clip: bool = True):
+    """eps from (x_t, x_0) as (x_t - sqrt(abar)*x_0) / sqrt(1-abar): the
+    form of :func:`estimate_x_T` that stays finite at abar_t = 0."""
+    ndim = x_t.ndim
+    x_0 = clip_x0(x_0) if clip else x_0
+    return ((x_t - extract(sched.sqrt_alphas_cumprod, t, ndim) * x_0)
+            / extract(sched.sqrt_one_minus_alphas_cumprod, t, ndim))
+
+
+def posterior_variance(sched, t, ndim: int, log: bool = True, var_scale=0.0,
+                       eps: float = 1e-20):
+    """Posterior variance (its log with ``log``), interpolated between the
+    posterior (min) and beta (max) by ``var_scale``."""
+    min_var = extract(sched.posterior_variance, t, ndim)
+    max_var = extract(sched.betas, t, ndim)
+    if log:
+        min_var = torch.log(torch.clamp(min_var, min=eps))
+        max_var = torch.log(torch.clamp(max_var, min=eps))
+    return var_scale * max_var + (1 - var_scale) * min_var
 
 
 def ancestral_step(sched, x_t, t, x_0, noise, clip: bool = True, var_scale=0.0):
@@ -153,7 +189,7 @@ def ancestral_step(sched, x_t, t, x_0, noise, clip: bool = True, var_scale=0.0):
     ndim = x_t.ndim
     x_0 = clip_x0(x_0) if clip else x_0
     mean = posterior_mean(sched, x_t, x_0, t)
-    std = torch.exp(0.5 * posterior_log_variance(sched, t, ndim, var_scale))
+    std = torch.exp(0.5 * posterior_variance(sched, t, ndim, var_scale=var_scale))
     std = torch.where(_per_sample(t, ndim) == 0, torch.zeros_like(std), std)
     return mean + std * noise, x_0
 
@@ -162,6 +198,16 @@ def ancestral_step_from_eps(sched, x_t, t, x_T, noise, clip: bool = True,
                             var_scale=0.0):
     x_0 = estimate_x_0(sched, x_t, x_T, t, clip=clip)
     return ancestral_step(sched, x_t, t, x_0, noise, clip, var_scale)
+
+
+def cold_diffusion_step(sched, x_t, t, x_0, clip: bool = True):
+    """Cold-diffusion step: x_t - (D(x_0, t) - D(x_0, t-1)), D re-noising
+    with the eps implied by (x_t, x_0). Returns (x_prior, x_0)."""
+    x_0 = clip_x0(x_0) if clip else x_0
+    x_T_est = estimate_x_T_safe(sched, x_t, x_0, t, clip=False)
+    x_t_est = q_sample(sched, x_0, t, x_T_est)
+    x_t_prior = q_sample(sched, x_0, t - 1, x_T_est)
+    return x_t - (x_t_est - x_t_prior), x_0
 
 
 def ddim_sigma(sched, t, t_next, eta):
@@ -193,3 +239,81 @@ def v_target(sched, x_0, eps, t):
     ndim = x_0.ndim
     return (extract(sched.sqrt_alphas_cumprod, t, ndim) * eps
             - extract(sched.sqrt_one_minus_alphas_cumprod, t, ndim) * x_0)
+
+
+def estimate_x_T_from_v(sched, x_t, v, t):
+    """eps = sqrt(1-abar_t)*x_t + sqrt(abar_t)*v, finite for every t."""
+    ndim = x_t.ndim
+    return (extract(sched.sqrt_one_minus_alphas_cumprod, t, ndim) * x_t
+            + extract(sched.sqrt_alphas_cumprod, t, ndim) * v)
+
+
+def snr(sched, t):
+    """abar_t / (1 - abar_t) per sample ([B])."""
+    ab = sched.alphas_cumprod[t]
+    return ab / (1.0 - ab)
+
+
+def min_snr_weight(sched, t, gamma: float, objective: str):
+    """Min-SNR-gamma per-sample loss weight (arXiv:2303.09556) in the
+    objective's space: eps min(SNR, g)/SNR, x_0 min(SNR, g), v
+    min(SNR, g)/(SNR+1); 1 at SNR = 0 (a zero-SNR terminal step) for v and
+    x_0, as the JAX package keeps the terminal step trained."""
+    s = snr(sched, t)
+    clamped = torch.clamp(s, max=gamma)
+    if objective == "x_T":
+        return clamped / torch.clamp(s, min=1e-20)
+    one = torch.ones_like(s)
+    if objective == "v":
+        return torch.where(s == 0.0, one, clamped / (s + 1.0))
+    return torch.where(s == 0.0, one, clamped)
+
+
+def kdiff_sigmas(sched):
+    """k-diffusion noise levels sqrt((1-abar_t)/abar_t), [T] ascending."""
+    ab = sched.alphas_cumprod
+    return torch.sqrt((1.0 - ab) / ab)
+
+
+def karras_sigma_grid(sigma_min, sigma_max, n: int, rho: float = 7.0):
+    """``n`` levels from sigma_max down to sigma_min, even in sigma^(1/rho)
+    (arXiv:2206.00364 eq. 5), then 0: length n + 1, float32. The ramp is
+    i/(n-1) in float32, as ``jnp.linspace(0, 1, n)`` makes it."""
+    sigma_min = torch.as_tensor(sigma_min, dtype=torch.float32)
+    sigma_max = torch.as_tensor(sigma_max, dtype=torch.float32, device=sigma_min.device)
+    dev = sigma_min.device
+    ramp = torch.arange(n, dtype=torch.float32, device=dev) / max(n - 1, 1)
+    inv_rho = 1.0 / rho
+    hi = sigma_max ** inv_rho
+    sig = (hi + ramp * (sigma_min ** inv_rho - hi)) ** rho
+    return torch.cat([sig, torch.zeros(1, device=dev)])
+
+
+def _interp(x, xp, fp):
+    """``jnp.interp(x, xp, fp)`` (constant beyond the ends), its arithmetic
+    step for step."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.numel() - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = dx.abs() <= eps
+    f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def sigma_to_t_frac(sched, sigma):
+    """The fractional timestep of a k-diffusion sigma: log-sigma
+    interpolated over the schedule's own table (float32)."""
+    log_tab = torch.log(kdiff_sigmas(sched))
+    grid = torch.arange(sched.T, dtype=torch.float32, device=log_tab.device)
+    x = torch.log(torch.clamp(torch.as_tensor(sigma, dtype=torch.float32,
+                                              device=log_tab.device), min=1e-20))
+    return _interp(x.reshape(-1), log_tab, grid).reshape(x.shape)
+
+
+def kl_gaussians(mean1, logvar1, mean2, logvar2):
+    """KL(N1 || N2) per element."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))

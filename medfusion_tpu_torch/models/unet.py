@@ -14,7 +14,12 @@ an attention slot (``in_blocks.i.1``, ``middle_block.1``, ``out_blocks.i.1``):
 per level, with ``attn_heads`` heads of width ``level width / attn_heads``.
 
 Classifier-free guidance zeroes the label embedding with a per-sample
-``cond_mask``, as the JAX package does.
+``cond_mask``, as the JAX package does. With ``use_self_conditioning`` the
+in conv takes ``[x_t | self_cond]`` (zeros for a missing ``self_cond``).
+
+The forward is ``embed`` -> ``encode_features`` (in conv and encoder: the
+skip stack) -> ``decode_features`` (middle and decoder), so that a sampler
+can reuse an encoder's skips across steps (``pipelines/diffusion/fast.py``).
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ class UNet(nn.Module):
                  deep_supervision=True, use_res_block: bool = True,
                  estimate_variance: bool = False,
                  use_attention="none", attn_heads: int = 8,
-                 num_res_blocks: int = 2):
+                 num_res_blocks: int = 2, use_self_conditioning: bool = False):
         super().__init__()
         depth = len(strides)
         attn = (list(use_attention) if isinstance(use_attention, (list, tuple))
@@ -83,6 +88,7 @@ class UNet(nn.Module):
                         f"level width {ch} (hid_chs={tuple(hid_chs)}, "
                         f"use_attention level {i}={attn[i]!r})")
         self.cond_emb_num_classes = cond_emb_num_classes
+        self.use_self_conditioning = use_self_conditioning
         self.num_res_blocks = nrb = num_res_blocks
         t_dim = time_emb_dim or hid_chs[0] * 4
         ConvBlock = UnetResBlock if use_res_block else UnetBasicBlock
@@ -101,7 +107,8 @@ class UNet(nn.Module):
             self.cond_embedder = LabelEmbedder(emb_dim=t_dim,
                                                num_classes=cond_emb_num_classes)
 
-        self.in_conv = BasicBlock(n, in_ch, hid_chs[0], kernel_sizes[0], strides[0])
+        in_conv_ch = 2 * in_ch if use_self_conditioning else in_ch
+        self.in_conv = BasicBlock(n, in_conv_ch, hid_chs[0], kernel_sizes[0], strides[0])
 
         skip_chs = [hid_chs[0]]
         in_blocks = []
@@ -164,17 +171,22 @@ class UNet(nn.Module):
                 cond_emb = cond_emb * cond_mask.to(cond_emb.dtype)[:, None]
         return save_add(time_emb, cond_emb)
 
-    def forward(self, x_t, t=None, condition=None, cond_mask=None):
-        emb = self.embed(t, condition, cond_mask)
-        if emb is not None:
-            emb = emb.to(x_t.dtype)  # keep the activations in the compute dtype
+    def encode_features(self, x_t, emb, self_cond=None):
+        """In conv and encoder: the skip stack, as a tuple."""
+        if self.use_self_conditioning:
+            sc = torch.zeros_like(x_t) if self_cond is None else self_cond
+            x_t = torch.cat([x_t, sc], dim=1)
         x = [self.in_conv(x_t)]
         for blk in self.in_blocks:
             if isinstance(blk, BasicDown):
                 x.append(blk(x[-1]))
             else:
                 x.append(blk[1](blk[0](x[-1], emb), emb))
+        return tuple(x)
 
+    def decode_features(self, skips, emb):
+        """Middle and decoder on the skip stack: (y, deep-supervision heads)."""
+        x = list(skips)
         h = self.middle_block[0](x[-1], emb)
         h = self.middle_block[1](h, emb)
         h = self.middle_block[2](h, emb)
@@ -191,3 +203,12 @@ class UNet(nn.Module):
             if len(stage) > 2:
                 h = stage[2](h)
         return self.outc(h), y_ver[::-1]
+
+    def forward(self, x_t, t=None, condition=None, cond_mask=None, self_cond=None):
+        """(y, deep-supervision outputs). ``self_cond`` comes after
+        ``cond_mask`` here, where the JAX UNet takes it before: callers that
+        pass ``(x_t, t, condition, cond_mask)`` keep working."""
+        emb = self.embed(t, condition, cond_mask)
+        if emb is not None:
+            emb = emb.to(x_t.dtype)  # keep the activations in the compute dtype
+        return self.decode_features(self.encode_features(x_t, emb, self_cond), emb)

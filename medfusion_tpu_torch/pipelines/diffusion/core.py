@@ -1,25 +1,31 @@
 """Latent diffusion pipeline: the training loss and sampling
 (port of ``medfusion_tpu/pipelines/diffusion/core.py``).
 
-The modules are NCHW; the public ``train_loss``, ``sample`` and ``denoise``
-take and return the JAX package's channels-last layout (see ``ddim.py``).
-Classifier-free guidance runs [uncond | cond] as one batched forward with a
-per-sample ``cond_mask`` that zeroes the label embedding. Schedule and loss
-math stays float32; ``compute_dtype`` casts the estimator's, the encoder's
-and the decoder's inputs. The pipeline never casts its modules:
+The modules are NCHW; the public ``train_loss``, ``sample`` and the
+samplers take and return the JAX package's channels-last layout (see
+``ddim.py``). Classifier-free guidance runs [uncond | cond] as one batched
+forward with a per-sample ``cond_mask`` that zeroes the label embedding, or
+with an explicit ``un_cond`` label whose embedding is kept. Schedule and
+loss math stays float32; ``compute_dtype`` casts the estimator's, the
+encoder's and the decoder's inputs. The pipeline never casts its modules:
 ``cli/presets.py::build_pipeline`` casts them once for sampling, which gives
 the values of the JAX package's per-call cast of its float32 params, and the
 train step casts the estimator's float32 master parameters on every step
 (``train/diffusion.py``).
 
+The options of the JAX pipeline are here: self-conditioning, a learned
+variance (its KL/NLL term in the loss), deep-supervision terms, Min-SNR
+weighting, zero-terminal-SNR schedules (``_terminal_safe``: the inversions
+that stay finite at abar_t = 0; the eps objective is refused there), an
+explicit ``un_cond`` and cold diffusion. The samplers are mixed in:
+``ddim.py`` (DDIM/ancestral, inpainting, RePaint), ``dpmpp.py``,
+``edm.py``, ``fast.py`` (encoder propagation) and ``editing.py``.
+Classifier guidance is not ported (ROADMAP Queue 1).
+
 Randomness is explicit: ``train_loss`` takes its draws (encoder noise, t,
 x_T and the one CFG-drop boolean) as inputs, which :meth:`train_draws`
-makes from a ``torch.Generator``.
-
-Not ported: self-conditioning, a learned variance and deep supervision in
-the training loss, Min-SNR weighting, an explicit unconditional label
-(``un_cond``), classifier guidance, cold diffusion, zero-terminal-SNR
-schedules.
+makes from a ``torch.Generator``; the self-conditioning pre-pass reuses the
+same x_t and needs no draw.
 """
 
 from __future__ import annotations
@@ -32,26 +38,43 @@ from torch.func import functional_call
 
 from medfusion_tpu_torch.core import schedules as S
 from medfusion_tpu_torch.core.schedules import GaussianDiffusionSchedule
+from medfusion_tpu_torch.nn.functional import interpolate_area
 from medfusion_tpu_torch.pipelines.diffusion.ddim import (
     DDIMSamplerMixin,
     _to_nchw,
 )
+from medfusion_tpu_torch.pipelines.diffusion.dpmpp import DPMSolverMixin
+from medfusion_tpu_torch.pipelines.diffusion.editing import EditingMixin
+from medfusion_tpu_torch.pipelines.diffusion.edm import EDMSamplerMixin
+from medfusion_tpu_torch.pipelines.diffusion.fast import FastSamplerMixin
 
 _LOSSES = {"l1": lambda d: d.abs(), "l2": lambda d: d * d}
 
 
+def gaussian_nll(pred, target, var, eps: float = 1e-6):
+    """``F.gaussian_nll_loss(reduction='none')`` without its constant, var
+    clamped at ``eps``."""
+    var = torch.clamp(var, min=eps)
+    return 0.5 * (torch.log(var) + (pred - target) ** 2 / var)
+
+
 @dataclasses.dataclass
-class DiffusionPipeline(DDIMSamplerMixin):
+class DiffusionPipeline(DDIMSamplerMixin, DPMSolverMixin, EDMSamplerMixin,
+                        FastSamplerMixin, EditingMixin):
     scheduler: GaussianDiffusionSchedule
-    noise_estimator: Any  # nn.Module: (x_t, t, condition, cond_mask) -> (y, y_ver)
+    # nn.Module: (x_t, t, condition, cond_mask, self_cond=None) -> (y, y_ver)
+    noise_estimator: Any
     latent_embedder: Any = None  # nn.Module with encode/decode, or None
     estimator_objective: str = "x_T"  # 'x_T' (eps), 'x_0' or 'v'
     estimate_variance: bool = False
+    use_self_conditioning: bool = False
     classifier_free_guidance_dropout: float = 0.5
     do_input_centering: bool = True
     clip_x0: bool = True
     loss: str = "l1"
     compute_dtype: Optional[torch.dtype] = None
+    # per-sample weight min(SNR_t, gamma) in the objective's space; None: off
+    min_snr_gamma: Optional[float] = None
     latent_scale: float = 1.0
     latent_shift: float = 0.0
 
@@ -60,6 +83,17 @@ class DiffusionPipeline(DDIMSamplerMixin):
             raise ValueError(f"unknown estimator_objective {self.estimator_objective!r}")
         if self.loss not in _LOSSES:
             raise ValueError(f"unknown loss {self.loss!r}; expected one of {sorted(_LOSSES)}")
+        if self._terminal_safe and self.estimator_objective == "x_T":
+            raise ValueError(
+                "zero-terminal-SNR schedules cannot use the eps ('x_T') "
+                "objective: x_0 is unrecoverable from eps at abar_T = 0 "
+                "(arXiv:2305.08891 §3.1); train with objective 'v' (or 'x_0')")
+
+    @property
+    def _terminal_safe(self) -> bool:
+        """True when the abar_t = 0-safe inversions must be used: the
+        schedule was made with ``zero_terminal_snr=True``."""
+        return self.scheduler.zero_terminal_snr
 
     @property
     def device(self) -> torch.device:
@@ -68,16 +102,19 @@ class DiffusionPipeline(DDIMSamplerMixin):
     # -- model application --------------------------------------------------
 
     def _apply_estimator(self, x_t, t, condition, cond_mask,
-                         params: Optional[Mapping[str, torch.Tensor]] = None):
+                         params: Optional[Mapping[str, torch.Tensor]] = None,
+                         self_cond=None):
         """The estimator on NCHW ``x_t``; ``params`` (name -> tensor) stand
         in for its own parameters, as the train step's cast copies do."""
         if self.compute_dtype is not None:
             x_t = x_t.to(self.compute_dtype)
+            self_cond = None if self_cond is None else self_cond.to(self.compute_dtype)
         args = (x_t, t, condition, cond_mask)
+        kwargs = {} if self_cond is None else {"self_cond": self_cond}
         if params is None:
-            y, y_ver = self.noise_estimator(*args)
+            y, y_ver = self.noise_estimator(*args, **kwargs)
         else:
-            y, y_ver = functional_call(self.noise_estimator, dict(params), args)
+            y, y_ver = functional_call(self.noise_estimator, dict(params), args, kwargs)
         if self.compute_dtype is not None:
             y = y.float()
             y_ver = [v.float() for v in y_ver]
@@ -130,13 +167,14 @@ class DiffusionPipeline(DDIMSamplerMixin):
         """One training-loss evaluation. ``batch``: ``source`` images
         [B, H, W, C] (channels-last) and optional integer ``target`` labels
         [B]; ``draws``: as :meth:`train_draws` makes them (``enc_noise`` is
-        read only when a latent embedder samples). The frozen encoder runs
-        without gradients. Returns (loss, metrics) with the metrics ``loss``,
-        ``L1`` and ``L2``, all f32 scalars."""
-        if self.estimate_variance:
-            raise NotImplementedError(
-                "the learned-variance training loss is not ported (ROADMAP)")
+        read only when a latent embedder samples). The frozen encoder and
+        the self-conditioning pre-pass (on the same x_t, with the labels
+        never dropped, as the JAX package calls it) run without gradients.
+        Returns (loss, metrics) with the metrics ``loss``, ``L1`` and ``L2``
+        of the main output, and ``variance_scale`` and ``variance_loss``
+        with a learned variance, all f32 scalars."""
         sched = self.scheduler
+        loss_fn = _LOSSES[self.loss]
         x_in = _to_nchw(batch["source"])
         condition = batch.get("target")
         b = x_in.shape[0]
@@ -148,40 +186,100 @@ class DiffusionPipeline(DDIMSamplerMixin):
         t = draws["t"]
         x_T = _to_nchw(draws["x_T"])
         x_t = S.q_sample(sched, x_0, t, x_T)
+
+        self_cond = None
+        if self.use_self_conditioning:
+            with torch.no_grad():
+                pred_sc, _ = self._apply_estimator(x_t, t, condition, None,
+                                                   estimator_params)
+                pred_sc, _ = self._split_variance(pred_sc)
+                if self.estimator_objective == "x_0":  # x_0's self-cond carry is x_T
+                    est = S.estimate_x_T_safe if self._terminal_safe else S.estimate_x_T
+                    self_cond = est(sched, x_t, pred_sc, t, clip=self.clip_x0)
+                else:
+                    self_cond = self._x0_of(x_t, pred_sc, t, self.clip_x0)
+
         cond_mask = None
         if condition is not None:  # no host sync on the drop draw
             drop = torch.as_tensor(draws["drop"], device=x_0.device)
             cond_mask = torch.where(drop, 0.0, 1.0).to(x_0.dtype).expand(b)
         pred, pred_vertical = self._apply_estimator(x_t, t, condition, cond_mask,
-                                                    estimator_params)
-        if pred_vertical:
-            raise NotImplementedError(
-                "the deep-supervision loss terms are not ported (ROADMAP)")
+                                                    estimator_params, self_cond)
+        pred_var = None
+        if self.estimate_variance:
+            pred, pred_var = torch.chunk(pred, 2, dim=1)
         if self.estimator_objective == "x_T":
             target = x_T
         elif self.estimator_objective == "v":
             target = S.v_target(sched, x_0, x_T, t)
         else:
             target = x_0
+
+        # pyramid weights 1/2^i, normalised
+        weights = [1 / 2**i for i in range(1 + len(pred_vertical))]
+        weights = [w / sum(weights) for w in weights]
         diff = pred - target
-        loss = _LOSSES[self.loss](diff).mean()
-        metrics = {"loss": loss, "L1": diff.abs().mean(), "L2": (diff * diff).mean()}
+        if self.min_snr_gamma is not None:
+            w_snr = S.min_snr_weight(sched, t, self.min_snr_gamma,
+                                     self.estimator_objective)
+            per_sample = loss_fn(diff).mean(dim=tuple(range(1, diff.ndim)))
+            loss = (w_snr * per_sample).mean() * weights[0]
+        else:
+            loss = loss_fn(diff).mean() * weights[0]
+        metrics: Dict[str, torch.Tensor] = {}
+
+        if self.estimate_variance:
+            var_scale = (pred_var + 1) / 2
+            ndim = x_t.ndim
+            pred_logvar = S.posterior_variance(sched, t, ndim, var_scale=var_scale)
+            if self.estimator_objective == "x_T":
+                # the true noise reconstructs x_0, as the reference does: the
+                # KL then trains var_scale alone
+                pred_x_0 = S.estimate_x_0(sched, x_t, x_T, t, clip=self.clip_x0)
+            elif self.estimator_objective == "v":
+                pred_x_0 = S.estimate_x_0_from_v(sched, x_t, target, t, clip=self.clip_x0)
+            else:
+                pred_x_0 = pred
+            pred_mean = S.posterior_mean(sched, x_t, pred_x_0, t).detach()
+            true_mean = S.posterior_mean(sched, x_t, x_0, t).detach()
+            true_logvar = S.posterior_variance(sched, t, ndim)
+            axes = tuple(range(1, ndim))
+            kl = S.kl_gaussians(true_mean, true_logvar, pred_mean, pred_logvar).mean(dim=axes)
+            nll = gaussian_nll(pred_x_0, x_0, torch.exp(pred_logvar)).mean(dim=axes)
+            var_loss = torch.where(t == 0, nll, kl).mean()
+            loss = loss + var_loss
+            metrics["variance_scale"] = var_scale.mean()
+            metrics["variance_loss"] = var_loss
+
+        for i, pred_i in enumerate(pred_vertical):
+            target_i = interpolate_area(target, pred_i.shape[2:])
+            loss = loss + loss_fn(pred_i - target_i).mean() * weights[i + 1]
+
+        metrics.update(loss=loss, L1=diff.abs().mean(), L2=(diff * diff).mean())
         return loss, metrics
 
     # -- one reverse step ---------------------------------------------------
 
     def _guided_pred(self, x_t, t, condition=None, guidance_scale: float = 1.0,
-                     guidance_rescale: float = 0.0):
-        """The estimator's output; under CFG, [uncond | cond] in one forward
-        with the label embedding zeroed on the uncond half."""
+                     guidance_rescale: float = 0.0, un_cond=None, self_cond=None,
+                     estimator=None):
+        """The estimator's output; under CFG, [uncond | cond] in one forward,
+        the uncond half with its label embedding zeroed, or with ``un_cond``
+        as its label (mask 1). ``self_cond`` goes to both halves.
+        ``estimator`` stands in for :meth:`_apply_estimator` (same call, same
+        return), as the fast sampler's cached-encoder UNet does."""
+        apply = self._apply_estimator if estimator is None else estimator
         b = x_t.shape[0]
         ones = torch.ones((b,), dtype=x_t.dtype, device=x_t.device)
         if condition is not None and guidance_scale != 1.0:
             x2 = torch.cat([x_t, x_t], dim=0)
             t2 = torch.cat([t, t], dim=0)
-            cond2 = torch.cat([torch.zeros_like(condition), condition], dim=0)
-            mask2 = torch.cat([torch.zeros_like(ones), ones], dim=0)
-            pred2, _ = self._apply_estimator(x2, t2, cond2, mask2)
+            cond_u = torch.zeros_like(condition) if un_cond is None else un_cond
+            cond2 = torch.cat([cond_u, condition], dim=0)
+            mask_u = torch.zeros_like(ones) if un_cond is None else ones
+            mask2 = torch.cat([mask_u, ones], dim=0)
+            sc2 = None if self_cond is None else torch.cat([self_cond, self_cond], dim=0)
+            pred2, _ = apply(x2, t2, cond2, mask2, self_cond=sc2)
             pred_uncond, pred_cond = pred2[:b], pred2[b:]
             guided = pred_uncond + guidance_scale * (pred_cond - pred_uncond)
             if guidance_rescale > 0.0:
@@ -194,7 +292,7 @@ class DiffusionPipeline(DDIMSamplerMixin):
                     guided = self._rescale_guided(guided, pred_cond, guidance_rescale)
             return guided
         cond_mask = None if condition is None else ones
-        pred, _ = self._apply_estimator(x_t, t, condition, cond_mask)
+        pred, _ = apply(x_t, t, condition, cond_mask, self_cond=self_cond)
         return pred
 
     @staticmethod
@@ -206,34 +304,71 @@ class DiffusionPipeline(DDIMSamplerMixin):
         rescaled = guided * (std_cond / torch.clamp(std_guided, min=1e-8))
         return phi * rescaled + (1 - phi) * guided
 
-    def estimate(self, x_t, t, noise, condition=None, guidance_scale: float = 1.0,
-                 guidance_rescale: float = 0.0):
-        """One reverse step: returns (x_t_prior, x_0, x_T). ``noise`` is the
-        ancestral step's standard-normal draw."""
-        pred = self._guided_pred(x_t, t, condition, guidance_scale, guidance_rescale)
-        if self.estimate_variance:
-            pred, pred_var = torch.chunk(pred, 2, dim=1)
-            var_scale = pred_var / 2 + 0.5
-        else:
-            var_scale = 0.0
-        return self._pred_to_states(x_t, t, pred, noise, var_scale=var_scale)
+    def _split_variance(self, pred):
+        """(pred, var_scale) of an output with a learned variance."""
+        if not self.estimate_variance:
+            return pred, 0.0
+        pred, pred_var = torch.chunk(pred, 2, dim=1)
+        return pred, pred_var / 2 + 0.5
 
-    def _pred_to_states(self, x_t, t, pred, noise, var_scale=0.0):
-        sched = self.scheduler
-        if self.estimator_objective == "x_0":
-            x_t_prior, x_0 = S.ancestral_step(sched, x_t, t, pred, noise,
-                                              clip=self.clip_x0, var_scale=var_scale)
-            x_T = S.estimate_x_T(sched, x_t, x_0=pred, t=t, clip=self.clip_x0)
-            return x_t_prior, x_0, x_T
+    def _x0_of(self, x_t, pred, t, clip: bool):
+        """x_0 from the objective-space ``pred`` (the eps inversion is not
+        terminal-safe)."""
+        if self.estimator_objective == "x_T":
+            return S.estimate_x_0(self.scheduler, x_t, pred, t, clip=clip)
         if self.estimator_objective == "v":
-            x_0v = S.estimate_x_0_from_v(sched, x_t, pred, t, clip=self.clip_x0)
-            x_t_prior, x_0 = S.ancestral_step(sched, x_t, t, x_0v, noise,
-                                              clip=self.clip_x0, var_scale=var_scale)
-            x_T = S.estimate_x_T(sched, x_t, x_0=x_0v, t=t, clip=self.clip_x0)
-            return x_t_prior, x_0, x_T
-        x_t_prior, x_0 = S.ancestral_step_from_eps(
-            sched, x_t, t, pred, noise, clip=self.clip_x0, var_scale=var_scale)
-        return x_t_prior, x_0, pred
+            return S.estimate_x_0_from_v(self.scheduler, x_t, pred, t, clip=clip)
+        return S.clip_x0(pred) if clip else pred
+
+    def estimate(self, x_t, t, noise=None, condition=None, guidance_scale: float = 1.0,
+                 guidance_rescale: float = 0.0, un_cond=None, self_cond=None,
+                 cold_diffusion: bool = False):
+        """One reverse step: returns (x_t_prior, x_0, x_T, new_self_cond).
+        ``noise`` is the ancestral step's standard-normal draw (zeros when
+        None)."""
+        pred = self._guided_pred(x_t, t, condition, guidance_scale, guidance_rescale,
+                                 un_cond, self_cond)
+        pred, var_scale = self._split_variance(pred)
+        if noise is None:
+            noise = torch.zeros_like(x_t)
+        return self._pred_to_states(x_t, t, pred, noise, cold_diffusion, var_scale)
+
+    def _pred_to_states(self, x_t, t, pred, noise, cold_diffusion: bool = False,
+                        var_scale=0.0):
+        """Objective-space ``pred`` -> (x_t_prior, x_0, x_T, new_self_cond),
+        with the terminal-safe inversions; shared by every sampler."""
+        sched, clip = self.scheduler, self.clip_x0
+        safe = self._terminal_safe
+        if self.estimator_objective == "x_0":
+            if cold_diffusion:
+                x_prior, x_0 = S.cold_diffusion_step(sched, x_t, t, pred, clip=clip)
+            else:
+                x_prior, x_0 = S.ancestral_step(sched, x_t, t, pred, noise, clip=clip,
+                                                var_scale=var_scale)
+            est = S.estimate_x_T_safe if safe else S.estimate_x_T
+            x_T = est(sched, x_t, x_0=pred, t=t, clip=clip)
+            return x_prior, x_0, x_T, x_T
+        if self.estimator_objective == "v":
+            x_0v = self._x0_of(x_t, pred, t, clip)
+            if cold_diffusion:
+                x_prior, x_0 = S.cold_diffusion_step(sched, x_t, t, x_0v, clip=clip)
+            else:
+                x_prior, x_0 = S.ancestral_step(sched, x_t, t, x_0v, noise, clip=clip,
+                                                var_scale=var_scale)
+            if safe and not clip:
+                x_T = S.estimate_x_T_from_v(sched, x_t, pred, t)
+            elif safe:
+                x_T = S.estimate_x_T_safe(sched, x_t, x_0=x_0v, t=t, clip=clip)
+            else:
+                x_T = S.estimate_x_T(sched, x_t, x_0=x_0v, t=t, clip=clip)
+            return x_prior, x_0, x_T, x_0
+        if cold_diffusion:
+            x_0c = self._x0_of(x_t, pred, t, clip)
+            x_prior, x_0 = S.cold_diffusion_step(sched, x_t, t, x_0c, clip=clip)
+        else:
+            x_prior, x_0 = S.ancestral_step_from_eps(sched, x_t, t, pred, noise, clip=clip,
+                                                     var_scale=var_scale)
+        return x_prior, x_0, pred, x_0
 
     # -- noise -> images ----------------------------------------------------
 

@@ -40,6 +40,11 @@ The chest-spatial UNet at other head counts: its f32 forward on the card
 against the same weights' forward on the CPU (the plain versions),
 atol = rtol = 1e-3 of max|ref| (f32 convs, projections and kernels summed
 in another order through some 40 layers, no TF32).
+
+The samplers (DPM-Solver++, EDM, the encoder-propagation sampler) on the
+smoke preset, f32, card against CPU from the same weights and draws: the
+decoded images within 1e-4 x max(1, max|ref|), rtol 1e-4 (the smoke
+tolerance of ``chip_smoke.py``).
 """
 
 import copy
@@ -679,3 +684,49 @@ def test_smoke_adversarial_step_matches_the_cpu(cuda, disc):
         top = max(g.abs().max().item() for g in ref.values())
         for k in ref:
             torch.testing.assert_close(out[k], ref[k], atol=1e-4 * top, rtol=0, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler,attention", [("dpmpp", "none"), ("edm", "none"),
+                                               ("fast", "none"), ("dpmpp", "spatial"),
+                                               ("edm", "spatial")])
+def test_smoke_samplers_match_the_cpu(cuda, sampler, attention):
+    """DPM-Solver++ (10 steps), EDM (6 steps, Heun, churn 1 on injected
+    draws; its t is fractional) and the fast sampler (10 steps, encoder
+    every 3, eta 1) on the smoke preset, CFG 3 with ``un_cond``, f32, card
+    against CPU, same perturbed weights and draws; with spatial attention
+    (one head: d = 16 and 32) the attention and GEGLU kernels launched."""
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
+
+    p = PRESETS["smoke"]
+    kw = dict(attention=attention, attn_heads=1 if attention == "spatial" else 8, seed=0)
+    cpu, card = (build_pipeline(p, device=d, **kw) for d in ("cpu", "cuda"))
+    torch.manual_seed(0)
+    for part in ("noise_estimator", "latent_embedder"):
+        with torch.no_grad():
+            for prm in getattr(cpu, part).parameters():
+                prm.add_(0.02 * torch.randn(prm.shape))
+        getattr(card, part).load_state_dict(getattr(cpu, part).state_dict())
+    b, lat = 4, p.latent_shape
+    draws = {"x_T": torch.randn((b, *lat)), "churn": torch.randn((6, b, *lat)),
+             "fast": torch.randn((10, b, *lat)), "cond": torch.tensor([0, 1, 0, 1])}
+
+    def run(pipe, d):
+        common = dict(condition=d["cond"], un_cond=1 - d["cond"], guidance_scale=3.0)
+        if sampler == "dpmpp":
+            return pipe.denoise_dpmpp(d["x_T"], steps=10, **common)
+        if sampler == "edm":
+            return pipe.denoise_edm(d["x_T"], steps=6, s_churn=1.0, churn_noise=d["churn"],
+                                    **common)
+        return pipe.denoise_fast(d["x_T"], steps=10, encoder_key_every=3, eta=1.0,
+                                 noise=d["fast"], **common)
+
+    ref = run(cpu, draws)
+    before = ops.launch_counts()
+    out = run(card, {k: v.cuda() for k, v in draws.items()}).cpu()
+    after = ops.launch_counts()
+    kernels = ["group_norm_silu"] + (["flash_attention_tokens", "geglu_mlp"]
+                                     if attention == "spatial" else [])
+    assert all(after[k] > before[k] for k in kernels)
+    scale = max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(out, ref, atol=1e-4 * scale, rtol=1e-4)

@@ -182,10 +182,18 @@ def test_sample_returns_channels_last_images(pipelines):
     assert imgs.shape == (2, 32, 32, 3) and torch.isfinite(imgs).all()
 
 
-def test_unported_options_raise(pipelines):
+def test_unported_options_raise(pipelines, capsys):
+    """What is still unported (the flow family, consistency sampling,
+    classifier guidance) is refused by the sampling CLI with a message
+    naming ROADMAP; a noise tensor of the wrong layout is refused."""
+    from medfusion_tpu_torch.cli import sample
+
     _, _, pipe = pipelines
+    for flags in (["--family", "flow"], ["--sampler", "consistency"],
+                  ["--classifier-ckpt", "runs/classifier"]):
+        with pytest.raises(SystemExit):
+            sample.main(["--preset", "smoke", "--device", "cpu", *flags])
+        assert "ROADMAP Queue 1" in capsys.readouterr().err
     x = torch.zeros(LATENT)
-    with pytest.raises(NotImplementedError, match="inpainting"):
-        pipe.denoise(x, steps=2, known=x, mask=x)
     with pytest.raises(ValueError, match="noise must have shape"):
         pipe.denoise(x, steps=2, noise=torch.zeros(3, 2, *LATENT))

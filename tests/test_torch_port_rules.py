@@ -10,7 +10,13 @@ import pytest
 import torch
 
 import medfusion_tpu_torch
-from medfusion_tpu_torch.cli import presets, sample, train_autoencoder, train_diffusion
+from medfusion_tpu_torch.cli import (
+    presets,
+    sample,
+    sample_dataset,
+    train_autoencoder,
+    train_diffusion,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "medfusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -56,14 +62,16 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert medfusion_tpu_torch.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("cli", [train_autoencoder, train_diffusion, sample],
-                         ids=["train_autoencoder", "train_diffusion", "sample"])
+@pytest.mark.parametrize("cli", [train_autoencoder, train_diffusion, sample, sample_dataset],
+                         ids=["train_autoencoder", "train_diffusion", "sample",
+                              "sample_dataset"])
 def test_every_cli_defaults_to_the_card(monkeypatch, cli):
     """Each CLI's --device defaults to cuda and raises without a card."""
     _without_cuda(monkeypatch)
+    argv = {sample: ["--steps", "1", "--n", "1"],
+            sample_dataset: ["--steps-list", "1", "--n-samples", "1"]}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(["--preset", "smoke", "--max-steps", "1"] if cli is not sample
-                 else ["--preset", "smoke", "--steps", "1", "--n", "1"])
+        cli.main(["--preset", "smoke", *argv.get(cli, ["--max-steps", "1"])])
 
 
 def test_autoencoder_cli_runs_on_cpu(tmp_path, capsys):

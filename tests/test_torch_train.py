@@ -308,14 +308,20 @@ def test_bf16_step_keeps_f32_masters_and_matches_the_f32_loss():
     np.testing.assert_allclose(losses["bf16"], losses["f32"], rtol=5e-2)
 
 
-def test_train_loss_refuses_what_is_not_ported():
-    jax_unet, _, unet = _unet_pair("narrow", 2, 16)
-    _, tp = _pipelines(jax_unet, unet)
-    tp.estimate_variance = True
-    _, tbatch = _batch((2, 16, 16, 2))
-    draws = tp.train_draws(2, (16, 16, 2), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="variance"):
-        tp.train_loss(tbatch, draws)
+def test_train_loss_refuses_what_is_not_ported(capsys):
+    """The flow family is refused by the training CLI with a message naming
+    ROADMAP; the eps objective is refused on a zero-terminal-SNR schedule,
+    as the JAX pipeline refuses it."""
+    with pytest.raises(SystemExit):
+        train_diffusion.main(["--preset", "smoke", "--device", "cpu", "--family", "flow"])
+    assert "ROADMAP Queue 1" in capsys.readouterr().err
+    _, _, unet = _unet_pair("narrow", 2, 16)
+    sched = S.GaussianDiffusionSchedule.create(timesteps=T, zero_terminal_snr=True)
+    with pytest.raises(ValueError, match="zero-terminal-SNR"):
+        DiffusionPipeline(scheduler=sched, noise_estimator=unet)
+    with pytest.raises(SystemExit):
+        train_diffusion.main(["--preset", "smoke", "--device", "cpu",
+                              "--zero-terminal-snr"])
 
 
 # ---- data and CLI ------------------------------------------------------------
@@ -341,8 +347,10 @@ def test_synthetic_data_and_batches_match_jax():
 
 @pytest.mark.parametrize("flags", [[], ["--attention", "spatial", "--attention-heads", "2",
                                         "--use-ema", "--bf16", "--objective", "v",
-                                        "--lr-schedule", "cosine"]],
-                         ids=["defaults", "spatial-bf16-ema"])
+                                        "--lr-schedule", "cosine"],
+                                   ["--objective", "v", "--zero-terminal-snr",
+                                    "--min-snr-gamma", "5"]],
+                         ids=["defaults", "spatial-bf16-ema", "v-zero_snr-min_snr"])
 def test_train_cli_runs_on_cpu(flags, capsys):
     state, losses, _ = train_diffusion.main(["--preset", "smoke", "--device", "cpu",
                                           "--max-steps", "2", *flags])
