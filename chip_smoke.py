@@ -71,7 +71,19 @@ Phases (each raises on failure, so any failure exits non-zero):
     samples/s, each run's launches held to the counts derived from the
     module structure; one full-option training step (v, zero-terminal-SNR,
     Min-SNR 5, self-conditioning, learned variance, deep supervision) with
-    its bf16 gradients against f32 and its ms beside the plain step's.
+    its bf16 gradients against f32 and its ms beside the plain step's;
+12. evaluation (slice 11), f32: InceptionV3, LPIPS (and its gradient,
+    with two planted faults the check must flag), MS-SSIM and
+    precision/recall on the card against the CPU; ``cli.evaluate_images``
+    between a tree of grey 320x288 PNGs and a tree of chest samples from
+    ``cli.sample_dataset``, and between that tree and one that overlaps it
+    by half (its seconds, images/s, FID and precision/recall, and the same
+    metrics from the CPU's features); the stored networks held to their
+    sources key by key; precision/recall at 10k + 10k x 2048, chunked and not;
+    ``cli.ingest_weights`` of seeded torchvision-layout files,
+    ``cli.train_autoencoder --lpips`` plain and ``--gan`` (launches, ms a
+    step, peak memory), ``cli.evaluate_latent_embedder`` and ``cli.helpers
+    latent-stats`` on its checkpoint.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -270,6 +282,35 @@ DATASET_CHUNK = 32
 DATASET_RUNS = (("ddim-150", ["--steps-list", "150"], 150),
                 ("dpmpp-25", ["--sampler", "dpmpp", "--steps-list", "25"], 25))
 OPT_TRAIN_STEPS = 3
+# The evaluation stack (phase 12), f32, TF32 off. Card against CPU: the
+# featuriser's features within EVAL_TOL["inception"] x max|f|, LPIPS and
+# its gradient within EVAL_TOL["lpips"] (relative; the gradient of its
+# max), MS-SSIM within EVAL_TOL["ms_ssim"], precision/recall equal or
+# within 2/N. cli.evaluate_images on EVAL_IMAGES grey 320x288 PNGs against
+# as many chest samples (cli.sample_dataset, DPM++ 25, B=32: chunks of 32,
+# 32 and 11 a label) in batches of EVAL_BATCH (a ragged last batch on each
+# side), then against as many PNGs that overlap it by half (precision and
+# recall strictly between 0 and 1, where the first pair's are 0); FID from
+# the CPU's features within EVAL_TOL["fid"] (relative). Precision/recall at the reference protocol's 10k samples a set of 2048-d
+# features (a 16-d manifold projected, plus noise), chunked against not.
+# The featuriser, VGG16 and the distance products launch no GroupNorm; the
+# VAE's encode and decode launch 8 each.
+EVAL_IMAGES, EVAL_BATCH = 150, 100
+EVAL_TOL = {"inception": 1e-3, "lpips": 1e-4, "ms_ssim": 1e-5, "fid": 1e-2}
+# LPIPS' gradient at 256^2 is ill-conditioned in f32: ReLU and max-pool
+# switch points make it piecewise, and the unit normalisation amplifies a
+# flip at a small feature; the CPU's own f32 gradient departs from its f64
+# one by ~1e-2 of max|g| and ~1e-3 in L2 (and a 1e-6 relative change of
+# the weights moves the f64 gradient by 3e-2 of its max). So the gradient
+# is held at EVAL_TOL["lpips"] in f64 (card against CPU), and in f32 by its
+# L2 departure from the CPU's f64 gradient. On an H100 (700 W) the card's
+# f32 read 9.4e-4 and the CPU's own 1.09e-3, while two planted faults read
+# 4.5e-2 (TF32 convolutions) and 0.31 (the fifth VGG stage left out); the
+# limit sits between, and every run measures both faults again and fails
+# unless each exceeds it.
+LPIPS_F32_GRAD_L2 = 5e-3
+PR_N, PR_DIM, PR_MANIFOLD = 10_000, 2048, 16
+LPIPS_CLI_STEPS, EVAL_LE_BATCH, LATENT_STATS_N = 2, 32, 8
 
 
 def log(msg):
@@ -1350,10 +1391,11 @@ def phase_train_breakdown(train, step_ms):
         f"{by_kind['optimizer']:.1f} ms")
 
 
-def write_chexpert_tree(root, n, side, seed):
+def write_chexpert_tree(root, n, side, seed, first=0):
     """A CheXpert_2 tree as ``CheXpert_2_Dataset`` reads it: the two label
     CSVs (labels 0 and 1 only) and ``n`` seeded 8-bit grey PNGs of ``side``
-    (H, W), smooth with noise, with all five row filters."""
+    (H, W), smooth with noise, with all five row filters. Image i's smooth
+    part is member ``first + i`` of a one-parameter family of waves."""
     import numpy as np
 
     from medfusion_tpu_torch.data.png import write_png
@@ -1367,7 +1409,7 @@ def write_chexpert_tree(root, n, side, seed):
         path = f"CheXpert-v1.0/train/patient{i:05d}/study1/view1_frontal.jpg"
         rows.append(f"{path},{i + 1},train")
         truth.append(f"{path},Frontal,{float(i % 2)}")
-        img = (128 + 60 * np.sin(xx / (9 + i)) * np.cos(yy / 13)
+        img = (128 + 60 * np.sin(xx / (9 + first + i)) * np.cos(yy / 13)
                + rng.normal(0, 12, side)).clip(0, 255).astype(np.uint8)
         write_png(root / "data" / f"{i + 1:06d}.png", img, filters=(0, 1, 2, 3, 4))
     (root / "labels" / "cheXPert_label.csv").write_text("\n".join(rows) + "\n")
@@ -1891,8 +1933,9 @@ def gan_recompute_ms(G):
     return gn_recompute_ms(G) + total
 
 
-def gan_step_setup(p, disc, start, model="vae"):
-    """A chest GANTrainState on the card (seeded) and its step function."""
+def gan_step_setup(p, disc, start, model="vae", perceiver=None):
+    """A chest GANTrainState on the card (seeded) and its step function;
+    ``perceiver`` adds the LPIPS term."""
     import torch
 
     from medfusion_tpu_torch.cli.presets import build_discriminators, build_vae
@@ -1908,7 +1951,7 @@ def gan_step_setup(p, disc, start, model="vae"):
         vae, discs = build_vae(p, model), build_discriminators(p, disc)
     state = GANTrainState(vae, discs, lr=1e-6)
     step = make_adversarial_train_step(AdversarialTrainer(
-        AutoencoderTrainer(vae, flavor=model, pixel_loss=p.ae_loss,
+        AutoencoderTrainer(vae, flavor=model, pixel_loss=p.ae_loss, perceiver=perceiver,
                            embedding_loss_weight=p.ae_embedding_loss_weight),
         discs, start_gan_train_step=start))
     return state, step
@@ -2359,6 +2402,446 @@ def phase_option_training(ops):
     return ms
 
 
+def perturb_bn_(module, gen):
+    """Move every BatchNorm's statistics and affine off their init (the
+    variances stay in [0.5, 1.5])."""
+    import torch
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+                m.weight.copy_(1 + 0.1 * torch.randn(c, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(c, generator=gen))
+
+
+def close_rel(name, out, ref, rel):
+    """``out`` against ``ref`` within ``rel`` x max|ref|; returns the error."""
+    limit = rel * ref.abs().max().item()
+    err = close(name, out.cpu(), ref.cpu(), limit, 0.0)
+    log(f"  {name}: max|d| {err:.3e} (limit {rel:g} x max|ref| = {limit:.3e})")
+    return err
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 for cuDNN's convolutions and cuBLAS's products inside; the
+    script runs with both off."""
+    import torch
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def pr_close(name, got, want, n):
+    log(f"  {name}: precision/recall {got} vs {want} (limit 2/N = {2 / n:.2e})")
+    if any(abs(a - b) > 2 / n for a, b in zip(got, want)):
+        raise RuntimeError(f"{name}: precision/recall {got} departs from {want}")
+
+
+def phase_eval_vs_cpu():
+    """Phase 12a: the evaluation networks on the card against the CPU at
+    their full widths, f32: InceptionV3 (random He convs, BatchNorm moved)
+    on 4 uint8 256^2 images through the 299^2 resize; LPIPS of 4 pairs at
+    256^2 (a seeded random VGG16) and its gradient with respect to pred (in
+    f64, and in f32 by LPIPS_F32_GRAD_L2, which two planted faults must
+    exceed); MS-SSIM at 256^2;
+    precision/recall of 512 + 512 seeded features."""
+    import copy
+
+    import torch
+
+    from medfusion_tpu_torch.losses import LPIPS, ms_ssim
+    from medfusion_tpu_torch.metrics import InceptionV3, precision_recall
+
+    gen = torch.Generator().manual_seed(12)
+    torch.manual_seed(12)
+    inc = InceptionV3().eval()
+    perturb_bn_(inc, gen)
+    x = torch.randint(0, 256, (4, 3, 256, 256), generator=gen, dtype=torch.uint8)
+    with torch.no_grad():
+        ref = inc(x)
+        out = copy.deepcopy(inc).cuda()(x.cuda())
+    close_rel("InceptionV3 features, 4 x 256^2 -> 299^2", out, ref, EVAL_TOL["inception"])
+
+    lpips = LPIPS().eval().requires_grad_(False)
+    pred = (torch.rand((4, 3, 256, 256), generator=gen) * 2 - 1)
+    target = (pred + 0.3 * torch.randn(pred.shape, generator=gen)).clamp(-1, 1)
+    weights = torch.arange(1.0, 5.0).reshape(-1, 1, 1, 1)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        for dtype in (torch.float32, torch.float64):
+            net = copy.deepcopy(lpips).to(dev, dtype)
+            p = pred.to(dev, dtype).detach().requires_grad_(True)
+            val = net(p, target.to(dev, dtype))
+            (val * weights.to(dev, dtype)).sum().backward()
+            res[dev, dtype] = (val.detach().cpu().double(), p.grad.cpu().double())
+    f32, f64 = torch.float32, torch.float64
+    close_rel("LPIPS, 4 pairs at 256^2, f32", res["cuda", f32][0], res["cpu", f32][0],
+              EVAL_TOL["lpips"])
+    close_rel("LPIPS gradient w.r.t. pred, f64", res["cuda", f64][1], res["cpu", f64][1],
+              EVAL_TOL["lpips"])
+    ref = res["cpu", f64][1]
+
+    def departure(grad):
+        return ((grad - ref).norm() / ref.norm()).item()
+
+    # two wrong results the f32 check must flag: TF32 convolutions, and
+    # the fifth VGG stage left out of the sum
+    def card_f32_grad(net):
+        p = pred.cuda().detach().requires_grad_(True)
+        (net(p, target.cuda()) * weights.cuda()).sum().backward()
+        return p.grad.cpu().double()
+
+    with tf32_on():
+        tf32 = departure(card_f32_grad(copy.deepcopy(lpips).cuda()))
+    four = copy.deepcopy(lpips).cuda()
+    four_stages = four.vgg.forward
+    four.vgg.forward = lambda x: four_stages(x)[:4]
+    dropped = departure(card_f32_grad(four))
+    own, card = departure(res["cpu", f32][1]), departure(res["cuda", f32][1])
+    log(f"  LPIPS gradient w.r.t. pred, f32 against the CPU's f64: |d|_2/|g|_2 card {card:.3e}, "
+        f"CPU {own:.3e} (limit {LPIPS_F32_GRAD_L2}; max|d| card "
+        f"{(res['cuda', f32][1] - ref).abs().max().item() / ref.abs().max().item():.3e} of "
+        f"max|g|); the planted faults: TF32 convolutions {tf32:.3e}, stage 5 left out "
+        f"{dropped:.3e}")
+    if not card <= LPIPS_F32_GRAD_L2:
+        raise RuntimeError(f"the card's f32 LPIPS gradient departs by {card} in L2")
+    if not min(tf32, dropped) > LPIPS_F32_GRAD_L2:
+        raise RuntimeError(f"the f32 LPIPS gradient check misses a planted fault: TF32 "
+                           f"{tf32}, stage 5 left out {dropped}")
+
+    a, b = torch.rand((4, 3, 256, 256), generator=gen), torch.rand((4, 3, 256, 256), generator=gen)
+    b = (0.7 * a + 0.3 * b).clamp(0, 1)
+    ref = ms_ssim(a, b, size_average=False)
+    err = (ms_ssim(a.cuda(), b.cuda(), size_average=False).cpu() - ref).abs().max().item()
+    log(f"  MS-SSIM at 256^2: {ref.tolist()}, max|d| {err:.3e} (limit {EVAL_TOL['ms_ssim']})")
+    if not err <= EVAL_TOL["ms_ssim"]:
+        raise RuntimeError(f"MS-SSIM departs by {err}")
+
+    real, fake = pr_features(512, gen)
+    want = [float(v) for v in precision_recall(real, fake)]
+    got = [float(v) for v in precision_recall(real.cuda(), fake.cuda())]
+    pr_close("precision/recall, 512 + 512 features", got, want, 512)
+
+
+def pr_features(n, gen, device="cpu"):
+    """(real, fake) [n, PR_DIM] f32: points of a PR_MANIFOLD-d Gaussian,
+    the fake one wider and shifted, projected to PR_DIM plus noise."""
+    import torch
+
+    kw = dict(generator=gen, device=device)
+    proj = torch.randn((PR_MANIFOLD, PR_DIM), **kw) / PR_MANIFOLD ** 0.5
+    real = torch.randn((n, PR_MANIFOLD), **kw) @ proj + 0.05 * torch.randn((n, PR_DIM), **kw)
+    fake = ((1.15 * torch.randn((n, PR_MANIFOLD), **kw) + 0.15) @ proj
+            + 0.05 * torch.randn((n, PR_DIM), **kw))
+    return real, fake
+
+
+def phase_evaluate_images(ops, tmp):
+    """Phase 12b: ``cli.evaluate_images`` between a real tree (grey 320x288
+    PNGs in the CheXpert_2 layout) and a fake tree of chest samples written
+    by ``cli.sample_dataset``, batch EVAL_BATCH; its seconds, FID and
+    precision/recall, and the same metrics from the CPU's features of the
+    same images. The random featuriser parts those two sets completely
+    (precision and recall 0), so the CLI then also compares the real tree
+    with a second one whose images continue its family of waves from its
+    middle on: manifolds that overlap by half, where precision and recall
+    must lie strictly between 0 and 1 before they are held to the CPU's.
+    Returns the real tree (phase 12d trains on it) and the report."""
+    import os
+
+    import torch
+
+    from medfusion_tpu_torch.cli import evaluate_images, sample_dataset
+    from medfusion_tpu_torch.metrics import InceptionV3
+
+    os.environ["MEDFUSION_WEIGHTS_DIR"] = str(tmp / "no_weights")
+    real, fake, overlap = tmp / "real", tmp / "fake", tmp / "overlap"
+    t0 = time.perf_counter()
+    write_chexpert_tree(real, EVAL_IMAGES, TWO_STAGE_SIDE, seed=3)
+    write_chexpert_tree(overlap, EVAL_IMAGES, TWO_STAGE_SIDE, seed=4, first=EVAL_IMAGES // 2)
+    log(f"  wrote 2 x {EVAL_IMAGES} grey {TWO_STAGE_SIDE[0]}x{TWO_STAGE_SIDE[1]} PNGs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    per_label = EVAL_IMAGES // 2
+    chunks = -(-per_label // DATASET_CHUNK)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sample_dataset.main(["--preset", "chest", "--sampler", "dpmpp", "--steps-list", "25",
+                         "--chunk", str(DATASET_CHUNK), "--n-samples", str(per_label),
+                         "--out", str(fake)])
+    check_counts(f"cli.sample_dataset DPM++ 25, 2 labels x {per_label}", ops.launch_counts(),
+                 option_expected(25, samplings=2 * chunks))
+    log(f"  fake tree: {2 * per_label} chest samples in {time.perf_counter() - t0:.1f} s")
+
+    nets = {}
+    feats = {}
+
+    def cpu_features(folder):
+        """The tree's features on the CPU, held to the card's from the same
+        weights (taken after the CLI's first run, so that it runs cold)."""
+        if not nets:
+            nets["cuda"] = evaluate_images.load_inception(torch.device("cuda"))
+            nets["cpu"] = InceptionV3()
+            nets["cpu"].load_state_dict({k: v.cpu() for k, v in nets["cuda"].state_dict().items()})
+            nets["cpu"].eval()
+        if folder not in feats:
+            got = {"cuda": [], "cpu": []}
+            for batch in evaluate_images.iter_uint8_batches(folder, EVAL_BATCH):
+                x = torch.from_numpy(batch).permute(0, 3, 1, 2).contiguous()
+                with torch.no_grad():
+                    got["cuda"].append(nets["cuda"](x.cuda()).cpu())
+                    got["cpu"].append(nets["cpu"](x))
+            got = {k: torch.cat(v) for k, v in got.items()}
+            close_rel(f"{folder.name} features, card vs CPU", got["cuda"], got["cpu"],
+                      EVAL_TOL["inception"])
+            feats[folder] = got["cpu"]
+        return feats[folder]
+
+    report = {}
+    for name, folder, n_fake in (("fake", fake, 2 * per_label),
+                                 ("overlap", overlap, EVAL_IMAGES)):
+        report[name] = evaluate_pair(ops, real, folder, tmp / f"metrics_{name}",
+                                     (EVAL_IMAGES, n_fake), cpu_features)
+    precision, recall = report["overlap"]["precision"], report["overlap"]["recall"]
+    if not (0 < precision < 1 and 0 < recall < 1):
+        raise RuntimeError(f"overlapping trees: precision {precision}, recall {recall}; "
+                           "the check needs both strictly between 0 and 1")
+    return real, report
+
+
+def evaluate_pair(ops, real, fake, out, counts, cpu_features):
+    """``cli.evaluate_images`` on the card between ``real`` and ``fake``: its
+    image counts, launches and seconds, and its FID and precision/recall
+    against the same metrics from the CPU's features of the same images
+    (``cpu_features(folder)``)."""
+    from medfusion_tpu_torch.cli import evaluate_images
+    from medfusion_tpu_torch.metrics import FrechetInceptionDistance, precision_recall
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = evaluate_images.main(["--real", str(real), "--fake", str(fake), "--batch-size",
+                                   str(EVAL_BATCH), "--out", str(out)])
+    wall = time.perf_counter() - t0
+    what = f"cli.evaluate_images {real.name} vs {fake.name}"
+    check_counts(what, ops.launch_counts(), {})
+    if (result["n_real"], result["n_fake"]) != counts:
+        raise RuntimeError(f"{what} counted {result['n_real']} + {result['n_fake']}")
+    rate = sum(counts) / result["seconds_featurize"]
+    log(f"  {what}: {wall:.1f} s; reading {result['seconds_read']:.2f} s, "
+        f"featurising {result['seconds_featurize']:.3f} s ({rate:.1f} images/s), FID and "
+        f"P/R {result['seconds_compute']:.2f} s; FID {result['FID']!r}, precision "
+        f"{result['precision']!r}, recall {result['recall']!r}")
+    real_cpu, fake_cpu = cpu_features(real), cpu_features(fake)
+    fid = FrechetInceptionDistance()
+    fid.update(real_cpu, real=True)
+    fid.update(fake_cpu, real=False)
+    fid_cpu = fid.compute()
+    rel = abs(fid_cpu - result["FID"]) / abs(fid_cpu)
+    log(f"  FID from the CPU's features {fid_cpu!r}: relative departure {rel:.2e} "
+        f"(limit {EVAL_TOL['fid']})")
+    if not rel <= EVAL_TOL["fid"]:
+        raise RuntimeError(f"{what}: FID {result['FID']} departs from the CPU's {fid_cpu}")
+    pr_close("P/R from the CPU's features", [result["precision"], result["recall"]],
+             [float(v) for v in precision_recall(real_cpu, fake_cpu)], min(counts))
+    return {**result, "images_per_s": rate, "fid_cpu": fid_cpu}
+
+
+def phase_pr_scale():
+    """Phase 12c: precision/recall of PR_N + PR_N x PR_DIM seeded features
+    on the card, in row chunks of 1024 and unchunked: equal results, the
+    seconds and the peak memory above the features of each."""
+    import torch
+
+    from medfusion_tpu_torch.metrics import precision_recall
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    real, fake = pr_features(PR_N, gen, "cuda")
+    precision_recall(real[:2048], fake[:2048], row_chunk=1024)  # warm-up
+    report = {}
+    for chunk in (1024, None):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pr = [float(v) for v in precision_recall(real, fake, row_chunk=chunk)]
+        seconds = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        report[chunk] = (pr, seconds, peak)
+        log(f"  P/R at {PR_N} + {PR_N} x {PR_DIM}, row_chunk {chunk}: {pr} in {seconds:.3f} s, "
+            f"peak memory {peak:.3f} GiB above the features")
+    if report[1024][0] != report[None][0]:
+        raise RuntimeError(f"chunked P/R {report[1024][0]} != unchunked {report[None][0]}")
+    return report
+
+
+def seeded_checkpoints(tmp):
+    """Seeded random torchvision-layout files: VGG16 (``features`` and a
+    small classifier) and a pytorch-fid InceptionV3 wrapper's state dict
+    (``blocks.N.M.`` keys, no ``num_batches_tracked``, the ``AuxLogits``
+    and ``fc`` heads)."""
+    import torch
+
+    from medfusion_tpu_torch.losses.lpips import VGG16Features
+    from medfusion_tpu_torch.metrics import InceptionV3
+    from medfusion_tpu_torch.metrics.inception import _PYTORCH_FID_BLOCKS
+
+    torch.manual_seed(21)
+    vgg = dict(VGG16Features().state_dict())
+    vgg["classifier.6.weight"], vgg["classifier.6.bias"] = torch.zeros(8, 16), torch.zeros(8)
+    names = {v: k for k, v in _PYTORCH_FID_BLOCKS.items()}
+    inc = {}
+    for k, v in InceptionV3().state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            module, rest = k.split(".", 1)
+            inc["blocks.{}.{}.{}".format(*names[module], rest)] = v
+    inc["AuxLogits.fc.weight"], inc["fc.weight"] = torch.zeros(1000, 768), torch.zeros(1008, 2048)
+    paths = {"vgg16": tmp / "vgg16-seeded.pth", "inception": tmp / "pt_inception-seeded.pth"}
+    torch.save(vgg, paths["vgg16"])
+    torch.save(inc, paths["inception"])
+    return paths, {"vgg16": vgg, "inception": inc}
+
+
+def phase_ingest_and_lpips(ops, tmp, root):
+    """Phase 12d: ``cli.ingest_weights`` of seeded torchvision-layout files
+    into a temporary store; ``cli.train_autoencoder --lpips`` at the chest
+    preset (B=8, f32), plain and ``--gan``, with its launches; the --lpips
+    steps' ms, peak memory and GroupNorm launches; then
+    ``cli.evaluate_latent_embedder`` and ``cli.helpers latent-stats`` on the
+    plain run's checkpoint."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from medfusion_tpu_torch.cli import (
+        evaluate_latent_embedder,
+        helpers,
+        ingest_weights,
+        train_autoencoder,
+    )
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset, build_vae
+    from medfusion_tpu_torch.data.png import read_png
+    from medfusion_tpu_torch.losses.lpips import frozen_lpips
+    from medfusion_tpu_torch.metrics.inception import fid_state_dict
+    from medfusion_tpu_torch.train import TrainState
+    from medfusion_tpu_torch.train.autoencoder import (
+        AutoencoderTrainer,
+        make_autoencoder_train_step,
+    )
+    from medfusion_tpu_torch.utils import pretrained as P
+
+    p = PRESETS["chest"]
+    os.environ["MEDFUSION_WEIGHTS_DIR"] = str(tmp / "weights")
+    paths, sources = seeded_checkpoints(tmp)
+    for kind in ("vgg16", "inception"):
+        t0 = time.perf_counter()
+        out = ingest_weights.main([kind, "--src", str(paths[kind])])
+        stored = P.load_pretrained(out["name"])
+        # the source as the port's module holds it: VGG16's features; the
+        # InceptionV3 renamed to torchvision's modules, without its heads
+        want = (fid_state_dict(sources[kind]) if kind == "inception" else
+                {k: v for k, v in sources[kind].items() if k.startswith("features.")})
+        log(f"  cli.ingest_weights {kind}: {out['n_leaves']} tensors in "
+            f"{time.perf_counter() - t0:.1f} s, read back with its hash verified; "
+            f"params_sha256 {out['params_sha256'][:16]}")
+        if set(stored) != set(want) or not all(torch.equal(stored[k], want[k]) for k in want):
+            raise RuntimeError(f"the stored {kind} differs from its source, key by key")
+        if len(want) != {"vgg16": 26, "inception": 564}[kind]:
+            raise RuntimeError(f"the stored {kind} holds {len(want)} tensors")
+    report = {}
+    common = ["--preset", "chest", "--data-root", str(root), "--device", "cuda",
+              "--sample-every", "0"]
+    gn = GAN_GN_PER_STEP
+    runs = (("--lpips CLI", ["--max-steps", str(LPIPS_CLI_STEPS), "--out", str(tmp / "ae")],
+             LPIPS_CLI_STEPS * gn["off"]),
+            ("--lpips --gan CLI (conv)", ["--gan", "--start-gan-step", str(GAN_START),
+                                          "--max-steps", str(GAN_STEPS)],
+             gn["off"] + (GAN_STEPS - 1) * gn["conv"]))
+    for what, argv, expected in runs:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, losses = train_autoencoder.main([*common, "--lpips", *argv])
+        torch.cuda.synchronize()
+        check_counts(what, ops.launch_counts(), {"group_norm_silu": expected})
+        log(f"  {what}: {len(losses)} batches in {time.perf_counter() - t0:.1f} s with "
+            f"loading; losses {losses}")
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"{what}: losses {losses}")
+        del state
+        torch.cuda.empty_cache()
+
+    # the --lpips steps alone: launches a step, ms, peak memory, breakdown
+    ds = build_dataset(p, str(root))
+    batch = {"source": torch.from_numpy(np.stack([ds[i]["source"]
+                                                  for i in range(AE_BATCH)])).cuda()}
+    noise = torch.randn((AE_BATCH, *p.latent_shape), device="cuda")
+    perceiver = frozen_lpips(P.load_pretrained(P.VGG16), "cuda")
+
+    def setup(name):
+        if name == "gan":
+            return gan_step_setup(p, "conv", -1, perceiver=perceiver)
+        with torch.device("cuda"):
+            torch.manual_seed(0)
+            vae = build_vae(p)
+        return (TrainState(vae, lr=p.ae_lr, weight_decay=0.0),
+                make_autoencoder_train_step(AutoencoderTrainer(
+                    vae, pixel_loss=p.ae_loss, perceiver=perceiver,
+                    embedding_loss_weight=p.ae_embedding_loss_weight)))
+
+    for name in ("plain", "gan"):
+        state, step = setup(name)
+        ops.reset_launch_counts()
+        step(state, batch, noise)
+        torch.cuda.synchronize()
+        per = ops.launch_counts()["group_norm_silu"]
+        check_counts(f"--lpips step ({name})", ops.launch_counts(),
+                     {"group_norm_silu": gn["conv" if name == "gan" else "off"]})
+        ms, peak, wall, kinds = step_ms_and_breakdown(step, state, batch, noise, 5)
+        log(f"  --lpips {name} step (B={AE_BATCH}, f32, 256^2): {ms:.1f} ms/step, peak memory "
+            f"{peak:.2f} GiB, GroupNorm launches {per} a step; profiled step wall "
+            f"{wall:.1f} ms, {fmt_kinds(kinds)}")
+        report[f"lpips_{name}"] = (ms, peak, per)
+        del state, step
+        torch.cuda.empty_cache()
+    del batch, perceiver
+
+    ae = tmp / "ae"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = evaluate_latent_embedder.main([
+        "--preset", "chest", "--data-root", str(root), "--vae-ckpt", str(ae), "--batch-size",
+        str(EVAL_LE_BATCH), "--max-batches", "1", "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_counts("cli.evaluate_latent_embedder", ops.launch_counts(),
+                 {"group_norm_silu": 2 * VAE_GN_PER_DECODE})
+    log(f"  cli.evaluate_latent_embedder: a batch of {EVAL_LE_BATCH} in {seconds:.1f} s "
+        f"(loading included): {metrics}")
+    if metrics["n"] != EVAL_LE_BATCH or not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"evaluate_latent_embedder: {metrics}")
+    ops.reset_launch_counts()
+    stats = helpers.main(["latent-stats", "--preset", "chest", "--data-root", str(root),
+                          "--vae-ckpt", str(ae), "--n", str(LATENT_STATS_N),
+                          "--out", str(tmp / "latents")])
+    check_counts("cli.helpers latent-stats", ops.launch_counts(),
+                 {"group_norm_silu": 2 * VAE_GN_PER_DECODE})
+    hist = read_png(tmp / "latents" / "latent_hist.png")
+    grid = read_png(tmp / "latents" / "roundtrip.png")
+    log(f"  cli.helpers latent-stats: {stats}; latent_hist.png {hist.shape}, roundtrip.png "
+        f"{grid.shape}")
+    if not all(math.isfinite(v) for v in stats.values()):
+        raise RuntimeError(f"latent-stats: {stats}")
+    report.update(le_seconds=seconds, le_metrics=metrics, latent_stats=stats)
+    return report
+
+
 def kernel_row(name, source, replaces, launches, err, rows):
     """One entry of the kernels line: times summed over one launch at each
     of ``rows``' shapes."""
@@ -2462,6 +2945,15 @@ def main():
         option_report = phase_option_samplers(ops, Path(tmp))
         option_train_ms = phase_option_training(ops)
 
+    with tempfile.TemporaryDirectory(prefix="evaluation_") as tmp:
+        tmp = Path(tmp)
+        log("[12] evaluation: InceptionV3 FID and precision/recall, LPIPS and MS-SSIM, the "
+            "weight ingest and --lpips training, the helper CLIs (f32)")
+        phase_eval_vs_cpu()
+        real, eval_report = phase_evaluate_images(ops, tmp)
+        pr_report = phase_pr_scale()
+        lpips_report = phase_ingest_and_lpips(ops, tmp, real)
+
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
     attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
@@ -2512,7 +3004,10 @@ def main():
         f"{train_launches}; two-stage group_norm_silu: autoencoder CLI "
         f"{two_stage['ae_launches']}, diffusion CLI {two_stage['diff_launches']}, sample "
         f"CLI {two_stage['sample_launches']}; adversarial step group_norm_silu "
-        f"{adversarial['gan_launches']}")
+        f"{adversarial['gan_launches']}; slice 11 group_norm_silu: --lpips step "
+        f"{lpips_report['lpips_plain'][2]}, --lpips --gan step {lpips_report['lpips_gan'][2]}, "
+        f"evaluate_latent_embedder and latent-stats {2 * VAE_GN_PER_DECODE} a batch, "
+        f"evaluate_images 0")
     log("  wide heads (ms kernel / sdpa): " + ", ".join(
         f"N={r['N']} d={r['d']} {r['ms']:.4f}/{r['library_ms']:.4f}" for r in wide_rows))
     log("  slice 10 on the card: " + "; ".join(
@@ -2520,6 +3015,17 @@ def main():
         for k, r in option_report.items())
         + f"; full-option training step {option_train_ms['full-option']:.1f} ms, plain "
         f"{option_train_ms['plain']:.1f} ms")
+    log("  slice 11 on the card: " + "; ".join(
+        f"real vs {k}: featurising {r['images_per_s']:.1f} images/s, FID {r['FID']!r} (CPU "
+        f"features {r['fid_cpu']!r}), precision {r['precision']!r}, recall {r['recall']!r}"
+        for k, r in eval_report.items()) + f"; P/R at {PR_N} + "
+        f"{PR_N}: " + ", ".join(f"row_chunk {c}: {r[1]:.3f} s, {r[2]:.3f} GiB"
+                                for c, r in pr_report.items())
+        + f"; --lpips step {lpips_report['lpips_plain'][0]:.1f} ms (phase 9's plain step "
+        f"{two_stage['ae_ms']:.1f}), --lpips --gan step {lpips_report['lpips_gan'][0]:.1f} ms "
+        f"(phase 10's {adversarial['gan_ms']:.1f}), peak {lpips_report['lpips_plain'][1]:.2f} / "
+        f"{lpips_report['lpips_gan'][1]:.2f} GiB; evaluate_latent_embedder "
+        f"{lpips_report['le_seconds']:.1f} s")
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

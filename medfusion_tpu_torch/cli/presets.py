@@ -11,6 +11,7 @@ smoke  — tiny everything, for tests
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -86,6 +87,28 @@ def build_vae(p: Preset, kind: str = "vae"):
     return VAE(**common)
 
 
+@contextlib.contextmanager
+def seeded(dev: torch.device, seed: int):
+    """Modules built inside are on ``dev`` with torch's initialisation seeded
+    by ``seed``; the caller's generators are left as they were."""
+    fork = [dev] if dev.type == "cuda" else []
+    with torch.random.fork_rng(devices=fork), torch.device(dev):
+        torch.manual_seed(seed)
+        yield
+
+
+def load_vae(p: Preset, dev: torch.device, seed: int, vae_ckpt=None):
+    """The preset's VAE on ``dev`` in eval mode: restored from ``vae_ckpt``
+    (``utils/checkpoint.py::restore_ae_params``), else as seeded by ``seed``."""
+    from medfusion_tpu_torch.utils.checkpoint import restore_ae_params
+
+    with seeded(dev, seed):
+        vae = build_vae(p)
+    if vae_ckpt:
+        restore_ae_params(vae_ckpt, vae)
+    return vae.eval()
+
+
 def build_discriminators(p: Preset, disc: str = "conv"):
     """One discriminator for each pyramid level of the preset's autoencoder
     (``ae_deep_supervision + 1``), in an ``nn.ModuleList``: 'conv', the
@@ -145,9 +168,7 @@ def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params=N
     from medfusion_tpu_torch.utils.weights import load_jax_params
 
     dev = resolve_device(device)
-    fork = [dev] if dev.type == "cuda" else []
-    with torch.random.fork_rng(devices=fork), torch.device(dev):
-        torch.manual_seed(seed)
+    with seeded(dev, seed):
         unet = build_unet(p, attention=attention, attn_heads=attn_heads)
         vae = build_vae(p)
     if unet_params is not None:

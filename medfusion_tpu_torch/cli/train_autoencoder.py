@@ -29,9 +29,12 @@ Usage:
   python -m medfusion_tpu_torch.cli.train_autoencoder --preset smoke \\
       --device cpu --max-steps 2 [--model vqvae] [--gan]
 
+``--lpips`` adds the reference's LPIPS term (weight 1, pyramid depths below
+2) with the VGG16 that ``cli.ingest_weights vgg16`` stored; without an
+ingested VGG16 it is refused, not trained against a random backbone.
+
 Without ``--device cpu`` it runs on the card and raises when there is none.
-Not ported yet: ``--lpips`` (needs VGG16 weights in the repository),
-``--model diffusers_kl|diffusers_vq`` (ROADMAP Queue 1).
+Not ported yet: ``--model diffusers_kl|diffusers_vq`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -50,8 +53,10 @@ from medfusion_tpu_torch.cli.presets import (
     build_dataset,
     build_discriminators,
     build_vae,
+    seeded,
 )
 from medfusion_tpu_torch.data import SimpleDataModule
+from medfusion_tpu_torch.losses.lpips import frozen_lpips
 from medfusion_tpu_torch.train import GANTrainState, TrainState, make_lr_schedule
 from medfusion_tpu_torch.train.adversarial import (
     AdversarialTrainer,
@@ -69,6 +74,7 @@ from medfusion_tpu_torch.train.loop import (
     step_generator,
 )
 from medfusion_tpu_torch.utils import checkpoint as C
+from medfusion_tpu_torch.utils import pretrained as P
 from medfusion_tpu_torch.utils.logging import MetricsWriter, save_image_grid
 from medfusion_tpu_torch.utils.resilience import run_with_auto_restore
 
@@ -89,7 +95,7 @@ def main(argv=None):
     ap.add_argument("--start-gan-step", type=int, default=50000,
                     help="optimizer steps (two a batch) before the adversarial terms")
     ap.add_argument("--lpips", action="store_true",
-                    help="the LPIPS perceptual term (not ported: needs VGG16 weights)")
+                    help="the LPIPS perceptual term (needs ingested VGG16 weights)")
     ap.add_argument("--max-steps", type=int, default=100000)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--ckpt-every", type=int, default=1000)
@@ -106,9 +112,11 @@ def main(argv=None):
                     help="on a crash, restart up to N times from the latest checkpoint")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.lpips:
-        ap.error("--lpips needs VGG16 weights, which the repository does not hold; "
-                 "the LPIPS term is not ported (ROADMAP Queue 1)")
+    if args.lpips and not P.artifact_path(P.VGG16).exists():
+        ap.error(f"--lpips needs ingested VGG16 weights (none under {P.weights_dir()}); "
+                 "run python -m medfusion_tpu_torch.cli.ingest_weights vgg16 --src "
+                 "vgg16-397923af.pth first — training against a random backbone is "
+                 "refused, not warned")
     if args.model.startswith("diffusers"):
         ap.error(f"--model {args.model}: the diffusers autoencoder family is not ported "
                  f"(ROADMAP Queue 1, item 7)")
@@ -124,14 +132,16 @@ def _train(args, resume: bool):
     p = PRESETS[args.preset]
     dev = resolve_device(args.device)
     batch_size = args.batch_size or p.ae_batch_size
-    fork = [dev] if dev.type == "cuda" else []
-    with torch.random.fork_rng(devices=fork), torch.device(dev):
-        torch.manual_seed(args.seed)
+    with seeded(dev, args.seed):
         vae = build_vae(p, args.model)
         discs = build_discriminators(p, args.disc) if args.gan else None
     quantized = args.model == "vqvae"
+    perceiver = None
+    if args.lpips:
+        perceiver = frozen_lpips(P.load_pretrained(P.VGG16), dev)
+        print(f"LPIPS perceptual loss on (ingested weights, {P.artifact_path(P.VGG16)})")
     trainer = AutoencoderTrainer(
-        vae, flavor=args.model, pixel_loss=p.ae_loss,
+        vae, flavor=args.model, pixel_loss=p.ae_loss, perceiver=perceiver,
         embedding_loss_weight=1.0 if quantized else p.ae_embedding_loss_weight)
     schedule = make_lr_schedule(args.lr_schedule, args.warmup_steps, args.max_steps)
     if args.gan:
@@ -148,7 +158,7 @@ def _train(args, resume: bool):
 
     out = None if args.out is None else Path(args.out)
     ckpt_dir = None if out is None else out / "checkpoints"
-    run_config = {"model": args.model, "gan": args.gan,
+    run_config = {"model": args.model, "gan": args.gan, "lpips": args.lpips,
                   "disc": args.disc if args.gan else None}
     if resume and C.latest_step(ckpt_dir) is not None:
         C.check_config(ckpt_dir, run_config, "--resume")

@@ -1,4 +1,4 @@
-"""SSIM on NCHW images (port of ``ssim`` in ``medfusion_tpu/losses/ssim.py``).
+"""SSIM and MS-SSIM on NCHW images (port of ``medfusion_tpu/losses/ssim.py``).
 
 The semantics of the ``pytorch_msssim`` package the reference trains with
 (``ssim(..., data_range=1, size_average=False, nonnegative_ssim=True)``): a
@@ -6,7 +6,8 @@ Gaussian window (11 taps, sigma 1.5) applied as two depthwise 1-D
 convolutions with VALID padding, K = (0.01, 0.03), each channel's map
 averaged over space, then over channels. As in the JAX package, an image
 smaller than the window takes the largest odd window that fits.
-Differentiable throughout. MS-SSIM is not ported.
+Differentiable throughout. MS-SSIM takes five scales with a 2x average pool
+(VALID: an odd side drops its last row) between them.
 """
 
 from __future__ import annotations
@@ -66,3 +67,24 @@ def ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
         s = torch.relu(s)
     s = s.mean(dim=1)
     return s.mean() if size_average else s
+
+
+# pytorch_msssim's window, constants and scale weights, as the reference calls it.
+_WIN_SIZE, _WIN_SIGMA, _K = 11, 1.5, (0.01, 0.03)
+_MS_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+
+
+def ms_ssim(x: torch.Tensor, y: torch.Tensor, size_average: bool = True) -> torch.Tensor:
+    """Multi-scale SSIM of NCHW images in [0, 1]: relu(cs) at every scale but
+    the last, relu(ssim) at the last, each raised to its weight and
+    multiplied; a scalar (``size_average``) or [B]."""
+    w = torch.tensor(_MS_WEIGHTS, dtype=x.dtype, device=x.device)
+    mcs = []
+    for i in range(len(_MS_WEIGHTS)):
+        s, cs = _ssim_per_channel(x, y, 1.0, _WIN_SIZE, _WIN_SIGMA, _K)
+        if i < len(_MS_WEIGHTS) - 1:
+            mcs.append(torch.relu(cs))
+            x, y = F.avg_pool2d(x, 2), F.avg_pool2d(y, 2)
+    stack = torch.stack(mcs + [torch.relu(s)])  # [levels, B, C]
+    out = torch.prod(stack ** w[:, None, None], dim=0).mean(dim=1)
+    return out.mean() if size_average else out

@@ -7,8 +7,10 @@ counts optimizer steps, two a batch.
 
 * Generator loss: at each pyramid level, rec_loss + gan_loss_weight * lambda
   * (-sum D_level(pred_level)) at levels below 2 once step >
-  start_gan_train_step, plus embedding_loss_weight * emb_loss. Its backward
-  reaches the whole generator. (The JAX package applies the adversarial term
+  start_gan_train_step, plus embedding_loss_weight * emb_loss. rec_loss
+  takes each level as a top level, as the reference's ``vae_img_loss``
+  does, so a perceiver's LPIPS term is in every level's rec and in the
+  lambda's gradient of it. Its backward reaches the whole generator. (The JAX package applies the adversarial term
   inside its lambda closure to the out head on a stop-gradient hidden state,
   so there only the out heads get the adversarial gradient; the port takes
   the reference's.)

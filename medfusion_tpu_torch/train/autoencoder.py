@@ -2,13 +2,15 @@
 ``medfusion_tpu/train/autoencoder.py``).
 
 The loss of each pyramid level is the elementwise pixel loss plus each
-image's (1 - SSIM) broadcast over its elements; each deep-supervision output
-is held against the target shrunk with 'nearest-exact'. The 'vae' flavour
+image's (1 - SSIM) and, with a ``perceiver`` (a frozen :class:`LPIPS`), each
+image's LPIPS (weight 1) at pyramid depths below 2, both broadcast over its
+elements; each deep-supervision output is held against the target shrunk
+with 'nearest-exact'. The 'vae' flavour
 (the reference's ``VAE.rec_loss``) sums each level's elements and divides by
 the batch; the 'vqvae' flavour (``VQVAE.rec_loss``) takes each level's mean,
 weighted by 1/2^i normalised to sum 1. Then ``embedding_loss_weight`` times
-the KL or the quantiser's commitment loss. Not ported: the perceptual
-(LPIPS) term, which waits for VGG16 weights in the repository.
+the KL or the quantiser's commitment loss. The perceiver's own weights take
+no gradient; the autoencoder's gradient flows through it.
 """
 
 from __future__ import annotations
@@ -49,20 +51,21 @@ class AutoencoderTrainer:
     autoencoder: torch.nn.Module
     flavor: str = "vae"
     pixel_loss: str = "l1"
-    perceiver: object = None
+    perceiver: Optional[torch.nn.Module] = None
     embedding_loss_weight: float = 1e-6
 
     def __post_init__(self):
         if self.flavor not in FLAVORS:
             raise ValueError(f"unknown autoencoder flavour {self.flavor!r}; expected one "
                              f"of {FLAVORS}")
-        if self.perceiver is not None:
-            raise NotImplementedError("the perceptual (LPIPS) loss is not ported yet (ROADMAP)")
         if self.pixel_loss not in ("l1", "l2"):
             raise ValueError(f"unknown pixel loss {self.pixel_loss!r}")
 
-    def _level_elems(self, pred, target):
-        return _pixel_elems(pred, target, self.pixel_loss) + ssim_loss_per_image(pred, target)
+    def _level_elems(self, pred, target, depth: int):
+        elems = _pixel_elems(pred, target, self.pixel_loss) + ssim_loss_per_image(pred, target)
+        if self.perceiver is not None and depth < 2:
+            elems = elems + self.perceiver(pred, target)
+        return elems
 
     def rec_loss(self, pred, pred_vertical, target):
         levels = [(pred, target)] + [
@@ -70,10 +73,10 @@ class AutoencoderTrainer:
             for pred_i in pred_vertical]
         if self.flavor == "vae":
             b = pred.shape[0]
-            return sum(self._level_elems(p, t).sum() / b for p, t in levels)
+            return sum(self._level_elems(p, t, i).sum() / b for i, (p, t) in enumerate(levels))
         weights = [1 / 2**i for i in range(len(levels))]
-        return sum(self._level_elems(p, t).mean() * (w / sum(weights))
-                   for (p, t), w in zip(levels, weights))
+        return sum(self._level_elems(p, t, i).mean() * (w / sum(weights))
+                   for i, ((p, t), w) in enumerate(zip(levels, weights)))
 
     def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
         """The autoencoder's training forward: (pred, deep-supervision

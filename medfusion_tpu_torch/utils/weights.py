@@ -159,3 +159,47 @@ def unflatten_npz(flat: Mapping[str, np.ndarray]) -> Dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.asarray(val)
     return tree
+
+
+# The evaluation networks (port of ``metrics/inception.py::convert_torch_inception``
+# and ``losses/lpips.py::convert_torch_vgg16``, in the other direction): the
+# port's modules carry the torch checkpoints' own key names (torchvision's
+# InceptionV3 and VGG16 ``features``), so a torch checkpoint loads with no
+# converter and the JAX package's flax params are what gets converted.
+_INCEPTION_BN = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+                 "bn_var": "running_var"}
+
+
+def jax_inception_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``InceptionV3``'s flax params (``Mixed_5b/branch1x1/conv/kernel``,
+    ``.../bn_scale|bn_bias|bn_mean|bn_var``) -> the port's state dict
+    (``Mixed_5b.branch1x1.conv.weight``, ``.bn.{weight,bias,running_mean,
+    running_var,num_batches_tracked}``)."""
+    out = {}
+    for path, val in _flatten(params):
+        stem, leaf = path.rsplit("/", 1)
+        arr = np.asarray(val, np.float32)
+        if leaf == "kernel":  # '<module>/conv/kernel', HWIO
+            out[stem.replace("/", ".") + ".weight"] = torch.from_numpy(
+                np.ascontiguousarray(np.transpose(arr, (3, 2, 0, 1))))
+        else:
+            bn = stem.replace("/", ".") + ".bn"
+            out[f"{bn}.{_INCEPTION_BN[leaf]}"] = torch.from_numpy(arr.copy())
+            out[f"{bn}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return out
+
+
+def jax_vgg16_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX LPIPS backbone's flax params (``conv_{idx}/kernel|bias``, under
+    ``vgg`` or bare) -> torchvision's ``features.{idx}.weight|bias``."""
+    params = params.get("vgg", params)
+    out = {}
+    for path, val in _flatten(params):
+        name, leaf = path.split("/")
+        idx = int(name.split("_")[1])
+        arr = np.asarray(val, np.float32)
+        if leaf == "kernel":
+            arr = np.ascontiguousarray(np.transpose(arr, (3, 2, 0, 1)))
+        kind = "weight" if leaf == "kernel" else "bias"
+        out[f"features.{idx}.{kind}"] = torch.from_numpy(arr.copy())
+    return out

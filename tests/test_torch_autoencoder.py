@@ -140,13 +140,15 @@ def test_autoencoder_loss_and_metrics_match_jax(fixed_noise, pixel_loss):
 
 
 def test_autoencoder_refuses_what_is_not_ported():
-    """LPIPS waits for VGG16 weights; an unknown flavour is refused (the
-    'vqvae' flavour runs: tests/test_torch_vqvae.py)."""
+    """An unknown flavour is refused (the 'vqvae' flavour runs:
+    tests/test_torch_vqvae.py); an LPIPS perceiver is taken (its loss:
+    tests/test_torch_lpips.py)."""
+    from medfusion_tpu_torch.losses import LPIPS
+
     _, _, vae = _pair()
     with pytest.raises(ValueError, match="flavour"):
         AutoencoderTrainer(vae, flavor="vq")
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        AutoencoderTrainer(vae, perceiver=object())
+    assert isinstance(AutoencoderTrainer(vae, perceiver=LPIPS()).perceiver, LPIPS)
     assert AutoencoderTrainer(vae, flavor="vqvae").flavor == "vqvae"
 
 

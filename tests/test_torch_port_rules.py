@@ -11,6 +11,9 @@ import torch
 
 import medfusion_tpu_torch
 from medfusion_tpu_torch.cli import (
+    evaluate_images,
+    evaluate_latent_embedder,
+    helpers,
     presets,
     sample,
     sample_dataset,
@@ -62,21 +65,28 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert medfusion_tpu_torch.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("cli", [train_autoencoder, train_diffusion, sample, sample_dataset],
+@pytest.mark.parametrize("cli", [train_autoencoder, train_diffusion, sample, sample_dataset,
+                                 evaluate_images, evaluate_latent_embedder, helpers],
                          ids=["train_autoencoder", "train_diffusion", "sample",
-                              "sample_dataset"])
-def test_every_cli_defaults_to_the_card(monkeypatch, cli):
+                              "sample_dataset", "evaluate_images", "evaluate_latent_embedder",
+                              "helpers"])
+def test_every_cli_defaults_to_the_card(monkeypatch, tmp_path, cli):
     """Each CLI's --device defaults to cuda and raises without a card."""
     _without_cuda(monkeypatch)
-    argv = {sample: ["--steps", "1", "--n", "1"],
-            sample_dataset: ["--steps-list", "1", "--n-samples", "1"]}
+    argv = {sample: ["--preset", "smoke", "--steps", "1", "--n", "1"],
+            sample_dataset: ["--preset", "smoke", "--steps-list", "1", "--n-samples", "1"],
+            evaluate_images: ["--real", str(tmp_path), "--fake", str(tmp_path)],
+            evaluate_latent_embedder: ["--preset", "smoke"],
+            helpers: ["latent-stats", "--preset", "smoke"]}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(["--preset", "smoke", *argv.get(cli, ["--max-steps", "1"])])
+        cli.main(argv.get(cli, ["--preset", "smoke", "--max-steps", "1"]))
 
 
-def test_autoencoder_cli_runs_on_cpu(tmp_path, capsys):
-    """The plain VAE runs; what is not ported (LPIPS, the diffusers family)
-    is refused with a message that says why."""
+def test_autoencoder_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
+    """The plain VAE runs; what it cannot run is refused with a message that
+    says why: --lpips without ingested VGG16 weights (an empty store here),
+    the diffusers family (not ported)."""
+    monkeypatch.setenv("MEDFUSION_WEIGHTS_DIR", str(tmp_path / "no_weights"))
     state, losses = train_autoencoder.main(["--preset", "smoke", "--device", "cpu",
                                             "--max-steps", "2"])
     assert state.step == 2 and len(losses) == 2 and np.isfinite(losses).all()
