@@ -83,7 +83,20 @@ Phases (each raises on failure, so any failure exits non-zero):
     ``cli.ingest_weights`` of seeded torchvision-layout files,
     ``cli.train_autoencoder --lpips`` plain and ``--gan`` (launches, ms a
     step, peak memory), ``cli.evaluate_latent_embedder`` and ``cli.helpers
-    latent-stats`` on its checkpoint.
+    latent-stats`` on its checkpoint;
+13. the flow family and classifier guidance (slice 12): the smoke flow
+    pipeline's train loss and gradients, a Heun sample, the ODE inversion
+    and inpainting card against CPU (f32); the f32 attention kernels at the
+    classifier's shapes (1 head of 128 and 4 of 32 at 256 tokens, 4 of 32
+    at 257) against their plain versions and timed beside SDPA; the chest
+    classifier's logits and input gradient with both attending pools and
+    one classifier train step card against CPU, and the gradient check
+    shown to flag dq zeroed at d = 128; on phase 9's tree,
+    ``cli.train_diffusion --family flow`` (ms a step) and ``cli.sample
+    --family flow`` (Heun 25), ``cli.train_classifier`` with a resume, and
+    ``cli.sample --classifier-ckpt`` (DDIM 150 with each pool, DPM++ 25)
+    beside the unguided run (seconds, peak memory), each run's launches
+    held to the counts derived here.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -673,11 +686,12 @@ def phase_kernel_times(G):
     return rows
 
 
-def bounds(flops, nbytes, exp_ms=0.0):
+def bounds(flops, nbytes, exp_ms=0.0, flops_per_s=BF16_FLOPS_PER_S):
     """The card's least time for the work, in ms, and its two parts: the
-    operations (the tensor cores' bf16 FLOPs, or ``exp_ms``, the SFU's time
-    for the work's exponentials, whichever is longer) and the bytes."""
-    ops_ms = max(flops / BF16_FLOPS_PER_S * 1e3, exp_ms)
+    operations (the FLOPs at ``flops_per_s``, the tensor cores' bf16 peak by
+    default, or ``exp_ms``, the SFU's time for the work's exponentials,
+    whichever is longer) and the bytes."""
+    ops_ms = max(flops / flops_per_s * 1e3, exp_ms)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
@@ -2842,6 +2856,506 @@ def phase_ingest_and_lpips(ops, tmp, root):
     return report
 
 
+# The flow family and classifier guidance (phase 13). 13a, card against
+# CPU, f32: the smoke flow pipeline (spatial attention, one head) trained
+# and sampled at SMOKE_TOL, its train-step gradients within CLF_GRAD_TOL x
+# max|g|; the chest classifier (model channels 64 on the 32^2 x 8 latent)
+# with both attending pools, its logits at SMOKE_TOL, its input gradient
+# within CLF_GRAD_TOL x max|g|, and one classifier train step as phase 5's.
+# The classifier attends at 16^2 = 256 tokens of width 128: one head
+# (adaptive pool; d = 128) or 4 heads of 32 (attention pool,
+# num_head_channels 32), and its attention pool over 257 tokens (the mean
+# token prepended), 4 heads of 32: (N, C, heads), f32.
+CLF_ATTN_SHAPES = ((256, 128, 1), (256, 128, 4), (257, 128, 4))
+CLF_GRAD_TOL = 1e-4
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+CLF_CHANNELS = 64
+# 13b: the classifier gradient's check must flag dq zeroed at d = 128
+CLF_FAULT = ("dq zeroed at d=128, every head", "flash_attention_bwd_dq", 5, 128,
+             slice(None))
+# 13c: the flow program on phase 9's tree and autoencoder: cli.train_diffusion
+# --family flow (B=32, bf16, EMA; UNet forward + frozen encode a step), then
+# cli.sample --family flow --ckpt --ema: Heun 25 (2 x 25 - 1 UNet forwards,
+# CFG 8 batched), B=8, one decode, for each of 3 conditions
+FLOW_STEPS, FLOW_TRAIN_STEPS = 25, 3
+FLOW_GN_PER_CONDITION = (2 * FLOW_STEPS - 1) * UNET_GN_PER_FORWARD + VAE_GN_PER_DECODE  # 1674
+# 13d: cli.train_classifier (B=32, f32; VAE encode 8 GroupNorms, and each
+# classifier attention one token-layout forward, one dQ and one dK/dV a
+# step), a resume, then cli.sample --classifier-ckpt from phase 9's
+# diffusion run, B=8: (name, flags, UNet forwards a condition, classifier
+# attentions a forward); the classifier runs once a forward on the 2
+# labelled conditions, not on the unconditioned one
+CLF_TRAIN_STEPS, CLF_CKPT_EVERY = 3, 2
+GUIDED_RUNS = (("ddim-150-adaptive", [], STEPS, 1),
+               ("ddim-150-attention", ["--classifier-pool", "attention"], STEPS, 2),
+               ("dpmpp-25-adaptive", ["--sampler", "dpmpp", "--steps", "25"], 25, 1))
+
+
+def perturb_gn_(module, gen):
+    """The classifier's GroupNorm32 affines away from 1 and 0."""
+    import torch
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.GroupNorm):
+                m.weight.add_(0.1 * torch.randn(m.weight.shape, generator=gen))
+                m.bias.add_(0.1 * torch.randn(m.bias.shape, generator=gen))
+
+
+def close_scaled(name, out, ref):
+    """``out`` against ``ref`` within SMOKE_TOL x max(1, max|ref|), rtol
+    SMOKE_TOL (phases 5 and 11)."""
+    import torch
+
+    out, ref = out.float().cpu(), ref.float().cpu()
+    tol = SMOKE_TOL * max(1.0, ref.abs().max().item())
+    err = (out - ref).abs().max().item()
+    log(f"  {name}: max|d| {err:.3e} (tol {tol:.3e})")
+    torch.testing.assert_close(out, ref, atol=tol, rtol=SMOKE_TOL)
+    return err
+
+
+def grad_gap(out, ref):
+    """max |out - ref| over max |ref| (name -> tensor, or two tensors)."""
+    if isinstance(ref, dict):
+        top = max(r.abs().max().item() for r in ref.values())
+        return max((out[k].cpu() - r.cpu()).abs().max().item() for k, r in ref.items()) / top
+    return (out.cpu() - ref.cpu()).abs().max().item() / ref.abs().max().item()
+
+
+def phase_smoke_flow_vs_cpu():
+    """13a: the smoke flow pipeline (spatial attention, one head: d = 16 and
+    32; shift 2), f32, card against CPU from the same perturbed weights,
+    batch and draws: the train loss (rtol 1e-4) and its gradients (within
+    CLF_GRAD_TOL x max|g|); a Heun 4-step sample with CFG 3 (decoded), the
+    ODE inversion and inpainting with 2 resamplings at SMOKE_TOL."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline, build_train_pipeline
+
+    p = PRESETS["smoke"]
+    kw = dict(attention="spatial", attn_heads=1, seed=0, family="flow", flow_shift=2.0)
+    cpu = build_train_pipeline(p, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(13)
+    perturb_(cpu.noise_estimator, gen)
+    perturb_(cpu.latent_embedder, gen)
+    card = build_train_pipeline(p, device="cuda", **kw)
+    for part in ("noise_estimator", "latent_embedder"):
+        getattr(card, part).load_state_dict(getattr(cpu, part).state_dict())
+    b = p.diffusion_batch_size
+    batch = {"source": torch.rand((b, 32, 32, 3), generator=gen) * 2 - 1,
+             "target": torch.arange(b) % 2}
+    draws = cpu.train_draws(b, p.latent_shape, generator=gen)
+    draws["drop"] = torch.tensor(False)  # keep the labels
+    res = {}
+    for name, pipe in (("cpu", cpu), ("card", card)):
+        dev = pipe.device
+        loss, _ = pipe.train_loss({k: v.to(dev) for k, v in batch.items()},
+                                  {k: v.to(dev) for k, v in draws.items()})
+        names, params = zip(*pipe.noise_estimator.named_parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        res[name] = (loss.item(), {k: (torch.zeros_like(q) if g is None else g).cpu()
+                                   for k, q, g in zip(names, params, grads)})
+    gap = grad_gap(res["card"][1], res["cpu"][1])
+    log(f"  flow train loss card {res['card'][0]!r} vs cpu {res['cpu'][0]!r}; gradients "
+        f"max|d|/max|g| {gap:.3e} (limit {CLF_GRAD_TOL})")
+    if abs(res["card"][0] - res["cpu"][0]) > 1e-4 * abs(res["cpu"][0]) or gap > CLF_GRAD_TOL:
+        raise RuntimeError("the flow train loss departs on the card")
+
+    samplers = {}
+    for dev, src in (("cpu", cpu), ("cuda", card)):
+        pipe = build_pipeline(p, device=dev, **kw)
+        for part in ("noise_estimator", "latent_embedder"):
+            getattr(pipe, part).load_state_dict(getattr(src, part).state_dict())
+        samplers[dev] = pipe
+    x_T = torch.randn((4, *p.latent_shape), generator=gen)
+    known = torch.rand((4, *p.latent_shape), generator=gen) * 2 - 1
+    mask = torch.zeros((4, *p.latent_shape[:2], 1))
+    mask[:, :, :4] = 1.0
+    noise = torch.randn((4, 2, 2, 4, *p.latent_shape), generator=gen)
+    cond = torch.tensor([0, 1, 0, 1])
+    runs = {
+        "Heun 4-step sample": lambda s, d: s.denoise(x_T.to(d), condition=cond.to(d), steps=4,
+                                                     guidance_scale=3.0),
+        "ODE inversion": lambda s, d: s.invert(known.to(d), condition=cond.to(d), steps=4,
+                                               guidance_scale=3.0),
+        "inpainting, 2 resamplings": lambda s, d: s.sample_inpaint(
+            known.to(d), mask.to(d), condition=cond.to(d), x_T=x_T.to(d), noise=noise.to(d),
+            steps=4, resample_steps=2, decode=False),
+    }
+    for name, run in runs.items():
+        close_scaled(f"flow {name} card vs cpu", run(samplers["cuda"], "cuda"),
+                     run(samplers["cpu"], "cpu"))
+
+
+def classifier_pair(pool, gen):
+    """The chest classifier on the CPU and the card from the same perturbed
+    weights."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, seeded
+    from medfusion_tpu_torch.cli.train_classifier import build_classifier
+
+    p = PRESETS["chest"]
+    pair = {}
+    for dev in ("cpu", "cuda"):
+        with seeded(torch.device(dev), 0):
+            pair[dev] = build_classifier(p, CLF_CHANNELS, pool).eval()
+    perturb_(pair["cpu"], gen)
+    perturb_gn_(pair["cpu"], gen)
+    pair["cuda"].load_state_dict(pair["cpu"].state_dict())
+    return pair
+
+
+def classifier_grads(FA, pair, x, t, label):
+    """The classifier's input gradient on the CPU and on the card."""
+    from medfusion_tpu_torch.pipelines.diffusion import make_classifier_grad
+
+    return {dev: make_classifier_grad(clf, label.to(dev))(x.to(dev), t.to(dev))
+            for dev, clf in pair.items()}
+
+
+def phase_classifier_vs_cpu(FA, worst):
+    """13a and 13b: the f32 attention kernels at the classifier's shapes
+    against their plain versions (forward, both backward kernels, both
+    layouts; B=2); the chest classifier with each attending pool, card
+    against CPU (B=2): logits at SMOKE_TOL, the input gradient within
+    CLF_GRAD_TOL x max|g|; the same gradient check with dq zeroed at d =
+    128 (13b), which it must flag; one classifier train step (the
+    attention pool, on latents, B=4) with its loss, gradients and updated
+    weights as phase 5's."""
+    import torch
+
+    from medfusion_tpu_torch.core.schedules import GaussianDiffusionSchedule
+    from medfusion_tpu_torch.train import (
+        ClassifierTrainer,
+        TrainState,
+        make_classifier_train_step,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for n, c, heads in CLF_ATTN_SHAPES:
+        for kernel, err in check_attention(FA, n, n, c, heads, torch.float32, gen).items():
+            keep(worst, kernel, "float32", err)
+        for kernel, err in check_attention_backward(FA, n, n, c, heads, torch.float32,
+                                                    gen).items():
+            keep(worst, kernel, "float32", err)
+
+    cgen = torch.Generator().manual_seed(15)
+    x = torch.randn((2, 8, 32, 32), generator=cgen)
+    t = torch.tensor([3, 900])
+    label = torch.tensor([1, 0])
+    report = {}
+    for pool in ("adaptive", "attention"):
+        pair = classifier_pair(pool, cgen)
+        with torch.no_grad():
+            logits = {dev: clf(x.to(dev), t.to(dev)) for dev, clf in pair.items()}
+        close_scaled(f"classifier ({pool} pool) logits card vs cpu", logits["cuda"],
+                     logits["cpu"])
+        g = classifier_grads(FA, pair, x, t, label)
+        gap = grad_gap(g["cuda"], g["cpu"])
+        log(f"  classifier ({pool} pool) input gradient card vs cpu: max|d|/max|g| "
+            f"{gap:.3e} (limit {CLF_GRAD_TOL})")
+        if not gap <= CLF_GRAD_TOL:
+            raise RuntimeError(f"the classifier gradient departs on the card by {gap:.3e}")
+        report[pool] = gap
+        if pool == "adaptive":  # 13b: d = 128, one head
+            label_f, *fault = CLF_FAULT
+            with planted_fault(FA, *fault):
+                gf = classifier_grads(FA, {"cuda": pair["cuda"]}, x, t, label)["cuda"]
+            f_gap = grad_gap(gf, g["cpu"])
+            log(f"  [13b] planted fault, {label_f}: the classifier gradient departs by "
+                f"max|d|/max|g| {f_gap:.3e} (limit {CLF_GRAD_TOL}: flagged "
+                f"{f_gap > CLF_GRAD_TOL})")
+            if not f_gap > CLF_GRAD_TOL:
+                raise RuntimeError("the classifier gradient check misses dq zeroed at d=128")
+            report["fault"] = f_gap
+
+    pair = classifier_pair("attention", cgen)
+    sched = dict(timesteps=1000, schedule_strategy="scaled_linear", beta_start=0.002,
+                 beta_end=0.02)
+    b = 4
+    batch = {"source": torch.randn((b, 32, 32, 8), generator=cgen),
+             "target": torch.tensor([0, 1, 1, 0])}
+    draws = {"t": torch.randint(0, 1000, (b,), generator=cgen),
+             "eps": torch.randn((b, 32, 32, 8), generator=cgen)}
+    res = {}
+    for dev, clf in pair.items():
+        trainer = ClassifierTrainer(classifier=clf.train(), scheduler=GaussianDiffusionSchedule
+                                    .create(device=dev, **sched))
+        state = TrainState(clf, lr=3e-4, weight_decay=1e-4)
+        m = make_classifier_train_step(trainer)(
+            state, {k: v.to(dev) for k, v in batch.items()},
+            {k: v.to(dev) for k, v in draws.items()})
+        res[dev] = (m["loss"].item(), {k: q.grad.cpu() for k, q in clf.named_parameters()},
+                    dict(clf.named_parameters()))
+    gap = grad_gap(res["cuda"][1], res["cpu"][1])
+    log(f"  classifier train step card vs cpu: loss {res['cuda'][0]!r} vs {res['cpu'][0]!r}; "
+        f"gradients max|d|/max|g| {gap:.3e} (limit {CLF_GRAD_TOL})")
+    if abs(res["cuda"][0] - res["cpu"][0]) > 1e-4 * abs(res["cpu"][0]) or gap > CLF_GRAD_TOL:
+        raise RuntimeError("the classifier train step departs on the card")
+    close_settled("classifier params after 1 step", res["cuda"][2], res["cpu"][2],
+                  res["cpu"][1], 3e-4)
+    return report
+
+
+def close_settled(name, out, ref, grads, lr):
+    """Parameters after one AdamW step against ``ref``: each element within
+    2 lr, and within 1e-3 lr (+ 1e-6 relative) where the step is settled by
+    its gradient, |g| >= 1e-3 max|g|. Adam's first step moves an element by
+    lr g / (|g| + eps), ~lr sign(g); a gradient departure of dg (the
+    gradient check allows CLF_GRAD_TOL max|g|) moves it by lr eps dg / g^2,
+    under 1e-3 lr there for max|g| >= 1e-3. A smaller gradient (a key bias
+    under the softmax: zero but for rounding) may point either way."""
+    top = max(g.abs().max().item() for g in grads.values())
+    worst = worst_settled = 0.0
+    n_settled = n = 0
+    for k, r in ref.items():
+        d = (out[k].detach().float().cpu() - r.detach().float().cpu()).abs()
+        settled = grads[k].abs() >= 1e-3 * top
+        worst = max(worst, d.max().item())
+        excess = d - 1e-3 * lr - 1e-6 * r.detach().abs().cpu()
+        n_settled, n = n_settled + int(settled.sum()), n + d.numel()
+        if settled.any():
+            worst_settled = max(worst_settled, excess[settled].max().item())
+    log(f"  {name}: max|d| {worst:.3e} (limit {2 * lr:.1e}); the {n_settled / n:.2%} of "
+        f"elements settled by their gradient (max|g| {top:.3e}) "
+        f"{'within' if worst_settled <= 0 else 'beyond'} 1e-3 lr")
+    if top < 1e-3:
+        raise RuntimeError(f"{name}: max|g| {top} is too small for the settled test")
+    if not (worst <= 2 * lr and worst_settled <= 0):
+        raise RuntimeError(f"{name} departs: max {worst}, settled excess {worst_settled}")
+
+
+def clf_attention_times(FA, worst):
+    """13a: the f32 attention kernels at the classifier's shapes and the
+    guided sampler's batch (B=8, token layout): the forward and each
+    backward kernel (replayed graph of 20 launches) beside the plain
+    versions and SDPA's forward and backward (f32: no TF32), each held to
+    the plain version; bounds with float32's 67 TFLOP/s (the kernels run
+    f32 FMA, not TF32) and the SFU's exponentials."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    b = N_SAMPLES
+    exp_per_s = exp_rate()
+    rows = []
+    for n, c, heads in CLF_ATTN_SHAPES:
+        d = c // heads
+        scale = d ** -0.25
+        q, k, v, do = attn_inputs(b, n, n, c, torch.float32, gen) + (
+            torch.randn((b, n, c), generator=gen, device="cuda"),)
+        qh, kh, vh = (FA._heads(t, heads) for t in (q, k, v))
+        fwd = lambda: FA.flash_attention_tokens_cuda(q, k, v, heads, scale)  # noqa: E731
+        ref = FA.naive_attention_reference(qh, kh, vh, scale)[0]
+        keep(worst, "flash_attention_tokens", "float32",
+             close(f"attn f32 B={b} N={n} H={heads}", FA._heads(fwd()[0], heads), ref,
+                   *attn_o_tol(ref)))
+        ops, _ = bwd_operands(FA, q, k, v, heads, "tokens", do)
+        t_f = graph_ms(fwd, 20)
+        t_dq = graph_ms(lambda: FA.flash_attention_bwd_dq(ops, scale), 20)
+        t_dkv = graph_ms(lambda: FA.flash_attention_bwd_dkv(ops, scale), 20)
+        for kernel, err in check_bwd(FA, ops, scale, f"attn bwd f32 B={b} N={n}").items():
+            keep(worst, kernel, "float32", err)
+        oh, lse, doh, delta = ops[3], ops[8], ops[4], ops[9]
+        p_f = graph_ms(lambda: FA.naive_attention_reference(qh, kh, vh, scale), 3)
+        p_dq = graph_ms(lambda: FA.flash_attention_bwd_dq_reference(
+            qh, kh, vh, oh, lse, doh, scale), 3)
+        p_dkv = graph_ms(lambda: FA.flash_attention_bwd_dkv_reference(
+            qh, kh, vh, lse, doh, delta, scale), 3)
+        sc = torch.tensor(scale)
+        leaves = [(t * sc).detach().requires_grad_() for t in (qh, kh)] + [
+            vh.detach().requires_grad_()]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*leaves, scale=1.0)
+
+        l_f = graph_ms(sdpa, 10)
+        l_bwd = graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, doh), 10) - l_f
+        bh = b * heads
+        tok, stat = b * n * c * 4, bh * n * 4
+        exp_ms = bh * n * n / exp_per_s * 1e3
+        row = dict(B=b, N=n, C=c, H=heads, d=d)
+        for what, t_k, t_p, lib, flops, nbytes in (
+                ("forward", t_f, p_f, l_f, 4, 4 * tok + stat),
+                ("dQ", t_dq, p_dq, l_bwd, 6, 6 * tok + 2 * stat),
+                ("dK/dV", t_dkv, p_dkv, l_bwd, 8, 6 * tok + 2 * stat)):
+            flops *= bh * n * n * d
+            bd = bounds(flops, nbytes, exp_ms, flops_per_s=F32_FLOPS_PER_S)
+            row[what] = dict(ms=t_k, plain_ms=t_p, library_ms=lib, **bd)
+            log(f"  f32 attention {what} B={b} N={n} H={heads} d={d}: {t_k:.4f} ms, plain "
+                f"{t_p:.4f}, sdpa {'backward ' if what != 'forward' else ''}{lib:.4f}; bound "
+                f"{bd['bound_ms']:.4f} ms ({'operations' if bd['ops_ms'] >= bd['bytes_ms'] else 'bytes'}"
+                f"), {bd['bound_ms'] / t_k:.1%} of bound")
+        rows.append(row)
+        del q, k, v, do, ops, leaves
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sample_run(ops, sample, argv, expected, what):
+    """One cli.sample run on the card: its images, seconds and peak memory,
+    with the launches counted from zero and held to ``expected``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    images = sample.main([*argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_counts(what, ops.launch_counts(), expected)
+    for cond, imgs in images.items():
+        if imgs.shape != (N_SAMPLES, 256, 256, 3) or not math.isfinite(float(abs(imgs).max())):
+            raise RuntimeError(f"{what}: condition {cond} gave {imgs.shape} or non-finite")
+    log(f"  {what}: {N_SAMPLES} images x 3 conditions in {seconds:.3f} s, peak memory "
+        f"{peak:.3f} GiB")
+    return images, seconds, peak
+
+
+def phase_flow_program(ops, tmp, root):
+    """13c: the two-stage flow program on phase 9's tree and autoencoder,
+    chest at full width: cli.train_diffusion --family flow (B=32, bf16,
+    EMA; 42 GroupNorms a step) with the step's ms, then cli.sample --family
+    flow --ckpt --ema (Heun 25, CFG 8, B=8; 1,674 GroupNorms a condition)."""
+    import torch
+
+    from medfusion_tpu_torch.cli import sample, train_diffusion
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset
+    from medfusion_tpu_torch.train import make_flow_train_step
+
+    p = PRESETS["chest"]
+    ae, run = tmp / "ae", tmp / "flow"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, pipe = train_diffusion.main([
+        "--preset", "chest", "--data-root", str(root), "--vae-ckpt", str(ae), "--family",
+        "flow", "--out", str(run), "--bf16", "--use-ema", "--max-steps",
+        str(FLOW_TRAIN_STEPS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_counts("flow train CLI", ops.launch_counts(),
+                 {"group_norm_silu": (UNET_GN_PER_FORWARD + VAE_GN_PER_ENCODE)
+                  * FLOW_TRAIN_STEPS})
+    log(f"  flow train CLI: {FLOW_TRAIN_STEPS} steps at B={TRAIN_BATCH} (bf16, EMA) in "
+        f"{seconds:.1f} s with loading; losses {losses}")
+    if not all(math.isfinite(v) for v in losses) or state.step != FLOW_TRAIN_STEPS:
+        raise RuntimeError(f"flow training: step {state.step}, losses {losses}")
+    ds = build_dataset(p, str(root))
+    items = [ds[i] for i in range(TRAIN_BATCH)]
+    batch = {"source": torch.stack([torch.from_numpy(it["source"]) for it in items]).cuda(),
+             "target": torch.tensor([it["target"] for it in items]).cuda()}
+    draws = pipe.train_draws(TRAIN_BATCH, p.latent_shape,
+                             generator=torch.Generator(device="cuda").manual_seed(2))
+    step = make_flow_train_step(pipe, compute_dtype=torch.bfloat16)
+    ms, peak, wall, kinds = step_ms_and_breakdown(step, state, batch, draws, 3)
+    log(f"  flow train step (B={TRAIN_BATCH}, bf16, no attention): {ms:.1f} ms/step, peak "
+        f"memory {peak:.2f} GiB; profiled step wall {wall:.1f} ms, {fmt_kinds(kinds)}")
+    del state, pipe, step, batch, draws
+    torch.cuda.empty_cache()
+    _, s_seconds, s_peak = sample_run(
+        ops, sample, ["--preset", "chest", "--family", "flow", "--ckpt", str(run), "--ema",
+                      "--vae-ckpt", str(ae), "--steps", str(FLOW_STEPS), "--n", str(N_SAMPLES),
+                      "--out", str(tmp / "flow_samples")],
+        {"group_norm_silu": 3 * FLOW_GN_PER_CONDITION},
+        f"flow sample CLI (Heun {FLOW_STEPS}, CFG {GUIDANCE})")
+    return {"train_ms": ms, "train_peak": peak, "sample_s": s_seconds, "sample_peak": s_peak}
+
+
+def phase_classifier_program(ops, tmp, root):
+    """13d: cli.train_classifier on phase 9's tree and autoencoder (chest,
+    model channels 64, B=32, f32): CLF_TRAIN_STEPS steps with the launches
+    held, a resume from step CLF_CKPT_EVERY (its step-3 loss held to the
+    uninterrupted one's at 1e-6), a 2-step run with the attention pool;
+    then cli.sample from phase 9's diffusion run, B=8, unguided and with
+    each of GUIDED_RUNS, launches held, seconds and peak memory beside the
+    unguided run's; the unconditioned samples bit-equal to the unguided
+    run's, the labelled ones moved by the guidance."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from medfusion_tpu_torch.cli import sample, train_classifier
+    from medfusion_tpu_torch.utils import checkpoint as C
+
+    ae, diff = tmp / "ae", tmp / "diffusion"
+    clf, clf_b, clf_attn = tmp / "classifier", tmp / "classifier_resumed", tmp / "clf_attn"
+    common = ["--preset", "chest", "--data-root", str(root), "--vae-ckpt", str(ae),
+              "--device", "cuda", "--ckpt-every", str(CLF_CKPT_EVERY)]
+
+    def per_step(attn):
+        return {"group_norm_silu": VAE_GN_PER_ENCODE, "flash_attention_tokens": attn,
+                "flash_attention_bwd_dq": attn, "flash_attention_bwd_dkv": attn}
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses = train_classifier.main([*common, "--out", str(clf), "--max-steps",
+                                           str(CLF_TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_counts("classifier train CLI (adaptive pool)", ops.launch_counts(),
+                 {k: v * CLF_TRAIN_STEPS for k, v in per_step(1).items()})
+    log(f"  classifier train CLI: {CLF_TRAIN_STEPS} steps at B={TRAIN_BATCH} (f32) in "
+        f"{seconds:.1f} s with loading; losses {losses}")
+    if not all(math.isfinite(v) for v in losses) or state.step != CLF_TRAIN_STEPS:
+        raise RuntimeError(f"classifier training: step {state.step}, losses {losses}")
+    (clf_b / "checkpoints").mkdir(parents=True)
+    for name in (f"step_{CLF_CKPT_EVERY}.pt", C.CONFIG_FILE):
+        shutil.copy(clf / "checkpoints" / name, clf_b / "checkpoints" / name)
+    state_b, losses_b = train_classifier.main([*common, "--out", str(clf_b), "--max-steps",
+                                               str(CLF_TRAIN_STEPS), "--resume"])
+    final_a = C.load_payload(clf / "checkpoints")["state"]["model"]
+    final_b = C.load_payload(clf_b / "checkpoints")["state"]["model"]
+    d = max((final_a[k] - final_b[k]).abs().max().item() for k in final_a)
+    log(f"  classifier resume at step {CLF_CKPT_EVERY}: step {state_b.step}; step-"
+        f"{CLF_TRAIN_STEPS} loss {losses_b[0]!r} vs {losses[-1]!r}; weights after it "
+        f"max|d| = {d:.3e}")
+    if (state_b.step != state.step or len(losses_b) != 1
+            or abs(losses_b[0] - losses[-1]) > AE_RESUME_LOSS_RTOL * abs(losses[-1])):
+        raise RuntimeError(f"resumed classifier: step {state_b.step}, losses {losses_b}")
+    ops.reset_launch_counts()
+    train_classifier.main([*common, "--out", str(clf_attn), "--max-steps", "2", "--pool",
+                           "attention"])
+    check_counts("classifier train CLI (attention pool)", ops.launch_counts(),
+                 {k: v * 2 for k, v in per_step(2).items()})
+    del state, state_b
+    torch.cuda.empty_cache()
+
+    base = ["--preset", "chest", "--ckpt", str(diff), "--ema", "--vae-ckpt", str(ae),
+            "--n", str(N_SAMPLES)]
+    plain, p_s, p_peak = sample_run(
+        ops, sample, [*base, "--out", str(tmp / "unguided")],
+        {"group_norm_silu": 3 * (STEPS * UNET_GN_PER_FORWARD + VAE_GN_PER_DECODE)},
+        f"unguided sample CLI (DDIM {STEPS}, CFG {GUIDANCE})")
+    report = {"unguided": (p_s, p_peak)}
+    for name, flags, forwards, attn in GUIDED_RUNS:
+        ckpt = clf_attn if "attention" in flags else clf
+        images, s, peak = sample_run(
+            ops, sample, [*base, "--classifier-ckpt", str(ckpt), *flags,
+                          "--out", str(tmp / name)],
+            {"group_norm_silu": 3 * (forwards * UNET_GN_PER_FORWARD + VAE_GN_PER_DECODE),
+             "flash_attention_tokens": 2 * forwards * attn,
+             "flash_attention_bwd_dq": 2 * forwards * attn,
+             "flash_attention_bwd_dkv": 2 * forwards * attn},
+            f"guided sample CLI {name}")
+        report[name] = (s, peak)
+        if name.startswith("ddim-150"):
+            if not np.array_equal(images[None], plain[None]):
+                raise RuntimeError(f"{name}: the unconditioned samples moved")
+            moved = max(np.abs(images[c] - plain[c]).max() for c in (0, 1))
+            log(f"  {name}: unconditioned samples bit-equal to the unguided run's; the "
+                f"labelled ones moved by up to {moved:.3e}")
+            if not moved > 0:
+                raise RuntimeError(f"{name}: the guidance moved nothing")
+    log("  guided sampling against unguided (DDIM 150, B=8): " + "; ".join(
+        f"{k} {s:.3f} s, {peak:.3f} GiB" for k, (s, peak) in report.items()))
+    return report
+
+
 def kernel_row(name, source, replaces, launches, err, rows):
     """One entry of the kernels line: times summed over one launch at each
     of ``rows``' shapes."""
@@ -2926,8 +3440,8 @@ def main():
     del train
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory(prefix="two_stage_") as tmp:
-        tmp = Path(tmp)
+    with contextlib.ExitStack() as stack:  # phase 9's tree and runs serve phase 13
+        tmp = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="two_stage_")))
         root = tmp / "chexpert"
         t0 = time.perf_counter()
         write_chexpert_tree(root, TWO_STAGE_IMAGES, TWO_STAGE_SIDE, seed=0)
@@ -2938,21 +3452,30 @@ def main():
         log("[10] adversarial autoencoder and the VQVAE family: chest, PNG files, B=8, f32")
         adversarial = phase_adversarial(ops, G, worst, tmp, root)
 
-    with tempfile.TemporaryDirectory(prefix="options_") as tmp:
-        log("[11] the diffusion family's options: samplers, editing, zero-terminal-SNR, "
-            "self-conditioning, learned variance, deep supervision, Min-SNR")
-        phase_smoke_options_vs_cpu()
-        option_report = phase_option_samplers(ops, Path(tmp))
-        option_train_ms = phase_option_training(ops)
+        with tempfile.TemporaryDirectory(prefix="options_") as otmp:
+            log("[11] the diffusion family's options: samplers, editing, zero-terminal-SNR, "
+                "self-conditioning, learned variance, deep supervision, Min-SNR")
+            phase_smoke_options_vs_cpu()
+            option_report = phase_option_samplers(ops, Path(otmp))
+            option_train_ms = phase_option_training(ops)
 
-    with tempfile.TemporaryDirectory(prefix="evaluation_") as tmp:
-        tmp = Path(tmp)
-        log("[12] evaluation: InceptionV3 FID and precision/recall, LPIPS and MS-SSIM, the "
-            "weight ingest and --lpips training, the helper CLIs (f32)")
-        phase_eval_vs_cpu()
-        real, eval_report = phase_evaluate_images(ops, tmp)
-        pr_report = phase_pr_scale()
-        lpips_report = phase_ingest_and_lpips(ops, tmp, real)
+        with tempfile.TemporaryDirectory(prefix="evaluation_") as etmp:
+            etmp = Path(etmp)
+            log("[12] evaluation: InceptionV3 FID and precision/recall, LPIPS and MS-SSIM, "
+                "the weight ingest and --lpips training, the helper CLIs (f32)")
+            phase_eval_vs_cpu()
+            real, eval_report = phase_evaluate_images(ops, etmp)
+            pr_report = phase_pr_scale()
+            lpips_report = phase_ingest_and_lpips(ops, etmp, real)
+
+        log("[13] the flow family and classifier guidance: card against CPU (f32), the "
+            "classifier gradient's planted fault, the flow and classifier programs on "
+            "phase 9's tree")
+        phase_smoke_flow_vs_cpu()
+        clf_report = phase_classifier_vs_cpu(FA, worst)
+        clf_attn_rows = clf_attention_times(FA, worst)
+        flow_report = phase_flow_program(ops, tmp, root)
+        guided_report = phase_classifier_program(ops, tmp, root)
 
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
@@ -3026,6 +3549,16 @@ def main():
         f"(phase 10's {adversarial['gan_ms']:.1f}), peak {lpips_report['lpips_plain'][1]:.2f} / "
         f"{lpips_report['lpips_gan'][1]:.2f} GiB; evaluate_latent_embedder "
         f"{lpips_report['le_seconds']:.1f} s")
+    log(f"  slice 12 on the card: flow train step {flow_report['train_ms']:.1f} ms (B="
+        f"{TRAIN_BATCH}, bf16, {flow_report['train_peak']:.2f} GiB), flow sample Heun "
+        f"{FLOW_STEPS} {flow_report['sample_s']:.3f} s; classifier gradient card vs cpu "
+        f"{clf_report['adaptive']:.3e} / {clf_report['attention']:.3e} (adaptive / attention "
+        f"pool), planted dq fault {clf_report['fault']:.3e}; guided sampling " + "; ".join(
+            f"{k} {s:.3f} s {peak:.3f} GiB" for k, (s, peak) in guided_report.items())
+        + "; f32 attention at the classifier's shapes (B=8, ms kernel / plain / sdpa): "
+        + "; ".join(f"N={r['N']} H={r['H']} " + ", ".join(
+            f"{w} {r[w]['ms']:.4f}/{r[w]['plain_ms']:.4f}/{r[w]['library_ms']:.4f}"
+            for w in ("forward", "dQ", "dK/dV")) for r in clf_attn_rows))
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

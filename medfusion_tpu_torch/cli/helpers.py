@@ -25,11 +25,20 @@
 * ``img2img``: SDEdit of a dataset image at ``--strength``, DDIM eta 0,
   optionally toward ``--label`` under ``--guidance-scale``.
 
+``--family flow`` (with ``--flow-shift``) runs the last three on a
+flow-matching checkpoint, as the JAX CLI does: ``interpolate`` noises both
+latents to t = ``--strength`` on the straight path, lerps and integrates
+the ODE down (Heun, ``--steps``), or with ``--ddim-invert`` inverts both by
+the forward ODE and slerps; ``inpaint`` projects the kept region at each
+step and renoises ``--resample-steps`` times (``--jump-length`` has no flow
+analogue: a note says it is ignored); ``img2img`` jumps to t =
+``--strength`` on the path.
+
 The diffusion model is a port diffusion run (``--ckpt``, its EMA copy with
 ``--ema``) or seeded random weights; the VAE is ``--vae-ckpt`` or seeded
 random weights. All draws come from one generator seeded by ``--seed``.
-Refused, naming ROADMAP Queue 1: ``--family flow`` (item 3), an
-``--estimator`` other than ``unet`` (item 7), and the kernel switches
+Refused, naming ROADMAP Queue 1: an ``--estimator`` other than ``unet``
+(item 7), and the kernel switches
 ``--flash``, ``--fused-geglu`` and ``--fused-up`` (item 10): the port runs
 its hand-written kernels always.
 
@@ -60,6 +69,7 @@ from medfusion_tpu_torch.core import schedules as S
 from medfusion_tpu_torch.data.png import write_png
 from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw, _to_nhwc
+from medfusion_tpu_torch.pipelines.diffusion.editing import slerp
 from medfusion_tpu_torch.utils import checkpoint as C
 from medfusion_tpu_torch.utils.logging import save_image_grid, to_uint8
 
@@ -157,16 +167,19 @@ def export_images(args, dev):
 
 def load_pipeline(args, p, dev):
     """The helpers' pipeline: no input centering and no x0 clipping, as the
-    JAX CLI's ``load_pipeline``; float32."""
+    JAX CLI's ``load_pipeline``; the flow family's with ``--family flow``;
+    float32."""
+    family = getattr(args, "family", "diffusion")
     unet_state = None
     if args.ckpt:
         unet_state = load_unet_state(args.ckpt, args.ema, {
             "attention": args.attention, "attention_heads": args.attention_heads,
             "objective": "x_T", "latent_scale": 1.0, "latent_shift": 0.0,
-            "zero_terminal_snr": False})
+            "zero_terminal_snr": False, "family": family})
     pipe = build_pipeline(p, device=dev, seed=args.seed, attention=args.attention,
                           attn_heads=args.attention_heads, unet_state=unet_state,
-                          vae_ckpt=args.vae_ckpt)
+                          vae_ckpt=args.vae_ckpt, family=family,
+                          flow_shift=getattr(args, "flow_shift", 1.0))
     return dataclasses.replace(pipe, do_input_centering=False)
 
 
@@ -203,20 +216,6 @@ def export_gif(args, dev):
     print(f"wrote {out} ({len(frames)} frames)")
 
 
-def slerp(z1: torch.Tensor, z2: torch.Tensor, lams: torch.Tensor) -> torch.Tensor:
-    """Spherical interpolation of two noise tensors at a column of lambdas
-    [n, 1, 1, 1], a lerp where the ends are near parallel."""
-    f1, f2 = z1.reshape(-1), z2.reshape(-1)
-    cos = torch.dot(f1, f2) / (torch.linalg.vector_norm(f1) * torch.linalg.vector_norm(f2))
-    omega = torch.arccos(torch.clamp(cos, -1.0, 1.0))
-    so = torch.sin(omega)
-    if so > 1e-6:
-        w1, w2 = torch.sin((1.0 - lams) * omega) / so, torch.sin(lams * omega) / so
-    else:
-        w1, w2 = 1.0 - lams, lams
-    return w1 * z1 + w2 * z2
-
-
 def _save_row(args, name, rows, detail):
     out = Path(args.out)
     save_image_grid(np.stack(rows), out / name, nrow=len(rows))
@@ -237,7 +236,21 @@ def interpolate(args, dev):
     i_step = min(args.steps, p.timesteps - 1)
     lams = torch.linspace(0.0, 1.0, args.n, device=dev).reshape(-1, 1, 1, 1)
     with torch.no_grad():
-        if args.ddim_invert:
+        if args.family == "flow":
+            s = args.strength
+            if args.ddim_invert:  # the forward ODE, slerped in noise space
+                x = slerp(pipe.invert(z1, steps=args.steps), pipe.invert(z2, steps=args.steps),
+                          lams)
+                out = pipe.denoise(x, steps=args.steps)
+                tag = "ode-invert"
+            else:  # both noised once to t = strength on the path, lerped
+                x1t = (1.0 - s) * z1 + s * torch.randn(z1.shape, generator=gen, device=dev)
+                x2t = (1.0 - s) * z2 + s * torch.randn(z2.shape, generator=gen, device=dev)
+                out = pipe.denoise((1.0 - lams) * x1t + lams * x2t, steps=args.steps,
+                                   t_start=s)
+                tag = f"strength={s:g}"
+            detail = f"flow {tag}, {args.steps} steps"
+        elif args.ddim_invert:
             x = slerp(pipe.invert(z1, steps=i_step), pipe.invert(z2, steps=i_step), lams)
             out = pipe.denoise(x, steps=i_step, use_ddim=True, eta=0.0, generator=gen)
             detail = f"ddim-invert, {i_step} steps"
@@ -271,9 +284,17 @@ def inpaint(args, dev):
     x0, x1 = int(math.floor(fx0 * lw)), int(math.ceil(fx1 * lw))
     mask = torch.ones((1, lh, lw, 1), device=dev)  # 1 = keep
     mask[:, y0:y1, x0:x1, :] = 0.0  # 0 = generate
-    out = pipe.sample_inpaint(z, mask, steps=args.steps, use_ddim=True, eta=1.0,
-                              resample_steps=args.resample_steps,
-                              jump_length=args.jump_length, generator=gen)
+    if args.family == "flow":
+        # the flow resample always jumps one grid step
+        if args.jump_length != 1:
+            print("# note: --jump-length is a diffusion-family knob; the flow resample "
+                  "analog jumps one grid step (ignored)")
+        out = pipe.sample_inpaint(z, mask, steps=args.steps,
+                                  resample_steps=args.resample_steps, generator=gen)
+    else:
+        out = pipe.sample_inpaint(z, mask, steps=args.steps, use_ddim=True, eta=1.0,
+                                  resample_steps=args.resample_steps,
+                                  jump_length=args.jump_length, generator=gen)
     ih, iw = x.shape[1], x.shape[2]
     img_mask = np.ones((ih, iw, 1), np.float32)
     img_mask[int(fy0 * ih):int(fy1 * ih), int(fx0 * iw):int(fx1 * iw)] = 0.0
@@ -292,10 +313,15 @@ def img2img(args, dev):
     cond = None
     if args.label is not None and p.num_classes:
         cond = torch.tensor([args.label], dtype=torch.long, device=dev)
-    # at most T steps, as cli.sample: a longer grid repeats timesteps
-    out = pipe.img2img(x, strength=args.strength, condition=cond,
-                       steps=min(args.steps, p.timesteps), use_ddim=True, eta=0.0,
-                       guidance_scale=args.guidance_scale, generator=_generator(dev, args.seed))
+    gen = _generator(dev, args.seed)
+    if args.family == "flow":
+        out = pipe.img2img(x, strength=args.strength, condition=cond, steps=args.steps,
+                           guidance_scale=args.guidance_scale, generator=gen)
+    else:
+        # at most T steps, as cli.sample: a longer grid repeats timesteps
+        out = pipe.img2img(x, strength=args.strength, condition=cond,
+                           steps=min(args.steps, p.timesteps), use_ddim=True, eta=0.0,
+                           guidance_scale=args.guidance_scale, generator=gen)
     _save_row(args, "img2img.png", [x[0].cpu().numpy(), out[0].cpu().numpy()],
               f"strength {args.strength}, {args.steps} steps")
     return out
@@ -332,12 +358,18 @@ def main(argv=None):
                                help="not ported: the port runs its kernels always")
         if name in ("interpolate", "inpaint", "img2img"):
             s.add_argument("--family", choices=("diffusion", "flow"), default="diffusion",
-                           help="flow is not ported")
+                           help="flow = a flow-matching checkpoint (path noising and "
+                                "the ODE tail in place of q_sample and DDIM)")
+            s.add_argument("--flow-shift", type=float, default=1.0)
         if name == "interpolate":
             s.add_argument("--i1", type=int, default=0)
             s.add_argument("--i2", type=int, default=1)
             s.add_argument("--ddim-invert", action="store_true",
-                           help="interpolate in DDIM-inverted noise space (slerp)")
+                           help="interpolate in inverted noise space (DDIM inversion, or "
+                                "the forward ODE with --family flow; slerp)")
+            s.add_argument("--strength", type=float, default=0.9,
+                           help="flow family only: how far along the path to noise "
+                                "before lerping")
         if name == "img2img":
             s.add_argument("--i1", type=int, default=0,
                            help="dataset index of the image to edit")
@@ -352,8 +384,6 @@ def main(argv=None):
             s.add_argument("--resample-steps", type=int, default=1)
             s.add_argument("--jump-length", type=int, default=1)
     args = ap.parse_args(argv)
-    if getattr(args, "family", "diffusion") == "flow":
-        ap.error("--family flow is not ported yet (ROADMAP Queue 1, item 3)")
     if getattr(args, "estimator", "unet") != "unet":
         ap.error(f"--estimator {args.estimator}: only the 'unet' family is ported "
                  f"(ROADMAP Queue 1, item 7)")

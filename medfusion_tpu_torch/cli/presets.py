@@ -186,22 +186,30 @@ def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
                    unet_params=None, vae_params=None, attention: str = "none",
                    attn_heads: int = 8, unet_state=None, vae_ckpt=None,
                    objective: str = "x_T", latent_scale: float = 1.0,
-                   latent_shift: float = 0.0, zero_terminal_snr: bool = False):
+                   latent_shift: float = 0.0, zero_terminal_snr: bool = False,
+                   family: str = "diffusion", flow_shift: float = 1.0):
     """Sampling pipeline as ``medfusion_tpu/cli/sample.py`` builds it (no
     x0 clipping; ``objective`` the estimator's, eps by default; a
-    zero-terminal-SNR schedule with ``zero_terminal_snr``), on
-    ``device`` (default ``cuda``; raises without CUDA), with both modules
-    cast to ``compute_dtype``. Weights are a seeded torch initialisation,
-    or what :func:`_build_modules` loads. ``attention`` and ``attn_heads``
-    configure the UNet (:func:`build_unet`); the diffusion runs on (z -
-    ``latent_shift``) * ``latent_scale``."""
+    zero-terminal-SNR schedule with ``zero_terminal_snr``; with ``family``
+    'flow' a flow-matching pipeline whose grid is shifted by
+    ``flow_shift``), on ``device`` (default ``cuda``; raises without CUDA),
+    with both modules cast to ``compute_dtype``. Weights are a seeded torch
+    initialisation, or what :func:`_build_modules` loads. ``attention`` and
+    ``attn_heads`` configure the UNet (:func:`build_unet`); the model runs
+    on (z - ``latent_shift``) * ``latent_scale``."""
     from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
+    from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 
     unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads,
                                     unet_params, vae_params, unet_state, vae_ckpt)
     if compute_dtype is not None:
         unet.to(compute_dtype)
         vae.to(compute_dtype)
+    if family == "flow":
+        return FlowMatchingPipeline(noise_estimator=unet.eval(), latent_embedder=vae.eval(),
+                                    do_input_centering=False, shift=flow_shift,
+                                    compute_dtype=compute_dtype, latent_scale=latent_scale,
+                                    latent_shift=latent_shift)
     return DiffusionPipeline(scheduler=build_scheduler(p, dev, zero_terminal_snr),
                              noise_estimator=unet.eval(), latent_embedder=vae.eval(),
                              estimator_objective=objective, clip_x0=False,
@@ -214,20 +222,31 @@ def build_train_pipeline(p: Preset, device=None, attention: str = "none",
                          compute_dtype=None, seed: int = 0, vae_ckpt=None,
                          latent_scale: float = 1.0, latent_shift: float = 0.0,
                          zero_terminal_snr: bool = False,
-                         min_snr_gamma: Optional[float] = None):
+                         min_snr_gamma: Optional[float] = None,
+                         family: str = "diffusion", flow_shift: float = 1.0,
+                         time_sampling: str = "logit_normal"):
     """Training pipeline as ``medfusion_tpu/cli/train_diffusion.py`` builds
     it: CFG dropout ``p.cfg_dropout``, no input centering, no x0 clipping,
     L1 loss, ``objective`` ('x_T', 'x_0' or 'v'), no learned variance and no
     self-conditioning, a zero-terminal-SNR schedule with
-    ``zero_terminal_snr``, Min-SNR weighting with ``min_snr_gamma``. Both
+    ``zero_terminal_snr``, Min-SNR weighting with ``min_snr_gamma``; with
+    ``family`` 'flow' the flow-matching pipeline (L2 on the velocity, time
+    drawn by ``time_sampling`` and shifted by ``flow_shift``). Both
     modules stay float32
     (the estimator holds the master weights; the train step casts both to
     ``compute_dtype``); the VAE is frozen, loaded from ``vae_ckpt`` where
-    given. The diffusion runs on (z - ``latent_shift``) * ``latent_scale``."""
+    given. The model runs on (z - ``latent_shift``) * ``latent_scale``."""
     from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
+    from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 
     unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads,
                                     vae_ckpt=vae_ckpt)
+    if family == "flow":
+        return FlowMatchingPipeline(
+            noise_estimator=unet, latent_embedder=vae.eval().requires_grad_(False),
+            classifier_free_guidance_dropout=p.cfg_dropout, do_input_centering=False,
+            compute_dtype=compute_dtype, timestep_sampling=time_sampling, shift=flow_shift,
+            latent_scale=latent_scale, latent_shift=latent_shift)
     return DiffusionPipeline(
         scheduler=build_scheduler(p, dev, zero_terminal_snr),
         noise_estimator=unet, latent_embedder=vae.eval().requires_grad_(False),

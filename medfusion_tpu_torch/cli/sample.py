@@ -13,9 +13,24 @@ grids ``sample_cond_{0,1,None}.png`` and ``sample_diff.png`` written by
 refused with it). ``--zero-terminal-snr`` is for a checkpoint trained with it
 (trailing spacing by default); ``--timestep-spacing`` and
 ``--guidance-rescale`` are as in the JAX CLI. The same draws come from one
-generator seeded by ``--seed`` for every condition. Refused, with a message
-naming ROADMAP Queue 1: ``--sampler consistency``, ``--family flow`` and
-``--classifier-ckpt``.
+generator seeded by ``--seed`` for every condition. ``--sampler
+consistency`` is refused, with a message naming ROADMAP Queue 1.
+
+``--family flow`` samples a flow-matching checkpoint (``cli.train_diffusion
+--family flow``) with the Heun probability-flow ODE on a grid shifted by
+``--flow-shift``; its ``--steps`` is not capped at T. It refuses the
+diffusion-schedule flags (``--zero-terminal-snr``, ``--guidance-rescale``,
+``--timestep-spacing``, ``--objective``), ``--sampler``,
+``--encoder-key-every`` and ``--classifier-ckpt``, as the JAX CLI does.
+
+``--classifier-ckpt`` guides DDIM or DPM++ with a noisy-latent classifier
+(``cli.train_classifier``: a port run, or an ``.npz`` of the JAX
+classifier's flax params) built with ``--classifier-model-channels`` and
+``--classifier-pool``: the eps prediction moves by ``--classifier-scale``
+x sqrt(1 - abar_t) x the gradient of log p(label | x_t), on the labelled
+conditions only. The classifier runs in float32, its attention through the
+hand-written kernels forward and backward on the card. EDM and the fast
+sampler refuse it, as in the JAX CLI.
 
 Usage:
   python -m medfusion_tpu_torch.cli.sample --preset chest --n 8 \
@@ -50,8 +65,11 @@ import numpy as np
 import torch
 
 from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
+from medfusion_tpu_torch.cli.train_classifier import POOLS, load_classifier
 from medfusion_tpu_torch.data.png import write_png
 from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
+from medfusion_tpu_torch.pipelines.diffusion import make_classifier_grad
+from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 from medfusion_tpu_torch.utils import checkpoint as C
 
 DTYPES = {"bf16": torch.bfloat16, "f32": None}
@@ -77,6 +95,22 @@ def load_npz_params(path):
     return tree["noise_estimator"], tree["latent_embedder"]
 
 
+def run_flags(args) -> dict:
+    """What a ``--ckpt`` run's config must agree with."""
+    return {"attention": args.attention, "attention_heads": args.attention_heads,
+            "objective": args.objective, "latent_scale": args.latent_scale,
+            "latent_shift": args.latent_shift, "zero_terminal_snr": args.zero_terminal_snr,
+            "family": args.family}
+
+
+def load_classifier_arg(args, p, dev):
+    """The ``--classifier-ckpt`` classifier on ``dev`` (float32), or None."""
+    if not args.classifier_ckpt:
+        return None
+    return load_classifier(p, args.classifier_ckpt, args.classifier_model_channels,
+                           args.classifier_pool, device=dev)
+
+
 def load_unet_state(path, ema: bool, flags: dict):
     """The UNet state dict of a port diffusion run's latest step (its EMA
     copy with ``ema``), after checking the run's config against ``flags``."""
@@ -89,21 +123,39 @@ def load_unet_state(path, ema: bool, flags: dict):
 
 
 def check_args(ap, args) -> None:
-    """The refusals shared with ``cli.sample_dataset``: the JAX CLI's, and
-    what the port does not have yet; the default spacing."""
+    """The refusals shared with ``cli.sample_dataset``: the JAX sample CLI's
+    (a superset of its bulk sampler's), and what the port does not have
+    yet; the default spacing."""
     if args.attention_heads != 8 and args.attention == "none":
         ap.error("--attention-heads has no effect without attention layers; "
                  "add --attention spatial|linear")
     if args.ema and not args.ckpt:
         ap.error("--ema needs --ckpt")
     if args.family == "flow":
-        ap.error("--family flow is not ported yet (ROADMAP Queue 1, item 3)")
+        if args.zero_terminal_snr or args.guidance_rescale > 0:
+            ap.error("--zero-terminal-snr/--guidance-rescale are diffusion-schedule "
+                     "options; the flow family has no schedule")
+        if args.timestep_spacing is not None:
+            ap.error("--timestep-spacing is a diffusion DDIM-grid option; the flow "
+                     "ODE grid is set by --flow-shift")
+        if args.objective != "x_T":
+            ap.error("--objective selects a diffusion parameterization; flow "
+                     "checkpoints are velocity models")
+        if args.sampler != "ddim":
+            ap.error("--family flow has its own ODE sampler; drop --sampler")
+        if args.classifier_ckpt:
+            ap.error("classifier guidance is not wired into the flow family")
+        if args.encoder_key_every > 1:
+            ap.error("--encoder-key-every is a diffusion-family fast path")
     if args.sampler == "consistency":
         ap.error("--sampler consistency is not ported yet: it comes with "
                  "distillation (ROADMAP Queue 1, item 6)")
-    if args.classifier_ckpt:
-        ap.error("--classifier-ckpt (classifier guidance) is not ported yet "
-                 "(ROADMAP Queue 1, item 3)")
+    if args.classifier_ckpt and args.encoder_key_every > 1:
+        ap.error("--classifier-ckpt guidance is not wired into the "
+                 "encoder-propagation fast sampler; drop --encoder-key-every")
+    if args.classifier_ckpt and args.sampler == "edm":
+        ap.error("--classifier-ckpt guidance is not wired into the EDM sampler "
+                 "(fractional-t queries); use ddim/dpmpp")
     if args.guidance_rescale > 0 and args.encoder_key_every > 1:
         ap.error("--guidance-rescale is not wired into the encoder-"
                  "propagation fast sampler; drop --encoder-key-every")
@@ -131,16 +183,38 @@ def add_sampler_args(ap) -> None:
     ap.add_argument("--guidance-rescale", type=float, default=0.0,
                     help="CFG rescale phi (arXiv:2305.08891 §3.4; 0 = off)")
     ap.add_argument("--family", choices=("diffusion", "flow"), default="diffusion",
-                    help="flow is not ported")
+                    help="flow = a flow-matching checkpoint, sampled with the Heun "
+                         "probability-flow ODE")
+    ap.add_argument("--flow-shift", type=float, default=1.0,
+                    help="SD3 resolution shift of the flow sampling grid (1 = uniform)")
     ap.add_argument("--classifier-ckpt", default=None,
-                    help="classifier guidance; not ported")
+                    help="a noisy-latent classifier (cli.train_classifier run or .npz) "
+                         "for classifier-guided DDIM/DPM++ (arXiv:2105.05233)")
+    ap.add_argument("--classifier-scale", type=float, default=1.0)
+    ap.add_argument("--classifier-model-channels", type=int, default=64)
+    ap.add_argument("--classifier-pool", default="adaptive", choices=POOLS)
 
 
-def run_sampler(pipe, args, p, n, steps, condition, gs, gen, un_cond=None, eta=1.0):
+def sampling_steps(args, p, steps: int) -> int:
+    """The step count of a sampling: a diffusion grid is capped at T, the
+    flow ODE's is not."""
+    return steps if args.family == "flow" else min(steps, p.timesteps)
+
+
+def run_sampler(pipe, args, p, n, steps, condition, gs, gen, un_cond=None, eta=1.0,
+                classifier=None):
     """Channels-last images of one sampler call; every draw from ``gen``,
-    the initial latent first; ``eta`` for DDIM and the fast sampler."""
+    the initial latent first; ``eta`` for DDIM and the fast sampler; a flow
+    pipeline integrates its ODE (Heun); ``classifier`` guides DDIM and
+    DPM++ on a labelled ``condition`` at ``args.classifier_scale``."""
     x_T = torch.randn((n, *p.latent_shape), generator=gen, device=pipe.device)
     common = dict(condition=condition, steps=steps, guidance_scale=gs, un_cond=un_cond)
+    if isinstance(pipe, FlowMatchingPipeline):
+        return pipe.denoise(x_T, generator=gen, **common)
+    guided = {}
+    if classifier is not None and condition is not None:
+        guided = dict(classifier_grad=make_classifier_grad(classifier, condition),
+                      classifier_scale=args.classifier_scale)
     if args.sampler == "edm":
         return pipe.denoise_edm(x_T, s_churn=args.edm_churn, rho=args.edm_rho,
                                 guidance_rescale=args.guidance_rescale, generator=gen,
@@ -148,13 +222,14 @@ def run_sampler(pipe, args, p, n, steps, condition, gs, gen, un_cond=None, eta=1
     spacing = dict(timestep_spacing=args.timestep_spacing)
     if args.sampler == "dpmpp":
         return pipe.denoise_dpmpp(x_T, guidance_rescale=args.guidance_rescale,
-                                  **spacing, **common)
+                                  **spacing, **common, **guided)
     if args.encoder_key_every > 1:
         return pipe.denoise_fast(x_T, eta=eta, generator=gen,
                                  encoder_key_every=args.encoder_key_every,
                                  **spacing, **common)
     return pipe.denoise(x_T, use_ddim=True, eta=eta, generator=gen,
-                        guidance_rescale=args.guidance_rescale, **spacing, **common)
+                        guidance_rescale=args.guidance_rescale, **spacing, **common,
+                        **guided)
 
 
 def main(argv=None):
@@ -199,20 +274,19 @@ def main(argv=None):
     if args.params:
         unet_params, vae_params = load_npz_params(args.params)
     if args.ckpt:
-        unet_state = load_unet_state(args.ckpt, args.ema, {
-            "attention": args.attention, "attention_heads": args.attention_heads,
-            "objective": args.objective, "latent_scale": args.latent_scale,
-            "latent_shift": args.latent_shift, "zero_terminal_snr": args.zero_terminal_snr})
+        unet_state = load_unet_state(args.ckpt, args.ema, run_flags(args))
     pipe = build_pipeline(p, device=args.device, compute_dtype=DTYPES[args.dtype],
                           seed=args.seed, unet_params=unet_params,
                           vae_params=vae_params, attention=args.attention,
                           attn_heads=args.attention_heads, unet_state=unet_state,
                           vae_ckpt=args.vae_ckpt, objective=args.objective,
                           latent_scale=args.latent_scale, latent_shift=args.latent_shift,
-                          zero_terminal_snr=args.zero_terminal_snr)
+                          zero_terminal_snr=args.zero_terminal_snr, family=args.family,
+                          flow_shift=args.flow_shift)
+    classifier = load_classifier_arg(args, p, pipe.device)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    steps = min(args.steps, p.timesteps)
+    steps = sampling_steps(args, p, args.steps)
     results = {}
     for cond_val in ([0, 1, None] if p.num_classes else [None]):
         cond = (None if cond_val is None else
@@ -220,7 +294,8 @@ def main(argv=None):
         # the same noise for every condition
         gen = torch.Generator(device=pipe.device).manual_seed(args.seed)
         gs = args.guidance if cond_val is not None else 1.0
-        imgs = run_sampler(pipe, args, p, args.n, steps, cond, gs, gen, eta=eta)
+        imgs = run_sampler(pipe, args, p, args.n, steps, cond, gs, gen, eta=eta,
+                           classifier=classifier)
         results[cond_val] = imgs.float().cpu().numpy()
         np.save(out / f"sample_cond_{cond_val}.npy", results[cond_val])
         write_png(out / f"sample_cond_{cond_val}.png", image_grid(results[cond_val]))

@@ -9,7 +9,11 @@ as uint8 ``(clip(x, -1, 1) + 1) * 127.5`` (grey for one channel), with the
 port's own PNG writer. Every sampler of ``cli.sample`` is accepted
 (``--sampler ddim|dpmpp|edm``, ``--encoder-key-every``, ``--zero-terminal-snr``,
 ``--timestep-spacing``, ``--guidance-rescale``); DDIM and the fast sampler
-run at eta 1, as the JAX package's bulk sampler does.
+run at eta 1, as the JAX package's bulk sampler does. ``--family flow
+--flow-shift`` bulk-samples a flow-matching checkpoint with the Heun ODE
+(its step counts not capped at T), and ``--classifier-ckpt`` guides DDIM
+or DPM++ toward each chunk's label, as in ``cli.sample``; the refusals are
+``cli.sample``'s.
 
 Seeding: the JAX CLI folds (steps, label, chunk) into its key; torch has no
 ``fold_in``, so each chunk draws from a ``torch.Generator`` seeded by
@@ -40,8 +44,11 @@ from medfusion_tpu_torch.cli.sample import (
     DTYPES,
     add_sampler_args,
     check_args,
+    load_classifier_arg,
     load_unet_state,
+    run_flags,
     run_sampler,
+    sampling_steps,
 )
 from medfusion_tpu_torch.data.png import write_png
 from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
@@ -85,23 +92,26 @@ def main(argv=None):
         ap.error("--n-samples and --chunk must be >= 1")
 
     p = PRESETS[args.preset]
+    if args.classifier_ckpt and not p.num_classes:
+        # guiding everything toward class 0 would bias the set undetectably
+        ap.error("classifier guidance needs a condition (the per-sample guidance "
+                 "labels); the preset is unconditional")
     unet_state = None
     if args.ckpt:
-        unet_state = load_unet_state(args.ckpt, args.ema, {
-            "attention": args.attention, "attention_heads": args.attention_heads,
-            "objective": args.objective, "latent_scale": args.latent_scale,
-            "latent_shift": args.latent_shift, "zero_terminal_snr": args.zero_terminal_snr})
+        unet_state = load_unet_state(args.ckpt, args.ema, run_flags(args))
     pipe = build_pipeline(p, device=args.device, compute_dtype=DTYPES[args.dtype],
                           seed=args.seed, attention=args.attention,
                           attn_heads=args.attention_heads, unet_state=unet_state,
                           vae_ckpt=args.vae_ckpt, objective=args.objective,
                           latent_scale=args.latent_scale, latent_shift=args.latent_shift,
-                          zero_terminal_snr=args.zero_terminal_snr)
+                          zero_terminal_snr=args.zero_terminal_snr, family=args.family,
+                          flow_shift=args.flow_shift)
     dev = pipe.device
+    classifier = load_classifier_arg(args, p, dev)
     labels = list(range(p.num_classes)) if p.num_classes else [None]
     written_dirs = {}
     for steps in args.steps_list:
-        steps = min(steps, p.timesteps)
+        steps = sampling_steps(args, p, steps)
         for label in labels:
             out_dir = Path(args.out) / f"steps_{steps}" / f"label_{label}"
             out_dir.mkdir(parents=True, exist_ok=True)
@@ -115,7 +125,7 @@ def main(argv=None):
                     un_cond = torch.full((n,), 1 - label, dtype=torch.long, device=dev)
                 gen = chunk_generator(dev, args.seed, steps, label_id, chunk_idx)
                 imgs = run_sampler(pipe, args, p, n, steps, cond, args.guidance, gen,
-                                   un_cond=un_cond, eta=1.0)
+                                   un_cond=un_cond, eta=1.0, classifier=classifier)
                 imgs = to_uint8(imgs.float().cpu().numpy())
                 for i, img in enumerate(imgs):
                     write_png(out_dir / f"fake_{written + i}.png",

@@ -17,8 +17,8 @@ Step s draws from a generator seeded by (``--seed``, s), and ``--resume``
 continues the data stream where the run stopped (``train/loop.py``), so a
 resumed run equals an uninterrupted one. ``--resume`` refuses a run saved
 with another ``--use-ema``, ``--objective``, ``--attention``,
-``--attention-heads``, ``--zero-terminal-snr`` or ``--min-snr-gamma``. A
-batch label outside the preset's classes raises on the host.
+``--attention-heads``, ``--zero-terminal-snr``, ``--min-snr-gamma`` or
+``--family``. A batch label outside the preset's classes raises on the host.
 
 ``--zero-terminal-snr`` rescales the schedule to abar_T = 0
 (arXiv:2305.08891; needs ``--objective v`` or ``x_0``; sample with
@@ -27,6 +27,14 @@ batch label outside the preset's classes raises on the host.
 (arXiv:2303.09556). Self-conditioning, a learned variance and
 deep-supervision terms are options of ``DiffusionPipeline`` and the UNet,
 as in the JAX package, which gives them no flags either.
+
+``--family flow`` trains the flow-matching family on the same UNet and VAE
+(``pipelines/flow.py``: L2 on the velocity, time drawn by
+``--time-sampling``, logit-normal by default, and shifted by
+``--flow-shift``); its ``--sample-every`` grids are 25-step Heun samples.
+It refuses ``--zero-terminal-snr``, ``--min-snr-gamma`` and an
+``--objective`` other than ``x_T``, as the JAX CLI does. Sample it with
+``cli.sample --family flow``.
 
 Usage:
   python -m medfusion_tpu_torch.cli.train_diffusion --preset chest \\
@@ -37,8 +45,8 @@ Usage:
 
 Without ``--device cpu`` it runs on the card and raises when there is none.
 On the card every self-attention runs its forward and backward through the
-hand-written kernels. Not ported (ROADMAP Queue 1): ``--family flow``
-(refused), the other estimators, ``--remat`` and the grain loader.
+hand-written kernels. Not ported (ROADMAP Queue 1): the other
+estimators, ``--remat`` and the grain loader.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import torch
 from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset, build_train_pipeline
 from medfusion_tpu_torch.data import SimpleDataModule
 from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
+from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step, make_lr_schedule
 from medfusion_tpu_torch.train.loop import (
     SAMPLE_KEY,
@@ -68,7 +77,7 @@ from medfusion_tpu_torch.utils.resilience import run_with_auto_restore
 
 # what --resume must find unchanged in the saved config
 RESUME_KEYS = ("use_ema", "objective", "attention", "attention_heads", "zero_terminal_snr",
-               "min_snr_gamma")
+               "min_snr_gamma", "family")
 
 
 def main(argv=None):
@@ -93,7 +102,14 @@ def main(argv=None):
     ap.add_argument("--use-ema", action="store_true")
     ap.add_argument("--objective", choices=("x_T", "x_0", "v"), default="x_T")
     ap.add_argument("--family", choices=("diffusion", "flow"), default="diffusion",
-                    help="flow is not ported")
+                    help="flow = rectified-flow / flow-matching training, sampled "
+                         "with the Heun probability-flow ODE (cli.sample --family flow)")
+    ap.add_argument("--flow-shift", type=float, default=1.0,
+                    help="SD3 timestep shift of the training draw and the default "
+                         "sampling grid (flow family only)")
+    ap.add_argument("--time-sampling", choices=("uniform", "logit_normal"),
+                    default="logit_normal",
+                    help="flow-family training time distribution")
     ap.add_argument("--zero-terminal-snr", action="store_true",
                     help="rescale the schedule so that abar_T = 0 exactly "
                          "(arXiv:2305.08891); needs --objective v or x_0")
@@ -119,7 +135,12 @@ def main(argv=None):
         ap.error("--attention-heads has no effect without attention layers; "
                  "add --attention spatial|linear")
     if args.family == "flow":
-        ap.error("--family flow is not ported yet (ROADMAP Queue 1, item 3)")
+        if args.zero_terminal_snr or args.min_snr_gamma is not None:
+            ap.error("--zero-terminal-snr/--min-snr-gamma are diffusion-schedule "
+                     "options; the flow family has no schedule")
+        if args.objective != "x_T":
+            ap.error("--objective selects a diffusion parameterization; the flow "
+                     "family always trains the velocity objective")
     if args.zero_terminal_snr and args.objective == "x_T":
         ap.error("--zero-terminal-snr cannot train the eps ('x_T') objective: x_0 "
                  "is unrecoverable from eps at abar_T = 0; use --objective v or x_0")
@@ -136,7 +157,9 @@ def run_config(p, args) -> dict:
             "attention": args.attention, "attention_heads": args.attention_heads,
             "zero_terminal_snr": args.zero_terminal_snr,
             "min_snr_gamma": args.min_snr_gamma,
-            "latent_scale": args.latent_scale, "latent_shift": args.latent_shift}
+            "latent_scale": args.latent_scale, "latent_shift": args.latent_shift,
+            "family": args.family, "flow_shift": args.flow_shift,
+            "time_sampling": args.time_sampling}
 
 
 def _train(args, resume: bool):
@@ -149,7 +172,9 @@ def _train(args, resume: bool):
                                 latent_scale=args.latent_scale,
                                 latent_shift=args.latent_shift,
                                 zero_terminal_snr=args.zero_terminal_snr,
-                                min_snr_gamma=args.min_snr_gamma)
+                                min_snr_gamma=args.min_snr_gamma, family=args.family,
+                                flow_shift=args.flow_shift,
+                                time_sampling=args.time_sampling)
     dev = pipe.device
     state = TrainState(pipe.noise_estimator, lr=p.diffusion_lr, weight_decay=1e-2,
                        use_ema=args.use_ema,
@@ -207,14 +232,16 @@ def _train(args, resume: bool):
 
 
 def save_samples(pipe, state, p, seed: int, step: int, path) -> None:
-    """4 images of a 50-step DDIM sample (labels 0, 1, 0, 1) from the EMA
-    copy, or the model without one, as one PNG grid."""
+    """4 images (labels 0, 1, 0, 1) of a 50-step DDIM sample, or a 25-step
+    Heun sample of the flow family, from the EMA copy, or the model without
+    one, as one PNG grid."""
     sampler = dataclasses.replace(pipe, noise_estimator=state.inference_model)
     dev = pipe.device
     cond = (torch.arange(4, device=dev) % p.num_classes) if p.num_classes else None
+    steps = (dict(steps=25) if isinstance(pipe, FlowMatchingPipeline)
+             else dict(steps=min(50, p.timesteps), use_ddim=True))
     imgs = sampler.sample(4, p.latent_shape, condition=cond,
-                          generator=step_generator(dev, seed, SAMPLE_KEY, step),
-                          steps=min(50, p.timesteps), use_ddim=True)
+                          generator=step_generator(dev, seed, SAMPLE_KEY, step), **steps)
     save_image_grid(imgs.float().cpu().numpy(), path)
 
 

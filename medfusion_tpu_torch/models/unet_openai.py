@@ -1,0 +1,300 @@
+"""The noisy-image classifier of classifier guidance: the encoder half of
+the OpenAI UNet (port of the classifier half of
+``medfusion_tpu/models/unet_openai.py``: ``sd_timestep_embedding``,
+``SDResBlock``, ``SDDownsample``, ``SDAttentionBlock``, ``SDAttentionPool``
+and ``EncoderUNetOpenAI``).
+
+NCHW modules whose names are the reference ``EncoderUNetModel``'s torch keys
+(``time_embed.0``, ``input_blocks.{i}.{j}.in_layers.0``, ``middle_block.{j}``,
+``out.{k}``), so :func:`openai_key_to_path` (the port's copy of the JAX
+package's ``_openai_key_to_path``) maps each to its flax path and
+``utils/weights.py::jax_classifier_to_state_dict`` loads flax params with
+``strict=True``. The reference's 1x1 ``conv1d`` projections (``qkv``,
+``proj_out``, ``qkv_proj``, ``c_proj``) are ``nn.Linear`` over the tokens, as
+the JAX package's ``Dense``.
+
+GroupNorm32 normalises in float32 and returns the input dtype, as the JAX
+package's flax ``GroupNorm`` does outside its Pallas kernel (here
+``F.group_norm``). Both attentions go through ``ops.attention``: the
+hand-written flash-attention kernels on the card, their plain versions on the
+CPU, each differentiable, so classifier guidance's input gradient runs the
+backward kernels. The full ``UNetOpenAI`` estimator is not ported (ROADMAP
+Queue 1, item 7); dropout raises, as nothing sets it.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from medfusion_tpu_torch import ops
+
+
+def sd_timestep_embedding(t, dim: int, max_period: float = 10000.0):
+    """Sinusoidal features of a [B] time, cos first (the JAX package's and
+    Stable Diffusion's order; the main UNet's embedder is sin first)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class GroupNorm32(nn.GroupNorm):
+    """GroupNorm with eps 1e-5 computed in float32, returned in the input dtype."""
+
+    def __init__(self, channels: int, groups: int = 32):
+        super().__init__(groups, channels, eps=1e-5)
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+def _zero(module: nn.Module) -> nn.Module:
+    nn.init.zeros_(module.weight)
+    nn.init.zeros_(module.bias)
+    return module
+
+
+def _avg_pool2x(x):
+    return F.avg_pool2d(x, 2)
+
+
+class SDDownsample(nn.Module):
+    """Stride-2 3x3 conv or 2x2 average pool."""
+
+    def __init__(self, channels: int, out_channels: int, use_conv: bool):
+        super().__init__()
+        if use_conv:
+            self.op = nn.Conv2d(channels, out_channels, 3, stride=2, padding=1)
+        elif channels != out_channels:
+            raise ValueError("an average-pool downsample keeps the width")
+
+    def forward(self, x, emb=None):
+        return self.op(x) if hasattr(self, "op") else _avg_pool2x(x)
+
+
+class SDResBlock(nn.Module):
+    """GN -> SiLU -> conv, the time embedding added (or as a FiLM scale and
+    shift with ``use_scale_shift_norm``), GN -> SiLU -> zero-init conv, a
+    residual (through a 1x1, or 3x3, conv where the width changes);
+    ``down`` average-pools both paths after the first SiLU."""
+
+    def __init__(self, channels: int, emb_channels: int, out_channels: int,
+                 dropout: float = 0.0, use_conv_shortcut: bool = False,
+                 use_scale_shift_norm: bool = False, down: bool = False,
+                 norm_groups: int = 32):
+        super().__init__()
+        if dropout:
+            raise NotImplementedError("dropout in the classifier's blocks is not ported")
+        self.down = down
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.in_layers = nn.Sequential(GroupNorm32(channels, norm_groups), nn.SiLU(),
+                                       nn.Conv2d(channels, out_channels, 3, padding=1))
+        emb_out = 2 * out_channels if use_scale_shift_norm else out_channels
+        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, emb_out))
+        self.out_layers = nn.Sequential(
+            GroupNorm32(out_channels, norm_groups), nn.SiLU(), nn.Identity(),
+            _zero(nn.Conv2d(out_channels, out_channels, 3, padding=1)))
+        if out_channels != channels:
+            k = 3 if use_conv_shortcut else 1
+            self.skip_connection = nn.Conv2d(channels, out_channels, k, padding=k // 2)
+        else:
+            self.skip_connection = nn.Identity()
+
+    def forward(self, x, emb):
+        h = self.in_layers[:-1](x)
+        if self.down:
+            h, x = _avg_pool2x(h), _avg_pool2x(x)
+        h = self.in_layers[-1](h)
+        emb_out = self.emb_layers(emb).to(h.dtype)[..., None, None]
+        if self.use_scale_shift_norm:
+            scale, shift = torch.chunk(emb_out, 2, dim=1)
+            h = F.silu(self.out_layers[0](h) * (1 + scale) + shift)
+        else:
+            h = self.out_layers[:2](h + emb_out)
+        return self.skip_connection(x) + self.out_layers[3](h)
+
+
+def _split_qkv(qkv, heads: int, new_order: bool):
+    """q, k, v [B, N, C] of the [B, N, 3C] projection: channel layout
+    [3, H, D] (``new_order``, QKVAttention) or [H, 3, D] (QKVAttentionLegacy)."""
+    c = qkv.shape[-1] // 3
+    if new_order:
+        return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    parts = qkv.unflatten(-1, (heads, 3, c // heads))
+    return tuple(parts[..., i, :].flatten(-2) for i in range(3))
+
+
+def _attend(qkv, heads: int, new_order: bool):
+    q, k, v = _split_qkv(qkv, heads, new_order)
+    d = q.shape[-1] // heads
+    return ops.attention(q, k, v, heads, scale=d ** -0.25)
+
+
+class SDAttentionBlock(nn.Module):
+    """Self-attention over the flattened positions with the double-scaled
+    softmax (d^-0.25 on q and on k), zero-init out projection, residual."""
+
+    def __init__(self, channels: int, num_heads: int, new_order: bool = False,
+                 norm_groups: int = 32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.new_order = new_order
+        self.norm = GroupNorm32(channels, norm_groups)
+        self.qkv = nn.Linear(channels, 3 * channels)
+        self.proj_out = _zero(nn.Linear(channels, channels))
+
+    def forward(self, x, emb=None):
+        tokens = self.norm(x).flatten(2).transpose(1, 2)  # [B, N, C]
+        out = self.proj_out(_attend(self.qkv(tokens), self.num_heads, self.new_order))
+        return x + out.transpose(1, 2).reshape(x.shape)
+
+
+class SDAttentionPool(nn.Module):
+    """CLIP-style attention pooling: the mean token prepended, a learned
+    positional embedding [C, n + 1] added, one qkv-major attention, the
+    first token projected to the logits."""
+
+    def __init__(self, embed_dim: int, num_head_channels: int, output_dim: int,
+                 spatial_tokens: int):
+        super().__init__()
+        self.num_heads = embed_dim // num_head_channels
+        self.positional_embedding = nn.Parameter(
+            torch.randn(embed_dim, spatial_tokens + 1) / embed_dim ** 0.5)
+        self.qkv_proj = nn.Linear(embed_dim, 3 * embed_dim)
+        self.c_proj = nn.Linear(embed_dim, output_dim)
+
+    def forward(self, x):
+        h = x.flatten(2).transpose(1, 2)  # [B, N, C]
+        h = torch.cat([h.mean(dim=1, keepdim=True), h], dim=1)
+        h = h + self.positional_embedding.T[None].to(h.dtype)
+        out = _attend(self.qkv_proj(h), self.num_heads, new_order=True)
+        return self.c_proj(out)[:, 0]
+
+
+class _EmbedSequential(nn.Sequential):
+    """Layers applied in turn, the time embedding given to those that take it."""
+
+    def forward(self, x, emb):
+        for layer in self:
+            x = layer(x, emb) if isinstance(layer, (SDResBlock, SDAttentionBlock,
+                                                    SDDownsample)) else layer(x)
+        return x
+
+
+class EncoderUNetOpenAI(nn.Module):
+    """The half UNet classifier: (x [B, C, H, W], t [B]) -> logits [B, K],
+    with the pools 'adaptive' (GN -> SiLU -> global mean -> zero-init 1x1
+    conv), 'attention' (GN -> SiLU -> :class:`SDAttentionPool`), 'spatial'
+    and 'spatial_v2' (MLPs over the concatenated per-stage spatial means)."""
+
+    def __init__(self, image_size: int = 32, in_channels: int = 4,
+                 model_channels: int = 256, out_channels: int = 1000,
+                 num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (),
+                 dropout: float = 0.0, channel_mult: Sequence[int] = (1, 2, 4, 8),
+                 conv_resample: bool = True, num_heads: int = 1,
+                 num_head_channels: int = -1, use_scale_shift_norm: bool = False,
+                 resblock_updown: bool = False, use_new_attention_order: bool = False,
+                 pool: str = "adaptive", norm_groups: int = 32):
+        super().__init__()
+        mc, ted = model_channels, model_channels * 4
+        self.model_channels = model_channels
+        self.pool = pool
+
+        def heads(ch):
+            return num_heads if num_head_channels == -1 else ch // num_head_channels
+
+        def res(ch_in, ch_out, down=False):
+            return SDResBlock(ch_in, ted, ch_out, dropout,
+                              use_scale_shift_norm=use_scale_shift_norm, down=down,
+                              norm_groups=norm_groups)
+
+        def attn(ch):
+            return SDAttentionBlock(ch, heads(ch), new_order=use_new_attention_order,
+                                    norm_groups=norm_groups)
+
+        self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
+        blocks = [_EmbedSequential(nn.Conv2d(in_channels, mc, 3, padding=1))]
+        ch, ds, feature_size = mc, 1, mc
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [res(ch, mult * mc)]
+                ch = mult * mc
+                if ds in attention_resolutions:
+                    layers.append(attn(ch))
+                blocks.append(_EmbedSequential(*layers))
+                feature_size += ch
+            if level != len(channel_mult) - 1:
+                blocks.append(_EmbedSequential(
+                    res(ch, ch, down=True) if resblock_updown
+                    else SDDownsample(ch, ch, conv_resample)))
+                ds *= 2
+                feature_size += ch
+        self.input_blocks = nn.ModuleList(blocks)
+        self.middle_block = _EmbedSequential(res(ch, ch), attn(ch), res(ch, ch))
+        feature_size += ch
+
+        if pool == "adaptive":
+            self.out = nn.Sequential(GroupNorm32(ch, norm_groups), nn.SiLU(), nn.Identity(),
+                                     _zero(nn.Conv2d(ch, out_channels, 1)))
+        elif pool == "attention":
+            if num_head_channels == -1:
+                raise ValueError("the attention pool needs num_head_channels")
+            self.out = nn.Sequential(GroupNorm32(ch, norm_groups), nn.SiLU(), SDAttentionPool(
+                ch, num_head_channels, out_channels, (image_size // ds) ** 2))
+        elif pool == "spatial":
+            self.out = nn.Sequential(nn.Linear(feature_size, 2048), nn.ReLU(),
+                                     nn.Linear(2048, out_channels))
+        elif pool == "spatial_v2":
+            self.out = nn.Sequential(nn.Linear(feature_size, 2048),
+                                     GroupNorm32(2048, norm_groups), nn.SiLU(),
+                                     nn.Linear(2048, out_channels))
+        else:
+            raise NotImplementedError(f"Unexpected {pool} pooling")
+
+    def forward(self, x, t):
+        emb = self.time_embed(sd_timestep_embedding(t, self.model_channels).to(
+            self.time_embed[0].weight.dtype)).to(x.dtype)
+        results = []
+        h = x
+        for block in self.input_blocks:
+            h = block(h, emb)
+            if self.pool.startswith("spatial"):
+                results.append(h.mean(dim=(2, 3)))
+        h = self.middle_block(h, emb)
+        if self.pool == "adaptive":
+            h = self.out[:2](h).mean(dim=(2, 3), keepdim=True)
+            return self.out[3](h).flatten(1)
+        if self.pool == "attention":
+            return self.out(h)
+        results.append(h.mean(dim=(2, 3)))
+        return self.out(torch.cat(results, dim=-1))
+
+
+_NORM_LEAF = re.compile(r"(^|/)(in_layers_0|out_layers_0|norm|out_0|norm1|norm2|norm3)/weight$")
+
+
+def openai_key_to_path(key: str, ndim: Optional[int] = None) -> str:
+    """A torch key of the OpenAI UNet family -> its flax param path (the
+    port's copy of the JAX package's ``_openai_key_to_path``): numeric
+    indices join their parent (``in_layers.0`` -> ``in_layers_0``), '.' ->
+    '/', a 1-D ``weight`` is a norm's ``scale`` and a wider one a
+    ``kernel`` (by name when ``ndim`` is None)."""
+    key = re.sub(r"\.(\d+)", r"_\1", key)
+    key = key.replace(".", "/")
+    if key == "label_emb/weight":
+        return "label_emb/embedding"
+    if key.endswith("/weight"):
+        is_norm = (ndim == 1) if ndim is not None else bool(_NORM_LEAF.search(key))
+        return key[: -len("weight")] + ("scale" if is_norm else "kernel")
+    return key

@@ -20,7 +20,8 @@ that stay finite at abar_t = 0; the eps objective is refused there), an
 explicit ``un_cond`` and cold diffusion. The samplers are mixed in:
 ``ddim.py`` (DDIM/ancestral, inpainting, RePaint), ``dpmpp.py``,
 ``edm.py``, ``fast.py`` (encoder propagation) and ``editing.py``.
-Classifier guidance is not ported (ROADMAP Queue 1).
+Classifier guidance (``guidance.py``) shifts the eps prediction in
+:meth:`estimate` (DDIM) and in ``denoise_dpmpp``.
 
 Randomness is explicit: ``train_loss`` takes its draws (encoder noise, t,
 x_T and the one CFG-drop boolean) as inputs, which :meth:`train_draws`
@@ -322,16 +323,32 @@ class DiffusionPipeline(DDIMSamplerMixin, DPMSolverMixin, EDMSamplerMixin,
 
     def estimate(self, x_t, t, noise=None, condition=None, guidance_scale: float = 1.0,
                  guidance_rescale: float = 0.0, un_cond=None, self_cond=None,
-                 cold_diffusion: bool = False):
+                 cold_diffusion: bool = False, classifier_grad=None,
+                 classifier_scale: float = 0.0):
         """One reverse step: returns (x_t_prior, x_0, x_T, new_self_cond).
         ``noise`` is the ancestral step's standard-normal draw (zeros when
-        None)."""
+        None). ``classifier_grad(x_t, t)`` (``guidance.py``) shifts the eps
+        prediction by ``-classifier_scale * sqrt(1 - abar_t) * grad``."""
         pred = self._guided_pred(x_t, t, condition, guidance_scale, guidance_rescale,
                                  un_cond, self_cond)
         pred, var_scale = self._split_variance(pred)
+        if classifier_grad is not None:
+            pred = self._classifier_shift(x_t, t, pred, classifier_grad, classifier_scale)
         if noise is None:
             noise = torch.zeros_like(x_t)
         return self._pred_to_states(x_t, t, pred, noise, cold_diffusion, var_scale)
+
+    def _check_classifier_guidance(self):
+        if self.estimator_objective != "x_T":
+            raise ValueError("classifier guidance shifts the eps prediction; use the "
+                             "eps ('x_T') objective")
+
+    def _classifier_shift(self, x_t, t, pred, classifier_grad, scale: float):
+        """The eps prediction steered by the classifier (arXiv:2105.05233
+        Alg. 2): ``pred - scale * sqrt(1 - abar_t) * grad``."""
+        self._check_classifier_guidance()
+        shift = S.extract(self.scheduler.sqrt_one_minus_alphas_cumprod, t, x_t.ndim)
+        return pred - scale * shift * classifier_grad(x_t, t)
 
     def _pred_to_states(self, x_t, t, pred, noise, cold_diffusion: bool = False,
                         var_scale=0.0):

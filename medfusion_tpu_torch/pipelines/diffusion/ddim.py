@@ -84,7 +84,8 @@ class DDIMSamplerMixin:
                 noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 known=None, mask=None, resample_steps: int = 1,
-                jump_length: int = 1, un_cond=None, cold_diffusion: bool = False):
+                jump_length: int = 1, un_cond=None, cold_diffusion: bool = False,
+                classifier_grad=None, classifier_scale: float = 0.0):
         """Full reverse process from the channels-last latent ``x_t``
         [B, *spatial, C]. Returns channels-last images (``decode``) or the
         final latent.
@@ -96,7 +97,8 @@ class DDIMSamplerMixin:
         ``resample_steps``/``jump_length`` run the RePaint walk
         (:func:`repaint_op_schedule`) and need ``known``. With
         ``use_self_conditioning`` the x_0 (or eps) estimate of each step is
-        carried into the next, zeros at the first."""
+        carried into the next, zeros at the first. ``classifier_grad`` and
+        ``classifier_scale``: classifier guidance (:meth:`estimate`)."""
         if (known is None) != (mask is None):
             raise ValueError("inpainting needs BOTH known and mask (or neither)")
         repaint = resample_steps > 1 or jump_length > 1
@@ -144,7 +146,8 @@ class DDIMSamplerMixin:
                 x, full(t), draw(row, 0), condition, guidance_scale=guidance_scale,
                 guidance_rescale=guidance_rescale, un_cond=un_cond,
                 self_cond=self_cond if self.use_self_conditioning else None,
-                cold_diffusion=cold_diffusion)
+                cold_diffusion=cold_diffusion, classifier_grad=classifier_grad,
+                classifier_scale=classifier_scale)
             if not use_ddim:
                 return x_prior, new_sc
             if more:

@@ -22,13 +22,18 @@ class DPMSolverMixin:
     def denoise_dpmpp(self, x_t, condition=None, steps: Optional[int] = None,
                       guidance_scale: float = 1.0, un_cond=None, decode: bool = True,
                       guidance_rescale: float = 0.0,
-                      timestep_spacing: str = "linspace"):
+                      timestep_spacing: str = "linspace", classifier_grad=None,
+                      classifier_scale: float = 0.0):
         """DPM-Solver++(2M) from the channels-last latent ``x_t``: ``steps``
         estimator forwards (2 <= steps <= T); the first step is first order
         and the last returns the data prediction at the lowest grid level.
-        Works for every objective through the x_0 prediction."""
+        Works for every objective through the x_0 prediction; classifier
+        guidance (``classifier_grad``, ``classifier_scale``: see
+        :meth:`estimate`) steers the eps objective's."""
         if self.use_self_conditioning:
             raise ValueError("dpmpp sampler: self-cond unsupported")
+        if classifier_grad is not None:
+            self._check_classifier_guidance()
         sched = self.scheduler
         n = sched.timesteps if steps is None else steps
         if not 2 <= n <= sched.timesteps:
@@ -49,6 +54,9 @@ class DPMSolverMixin:
             pred = self._guided_pred(x, t_b, condition, guidance_scale,
                                      guidance_rescale, un_cond)
             pred, _ = self._split_variance(pred)
+            if classifier_grad is not None:
+                pred = self._classifier_shift(x, t_b, pred, classifier_grad,
+                                              classifier_scale)
             return self._x0_of(x, pred, t_b, self.clip_x0)
 
         d_prev = h_prev = None

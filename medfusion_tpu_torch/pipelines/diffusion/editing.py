@@ -24,6 +24,24 @@ def _randn(shape, like, generator):
     return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
 
 
+def slerp(z1: torch.Tensor, z2: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Spherical interpolation of each sample of ``z1`` and ``z2`` [B, ...]
+    (the angle per sample), at ``lam`` broadcasting against [B, 1, ...]
+    (a column of lambdas [n, 1, ...] against B = 1 gives n mixes); a lerp
+    where a pair is near parallel."""
+    b = z1.shape[0]
+    f1, f2 = z1.reshape(b, -1), z2.reshape(b, -1)
+    norms = torch.linalg.vector_norm(f1, dim=-1) * torch.linalg.vector_norm(f2, dim=-1)
+    cos = (f1 * f2).sum(-1) / torch.clamp(norms, min=1e-12)
+    omega = torch.arccos(torch.clamp(cos, -1.0, 1.0)).reshape(b, *(1,) * (z1.ndim - 1))
+    so = torch.sin(omega)
+    far = so > 1e-6
+    so = torch.clamp(so, min=1e-6)
+    w1 = torch.where(far, torch.sin((1.0 - lam) * omega) / so, 1.0 - lam)
+    w2 = torch.where(far, torch.sin(lam * omega) / so, lam)
+    return w1 * z1 + w2 * z2
+
+
 class EditingMixin:
     @torch.no_grad()
     def img2img(self, image, strength: float = 0.6, condition=None,

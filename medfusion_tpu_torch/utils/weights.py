@@ -10,7 +10,9 @@ kernels moved from HWIO to OIHW and dense kernels to [out, in]. A BatchNorm's
 flax ``batch_stats`` (mean, var) become ``running_mean``/``running_var``,
 with a ``num_batches_tracked`` of 0: flax keeps no count, and torch reads it
 only with ``momentum=None``, which the port never sets. The flax tree is
-flattened by plain recursion.
+flattened by plain recursion. The noisy-latent classifier's converter
+(:func:`jax_classifier_to_state_dict`) follows the OpenAI family's key rule
+instead.
 """
 
 from __future__ import annotations
@@ -202,4 +204,27 @@ def jax_vgg16_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             arr = np.ascontiguousarray(np.transpose(arr, (3, 2, 0, 1)))
         kind = "weight" if leaf == "kernel" else "bias"
         out[f"features.{idx}.{kind}"] = torch.from_numpy(arr.copy())
+    return out
+
+
+def jax_classifier_to_state_dict(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``EncoderUNetOpenAI``'s flax params -> the state dict of the
+    port's ``model`` (``models/unet_openai.py``): each of the model's keys
+    goes to its flax path by ``openai_key_to_path``; conv kernels HWIO ->
+    OIHW, dense kernels [I, O] -> [O, I]. Raises on a flax leaf that no key
+    reads."""
+    from medfusion_tpu_torch.models.unet_openai import openai_key_to_path
+
+    flat = {path: np.array(val, np.float32) for path, val in _flatten(params)}
+    out = {}
+    for key, ref in model.state_dict().items():
+        path = openai_key_to_path(key, ref.ndim)
+        if path not in flat:
+            raise ValueError(f"no flax leaf {path} for the classifier's {key}")
+        arr = flat.pop(path)
+        if path.endswith("/kernel"):
+            arr = arr.T if arr.ndim == 2 else np.transpose(arr, (3, 2, 0, 1))
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    if flat:
+        raise ValueError(f"flax leaves the classifier does not hold: {sorted(flat)[:5]}")
     return out

@@ -66,6 +66,15 @@ from medfusion_tpu_torch.utils.weights import jax_gan_to_state_dicts
 from tests.test_torch_models import _randomize, nchw, nhwc
 from tests.test_torch_train import LR, _close_tensors
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KEY = jax.random.PRNGKey(0)
 VAE_KW = dict(in_channels=3, out_channels=3, emb_channels=2, hid_chs=(4, 8),
               kernel_sizes=(3, 3), strides=(1, 2), deep_supervision=1,

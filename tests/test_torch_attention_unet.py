@@ -28,6 +28,15 @@ from medfusion_tpu_torch.models.unet import UNet
 from medfusion_tpu_torch.utils.weights import jax_params_to_state_dict, load_jax_params
 from tests.test_torch_models import _randomize, nchw, nhwc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the package re-binds the name ``flash_attention`` to its wrapper function
 jax_fa = importlib.import_module("medfusion_tpu.ops.flash_attention")
 KEY = jax.random.PRNGKey(0)

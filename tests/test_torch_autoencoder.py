@@ -44,6 +44,15 @@ from medfusion_tpu_torch.utils.weights import jax_params_to_state_dict, load_jax
 from tests.test_torch_models import _randomize, nchw, nhwc
 from tests.test_torch_train import _close_params, _close_tensors
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KEY = jax.random.PRNGKey(0)
 LR = 1e-4
 # a small chest-like VAE: RGB, two downsamplings, one deep-supervision head

@@ -36,6 +36,15 @@ from medfusion_tpu_torch.utils.weights import jax_params_to_state_dict
 from tests.test_torch_data import write_chexpert_2
 from tests.test_torch_models import _randomize
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMOKE = presets.PRESETS["smoke"]
 
 

@@ -22,6 +22,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from medfusion_tpu.data import datasets_2d as jax_ds
@@ -31,6 +32,15 @@ from medfusion_tpu_torch.data import datasets_2d as ds
 from medfusion_tpu_torch.data import png
 from medfusion_tpu_torch.data import transforms as tf
 from medfusion_tpu_torch.data.datamodule import SimpleDataModule
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
 SIZES = ((1, 1), (7, 13), (33, 5), (40, 41))

@@ -35,6 +35,15 @@ import torch
 from medfusion_tpu_torch import ops
 from medfusion_tpu_torch.ops import flash_attention as FA
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the package re-binds the name ``flash_attention`` to its wrapper function
 jax_fa = importlib.import_module("medfusion_tpu.ops.flash_attention")
 

@@ -21,6 +21,14 @@ from medfusion_tpu.ops.geglu import geglu_mlp_reference as jax_reference
 from medfusion_tpu_torch.ops import geglu as G
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(m, c, f, seed=0):
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((m, c)) * 2.0 + 0.5).astype(np.float32)

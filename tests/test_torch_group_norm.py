@@ -19,6 +19,14 @@ from medfusion_tpu.ops.group_norm import group_norm_silu_reference as jax_refere
 from medfusion_tpu_torch.ops import group_norm as G
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(c, seed=0, mean=0.0):
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((2, 8, 8, c)) + mean).astype(np.float32)

@@ -9,10 +9,15 @@
 * Every subcommand runs at the smoke preset on the CPU and writes its
   files; ``extract-vae`` gives a checkpoint that ``--vae-ckpt`` loads, equal
   to the adversarial run's generator, at its step.
-* The refusals: ``--family flow``, an ``--estimator`` other than ``unet``,
-  the kernel switches, and ``export-gif`` without PIL.
+* ``interpolate --family flow --ddim-invert`` against the JAX flow
+  pipeline and ``_batched_slerp`` on the same weights and latents (the
+  port's encoder draws), at 2e-4 of the decoded images' scale; the flow
+  family's other helpers run.
+* The refusals: an ``--estimator`` other than ``unet`` (also under
+  ``--family flow``), the kernel switches, and ``export-gif`` without PIL.
 """
 
+import functools
 import sys
 
 import jax
@@ -100,6 +105,52 @@ def test_slerp_matches_jax():
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+def test_flow_interpolate_matches_jax(tmp_path, monkeypatch):
+    """``interpolate --family flow --ddim-invert``: both latents inverted by
+    the forward ODE, slerped, integrated down and decoded, as the JAX CLI
+    does, on perturbed JAX params of the smoke UNet and VAE."""
+    from medfusion_tpu.pipelines.flow import FlowMatchingPipeline as JaxFlow
+
+    p = jax_presets.PRESETS["smoke"]
+    unet, vae = jax_presets.build_unet(p), jax_presets.build_vae(p)
+    z = jnp.zeros((1, *p.latent_shape))
+    t = jnp.zeros((1,), jnp.int32)
+    params = {"noise_estimator": _randomize(jax.eval_shape(unet.init, KEY, z, t, t)["params"],
+                                            81),
+              "latent_embedder": _randomize(jax.eval_shape(
+                  vae.init, {"params": KEY, "sample": KEY},
+                  jnp.zeros((1, 32, 32, 3)))["params"], 82)}
+    monkeypatch.setattr(helpers, "build_pipeline", functools.partial(
+        presets.build_pipeline, unet_params=params["noise_estimator"],
+        vae_params=params["latent_embedder"]))
+    steps, n = 3, 3
+    out = helpers.main(["interpolate", "--device", "cpu", "--family", "flow", "--flow-shift",
+                        "2", "--ddim-invert", "--steps", str(steps), "--n", str(n),
+                        "--out", str(tmp_path)])
+    # the helper's latents: its encoder draws from the generator of --seed 0
+    pipe = helpers.load_pipeline(helpers_args(), SMOKE, torch.device("cpu"))
+    ds = presets.build_dataset(SMOKE, None, n_synthetic=4, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    zs = [nhwc(pipe.encode_latent(nchw(np.asarray(ds[i]["source"])[None]),
+                                  torch.randn((1, 2, 8, 8), generator=gen)))
+          for i in (0, 1)]
+    flow = JaxFlow(noise_estimator=unet, latent_embedder=vae, do_input_centering=False,
+                   shift=2.0)
+    inv = [flow.invert(params, jnp.asarray(z), steps=steps) for z in zs]
+    lams = jnp.linspace(0.0, 1.0, n).reshape(-1, 1, 1, 1)
+    ref = np.asarray(flow.denoise(params, _batched_slerp(*inv, lams), None, steps=steps))
+    assert out.shape == (n, 32, 32, 3) and np.abs(ref).max() > 1e-2
+    scale = max(1.0, np.abs(ref).max())
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-4 * scale, rtol=2e-4)
+
+
+def helpers_args():
+    import argparse
+
+    return argparse.Namespace(ckpt=None, ema=False, attention="none", attention_heads=8,
+                              seed=0, vae_ckpt=None, family="flow", flow_shift=2.0)
+
+
 RUNS = {
     "export-images": ([], ["random_images.png"]),
     "export-gif": (["--steps", "3"], []),
@@ -110,13 +161,19 @@ RUNS = {
     "inpaint-repaint": (["--steps", "6", "--resample-steps", "2", "--jump-length", "2"],
                         ["inpaint.png"]),
     "img2img": (["--steps", "5", "--label", "1", "--guidance-scale", "2"], ["img2img.png"]),
+    "interpolate-flow": (["--steps", "3", "--n", "3", "--family", "flow", "--strength", "0.7"],
+                         ["interpolation.png"]),
+    "inpaint-flow": (["--steps", "3", "--resample-steps", "2", "--family", "flow",
+                      "--flow-shift", "2"], ["inpaint.png"]),
+    "img2img-flow": (["--steps", "3", "--label", "0", "--guidance-scale", "2", "--family",
+                      "flow"], ["img2img.png"]),
 }
 
 
 @pytest.mark.parametrize("run", sorted(RUNS))
 def test_helper_runs_on_cpu(tmp_path, capsys, run):
     flags, files = RUNS[run]
-    cmd = run.split("-ddim")[0].split("-repaint")[0]
+    cmd = run.split("-ddim")[0].split("-repaint")[0].split("-flow")[0]
     out = tmp_path / ("trajectory.gif" if cmd == "export-gif" else "out")
     helpers.main([cmd, "--device", "cpu", "--out", str(out), *flags])
     if cmd == "export-gif":
@@ -149,7 +206,7 @@ def test_extract_vae(tmp_path):
 
 
 @pytest.mark.parametrize("flags,why", [
-    (["interpolate", "--family", "flow"], "item 3"),
+    (["interpolate", "--family", "flow", "--estimator", "openai"], "item 7"),
     (["img2img", "--estimator", "dit"], "item 7"),
     (["inpaint", "--flash"], "item 10"),
     (["interpolate", "--no-fused-geglu"], "item 10"),

@@ -730,3 +730,60 @@ def test_smoke_samplers_match_the_cpu(cuda, sampler, attention):
     assert all(after[k] > before[k] for k in kernels)
     scale = max(1.0, ref.abs().max().item())
     torch.testing.assert_close(out, ref, atol=1e-4 * scale, rtol=1e-4)
+
+
+# the noisy-latent classifier's attentions (classifier guidance), f32, token
+# layout: its middle block at 16^2 = 256 tokens of width 128, one head of 128
+# or four of 32, and its attention pool at 257 tokens (the mean token
+# prepended), four heads of 32
+CLASSIFIER_ATTN_CASES = [(256, 128, 1), (256, 128, 4), (257, 128, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,heads", CLASSIFIER_ATTN_CASES)
+def test_classifier_attention_shapes_match_plain_version(cuda, n, c, heads):
+    """The forward (o, lse) and both backward kernels in float32 at the
+    classifier's shapes, B=8 (the guided sampler's batch)."""
+    q, k, v = _attn_inputs(cuda, 8, n, n, c, torch.float32)
+    scale = (c // heads) ** -0.25
+    ro, rlse = FA.naive_attention_reference(*(FA._heads(t, heads) for t in (q, k, v)), scale)
+    o, lse = FA.flash_attention_tokens(q, k, v, heads, scale)
+    torch.testing.assert_close(FA._heads(o, heads), ro, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse.transpose(1, 2), rlse, atol=2e-5, rtol=2e-5)
+    do = torch.randn((8, n, c), generator=cuda, device="cuda")
+    before = ops.launch_counts()
+    grads, refs = _attention_grads(q, k, v, do, heads, "tokens")
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("flash_attention_tokens", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    for what, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-5,
+                                   msg=lambda msg, w=what: f"{w}: {msg}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["adaptive", "attention"])
+def test_classifier_gradient_matches_the_cpu(cuda, pool):
+    """The chest classifier's input gradient (classifier guidance), f32,
+    card against CPU on the same perturbed weights, within 1e-4 of max|g|;
+    each of its attentions launches one forward, one dQ and one dK/dV."""
+    from medfusion_tpu_torch.cli.presets import PRESETS
+    from medfusion_tpu_torch.cli.train_classifier import build_classifier
+    from medfusion_tpu_torch.pipelines.diffusion import make_classifier_grad
+
+    torch.manual_seed(0)
+    cpu = build_classifier(PRESETS["chest"], 64, pool).eval()
+    with torch.no_grad():
+        for prm in cpu.parameters():
+            prm.add_(0.02 * torch.randn(prm.shape))
+    card = copy.deepcopy(cpu).cuda()
+    x, t, label = torch.randn((2, 8, 32, 32)), torch.tensor([3, 900]), torch.tensor([1, 0])
+    ref = make_classifier_grad(cpu, label)(x, t)
+    before = ops.launch_counts()
+    out = make_classifier_grad(card, label.cuda())(x.cuda(), t.cuda()).cpu()
+    after = ops.launch_counts()
+    attentions = 1 if pool == "adaptive" else 2
+    for name in ("flash_attention_tokens", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + attentions, name
+    torch.testing.assert_close(out, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)

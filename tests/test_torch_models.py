@@ -32,6 +32,15 @@ from medfusion_tpu_torch.models.latent_embedders import VAE
 from medfusion_tpu_torch.models.unet import UNet
 from medfusion_tpu_torch.utils.weights import jax_params_to_state_dict, load_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KEY = jax.random.PRNGKey(0)
 
 UNET_CFGS = {

@@ -33,6 +33,15 @@ from medfusion_tpu_torch.models.unet import UNet
 from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
 from medfusion_tpu_torch.utils.weights import load_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KEY = jax.random.PRNGKey(0)
 LATENT = (2, 8, 8, 2)
 STEPS = 10
@@ -183,14 +192,15 @@ def test_sample_returns_channels_last_images(pipelines):
 
 
 def test_unported_options_raise(pipelines, capsys):
-    """What is still unported (the flow family, consistency sampling,
-    classifier guidance) is refused by the sampling CLI with a message
+    """What is still unported (consistency sampling, also with the flow
+    family or a classifier) is refused by the sampling CLI with a message
     naming ROADMAP; a noise tensor of the wrong layout is refused."""
     from medfusion_tpu_torch.cli import sample
 
     _, _, pipe = pipelines
-    for flags in (["--family", "flow"], ["--sampler", "consistency"],
-                  ["--classifier-ckpt", "runs/classifier"]):
+    for flags in (["--sampler", "consistency"],
+                  ["--sampler", "consistency", "--guidance-rescale", "0.5"],
+                  ["--sampler", "consistency", "--classifier-ckpt", "runs/classifier"]):
         with pytest.raises(SystemExit):
             sample.main(["--preset", "smoke", "--device", "cpu", *flags])
         assert "ROADMAP Queue 1" in capsys.readouterr().err

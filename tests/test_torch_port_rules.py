@@ -1,6 +1,7 @@
 """Rules the PyTorch port keeps: it imports no JAX and nothing of the JAX
-package, its entry points default to the card and raise without one, and its
-sampling CLI runs end to end on the CPU when asked to."""
+package, its entry points default to the card and raise without one, its
+sampling CLI runs end to end on the CPU when asked to, and its CLIs refuse
+what the JAX CLIs refuse with the flow family and classifier guidance."""
 
 import ast
 from pathlib import Path
@@ -18,8 +19,18 @@ from medfusion_tpu_torch.cli import (
     sample,
     sample_dataset,
     train_autoencoder,
+    train_classifier,
     train_diffusion,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "medfusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -66,10 +77,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("cli", [train_autoencoder, train_diffusion, sample, sample_dataset,
-                                 evaluate_images, evaluate_latent_embedder, helpers],
+                                 evaluate_images, evaluate_latent_embedder, helpers,
+                                 train_classifier],
                          ids=["train_autoencoder", "train_diffusion", "sample",
                               "sample_dataset", "evaluate_images", "evaluate_latent_embedder",
-                              "helpers"])
+                              "helpers", "train_classifier"])
 def test_every_cli_defaults_to_the_card(monkeypatch, tmp_path, cli):
     """Each CLI's --device defaults to cuda and raises without a card."""
     _without_cuda(monkeypatch)
@@ -209,3 +221,50 @@ def _to_flax(path, arr):
     if path.endswith("linear/kernel"):
         return arr.T
     return arr
+
+
+# (CLI, flags, a phrase of the refusal): the JAX CLIs' refusals for the flow
+# family and classifier guidance (medfusion_tpu/cli/sample.py,
+# sample_dataset.py, train_diffusion.py)
+REFUSALS = {
+    "sample-flow-zero_snr": (sample, ["--family", "flow", "--zero-terminal-snr"], "no schedule"),
+    "sample-flow-rescale": (sample, ["--family", "flow", "--guidance-rescale", "0.7"],
+                            "no schedule"),
+    "sample-flow-spacing": (sample, ["--family", "flow", "--timestep-spacing", "trailing"],
+                            "--flow-shift"),
+    "sample-flow-objective": (sample, ["--family", "flow", "--objective", "v"],
+                              "velocity models"),
+    "sample-flow-sampler": (sample, ["--family", "flow", "--sampler", "dpmpp"],
+                            "own ODE sampler"),
+    "sample-flow-classifier": (sample, ["--family", "flow", "--classifier-ckpt", "c.npz"],
+                               "flow family"),
+    "sample-flow-fast": (sample, ["--family", "flow", "--encoder-key-every", "2"],
+                         "fast path"),
+    "sample-classifier-fast": (sample, ["--classifier-ckpt", "c.npz", "--encoder-key-every",
+                                        "2"], "encoder-propagation"),
+    "sample-classifier-edm": (sample, ["--classifier-ckpt", "c.npz", "--sampler", "edm"],
+                              "EDM sampler"),
+    "sample_dataset-flow-sampler": (sample_dataset, ["--family", "flow", "--sampler", "edm"],
+                                    "own ODE sampler"),
+    "sample_dataset-classifier-edm": (sample_dataset, ["--classifier-ckpt", "c.npz",
+                                                       "--sampler", "edm"], "EDM sampler"),
+    "train_diffusion-flow-zero_snr": (train_diffusion, ["--family", "flow",
+                                                        "--zero-terminal-snr"], "no schedule"),
+    "train_diffusion-flow-objective": (train_diffusion, ["--family", "flow", "--objective",
+                                                         "x_0"], "velocity objective"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_flow_and_classifier_refusals(capsys, case):
+    cli, flags, phrase = REFUSALS[case]
+    with pytest.raises(SystemExit):
+        cli.main(["--preset", "smoke", "--device", "cpu", *flags])
+    assert phrase in capsys.readouterr().err
+
+
+def test_no_cli_refuses_item_3():
+    """Queue 1 item 3 (the flow family, classifier guidance) is ported: no
+    CLI refuses anything naming it."""
+    for path in sorted((ROOT / "medfusion_tpu_torch" / "cli").glob("*.py")):
+        assert "item 3" not in path.read_text(), path.name

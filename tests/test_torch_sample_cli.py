@@ -1,9 +1,11 @@
 """The sampling CLIs of the port on the CPU: ``cli.sample --sampler
-dpmpp|edm`` against the JAX package's samplers on the same weights (the
-smoke preset, its flax params written to an ``.npz``) and the same initial
-latent, the other sampler flags and their refusals, and
-``cli.sample_dataset``'s PNG tree and uint8 conversion against the JAX
-CLI's formula on the same images.
+dpmpp|edm``, ``--family flow`` and ``--classifier-ckpt`` (guided DDIM at
+eta 0 and DPM++, a classifier ``.npz`` of JAX params) against the JAX
+package's samplers on the same weights (the smoke preset, its flax params
+written to an ``.npz``) and the same initial latent, the other sampler
+flags and their refusals, and ``cli.sample_dataset``'s PNG tree and uint8
+conversion against the JAX CLI's formula on the same images, also for the
+flow family and under classifier guidance.
 
 The CLI draws its initial latent from ``torch.Generator().manual_seed(seed)``
 for every condition; the test draws the same and hands it to the JAX
@@ -25,7 +27,10 @@ import pytest
 import torch
 
 from medfusion_tpu.cli import presets as jax_presets
+from medfusion_tpu.cli.train_classifier import build_classifier as jax_build_classifier
 from medfusion_tpu.pipelines.diffusion import DiffusionPipeline as JaxPipeline
+from medfusion_tpu.pipelines.diffusion import make_classifier_grad
+from medfusion_tpu.pipelines.flow import FlowMatchingPipeline as JaxFlow
 from medfusion_tpu_torch.cli import presets, sample, sample_dataset
 from medfusion_tpu_torch.data.png import read_png
 from tests.test_torch_checkpoint import _flat
@@ -98,6 +103,65 @@ def test_sample_cli_sampler_matches_jax(tmp_path, jax_smoke, sampler):
     assert (out / "sample_diff.png").exists()
 
 
+def test_sample_cli_flow_matches_jax(tmp_path, jax_smoke):
+    jp, params, npz = jax_smoke
+    flow = JaxFlow(noise_estimator=jp.noise_estimator, latent_embedder=jp.latent_embedder,
+                   do_input_centering=False, shift=2.0)
+    steps = 25  # above the smoke preset's T = 20: the ODE grid is not capped
+    results = sample.main(_argv(tmp_path, "--params", str(npz), "--family", "flow",
+                                "--flow-shift", "2", "--steps", str(steps)))
+    x_T = torch.randn((N, *SMOKE.latent_shape),
+                      generator=torch.Generator().manual_seed(SEED)).numpy()
+    for cond_val in (0, 1, None):
+        cond = None if cond_val is None else jnp.full((N,), cond_val, jnp.int32)
+        ref = np.asarray(flow.denoise(params, jnp.asarray(x_T), None, condition=cond,
+                                      steps=steps, guidance_scale=8.0 if cond_val is not None
+                                      else 1.0, shift=2.0))
+        _assert_close(results[cond_val], ref, 2e-4)
+
+
+@pytest.fixture(scope="module")
+def classifier_npz(tmp_path_factory):
+    """{pool: (JAX classifier, perturbed params, their .npz)} at model
+    channels 32 (2 heads of 32 in the middle block and the attention pool)."""
+    p = jax_presets.PRESETS["smoke"]
+    out = {}
+    for i, pool in enumerate(("adaptive", "attention")):
+        clf = jax_build_classifier(p, 32, pool)
+        shapes = jax.eval_shape(clf.init, jax.random.PRNGKey(0),
+                                jnp.zeros((1, *p.latent_shape)), jnp.zeros((1,), jnp.int32))
+        params = _randomize(shapes["params"], 71 + i)
+        path = tmp_path_factory.mktemp("clf") / f"{pool}.npz"
+        np.savez(path, **_flat({"params": params}))
+        out[pool] = clf, params, path
+    return out
+
+
+@pytest.mark.parametrize("sampler,pool", [("ddim", "attention"), ("dpmpp", "adaptive")])
+def test_sample_cli_classifier_matches_jax(tmp_path, jax_smoke, classifier_npz, sampler,
+                                           pool):
+    jp, params, npz = jax_smoke
+    clf, cparams, cnpz = classifier_npz[pool]
+    flags = ["--eta", "0"] if sampler == "ddim" else ["--sampler", "dpmpp"]
+    results = sample.main(_argv(tmp_path, "--params", str(npz), "--classifier-ckpt", str(cnpz),
+                                "--classifier-model-channels", "32", "--classifier-pool",
+                                pool, "--classifier-scale", "30", *flags))
+    x_T = torch.randn((N, *SMOKE.latent_shape),
+                      generator=torch.Generator().manual_seed(SEED)).numpy()
+    for cond_val in (0, 1, None):
+        kw = dict(steps=STEPS, guidance_scale=1.0)
+        if cond_val is not None:
+            cond = jnp.full((N,), cond_val, jnp.int32)
+            kw.update(condition=cond, guidance_scale=8.0, classifier_scale=30.0,
+                      classifier_grad=make_classifier_grad(
+                          lambda x, t: clf.apply({"params": cparams}, x, t), cond))
+        if sampler == "ddim":  # eta 0 on a linspace grid: no draw is read
+            ref = jp.denoise(params, jnp.asarray(x_T), jax.random.PRNGKey(0), eta=0.0, **kw)
+        else:
+            ref = jp.denoise_dpmpp(params, jnp.asarray(x_T), **kw)
+        _assert_close(results[cond_val], np.asarray(ref), 2e-4)
+
+
 # flags -> None (runs) or the exception it raises
 FLAG_CASES = {
     "fast-key2": (["--encoder-key-every", "2"], None),
@@ -164,3 +228,36 @@ def test_sample_dataset_writes_the_tree_as_jax_converts_it(tmp_path, capsys):
     firsts = {torch.randn(1, generator=sample_dataset.chunk_generator("cpu", 0, *k)).item()
               for k in ((3, 0, 0), (3, 0, 1), (3, 1, 0), (20, 0, 0), (3, 2, 0))}
     assert len(firsts) == 5
+
+
+def test_sample_dataset_flow_and_classifier_trees(tmp_path, classifier_npz):
+    """``--family flow`` keeps a step count above T; ``--classifier-ckpt``
+    guides each chunk toward its label: both trees hold what
+    ``run_sampler`` gives for the same chunk draws."""
+    cnpz = classifier_npz["attention"][2]
+    clf = dict(classifier_ckpt=str(cnpz), classifier_model_channels=32,
+               classifier_pool="attention", classifier_scale=30.0)
+    cases = {"flow": (["--family", "flow"], 25, dict(family="flow", classifier_ckpt=None)),
+             "classifier": (["--sampler", "dpmpp", "--classifier-ckpt", str(cnpz),
+                             "--classifier-model-channels", "32", "--classifier-pool",
+                             "attention", "--classifier-scale", "30"], 3,
+                            dict(family="diffusion", **clf))}
+    for name, (flags, steps, settings) in cases.items():
+        out = tmp_path / name
+        dirs = sample_dataset.main(["--preset", "smoke", "--device", "cpu", "--dtype", "f32",
+                                    "--n-samples", "2", "--chunk", "2", "--steps-list",
+                                    str(steps), "--guidance", "2.0", "--out", str(out),
+                                    *flags])
+        assert sorted(dirs) == [(steps, 0), (steps, 1)]
+        args = argparse.Namespace(sampler="dpmpp", guidance_rescale=0.0,
+                                  timestep_spacing="linspace", **settings)
+        pipe = presets.build_pipeline(SMOKE, device="cpu", seed=0, family=args.family)
+        classifier = sample.load_classifier_arg(args, SMOKE, "cpu")
+        label = 1
+        gen = sample_dataset.chunk_generator("cpu", 0, steps, label, 0)
+        cond = torch.full((2,), label)
+        imgs = sample.run_sampler(pipe, args, SMOKE, 2, steps, cond, 2.0, gen,
+                                  un_cond=1 - cond, classifier=classifier).numpy()
+        got = np.stack([read_png(out / f"steps_{steps}" / f"label_{label}" / f"fake_{i}.png")
+                        for i in range(2)])
+        np.testing.assert_array_equal(got, sample_dataset.to_uint8(imgs))

@@ -60,6 +60,15 @@ from medfusion_tpu_torch.train.lr_schedules import make_lr_schedule
 from medfusion_tpu_torch.utils.weights import jax_params_to_state_dict, load_jax_params
 from tests.test_torch_models import _randomize
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jax_fa = importlib.import_module("medfusion_tpu.ops.flash_attention")
 KEY = jax.random.PRNGKey(0)
 LR = 1e-4
@@ -309,12 +318,13 @@ def test_bf16_step_keeps_f32_masters_and_matches_the_f32_loss():
 
 
 def test_train_loss_refuses_what_is_not_ported(capsys):
-    """The flow family is refused by the training CLI with a message naming
-    ROADMAP; the eps objective is refused on a zero-terminal-SNR schedule,
+    """The flow family refuses the diffusion-schedule options, as the JAX
+    CLI does; the eps objective is refused on a zero-terminal-SNR schedule,
     as the JAX pipeline refuses it."""
     with pytest.raises(SystemExit):
-        train_diffusion.main(["--preset", "smoke", "--device", "cpu", "--family", "flow"])
-    assert "ROADMAP Queue 1" in capsys.readouterr().err
+        train_diffusion.main(["--preset", "smoke", "--device", "cpu", "--family", "flow",
+                              "--min-snr-gamma", "5"])
+    assert "the flow family has no schedule" in capsys.readouterr().err
     _, _, unet = _unet_pair("narrow", 2, 16)
     sched = S.GaussianDiffusionSchedule.create(timesteps=T, zero_terminal_snr=True)
     with pytest.raises(ValueError, match="zero-terminal-SNR"):

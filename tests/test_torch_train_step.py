@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 import medfusion_tpu.models.latent_embedders as jax_le
@@ -38,6 +39,14 @@ from tests.test_torch_train import (  # noqa: F401  (bwd_spy is a fixture)
     _vae_pair,
     bwd_spy,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_train_step_matches_jax_with_the_pallas_backward(bwd_spy):

@@ -39,6 +39,15 @@ from medfusion_tpu_torch.train.autoencoder import (
 from medfusion_tpu_torch.utils.weights import jax_params_to_state_dict, load_jax_params
 from tests.test_torch_models import _randomize, nchw, nhwc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KEY = jax.random.PRNGKey(0)
 K = 16
 VQ_KW = dict(in_channels=3, out_channels=3, emb_channels=2, hid_chs=(4, 8),
