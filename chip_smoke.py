@@ -96,7 +96,26 @@ Phases (each raises on failure, so any failure exits non-zero):
     --family flow`` (Heun 25), ``cli.train_classifier`` with a resume, and
     ``cli.sample --classifier-ckpt`` (DDIM 150 with each pool, DPM++ 25)
     beside the unguided run (seconds, peak memory), each run's launches
-    held to the counts derived here.
+    held to the counts derived here;
+14. the DiT estimator, its mixture-of-experts blocks and distillation
+    (slice 13): the smoke DiT and a DiT-MoE of 4 experts card against CPU
+    (f32: forward, ``train_loss`` with ``moe_aux``, gradients); the
+    token-layout forward and both backward kernels at the chest DiT's
+    shape (256 tokens, 16 heads of 64) on q/k/v column slices of one
+    [B, N, 3C] projection, f32 and bf16, against their plain versions (the
+    forward shown to read the slices in place), then timed at the sampling
+    and training batches beside SDPA and the bound; on phase 9's tree,
+    ``cli.train_diffusion --estimator dit`` (B=32, bf16, EMA; ms a step,
+    peak memory, breakdown) with phase 8's gradient check on a perturbed
+    chest DiT shown to flag dq zeroed at d = 64; ``cli.sample --estimator
+    dit --ckpt --ema`` (DDIM 150, CFG 8); the flow family with the DiT
+    (training, Heun 25); a DiT-MoE of 8 experts, top-2, capacity 1.25,
+    every second block (one bf16 step at B=32: ms, peak memory,
+    ``moe_aux``, router gradients, each routed block's dropped share);
+    ``cli.distill`` pd (from phase 9's UNet and from the DiT), cd and then
+    ``cli.sample --sampler consistency``, ct, and reflow from phase 13's
+    flow run; every run's launches held to the counts derived from the
+    architecture.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -1230,17 +1249,33 @@ def grads_of(pipe, batch, draws, dtype):
                            for k, q, g in zip(names, masters, grads)}
 
 
+def split_fused_qkv(grads):
+    """A DiT block's fused q/k/v projection as three tensors (its q, k and
+    v rows), so that a fault confined to one of them is not diluted by the
+    other two."""
+    out = {}
+    for k, g in grads.items():
+        if k.endswith(("attn_qkv.weight", "attn_qkv.bias")):
+            stem, leaf = k.rsplit(".", 1)
+            out.update({f"{stem}.{part}.{leaf}": gi for part, gi in zip("qkv", g.chunk(3))})
+        else:
+            out[k] = g
+    return out
+
+
 def grad_departure(g, ref):
     """How far the gradients ``g`` depart from ``ref`` (name -> tensor):
     (the three worst tensors' |d|_2 / |ref|_2 with their names, worst
     first; max |d| over max |ref| across all elements). A tensor whose
     ``ref`` is all zero departs by 0 if its ``g`` is too, else by infinity.
-    The key projections' biases are left out: softmax is invariant to a
-    shift that is the same for every key, so their gradient is zero but
-    for rounding in both dtypes."""
+    A fused q/k/v projection counts as three tensors
+    (:func:`split_fused_qkv`). The key projections' biases are left out:
+    softmax is invariant to a shift that is the same for every key, so
+    their gradient is zero but for rounding in both dtypes."""
+    g, ref = split_fused_qkv(g), split_fused_qkv(ref)
     rels = []
     for k, r in ref.items():
-        if k.endswith("to_k.bias"):
+        if k.endswith(("to_k.bias", "attn_qkv.k.bias")):
             continue
         d, r_norm = (g[k] - r).norm().item(), r.norm().item()
         rels.append((d / r_norm if r_norm > 0 else (0.0 if d == 0 else math.inf), k))
@@ -1267,10 +1302,10 @@ def planted_fault(FA, wrapper, operand, head_dim, heads):
         setattr(FA, wrapper, real)
 
 
-def check_train_grads(FA, pipe, batch, draws):
+def check_train_grads(FA, pipe, batch, draws, faults=PLANTED_FAULTS):
     """A bf16 loss and gradient against an f32 one on the same weights and
-    draws, held to TRAIN_GRAD_REL_LIMIT; then each of PLANTED_FAULTS, which
-    the same check must flag."""
+    draws, held to TRAIN_GRAD_REL_LIMIT; then each of ``faults``, which the
+    same check must flag."""
     import torch
 
     l32, g32 = grads_of(pipe, batch, draws, None)
@@ -1281,7 +1316,7 @@ def check_train_grads(FA, pipe, batch, draws):
         f"worst tensors |d|_2/|g32|_2 = {fmt_worst(worst)} (limit "
         f"{TRAIN_GRAD_REL_LIMIT}); max|d|/max|g32| over all = {glob:.3e}")
     missed = []
-    for label, *fault in PLANTED_FAULTS:
+    for label, *fault in faults:
         with planted_fault(FA, *fault):
             _, gf = grads_of(pipe, batch, draws, torch.bfloat16)
         f_worst, f_glob = grad_departure(gf, g32)
@@ -3356,6 +3391,456 @@ def phase_classifier_program(ops, tmp, root):
     return report
 
 
+# Phase 14: the DiT estimator, its mixture-of-experts blocks and distillation
+# (slice 13). The chest DiT (cli/presets.py::dit_sizing): hidden 1,024, 16
+# heads of 64, depth 12, patch 2 on the 32^2 x 8 latent, so 256 tokens; each
+# block's attention takes q, k and v as column slices of one [B, N, 3C]
+# projection (row stride 3C) and launches one token-layout forward, and in
+# training one dQ and one dK/dV. The DiT has no GroupNorm: a run's
+# GroupNorms are the frozen VAE's (8 an encode, 8 a decode).
+DIT_TOKENS, DIT_WIDTH, DIT_HEADS, DIT_DEPTH = 256, 1024, 16, 12
+DIT_TRAIN_STEPS = 3
+# the kernels at the DiT's shape: the sampling batch's CFG rows (forward) and
+# the training batch (backward)
+DIT_FWD_B, DIT_BWD_B = 2 * N_SAMPLES, TRAIN_BATCH
+# 14a: the smoke DiT card against CPU (f32), dense and with 4 experts
+DIT_SMOKE_MOE = dict(moe_experts=4, moe_every=2)
+# 14b: the DiT's gradient check must flag dq zeroed at d = 64 on head 0
+DIT_FAULT = ("dq zeroed at d=64, head 0", "flash_attention_bwd_dq", 5, 64, 0)
+# 14d: the chest DiT with 8 experts, top-2, capacity 1.25, every second
+# block (GShard's default; DiT-MoE's expert count, arXiv:2407.11633)
+DIT_MOE = dict(moe_experts=8, moe_num_selected=2, moe_capacity_factor=1.25, moe_every=2)
+# 14e: cli.distill, DISTILL_ITERS iterations of each method at B=32, bf16;
+# the consistency student sampled in CONSISTENCY_STEPS rounds; reflow's pool
+# REFLOW_PAIR_BATCHES batches of a REFLOW_TEACHER_STEPS-step Heun ODE
+DISTILL_ITERS, CONSISTENCY_STEPS = 3, 2
+REFLOW_TEACHER_STEPS, REFLOW_PAIR_BATCHES = 4, 1
+
+
+def dit_launches(forwards=0, backwards=0, encodes=0, decodes=0):
+    """The kernel launches of DiT forwards and backwards and VAE encodes and
+    decodes, from the architecture: one token-layout attention a block, and
+    the VAE's GroupNorms."""
+    return {"group_norm_silu": VAE_GN_PER_ENCODE * encodes + VAE_GN_PER_DECODE * decodes,
+            "flash_attention_tokens": DIT_DEPTH * forwards,
+            "flash_attention_bwd_dq": DIT_DEPTH * backwards,
+            "flash_attention_bwd_dkv": DIT_DEPTH * backwards}
+
+
+def unet_launches(forwards=0, encodes=0, decodes=0):
+    return {"group_norm_silu": UNET_GN_PER_FORWARD * forwards + VAE_GN_PER_ENCODE * encodes
+            + VAE_GN_PER_DECODE * decodes}
+
+
+def phase_dit_vs_cpu():
+    """14a: the smoke preset's DiT (hidden 64, 4 heads of 16, depth 6) and
+    a DiT-MoE of 4 experts, f32, card against CPU from the same perturbed
+    weights, batch and draws: a CFG-masked forward at SMOKE_TOL, the train
+    loss and ``moe_aux`` (rtol SMOKE_TOL) and its gradients within
+    CLF_GRAD_TOL x max|g| (phase 5's tolerances)."""
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline, build_unet, seeded
+
+    p = PRESETS["smoke"]
+    for name, options in (("DiT", {}), ("DiT-MoE", DIT_SMOKE_MOE)):
+        pipes = {}
+        for dev in ("cpu", "cuda"):
+            pipe = build_train_pipeline(p, device=dev, estimator="dit", seed=0)
+            with seeded(torch.device(dev), 0):
+                dit = build_unet(p, "dit", **options)
+            pipes[dev] = dataclasses.replace(pipe, noise_estimator=dit)
+        gen = torch.Generator().manual_seed(14)
+        cpu, card = pipes["cpu"], pipes["cuda"]
+        perturb_(cpu.noise_estimator, gen)
+        perturb_(cpu.latent_embedder, gen)
+        card.noise_estimator.load_state_dict(cpu.noise_estimator.state_dict())
+        card.latent_embedder.load_state_dict(cpu.latent_embedder.state_dict())
+        b = p.diffusion_batch_size
+        x = torch.randn((b, p.emb_channels, *p.latent_shape[:2]), generator=gen)
+        t = torch.randint(0, p.timesteps, (b,), generator=gen)
+        cond, mask = torch.arange(b) % 2, torch.tensor([1.0, 0.0] * (b // 2))
+        batch = {"source": torch.rand((b, 32, 32, 3), generator=gen) * 2 - 1,
+                 "target": torch.arange(b) % 2}
+        draws = dict(cpu.train_draws(b, p.latent_shape, generator=gen),
+                     drop=torch.tensor(False))
+        out = {}
+        for dev, pipe in (("cpu", cpu), ("cuda", card)):
+            est = pipe.noise_estimator
+            with torch.no_grad():
+                y, _ = est(x.to(dev), t.to(dev), cond.to(dev), mask.to(dev))
+            est.zero_grad(set_to_none=True)
+            loss, metrics = pipe.train_loss({k: v.to(dev) for k, v in batch.items()},
+                                            {k: v.to(dev) for k, v in draws.items()})
+            loss.backward()
+            out[dev] = (y, loss.detach(), metrics["moe_aux"].detach(),
+                        {k: q.grad.detach().cpu() for k, q in est.named_parameters()
+                         if q.grad is not None})
+        (y0, l0, a0, g0), (y1, l1, a1, g1) = out["cpu"], out["cuda"]
+        close_scaled(f"smoke {name} forward (labels, CFG mask)", y1, y0)
+        torch.testing.assert_close(torch.stack([l1, a1]).cpu(), torch.stack([l0, a0]),
+                                   rtol=SMOKE_TOL, atol=0)
+        gap = grad_gap(g1, g0)
+        log(f"  smoke {name} train_loss: loss {l1.item():.6f} vs {l0.item():.6f}, moe_aux "
+            f"{a1.item():.6e} vs {a0.item():.6e}; gradients ({len(g0)} tensors) max|d| "
+            f"{gap:.3e} of max|g| (limit {CLF_GRAD_TOL})")
+        if set(g1) != set(g0) or not gap <= CLF_GRAD_TOL:
+            raise RuntimeError(f"smoke {name}: card gradients depart by {gap}")
+        if options and not a0.item() > 0:
+            raise RuntimeError(f"smoke {name}: moe_aux {a0.item()} is not positive")
+
+
+def dit_qkv(b, dtype, gen):
+    """q, k, v as the DiT block makes them: column slices of one [B, N, 3C]
+    projection, and the projection itself."""
+    import torch
+
+    qkv = torch.randn((b, DIT_TOKENS, 3 * DIT_WIDTH), generator=gen, device="cuda").to(dtype)
+    return (*qkv.chunk(3, dim=-1), qkv)
+
+
+def dit_attention_checks(FA, worst):
+    """14a: kernel 5 and both backward kernels at the DiT's shape (B=2, 256
+    tokens, 16 heads of 64) on the strided column slices of one projection,
+    bf16 and f32, against their plain versions; the forward reads the
+    slices in place (no copy), and the autograd backward returns one [B, N,
+    3C] gradient of the projection, held to the plain backward's."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    scale = (DIT_WIDTH // DIT_HEADS) ** -0.25
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v, qkv = dit_qkv(2, dtype, gen)
+        ops = FA.flash_attention_forward_operands(q, k, v, DIT_HEADS)
+        if [t.data_ptr() for t in ops[:3]] != [t.data_ptr() for t in (q, k, v)]:
+            raise RuntimeError("the token-layout forward copied the strided q/k/v slices")
+        qh, kh, vh = (FA._heads(t, DIT_HEADS) for t in (q, k, v))
+        ro, rlse = FA.naive_attention_reference(qh, kh, vh, scale)
+        o, lse = FA.flash_attention_tokens_cuda(q, k, v, DIT_HEADS, scale)
+        tag = f"DiT attention B=2 N={DIT_TOKENS} H={DIT_HEADS} d=64 (row stride 3C) {name}"
+        keep(worst, "flash_attention_tokens", name,
+             close(tag + " o", FA._heads(o, DIT_HEADS), ro, *attn_o_tol(ro)))
+        close(tag + " lse", lse.transpose(1, 2), rlse, ATTN_LSE_TOL[name], ATTN_LSE_TOL[name])
+        leaf = qkv.detach().requires_grad_()
+        do = torch.randn((2, DIT_TOKENS, DIT_WIDTH), generator=gen, device="cuda").to(dtype)
+        out, _ = FA.flash_attention_tokens(*leaf.chunk(3, dim=-1), DIT_HEADS, scale)
+        (g,) = torch.autograd.grad(out, leaf, do)
+        refs = FA.flash_attention_backward_reference(
+            qh, kh, vh, FA._heads(o, DIT_HEADS), lse.transpose(1, 2),
+            FA._heads(do, DIT_HEADS), scale)
+        errs = [close(f"{tag} d{w}", FA._heads(gi, DIT_HEADS), r, *attn_bwd_tol(r))
+                for w, gi, r in zip("qkv", g.chunk(3, dim=-1), refs)]
+        keep(worst, "flash_attention_bwd_dq", name, errs[0])
+        keep(worst, "flash_attention_bwd_dkv", name, max(errs[1:]))
+        log(f"  {tag}: forward in place, max|d| o {worst['flash_attention_tokens'][name]:.3e}; "
+            f"the [B, N, 3C] gradient {tuple(g.shape)}: dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
+            f"dv {errs[2]:.3e}")
+
+
+def dit_attention_times(FA, worst):
+    """14a: kernel 5 at the sampling rows (B=16) and kernels 3 and 4 at the
+    training batch (B=32), bf16, on the DiT's strided slices (replayed graph
+    of 20 launches), each beside its plain version and SDPA (its backward
+    one call for dq, dk and dv), each checked; the bounds as phase 4's;
+    then the copy the backward's token-layout gradients cost (dq, dk and dv
+    come back in [B, H, N, D] order, and their [B, N, C] views are copied
+    before the projection's gradient is assembled)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    exp_per_s = exp_rate()
+    d, h = DIT_WIDTH // DIT_HEADS, DIT_HEADS
+    scale, n = d ** -0.25, DIT_TOKENS
+    rows = {}
+    for what, b in (("forward", DIT_FWD_B), ("backward", DIT_BWD_B)):
+        q, k, v, _ = dit_qkv(b, torch.bfloat16, gen)
+        qh, kh, vh = (FA._heads(t, h) for t in (q, k, v))
+        sc = torch.tensor(scale, dtype=torch.bfloat16)
+        leaves = [(t * sc).detach().requires_grad_() for t in (qh, kh)] + [
+            vh.detach().requires_grad_()]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*leaves, scale=1.0)
+
+        bh, tok, stat = b * h, b * n * DIT_WIDTH * 2, b * h * n * 4
+        exp_ms = bh * n * n / exp_per_s * 1e3
+        if what == "forward":
+            fwd = lambda: FA.flash_attention_tokens_cuda(q, k, v, h, scale)  # noqa: E731
+            ref = FA.naive_attention_reference(qh, kh, vh, scale)[0]
+            keep(worst, "flash_attention_tokens", "bfloat16",
+                 close(f"DiT attention B={b}", FA._heads(fwd()[0], h), ref, *attn_o_tol(ref)))
+            flops = 4 * bh * n * n * d
+            rows["flash_attention_tokens"] = dict(
+                B=b, ms=graph_ms(fwd, 20),
+                plain_ms=graph_ms(lambda: FA.naive_attention_reference(qh, kh, vh, scale), 3),
+                library_ms=graph_ms(sdpa, 10), **bounds(flops, 4 * tok + stat, exp_ms))
+            continue
+        do = torch.randn((b, n, DIT_WIDTH), generator=gen, device="cuda").bfloat16()
+        ops, _ = bwd_operands(FA, q, k, v, h, "tokens", do)
+        t_dq = graph_ms(lambda: FA.flash_attention_bwd_dq(ops, scale), 20)
+        t_dkv = graph_ms(lambda: FA.flash_attention_bwd_dkv(ops, scale), 20)
+        for kernel, err in check_bwd(FA, ops, scale, f"DiT attention bwd B={b}").items():
+            keep(worst, kernel, "bfloat16", err)
+        oh, doh, lse, delta = ops[3], ops[4], ops[8], ops[9]
+        p_dq = graph_ms(lambda: FA.flash_attention_bwd_dq_reference(
+            qh, kh, vh, oh, lse, doh, scale), 3)
+        p_dkv = graph_ms(lambda: FA.flash_attention_bwd_dkv_reference(
+            qh, kh, vh, lse, doh, delta, scale), 3)
+        l_f = graph_ms(sdpa, 10)
+        lib = graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, doh), 10) - l_f
+        for kernel, t_k, t_p, f in (("flash_attention_bwd_dq", t_dq, p_dq, 6),
+                                    ("flash_attention_bwd_dkv", t_dkv, p_dkv, 8)):
+            rows[kernel] = dict(B=b, ms=t_k, plain_ms=t_p, library_ms=lib,
+                                **bounds(f * bh * n * n * d, 6 * tok + 2 * stat, exp_ms))
+        grads = ops[5:8]
+        copy_ms = graph_ms(lambda: [gr.transpose(1, 2).flatten(2) for gr in grads], 20)
+        log(f"  DiT attention backward: dq/dk/dv strides {grads[0].stride()} ([B, H, N, D] "
+            f"order); their [B, N, C] views copied: {copy_ms:.4f} ms a layer at B={b}")
+        rows["grad_copy_ms"] = copy_ms
+        del ops, do
+    for kernel in ("flash_attention_tokens", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv"):
+        r = rows[kernel]
+        log(f"  {kernel} at the DiT's shape (B={r['B']}, N={n}, H={h}, d={d}, bf16): "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA{'' if kernel.endswith('tokens') else ' backward'} "
+            f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
+            f"({'operations' if r['ops_ms'] >= r['bytes_ms'] else 'bytes'}), "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dit_train(ops, FA, tmp, root):
+    """14b: cli.train_diffusion --estimator dit on phase 9's tree and
+    autoencoder (chest, B=32, bf16, EMA, DIT_TRAIN_STEPS steps) with its
+    launches held to the architecture's; the step's ms, peak memory and
+    breakdown; then phase 8's bf16-against-f32 gradient check on a
+    perturbed chest DiT, shown to flag DIT_FAULT."""
+    import torch
+
+    from medfusion_tpu_torch.cli import train_diffusion
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset, build_train_pipeline
+    from medfusion_tpu_torch.models.dit import DiTBlock
+    from medfusion_tpu_torch.train import make_diffusion_train_step
+
+    p = PRESETS["chest"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, pipe = train_diffusion.main([
+        "--preset", "chest", "--data-root", str(root), "--vae-ckpt", str(tmp / "ae"),
+        "--estimator", "dit", "--out", str(tmp / "dit"), "--bf16", "--use-ema",
+        "--max-steps", str(DIT_TRAIN_STEPS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    blocks = sum(isinstance(m, DiTBlock) for m in pipe.noise_estimator.modules())
+    if blocks != DIT_DEPTH:
+        raise RuntimeError(f"the chest DiT has {blocks} blocks, the counts assume {DIT_DEPTH}")
+    check_counts("DiT train CLI", ops.launch_counts(),
+                 {k: v * DIT_TRAIN_STEPS for k, v in dit_launches(1, 1, encodes=1).items()})
+    n_params = sum(q.numel() for q in state.model.parameters())
+    log(f"  DiT train CLI ({n_params / 1e6:.1f} M parameters): {DIT_TRAIN_STEPS} steps at "
+        f"B={TRAIN_BATCH} (bf16, EMA) in {seconds:.1f} s with loading; losses {losses}; "
+        f"a step launches {dit_launches(1, 1, encodes=1)}")
+    if not all(math.isfinite(v) for v in losses) or state.step != DIT_TRAIN_STEPS:
+        raise RuntimeError(f"DiT training: step {state.step}, losses {losses}")
+    ds = build_dataset(p, str(root))
+    items = [ds[i] for i in range(TRAIN_BATCH)]
+    batch = {"source": torch.stack([torch.from_numpy(it["source"]) for it in items]).cuda(),
+             "target": torch.tensor([it["target"] for it in items]).cuda()}
+    draws = pipe.train_draws(TRAIN_BATCH, p.latent_shape,
+                             generator=torch.Generator(device="cuda").manual_seed(2))
+    step = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
+    ms, peak, wall, kinds = step_ms_and_breakdown(step, state, batch, draws, 3)
+    log(f"  DiT train step (B={TRAIN_BATCH}, bf16): {ms:.1f} ms/step, peak memory "
+        f"{peak:.2f} GiB; profiled step wall {wall:.1f} ms, {fmt_kinds(kinds)}")
+    del state, pipe, step
+    torch.cuda.empty_cache()
+    check = build_train_pipeline(p, device="cuda", estimator="dit", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    perturb_(check.noise_estimator, gen)
+    check_train_grads(FA, check, batch, draws, faults=(DIT_FAULT,))
+    del check, batch, draws
+    torch.cuda.empty_cache()
+    return {"train_ms": ms, "train_peak": peak}
+
+
+def phase_dit_sample_and_flow(ops, tmp, root):
+    """14c: cli.sample --estimator dit --ckpt --ema from 14b's run (DDIM
+    150, CFG 8, B=8, 3 conditions: 1,800 token launches a condition);
+    cli.train_diffusion --family flow --estimator dit (DIT_TRAIN_STEPS steps)
+    and cli.sample --family flow from it (Heun 25: 49 forwards a
+    condition); launches held, seconds and peak memory."""
+    import torch
+
+    from medfusion_tpu_torch.cli import sample, train_diffusion
+
+    ae = str(tmp / "ae")
+    _, s_dit, p_dit = sample_run(
+        ops, sample, ["--preset", "chest", "--estimator", "dit", "--ckpt", str(tmp / "dit"),
+                      "--ema", "--vae-ckpt", ae, "--n", str(N_SAMPLES),
+                      "--out", str(tmp / "dit_samples")],
+        dit_launches(3 * STEPS, decodes=3), f"DiT sample CLI (DDIM {STEPS}, CFG {GUIDANCE})")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, _ = train_diffusion.main([
+        "--preset", "chest", "--data-root", str(root), "--vae-ckpt", ae, "--estimator", "dit",
+        "--family", "flow", "--out", str(tmp / "dit_flow"), "--bf16", "--use-ema",
+        "--max-steps", str(DIT_TRAIN_STEPS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    f_train_s = time.perf_counter() - t0
+    check_counts("DiT flow train CLI", ops.launch_counts(),
+                 {k: v * DIT_TRAIN_STEPS for k, v in dit_launches(1, 1, encodes=1).items()})
+    if not all(math.isfinite(v) for v in losses) or state.step != DIT_TRAIN_STEPS:
+        raise RuntimeError(f"DiT flow training: step {state.step}, losses {losses}")
+    log(f"  DiT flow train CLI: {DIT_TRAIN_STEPS} steps in {f_train_s:.1f} s with loading; "
+        f"losses {losses}")
+    del state
+    torch.cuda.empty_cache()
+    _, s_flow, p_flow = sample_run(
+        ops, sample, ["--preset", "chest", "--estimator", "dit", "--family", "flow", "--ckpt",
+                      str(tmp / "dit_flow"), "--ema", "--vae-ckpt", ae, "--steps",
+                      str(FLOW_STEPS), "--n", str(N_SAMPLES), "--out", str(tmp / "dit_flow_s")],
+        dit_launches(3 * (2 * FLOW_STEPS - 1), decodes=3),
+        f"DiT flow sample CLI (Heun {FLOW_STEPS}, CFG {GUIDANCE})")
+    return {"sample_s": s_dit, "sample_peak": p_dit, "flow_sample_s": s_flow,
+            "flow_sample_peak": p_flow}
+
+
+def phase_dit_moe(ops):
+    """14d: the chest DiT with DIT_MOE, one bf16 train step at B=32 (after a
+    warm-up): ms, peak memory, a finite positive ``moe_aux``, a non-zero
+    router gradient in every routed block, and each routed block's share of
+    dropped (token, expert) assignments."""
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline, build_unet, seeded
+    from medfusion_tpu_torch.parallel.moe import MoEMLP
+    from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step
+
+    p = PRESETS["chest"]
+    pipe = build_train_pipeline(p, device="cuda", estimator="dit", seed=0)
+    with seeded(torch.device("cuda"), 0):
+        dit = build_unet(p, "dit", **DIT_MOE)
+    pipe = dataclasses.replace(pipe, noise_estimator=dit)
+    moes = [m for m in dit.modules() if isinstance(m, MoEMLP)]
+    dropped = {}
+
+    def record(i, moe):
+        def hook(_, __, logits):
+            _, combine, _ = moe.route(logits.detach().float())
+            k = min(moe.num_selected, moe.num_experts)
+            kept = (combine > 0).sum().item()
+            dropped[i] = 1.0 - kept / (logits.shape[0] * logits.shape[1] * k)
+        return hook
+
+    handles = [m.router.register_forward_hook(record(i, m)) for i, m in enumerate(moes)]
+    batch = train_batches(p, 1, seed=4)[0]
+    draws = pipe.train_draws(TRAIN_BATCH, p.latent_shape,
+                             generator=torch.Generator(device="cuda").manual_seed(4))
+    state = TrainState(dit, lr=p.diffusion_lr, weight_decay=1e-2, use_ema=True)
+    step = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    metrics = step(state, batch, draws)
+    check_counts("DiT-MoE train step", ops.launch_counts(),
+                 dit_launches(1, 1, encodes=1))
+    aux = float(metrics["moe_aux"])
+    router = [m.router.weight.grad.abs().max().item() for m in moes]
+    shares = [round(dropped[i], 4) for i in range(len(moes))]
+    for h in handles:
+        h.remove()
+    ms, peak, wall, kinds = step_ms_and_breakdown(step, state, batch, draws, 3)
+    n_params = sum(q.numel() for q in dit.parameters())
+    log(f"  DiT-MoE ({len(moes)} routed blocks of {DIT_MOE['moe_experts']} experts, top-"
+        f"{DIT_MOE['moe_num_selected']}, capacity factor {DIT_MOE['moe_capacity_factor']}; "
+        f"{n_params / 1e6:.1f} M parameters) train step B={TRAIN_BATCH}, bf16: {ms:.1f} "
+        f"ms/step, peak memory {peak:.2f} GiB; moe_aux {aux:.6f}; router max|grad| by "
+        f"block {[f'{g:.2e}' for g in router]}; dropped share by block {shares}; profiled "
+        f"step wall {wall:.1f} ms, {fmt_kinds(kinds)}")
+    if not (math.isfinite(aux) and aux > 0 and all(g > 0 for g in router)):
+        raise RuntimeError(f"DiT-MoE: moe_aux {aux}, router gradients {router}")
+    del state, step, pipe, dit, batch, draws
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak": peak, "aux": aux, "dropped": shares}
+
+
+def phase_distill(ops, tmp, root):
+    """14e: cli.distill at the chest preset's full width on phase 9's tree
+    and autoencoder, B=32, bf16, DISTILL_ITERS iterations each, launches
+    held: pd (one stage to 8 steps) from phase 9's UNet and from 14b's DiT;
+    cd (Heun teacher) from the UNet, then cli.sample --sampler consistency
+    from its student; ct; reflow from phase 13's flow run. Each
+    iteration's frozen encode launches the encoder's GroupNorms; a UNet
+    forward its 34, a DiT forward and backward its 12 attentions."""
+    import numpy as np
+    import torch
+
+    from medfusion_tpu_torch.cli import distill, sample
+
+    base = ["--preset", "chest", "--data-root", str(root), "--vae-ckpt", str(tmp / "ae"),
+            "--iters-per-stage", str(DISTILL_ITERS), "--bf16", "--device", "cuda"]
+    it = DISTILL_ITERS
+
+    def per_iter(counts, n=it):
+        return {k: v * n for k, v in counts.items()}
+
+    reflow_pool = REFLOW_PAIR_BATCHES * (2 * REFLOW_TEACHER_STEPS - 1)
+    runs = (
+        ("pd UNet", ["--method", "pd", "--teacher-ckpt", str(tmp / "diffusion"), "--objective",
+                     "x_T", "--start-steps", "8", "--stages", "1"],
+         per_iter(unet_launches(3, encodes=1))),
+        ("pd DiT", ["--method", "pd", "--estimator", "dit", "--teacher-ckpt",
+                    str(tmp / "dit"), "--objective", "x_T", "--start-steps", "8", "--stages",
+                    "1"], per_iter(dit_launches(3, 1, encodes=1))),
+        ("cd UNet", ["--method", "cd", "--teacher-ckpt", str(tmp / "diffusion"),
+                     "--objective", "x_T", "--cd-solver", "heun"],
+         per_iter(unet_launches(4, encodes=1))),
+        ("ct UNet", ["--method", "ct", "--objective", "x_T", "--ct-doublings", "1"],
+         per_iter(unet_launches(2, encodes=1))),
+        ("reflow UNet", ["--method", "reflow", "--teacher-ckpt", str(tmp / "flow"),
+                         "--reflow-teacher-steps", str(REFLOW_TEACHER_STEPS), "--pair-batches",
+                         str(REFLOW_PAIR_BATCHES)],
+         unet_launches(reflow_pool + it)),
+    )
+    report = {}
+    for name, flags, expected in runs:
+        out = tmp / "distill" / name.replace(" ", "_")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        records = distill.main([*base, *flags, "--out", str(out)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_counts(f"distill {name}", ops.launch_counts(), expected)
+        rec = records[0]
+        if len(rec["losses"]) != it or not all(math.isfinite(v) for v in rec["losses"]):
+            raise RuntimeError(f"distill {name}: losses {rec['losses']}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        report[name] = (rec["seconds"] / it * 1e3, seconds, peak)
+        log(f"  distill {name}: {it} iterations at B={TRAIN_BATCH} in {rec['seconds']:.2f} s "
+            f"({rec['seconds'] / it * 1e3:.1f} ms an iteration, the first with its warm-up; "
+            f"loading batches included), {seconds:.1f} s with set-up; peak memory {peak:.2f} "
+            f"GiB; losses {[round(v, 5) for v in rec['losses']]}")
+        torch.cuda.empty_cache()
+    images, s, peak = sample_run(
+        ops, sample, ["--preset", "chest", "--sampler", "consistency", "--objective", "x_T",
+                      "--ckpt", str(tmp / "distill" / "cd_UNet" / "consistency"),
+                      "--vae-ckpt", str(tmp / "ae"), "--steps", str(CONSISTENCY_STEPS),
+                      "--n", str(N_SAMPLES), "--out", str(tmp / "consistency_samples")],
+        unet_launches(3 * CONSISTENCY_STEPS, decodes=3),
+        f"consistency sample CLI ({CONSISTENCY_STEPS} rounds)")
+    if np.array_equal(images[0], images[1]):
+        raise RuntimeError("consistency samples ignore the label")
+    report["consistency sample"] = (None, s, peak)
+    return report
+
+
 def kernel_row(name, source, replaces, launches, err, rows):
     """One entry of the kernels line: times summed over one launch at each
     of ``rows``' shapes."""
@@ -3477,6 +3962,17 @@ def main():
         flow_report = phase_flow_program(ops, tmp, root)
         guided_report = phase_classifier_program(ops, tmp, root)
 
+        log("[14] the DiT estimator, its mixture-of-experts blocks and distillation: card "
+            "against CPU (f32), the kernels at the DiT's shape, the DiT programs and "
+            "cli.distill on phase 9's tree")
+        phase_dit_vs_cpu()
+        dit_attention_checks(FA, worst)
+        dit_rows = dit_attention_times(FA, worst)
+        dit_train = phase_dit_train(ops, FA, tmp, root)
+        dit_sample = phase_dit_sample_and_flow(ops, tmp, root)
+        moe_report = phase_dit_moe(ops)
+        distill_report = phase_distill(ops, tmp, root)
+
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
     attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
@@ -3559,6 +4055,16 @@ def main():
         + "; ".join(f"N={r['N']} H={r['H']} " + ", ".join(
             f"{w} {r[w]['ms']:.4f}/{r[w]['plain_ms']:.4f}/{r[w]['library_ms']:.4f}"
             for w in ("forward", "dQ", "dK/dV")) for r in clf_attn_rows))
+    log(f"  slice 13 on the card: DiT train step {dit_train['train_ms']:.1f} ms (B="
+        f"{TRAIN_BATCH}, bf16, {dit_train['train_peak']:.2f} GiB); DiT sample DDIM {STEPS} "
+        f"{dit_sample['sample_s']:.3f} s ({dit_sample['sample_peak']:.3f} GiB), flow Heun "
+        f"{FLOW_STEPS} {dit_sample['flow_sample_s']:.3f} s; DiT-MoE step {moe_report['ms']:.1f} "
+        f"ms ({moe_report['peak']:.2f} GiB), moe_aux {moe_report['aux']:.6f}, dropped "
+        f"{moe_report['dropped']}; distill ms an iteration: " + ", ".join(
+            f"{k} {v[0]:.1f}" for k, v in distill_report.items() if v[0] is not None)
+        + "; kernels at the DiT's shape (ms kernel / plain / sdpa / bound): " + "; ".join(
+            f"{k} B={r['B']} {r['ms']:.4f}/{r['plain_ms']:.4f}/{r['library_ms']:.4f}/"
+            f"{r['bound_ms']:.4f}" for k, r in dit_rows.items() if isinstance(r, dict)))
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

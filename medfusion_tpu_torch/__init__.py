@@ -1,8 +1,8 @@
 """PyTorch / CUDA port of medfusion-tpu for NVIDIA Hopper (H100).
 
 The JAX package ``medfusion_tpu`` is the reference; this package mirrors its
-module layout (``core``, ``nn``, ``ops``, ``models``, ``pipelines``, ``data``,
-``losses``, ``train``, ``utils``, ``cli``) with NCHW ``nn.Module``s and
+module layout (``core``, ``nn``, ``ops``, ``models``, ``parallel``, ``pipelines``,
+``data``, ``losses``, ``train``, ``utils``, ``cli``) with NCHW ``nn.Module``s and
 hand-written CUDA kernels under ``csrc/``.
 
 Entry points run on the card unless the caller asks for the CPU: a device of

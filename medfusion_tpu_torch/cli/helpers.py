@@ -37,8 +37,10 @@ analogue: a note says it is ignored); ``img2img`` jumps to t =
 The diffusion model is a port diffusion run (``--ckpt``, its EMA copy with
 ``--ema``) or seeded random weights; the VAE is ``--vae-ckpt`` or seeded
 random weights. All draws come from one generator seeded by ``--seed``.
-Refused, naming ROADMAP Queue 1: an ``--estimator`` other than ``unet``
-(item 7), and the kernel switches
+``--estimator dit`` runs the Diffusion Transformer in place of the UNet
+(with ``--attention`` and ``--attention-heads`` refused, as in the JAX
+package); without it the family is the ``--ckpt`` run's. Refused, naming ROADMAP Queue 1: the other ``--estimator``
+families (item 7), and the kernel switches
 ``--flash``, ``--fused-geglu`` and ``--fused-up`` (item 10): the port runs
 its hand-written kernels always.
 
@@ -62,9 +64,9 @@ import numpy as np
 import torch
 
 from medfusion_tpu_torch import resolve_device
-from medfusion_tpu_torch.cli.presets import (PRESETS, build_dataset, build_pipeline, build_vae,
-                                             load_vae)
-from medfusion_tpu_torch.cli.sample import load_unet_state
+from medfusion_tpu_torch.cli.presets import (ESTIMATORS, PRESETS, build_dataset, build_pipeline,
+                                             build_vae, estimator_refusal, load_vae)
+from medfusion_tpu_torch.cli.sample import load_unet_state, run_estimator
 from medfusion_tpu_torch.core import schedules as S
 from medfusion_tpu_torch.data.png import write_png
 from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
@@ -170,16 +172,19 @@ def load_pipeline(args, p, dev):
     JAX CLI's ``load_pipeline``; the flow family's with ``--family flow``;
     float32."""
     family = getattr(args, "family", "diffusion")
+    estimator = getattr(args, "estimator", "unet")
     unet_state = None
     if args.ckpt:
         unet_state = load_unet_state(args.ckpt, args.ema, {
-            "attention": args.attention, "attention_heads": args.attention_heads,
+            "estimator": estimator, "attention": args.attention,
+            "attention_heads": args.attention_heads,
             "objective": "x_T", "latent_scale": 1.0, "latent_shift": 0.0,
             "zero_terminal_snr": False, "family": family})
     pipe = build_pipeline(p, device=dev, seed=args.seed, attention=args.attention,
                           attn_heads=args.attention_heads, unet_state=unet_state,
                           vae_ckpt=args.vae_ckpt, family=family,
-                          flow_shift=getattr(args, "flow_shift", 1.0))
+                          flow_shift=getattr(args, "flow_shift", 1.0),
+                          estimator=estimator)
     return dataclasses.replace(pipe, do_input_centering=False)
 
 
@@ -348,9 +353,10 @@ def main(argv=None):
         s.add_argument("--seed", type=int, default=0)
         s.add_argument("--device", default="cuda")
         if name in ("export-gif", "interpolate", "inpaint", "img2img"):
-            s.add_argument("--estimator", default="unet",
-                           choices=("unet", "unet_legacy", "openai", "lucidrains", "dit"),
-                           help="only 'unet' is ported")
+            s.add_argument("--estimator", default=None, choices=ESTIMATORS,
+                           help="the noise-estimator family the checkpoint was trained "
+                                "with ('unet' and 'dit' are ported; default: the --ckpt "
+                                "run's, else unet)")
             s.add_argument("--attention", choices=ATTENTION_TYPES, default="none")
             s.add_argument("--attention-heads", type=int, default=8)
             for flag in ("--flash", "--fused-geglu", "--fused-up"):
@@ -384,9 +390,13 @@ def main(argv=None):
             s.add_argument("--resample-steps", type=int, default=1)
             s.add_argument("--jump-length", type=int, default=1)
     args = ap.parse_args(argv)
-    if getattr(args, "estimator", "unet") != "unet":
-        ap.error(f"--estimator {args.estimator}: only the 'unet' family is ported "
-                 f"(ROADMAP Queue 1, item 7)")
+    if hasattr(args, "estimator") and args.estimator is None:
+        args.estimator = run_estimator(args.ckpt)
+    why = estimator_refusal(getattr(args, "estimator", "unet"),
+                            getattr(args, "attention", "none"),
+                            getattr(args, "attention_heads", 8))
+    if why is not None:
+        ap.error(why)
     switches = [f for f in ("flash", "fused_geglu", "fused_up") if getattr(args, f, None)
                 is not None]
     if switches:

@@ -126,13 +126,62 @@ def build_discriminators(p: Preset, disc: str = "conv"):
                           for _ in range(p.ae_deep_supervision + 1)])
 
 
-def build_unet(p: Preset, attention: str = "none", attn_heads: int = 8, **options):
-    """The reference 'unet2' estimator ('unet' family). ``attention`` is the
-    reference's ``use_attention`` ('none' | 'linear' | 'spatial'; 'spatial'
-    is the eye/colon attention config) and ``attn_heads`` its head count;
-    ``options`` override the UNet's other arguments (``deep_supervision``,
-    ``estimate_variance``, ``use_self_conditioning``), which the CLIs leave
-    at the preset's."""
+ESTIMATORS = ("unet", "unet_legacy", "openai", "lucidrains", "dit")
+PORTED_ESTIMATORS = ("unet", "dit")
+
+
+def estimator_refusal(estimator: str, attention: str = "none",
+                      attn_heads: int = 8) -> Optional[str]:
+    """Why ``estimator`` with these attention options cannot be built, or
+    None: the families not ported yet (ROADMAP Queue 1 item 7), and the JAX
+    package's own refusals (``attention`` configures the UNet families only,
+    ``attn_heads`` the 'unet' family only)."""
+    if estimator not in ESTIMATORS:
+        return f"unknown estimator {estimator!r}; expected one of {ESTIMATORS}"
+    if estimator not in PORTED_ESTIMATORS:
+        return (f"--estimator {estimator}: only the {' and '.join(PORTED_ESTIMATORS)} "
+                f"families are ported (ROADMAP Queue 1, item 7)")
+    if attention != "none" and estimator != "unet":
+        return (f"attention={attention!r} only configures the unet/unet_legacy "
+                f"families; estimator {estimator!r} fixes its own attention")
+    if attn_heads != 8 and estimator != "unet":
+        return (f"attn_heads={attn_heads} is a unet-family option; {estimator!r} pins "
+                f"the reference head geometry")
+    return None
+
+
+def dit_sizing(p: Preset) -> dict:
+    """The JAX CLI's DiT for a preset: hidden sized off the top UNet width
+    (a multiple of 16, at least 64), heads of width 64 (at least 4, and
+    dividing hidden), depth 3 per UNet level, patch 2. Chest: hidden 1,024,
+    16 heads, depth 12."""
+    hidden = max(64, (p.unet_hid_chs[-1] // 16) * 16)
+    heads = max(4, hidden // 64)
+    while hidden % heads:
+        heads -= 1
+    return dict(in_ch=p.emb_channels, patch_size=2, hidden_size=hidden,
+                depth=max(2, len(p.unet_hid_chs) * 3), num_heads=heads,
+                cond_emb_num_classes=p.num_classes)
+
+
+def build_unet(p: Preset, estimator: str = "unet", attention: str = "none",
+               attn_heads: int = 8, **options):
+    """The noise estimator by family: 'unet', the reference 'unet2', or
+    'dit', the Diffusion Transformer at :func:`dit_sizing`; the other
+    families are refused (:func:`estimator_refusal`). ``attention`` is the
+    UNet's ``use_attention`` ('none' | 'linear' | 'spatial'; 'spatial' is
+    the eye/colon attention config) and ``attn_heads`` its head count;
+    ``options`` override the estimator's other arguments (the UNet's
+    ``deep_supervision``, ``estimate_variance``, ``use_self_conditioning``;
+    the DiT's ``learn_sigma``, ``use_self_conditioning`` and ``moe_*``),
+    which the CLIs leave at the preset's."""
+    why = estimator_refusal(estimator, attention, attn_heads)
+    if why is not None:
+        raise ValueError(why)
+    if estimator == "dit":
+        from medfusion_tpu_torch.models.dit import DiT
+
+        return DiT(**{**dit_sizing(p), **options})
     from medfusion_tpu_torch.models.unet import UNet
 
     n = len(p.unet_hid_chs)
@@ -158,10 +207,10 @@ def build_scheduler(p: Preset, device="cpu", zero_terminal_snr: bool = False):
 
 
 def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params=None,
-                   vae_params=None, unet_state=None, vae_ckpt=None):
-    """(UNet, VAE, device): the modules on ``device``, with a seeded torch
-    initialisation, then the JAX package's flax params (nested numpy dicts)
-    or a port state dict of the UNet, and a VAE checkpoint
+                   vae_params=None, unet_state=None, vae_ckpt=None, estimator="unet"):
+    """(estimator, VAE, device): the modules on ``device``, with a seeded
+    torch initialisation, then the JAX package's flax params (nested numpy
+    dicts) or a port state dict of the estimator, and a VAE checkpoint
     (``utils/checkpoint.py::restore_ae_params``) where given, each loaded
     with ``strict=True``."""
     from medfusion_tpu_torch.utils.checkpoint import restore_ae_params
@@ -169,10 +218,10 @@ def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params=N
 
     dev = resolve_device(device)
     with seeded(dev, seed):
-        unet = build_unet(p, attention=attention, attn_heads=attn_heads)
+        unet = build_unet(p, estimator, attention=attention, attn_heads=attn_heads)
         vae = build_vae(p)
     if unet_params is not None:
-        load_jax_params(unet, unet_params, kind="unet")
+        load_jax_params(unet, unet_params, kind="dit" if estimator == "dit" else "unet")
     if vae_params is not None:
         load_jax_params(vae, vae_params, kind="vae")
     if unet_state is not None:
@@ -187,21 +236,24 @@ def build_pipeline(p: Preset, device=None, compute_dtype=None, seed: int = 0,
                    attn_heads: int = 8, unet_state=None, vae_ckpt=None,
                    objective: str = "x_T", latent_scale: float = 1.0,
                    latent_shift: float = 0.0, zero_terminal_snr: bool = False,
-                   family: str = "diffusion", flow_shift: float = 1.0):
+                   family: str = "diffusion", flow_shift: float = 1.0,
+                   estimator: str = "unet"):
     """Sampling pipeline as ``medfusion_tpu/cli/sample.py`` builds it (no
     x0 clipping; ``objective`` the estimator's, eps by default; a
     zero-terminal-SNR schedule with ``zero_terminal_snr``; with ``family``
     'flow' a flow-matching pipeline whose grid is shifted by
     ``flow_shift``), on ``device`` (default ``cuda``; raises without CUDA),
     with both modules cast to ``compute_dtype``. Weights are a seeded torch
-    initialisation, or what :func:`_build_modules` loads. ``attention`` and
-    ``attn_heads`` configure the UNet (:func:`build_unet`); the model runs
-    on (z - ``latent_shift``) * ``latent_scale``."""
+    initialisation, or what :func:`_build_modules` loads. ``estimator``,
+    ``attention`` and ``attn_heads`` choose the estimator
+    (:func:`build_unet`); the model runs on (z - ``latent_shift``) *
+    ``latent_scale``."""
     from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
     from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 
     unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads,
-                                    unet_params, vae_params, unet_state, vae_ckpt)
+                                    unet_params, vae_params, unet_state, vae_ckpt,
+                                    estimator)
     if compute_dtype is not None:
         unet.to(compute_dtype)
         vae.to(compute_dtype)
@@ -224,15 +276,15 @@ def build_train_pipeline(p: Preset, device=None, attention: str = "none",
                          zero_terminal_snr: bool = False,
                          min_snr_gamma: Optional[float] = None,
                          family: str = "diffusion", flow_shift: float = 1.0,
-                         time_sampling: str = "logit_normal"):
+                         time_sampling: str = "logit_normal", estimator: str = "unet"):
     """Training pipeline as ``medfusion_tpu/cli/train_diffusion.py`` builds
     it: CFG dropout ``p.cfg_dropout``, no input centering, no x0 clipping,
     L1 loss, ``objective`` ('x_T', 'x_0' or 'v'), no learned variance and no
     self-conditioning, a zero-terminal-SNR schedule with
     ``zero_terminal_snr``, Min-SNR weighting with ``min_snr_gamma``; with
     ``family`` 'flow' the flow-matching pipeline (L2 on the velocity, time
-    drawn by ``time_sampling`` and shifted by ``flow_shift``). Both
-    modules stay float32
+    drawn by ``time_sampling`` and shifted by ``flow_shift``); ``estimator``
+    'unet' or 'dit' (:func:`build_unet`). Both modules stay float32
     (the estimator holds the master weights; the train step casts both to
     ``compute_dtype``); the VAE is frozen, loaded from ``vae_ckpt`` where
     given. The model runs on (z - ``latent_shift``) * ``latent_scale``."""
@@ -240,7 +292,7 @@ def build_train_pipeline(p: Preset, device=None, attention: str = "none",
     from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 
     unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads,
-                                    vae_ckpt=vae_ckpt)
+                                    vae_ckpt=vae_ckpt, estimator=estimator)
     if family == "flow":
         return FlowMatchingPipeline(
             noise_estimator=unet, latent_embedder=vae.eval().requires_grad_(False),

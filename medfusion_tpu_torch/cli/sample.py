@@ -14,7 +14,16 @@ refused with it). ``--zero-terminal-snr`` is for a checkpoint trained with it
 (trailing spacing by default); ``--timestep-spacing`` and
 ``--guidance-rescale`` are as in the JAX CLI. The same draws come from one
 generator seeded by ``--seed`` for every condition. ``--sampler
-consistency`` is refused, with a message naming ROADMAP Queue 1.
+consistency`` samples a consistency model (``cli.distill --method cd|ct``,
+whose run directory ``--ckpt`` takes) in ``min(--steps, 8)`` rounds of
+f and renoise, at ``--cd-sigma-data``, one conditional forward a round (no
+CFG); it refuses ``--classifier-ckpt``, as the JAX CLI does.
+
+``--estimator dit`` samples a Diffusion Transformer checkpoint
+(``cli.train_diffusion --estimator dit``); without ``--estimator`` the
+family is the ``--ckpt`` run's (its ``config.json``), else the UNet.
+``--attention`` and ``--attention-heads`` are refused with the DiT, and
+the other families name ROADMAP Queue 1 item 7.
 
 ``--family flow`` samples a flow-matching checkpoint (``cli.train_diffusion
 --family flow``) with the Heun probability-flow ODE on a grid shifted by
@@ -42,8 +51,9 @@ Usage:
 
 ``--ckpt`` is a port diffusion run (or its ``checkpoints`` directory): the
 UNet of its latest step, or with ``--ema`` that step's EMA copy. It must
-have been trained with the ``--attention``, ``--attention-heads``,
-``--objective``, ``--latent-scale`` and ``--latent-shift`` given here (its
+have been trained with the ``--estimator``, ``--attention``,
+``--attention-heads``, ``--objective``, ``--latent-scale`` and
+``--latent-shift`` given here (its
 ``config.json`` is checked). ``--vae-ckpt`` is a port autoencoder run or an
 ``.npz`` of the JAX VAE's flax params.
 
@@ -59,17 +69,24 @@ prefixes. Without it the weights are a seeded random initialisation.
 from __future__ import annotations
 
 import argparse
+import json
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
+from medfusion_tpu_torch.cli.presets import (
+    ESTIMATORS,
+    PRESETS,
+    build_pipeline,
+    estimator_refusal,
+)
 from medfusion_tpu_torch.cli.train_classifier import POOLS, load_classifier
 from medfusion_tpu_torch.data.png import write_png
 from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
 from medfusion_tpu_torch.pipelines.diffusion import make_classifier_grad
 from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
+from medfusion_tpu_torch.train.consistency import consistency_sample
 from medfusion_tpu_torch.utils import checkpoint as C
 
 DTYPES = {"bf16": torch.bfloat16, "f32": None}
@@ -97,8 +114,8 @@ def load_npz_params(path):
 
 def run_flags(args) -> dict:
     """What a ``--ckpt`` run's config must agree with."""
-    return {"attention": args.attention, "attention_heads": args.attention_heads,
-            "objective": args.objective, "latent_scale": args.latent_scale,
+    return {"estimator": args.estimator, "attention": args.attention,
+            "attention_heads": args.attention_heads, "objective": args.objective, "latent_scale": args.latent_scale,
             "latent_shift": args.latent_shift, "zero_terminal_snr": args.zero_terminal_snr,
             "family": args.family}
 
@@ -122,10 +139,25 @@ def load_unet_state(path, ema: bool, flags: dict):
     return state["ema"] if ema else state["model"]
 
 
+def run_estimator(ckpt) -> str:
+    """The estimator family a port run was trained with (its config's
+    ``estimator``; 'unet' for a run without one, or without ``ckpt``)."""
+    if not ckpt:
+        return "unet"
+    cfg = C.ckpt_dir_of(Path(ckpt)) / C.CONFIG_FILE
+    return json.loads(cfg.read_text()).get("estimator", "unet") if cfg.exists() else "unet"
+
+
 def check_args(ap, args) -> None:
     """The refusals shared with ``cli.sample_dataset``: the JAX sample CLI's
     (a superset of its bulk sampler's), and what the port does not have
-    yet; the default spacing."""
+    yet; the default spacing and, without ``--estimator``, the ``--ckpt``
+    run's estimator family."""
+    if args.estimator is None:
+        args.estimator = run_estimator(args.ckpt)
+    why = estimator_refusal(args.estimator, args.attention, args.attention_heads)
+    if why is not None:
+        ap.error(why)
     if args.attention_heads != 8 and args.attention == "none":
         ap.error("--attention-heads has no effect without attention layers; "
                  "add --attention spatial|linear")
@@ -147,9 +179,9 @@ def check_args(ap, args) -> None:
             ap.error("classifier guidance is not wired into the flow family")
         if args.encoder_key_every > 1:
             ap.error("--encoder-key-every is a diffusion-family fast path")
-    if args.sampler == "consistency":
-        ap.error("--sampler consistency is not ported yet: it comes with "
-                 "distillation (ROADMAP Queue 1, item 6)")
+    if args.sampler == "consistency" and args.classifier_ckpt:
+        ap.error("--classifier-ckpt guidance is not wired into consistency sampling; "
+                 "use ddim/dpmpp")
     if args.classifier_ckpt and args.encoder_key_every > 1:
         ap.error("--classifier-ckpt guidance is not wired into the "
                  "encoder-propagation fast sampler; drop --encoder-key-every")
@@ -163,13 +195,34 @@ def check_args(ap, args) -> None:
         args.timestep_spacing = "trailing" if args.zero_terminal_snr else "linspace"
 
 
-def add_sampler_args(ap) -> None:
-    """The sampler flags shared with ``cli.sample_dataset``."""
-    ap.add_argument("--sampler", choices=("ddim", "dpmpp", "edm", "consistency"),
-                    default="ddim",
+def add_estimator_args(ap) -> None:
+    """The estimator flags shared with ``cli.sample_dataset``."""
+    ap.add_argument("--estimator", choices=ESTIMATORS, default=None,
+                    help="the noise-estimator family the checkpoint was trained with "
+                         "('unet' and 'dit' are ported; default: the --ckpt run's, else "
+                         "unet)")
+    ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none",
+                    help="UNet attention per the reference's use_attention "
+                         "config: 'linear' = single-layer transformer, "
+                         "'spatial' = SpatialTransformer")
+    ap.add_argument("--attention-heads", type=int, default=8,
+                    help="attention heads (reference geometry: 8); must "
+                         "divide every attended level's width")
+
+
+def add_sampler_args(ap, consistency: bool = True) -> None:
+    """The sampler flags shared with ``cli.sample_dataset``, which has no
+    consistency sampler (``consistency`` False), as in the JAX package."""
+    ap.add_argument("--sampler", choices=("ddim", "dpmpp", "edm")
+                    + (("consistency",) if consistency else ()), default="ddim",
                     help="dpmpp = DPM-Solver++(2M) (arXiv:2211.01095), 25-50 steps; "
-                         "edm = Karras Heun (arXiv:2206.00364); consistency is "
-                         "not ported")
+                         "edm = Karras Heun (arXiv:2206.00364)"
+                         + ("; consistency = a one- or few-step consistency model "
+                            "(cli.distill --method cd|ct; --steps is the number of "
+                            "f/renoise rounds, at most 8)" if consistency else ""))
+    if consistency:
+        ap.add_argument("--cd-sigma-data", type=float, default=0.5,
+                        help="sigma_data the consistency model was trained with")
     ap.add_argument("--edm-churn", type=float, default=0.0,
                     help="EDM S_churn (> 0 adds stochastic churn)")
     ap.add_argument("--edm-rho", type=float, default=7.0,
@@ -211,6 +264,9 @@ def run_sampler(pipe, args, p, n, steps, condition, gs, gen, un_cond=None, eta=1
     common = dict(condition=condition, steps=steps, guidance_scale=gs, un_cond=un_cond)
     if isinstance(pipe, FlowMatchingPipeline):
         return pipe.denoise(x_T, generator=gen, **common)
+    if args.sampler == "consistency":  # the student's one conditional forward: no CFG
+        return consistency_sample(pipe, x_T, steps=min(steps, 8), condition=condition,
+                                  sigma_data=args.cd_sigma_data, generator=gen)
     guided = {}
     if classifier is not None and condition is not None:
         guided = dict(classifier_grad=make_classifier_grad(classifier, condition),
@@ -242,13 +298,7 @@ def main(argv=None):
                     help="DDIM eta (default 1); the fast sampler runs at 0")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
-    ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none",
-                    help="UNet attention per the reference's use_attention "
-                         "config: 'linear' = single-layer transformer, "
-                         "'spatial' = SpatialTransformer")
-    ap.add_argument("--attention-heads", type=int, default=8,
-                    help="attention heads (reference geometry: 8); must "
-                         "divide every attended level's width")
+    add_estimator_args(ap)
     ap.add_argument("--params", default=None, help="flax params .npz")
     ap.add_argument("--ckpt", default=None, help="a port diffusion run")
     ap.add_argument("--ema", action="store_true", help="--ckpt's EMA copy")
@@ -282,7 +332,7 @@ def main(argv=None):
                           vae_ckpt=args.vae_ckpt, objective=args.objective,
                           latent_scale=args.latent_scale, latent_shift=args.latent_shift,
                           zero_terminal_snr=args.zero_terminal_snr, family=args.family,
-                          flow_shift=args.flow_shift)
+                          flow_shift=args.flow_shift, estimator=args.estimator)
     classifier = load_classifier_arg(args, p, pipe.device)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

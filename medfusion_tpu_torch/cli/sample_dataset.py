@@ -7,8 +7,9 @@ unconditional preset), sample ``--n-samples`` images in chunks of
 ``un_cond = 1 - label``) and write ``<out>/steps_{s}/label_{l}/fake_{i}.png``
 as uint8 ``(clip(x, -1, 1) + 1) * 127.5`` (grey for one channel), with the
 port's own PNG writer. Every sampler of ``cli.sample`` is accepted
-(``--sampler ddim|dpmpp|edm``, ``--encoder-key-every``, ``--zero-terminal-snr``,
-``--timestep-spacing``, ``--guidance-rescale``); DDIM and the fast sampler
+but the consistency sampler, as in the JAX CLI (``--sampler ddim|dpmpp|edm``,
+``--encoder-key-every``, ``--zero-terminal-snr``, ``--timestep-spacing``,
+``--guidance-rescale``); ``--estimator dit`` as in ``cli.sample``; DDIM and the fast sampler
 run at eta 1, as the JAX package's bulk sampler does. ``--family flow
 --flow-shift`` bulk-samples a flow-matching checkpoint with the Heun ODE
 (its step counts not capped at T), and ``--classifier-ckpt`` guides DDIM
@@ -42,6 +43,7 @@ import torch
 from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
 from medfusion_tpu_torch.cli.sample import (
     DTYPES,
+    add_estimator_args,
     add_sampler_args,
     check_args,
     load_classifier_arg,
@@ -51,7 +53,6 @@ from medfusion_tpu_torch.cli.sample import (
     sampling_steps,
 )
 from medfusion_tpu_torch.data.png import write_png
-from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
 
 
 def to_uint8(imgs: np.ndarray) -> np.ndarray:
@@ -78,14 +79,13 @@ def main(argv=None):
     ap.add_argument("--steps-list", type=int, nargs="+", default=[50, 100, 150, 200, 250])
     ap.add_argument("--guidance", type=float, default=1.0)
     ap.add_argument("--objective", choices=("x_T", "x_0", "v"), default="x_T")
-    ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none")
-    ap.add_argument("--attention-heads", type=int, default=8)
+    add_estimator_args(ap)
     ap.add_argument("--latent-scale", type=float, default=1.0)
     ap.add_argument("--latent-shift", type=float, default=0.0)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    add_sampler_args(ap)
+    add_sampler_args(ap, consistency=False)
     args = ap.parse_args(argv)
     check_args(ap, args)
     if args.n_samples < 1 or args.chunk < 1:
@@ -105,7 +105,7 @@ def main(argv=None):
                           vae_ckpt=args.vae_ckpt, objective=args.objective,
                           latent_scale=args.latent_scale, latent_shift=args.latent_shift,
                           zero_terminal_snr=args.zero_terminal_snr, family=args.family,
-                          flow_shift=args.flow_shift)
+                          flow_shift=args.flow_shift, estimator=args.estimator)
     dev = pipe.device
     classifier = load_classifier_arg(args, p, dev)
     labels = list(range(p.num_classes)) if p.num_classes else [None]

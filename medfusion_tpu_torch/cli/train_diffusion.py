@@ -13,10 +13,18 @@ metrics in ``<out>/logs/metrics.jsonl``, and every ``--sample-every``
 steps 4 images of a 50-step DDIM sample from the EMA (or the model) in
 ``<out>/images``. Without ``--out`` nothing is written.
 
+``--estimator dit`` trains the Diffusion Transformer (``models/dit.py``,
+sized off the preset as the JAX CLI sizes it: hidden 1,024, 16 heads,
+depth 12, patch 2 for the chest preset) in place of the UNet, in either
+family; on the card its attention runs the token-layout flash kernels
+forward and backward. It refuses ``--attention`` and ``--attention-heads``,
+as the JAX package does; the other estimator families are refused naming
+ROADMAP Queue 1 item 7.
+
 Step s draws from a generator seeded by (``--seed``, s), and ``--resume``
 continues the data stream where the run stopped (``train/loop.py``), so a
 resumed run equals an uninterrupted one. ``--resume`` refuses a run saved
-with another ``--use-ema``, ``--objective``, ``--attention``,
+with another ``--use-ema``, ``--objective``, ``--estimator``, ``--attention``,
 ``--attention-heads``, ``--zero-terminal-snr``, ``--min-snr-gamma`` or
 ``--family``. A batch label outside the preset's classes raises on the host.
 
@@ -46,7 +54,7 @@ Usage:
 Without ``--device cpu`` it runs on the card and raises when there is none.
 On the card every self-attention runs its forward and backward through the
 hand-written kernels. Not ported (ROADMAP Queue 1): the other
-estimators, ``--remat`` and the grain loader.
+estimator families, ``--remat`` and the grain loader.
 """
 
 from __future__ import annotations
@@ -58,7 +66,13 @@ from pathlib import Path
 
 import torch
 
-from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset, build_train_pipeline
+from medfusion_tpu_torch.cli.presets import (
+    ESTIMATORS,
+    PRESETS,
+    build_dataset,
+    build_train_pipeline,
+    estimator_refusal,
+)
 from medfusion_tpu_torch.data import SimpleDataModule
 from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
 from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
@@ -76,8 +90,8 @@ from medfusion_tpu_torch.utils.logging import MetricsWriter, save_image_grid
 from medfusion_tpu_torch.utils.resilience import run_with_auto_restore
 
 # what --resume must find unchanged in the saved config
-RESUME_KEYS = ("use_ema", "objective", "attention", "attention_heads", "zero_terminal_snr",
-               "min_snr_gamma", "family")
+RESUME_KEYS = ("use_ema", "objective", "estimator", "attention", "attention_heads",
+               "zero_terminal_snr", "min_snr_gamma", "family")
 
 
 def main(argv=None):
@@ -90,6 +104,10 @@ def main(argv=None):
                          "an .npz of the JAX VAE's flax params")
     ap.add_argument("--out", default=None,
                     help="run directory (checkpoints, logs, images); none: write nothing")
+    ap.add_argument("--estimator", choices=ESTIMATORS, default="unet",
+                    help="noise-estimator family: unet (the reference's unet2) or dit "
+                         "(Diffusion Transformer, arXiv:2212.09748); the others are "
+                         "not ported")
     ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none")
     ap.add_argument("--attention-heads", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=None)
@@ -131,6 +149,9 @@ def main(argv=None):
                     help="on a crash, restart up to N times from the latest checkpoint")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    why = estimator_refusal(args.estimator, args.attention, args.attention_heads)
+    if why is not None:
+        ap.error(why)
     if args.attention_heads != 8 and args.attention == "none":
         ap.error("--attention-heads has no effect without attention layers; "
                  "add --attention spatial|linear")
@@ -154,7 +175,7 @@ def main(argv=None):
 
 def run_config(p, args) -> dict:
     return {**dataclasses.asdict(p), "use_ema": args.use_ema, "objective": args.objective,
-            "attention": args.attention, "attention_heads": args.attention_heads,
+            "estimator": args.estimator, "attention": args.attention, "attention_heads": args.attention_heads,
             "zero_terminal_snr": args.zero_terminal_snr,
             "min_snr_gamma": args.min_snr_gamma,
             "latent_scale": args.latent_scale, "latent_shift": args.latent_shift,
@@ -174,7 +195,8 @@ def _train(args, resume: bool):
                                 zero_terminal_snr=args.zero_terminal_snr,
                                 min_snr_gamma=args.min_snr_gamma, family=args.family,
                                 flow_shift=args.flow_shift,
-                                time_sampling=args.time_sampling)
+                                time_sampling=args.time_sampling,
+                                estimator=args.estimator)
     dev = pipe.device
     state = TrainState(pipe.noise_estimator, lr=p.diffusion_lr, weight_decay=1e-2,
                        use_ema=args.use_ema,

@@ -104,22 +104,32 @@ class DiffusionPipeline(DDIMSamplerMixin, DPMSolverMixin, EDMSamplerMixin,
 
     def _apply_estimator(self, x_t, t, condition, cond_mask,
                          params: Optional[Mapping[str, torch.Tensor]] = None,
-                         self_cond=None):
+                         self_cond=None, with_aux: bool = False):
         """The estimator on NCHW ``x_t``; ``params`` (name -> tensor) stand
-        in for its own parameters, as the train step's cast copies do."""
+        in for its own parameters, as the train step's cast copies do.
+        ``with_aux`` (the training forward only) also returns the summed
+        mixture-of-experts aux loss, a float32 scalar: the estimator's own
+        (``returns_aux``, the DiT), else 0."""
         if self.compute_dtype is not None:
             x_t = x_t.to(self.compute_dtype)
             self_cond = None if self_cond is None else self_cond.to(self.compute_dtype)
         args = (x_t, t, condition, cond_mask)
         kwargs = {} if self_cond is None else {"self_cond": self_cond}
+        asks_aux = with_aux and getattr(self.noise_estimator, "returns_aux", False)
+        if asks_aux:
+            kwargs["with_aux"] = True
         if params is None:
-            y, y_ver = self.noise_estimator(*args, **kwargs)
+            out = self.noise_estimator(*args, **kwargs)
         else:
-            y, y_ver = functional_call(self.noise_estimator, dict(params), args, kwargs)
+            out = functional_call(self.noise_estimator, dict(params), args, kwargs)
+        y, y_ver = out[:2]
         if self.compute_dtype is not None:
             y = y.float()
             y_ver = [v.float() for v in y_ver]
-        return y, y_ver
+        if not with_aux:
+            return y, y_ver
+        aux = out[2] if asks_aux else torch.zeros((), device=y.device)
+        return y, y_ver, aux
 
     def encode_latent(self, x, noise=None, sample: bool = True):
         """NCHW image -> latent, then (z - shift) * scale."""
@@ -172,8 +182,10 @@ class DiffusionPipeline(DDIMSamplerMixin, DPMSolverMixin, EDMSamplerMixin,
         the self-conditioning pre-pass (on the same x_t, with the labels
         never dropped, as the JAX package calls it) run without gradients.
         Returns (loss, metrics) with the metrics ``loss``, ``L1`` and ``L2``
-        of the main output, and ``variance_scale`` and ``variance_loss``
-        with a learned variance, all f32 scalars."""
+        of the main output, ``moe_aux`` (the estimator's mixture-of-experts
+        aux loss, added to ``loss``; 0 for a dense estimator), and
+        ``variance_scale`` and ``variance_loss`` with a learned variance,
+        all f32 scalars."""
         sched = self.scheduler
         loss_fn = _LOSSES[self.loss]
         x_in = _to_nchw(batch["source"])
@@ -204,8 +216,8 @@ class DiffusionPipeline(DDIMSamplerMixin, DPMSolverMixin, EDMSamplerMixin,
         if condition is not None:  # no host sync on the drop draw
             drop = torch.as_tensor(draws["drop"], device=x_0.device)
             cond_mask = torch.where(drop, 0.0, 1.0).to(x_0.dtype).expand(b)
-        pred, pred_vertical = self._apply_estimator(x_t, t, condition, cond_mask,
-                                                    estimator_params, self_cond)
+        pred, pred_vertical, moe_aux = self._apply_estimator(
+            x_t, t, condition, cond_mask, estimator_params, self_cond, with_aux=True)
         pred_var = None
         if self.estimate_variance:
             pred, pred_var = torch.chunk(pred, 2, dim=1)
@@ -256,7 +268,11 @@ class DiffusionPipeline(DDIMSamplerMixin, DPMSolverMixin, EDMSamplerMixin,
             target_i = interpolate_area(target, pred_i.shape[2:])
             loss = loss + loss_fn(pred_i - target_i).mean() * weights[i + 1]
 
-        metrics.update(loss=loss, L1=diff.abs().mean(), L2=(diff * diff).mean())
+        # the mixture-of-experts aux loss (weighted inside the layers; 0 for a
+        # dense estimator): without it the router gets no load-balancing
+        # gradient
+        loss = loss + moe_aux
+        metrics.update(moe_aux=moe_aux, loss=loss, L1=diff.abs().mean(), L2=(diff * diff).mean())
         return loss, metrics
 
     # -- one reverse step ---------------------------------------------------

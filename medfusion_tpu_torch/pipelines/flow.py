@@ -88,9 +88,6 @@ class FlowMatchingPipeline:
             raise ValueError(f"unknown timestep_sampling {self.timestep_sampling!r}")
         if self.shift < 1.0:
             raise ValueError("shift must be >= 1 (1 = identity)")
-        if getattr(self.noise_estimator, "moe_experts", 0):
-            raise NotImplementedError("mixture-of-experts estimators are not ported "
-                                      "(ROADMAP Queue 1, item 5)")
 
     device = DiffusionPipeline.device
     encode_latent = DiffusionPipeline.encode_latent
@@ -132,8 +129,10 @@ class FlowMatchingPipeline:
         ``target`` labels [B]; ``draws`` as :meth:`train_draws` makes them.
         The deep-supervision heads regress the velocity at their resolution
         (area-downsampled), weighted 1/2^i and normalised. Returns (loss,
-        metrics ``loss``, ``L2`` and ``moe_aux``, always 0: the port has no
-        mixture-of-experts)."""
+        metrics ``loss``, ``L2`` and ``moe_aux``, the estimator's
+        mixture-of-experts aux loss, added to the velocity loss before the
+        deep-supervision weighting, as in the JAX package; 0 for a dense
+        estimator)."""
         x_in = _to_nchw(batch["source"])
         condition = batch.get("target")
         b = x_in.shape[0]
@@ -152,10 +151,10 @@ class FlowMatchingPipeline:
         if condition is not None:
             drop = torch.as_tensor(draws["drop"], device=x_0.device)
             cond_mask = torch.where(drop, 0.0, 1.0).to(x_0.dtype).expand(b)
-        pred, pred_vertical = self._apply_estimator(x_t, t * TIME_SCALE, condition,
-                                                    cond_mask, estimator_params)
+        pred, pred_vertical, moe_aux = self._apply_estimator(
+            x_t, t * TIME_SCALE, condition, cond_mask, estimator_params, with_aux=True)
         l2 = ((pred - target) ** 2).mean()
-        loss = l2
+        loss = l2 + moe_aux
         if pred_vertical:
             weights = [1 / 2**i for i in range(1 + len(pred_vertical))]
             weights = [w / sum(weights) for w in weights]
@@ -163,8 +162,7 @@ class FlowMatchingPipeline:
             for i, pred_i in enumerate(pred_vertical):
                 target_i = interpolate_area(target, pred_i.shape[2:])
                 loss = loss + ((pred_i - target_i) ** 2).mean() * weights[i + 1]
-        return loss, {"loss": loss, "L2": l2,
-                      "moe_aux": torch.zeros((), device=loss.device)}
+        return loss, {"loss": loss, "L2": l2, "moe_aux": moe_aux}
 
     # -- sampling -----------------------------------------------------------
 

@@ -47,6 +47,32 @@ def estimator_params(model: torch.nn.Module, dtype=None) -> Dict[str, torch.Tens
     return {k: p.to(dtype) for k, p in params.items()}
 
 
+def frozen_params(model: torch.nn.Module, dtype=None) -> Dict[str, torch.Tensor]:
+    """A frozen model's parameters by name, detached, cast to ``dtype``
+    (a no-op where they are in it already): a teacher or a target network
+    the loss reads and does not train."""
+    return {k: (p.detach() if dtype is None else p.detach().to(dtype))
+            for k, p in model.named_parameters()}
+
+
+def train_on(state: TrainState, compute_dtype, loss_fn: Callable) -> Dict[str, torch.Tensor]:
+    """One loss and gradient of ``state.model`` and one AdamW + EMA update:
+    ``loss_fn(params) -> (loss, metrics)`` on the model's parameters cast to
+    ``compute_dtype`` (:func:`estimator_params`). Returns the metrics,
+    detached."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, metrics = loss_fn(estimator_params(state.model, compute_dtype))
+    loss.backward()
+    for p in state.model.parameters():
+        # a parameter the loss does not reach (the projections skipped by
+        # cross-attention to one token) gets a zero gradient, so that AdamW
+        # still decays it, as optax's adamw does
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    state.apply_gradients()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
 def make_diffusion_train_step(pipeline: DiffusionPipeline,
                               compute_dtype=None) -> Callable:
     """Returns ``step_fn(state, batch, draws) -> metrics``: one loss and
@@ -58,17 +84,8 @@ def make_diffusion_train_step(pipeline: DiffusionPipeline,
 
     def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor],
                 draws: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        state.optimizer.zero_grad(set_to_none=True)
-        params = estimator_params(state.model, pipeline.compute_dtype)
-        loss, metrics = pipeline.train_loss(batch, draws, estimator_params=params)
-        loss.backward()
-        for p in state.model.parameters():
-            # a parameter the loss does not reach (the projections skipped
-            # by cross-attention to one token) gets a zero gradient, so that
-            # AdamW still decays it, as optax's adamw does
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        state.apply_gradients()
-        return {k: v.detach() for k, v in metrics.items()}
+        return train_on(state, pipeline.compute_dtype,
+                        lambda params: pipeline.train_loss(batch, draws,
+                                                           estimator_params=params))
 
     return step_fn

@@ -4,7 +4,8 @@ The port's own copy of the export direction of
 ``medfusion_tpu/utils/torch_compat.py`` (``flax_path_to_torch_key``,
 ``_to_torch_leaf``, ``to_torch_state_dict``), with the rules of the modules
 ported so far (UNet with its attention blocks, VAE and VQVAE with theirs, the
-two discriminators): a nested dict of numpy arrays, keyed as the flax param
+two discriminators; the DiT by its own rule, :func:`jax_dit_to_state_dict`):
+a nested dict of numpy arrays, keyed as the flax param
 tree, becomes a state dict with the reference's torch key names, with conv
 kernels moved from HWIO to OIHW and dense kernels to [out, in]. A BatchNorm's
 flax ``batch_stats`` (mean, var) become ``running_mean``/``running_var``,
@@ -104,8 +105,34 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield path, val
 
 
+def jax_dit_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``DiT``'s flax params -> the port's ``models/dit.py`` state
+    dict. The port keeps the flax module names, so a path maps by
+    ``blocks_i`` -> ``blocks.i`` and '/' -> '.'; every 2-D ``kernel`` (the
+    Dense layers, the router among them) is transposed to [out, in] and
+    named ``weight``, as is the label table's ``embedding``; the experts'
+    3-D ``w1``/``w2`` and their ``b1``/``b2`` carry over as they are."""
+    out = {}
+    for path, val in _flatten(params):
+        arr = np.array(val, dtype=np.float32)
+        stem, leaf = path.rsplit("/", 1)
+        key = re.sub(r"(^|/)blocks_(\d+)(/|$)", r"\1blocks.\2\3", stem).replace("/", ".")
+        if leaf == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"DiT kernel {path} has {arr.ndim} dims, expected 2")
+            arr, leaf = np.ascontiguousarray(arr.T), "weight"
+        elif leaf == "embedding":
+            leaf = "weight"
+        out[f"{key}.{leaf}"] = torch.from_numpy(arr)
+    return out
+
+
 def jax_params_to_state_dict(params: Mapping, kind: str = "unet") -> Dict[str, torch.Tensor]:
-    """Nested flax param dict (numpy leaves) -> the port's state dict."""
+    """Nested flax param dict (numpy leaves) -> the port's state dict;
+    ``kind`` 'unet' or 'vae' by the reference's key rules, 'dit' by
+    :func:`jax_dit_to_state_dict`."""
+    if kind == "dit":
+        return jax_dit_to_state_dict(params)
     out = {}
     for path, val in _flatten(params):
         tkey = flax_path_to_torch_key(path, kind=kind)

@@ -207,7 +207,7 @@ def test_extract_vae(tmp_path):
 
 @pytest.mark.parametrize("flags,why", [
     (["interpolate", "--family", "flow", "--estimator", "openai"], "item 7"),
-    (["img2img", "--estimator", "dit"], "item 7"),
+    (["img2img", "--estimator", "openai"], "item 7"),
     (["inpaint", "--flash"], "item 10"),
     (["interpolate", "--no-fused-geglu"], "item 10"),
     (["export-gif", "--fused-up"], "item 10"),

@@ -787,3 +787,81 @@ def test_classifier_gradient_matches_the_cpu(cuda, pool):
     for name in ("flash_attention_tokens", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert after[name] == before[name] + attentions, name
     torch.testing.assert_close(out, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dit_attention_on_strided_slices_matches_plain_version(cuda, dtype):
+    """The chest DiT's attention (256 tokens, 16 heads of 64) on q, k and v
+    sliced from one [B, N, 3C] projection (row stride 3C), B=2: the forward
+    reads the slices in place, and the projection's gradient through the
+    kernels matches the plain backward's."""
+    qkv = torch.randn((2, 256, 3072), generator=cuda, device="cuda").to(dtype)
+    q, k, v = qkv.chunk(3, dim=-1)
+    scale = 64 ** -0.25
+    ops_ = FA.flash_attention_forward_operands(q, k, v, 16)
+    assert [t.data_ptr() for t in ops_[:3]] == [t.data_ptr() for t in (q, k, v)]
+    heads = [FA._heads(t, 16) for t in (q, k, v)]
+    ro, rlse = FA.naive_attention_reference(*heads, scale)
+    leaf = qkv.detach().requires_grad_()
+    o, lse = FA.flash_attention_tokens(*leaf.chunk(3, dim=-1), 16, scale)
+    torch.testing.assert_close(FA._heads(o.detach(), 16), ro, atol=_attn_o_tol(ro)[0],
+                               rtol=_attn_o_tol(ro)[1])
+    torch.testing.assert_close(lse.transpose(1, 2), rlse, atol=ATTN_LSE_TOL[dtype],
+                               rtol=ATTN_LSE_TOL[dtype])
+    do = torch.randn((2, 256, 1024), generator=cuda, device="cuda").to(dtype)
+    (g,) = torch.autograd.grad(o, leaf, do)
+    refs = FA.flash_attention_backward_reference(*heads, FA._heads(o.detach(), 16),
+                                                 lse.transpose(1, 2), FA._heads(do, 16), scale)
+    for what, gi, r in zip("qkv", g.chunk(3, dim=-1), refs):
+        atol, rtol = _bwd_tol(r)
+        torch.testing.assert_close(FA._heads(gi, 16), r, atol=atol, rtol=rtol,
+                                   msg=lambda msg, w=what: f"d{w}: {msg}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_smoke_dit_train_loss_matches_the_cpu(cuda, moe):
+    """The smoke preset's DiT (and a DiT-MoE of 4 experts), f32: the
+    training loss with its ``moe_aux`` and the gradients on the card
+    against the CPU from the same perturbed weights and draws, within
+    rtol 1e-4 and 1e-4 of max|g|; each block launches one token-layout
+    forward, dQ and dK/dV."""
+    import dataclasses
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline, build_unet
+
+    p = PRESETS["smoke"]
+    torch.manual_seed(0)
+    cpu = build_train_pipeline(p, device="cpu", estimator="dit", seed=0)
+    cpu = dataclasses.replace(cpu, noise_estimator=build_unet(
+        p, "dit", **(dict(moe_experts=4) if moe else {})))
+    with torch.no_grad():
+        for prm in cpu.noise_estimator.parameters():
+            prm.add_(0.05 * torch.randn(prm.shape))
+    card = dataclasses.replace(  # the card's pipeline (its schedule on the card too)
+        build_train_pipeline(p, device="cuda", estimator="dit", seed=0),
+        noise_estimator=copy.deepcopy(cpu.noise_estimator).cuda(),
+        latent_embedder=copy.deepcopy(cpu.latent_embedder).cuda())
+    batch = {"source": torch.rand((4, 32, 32, 3)) * 2 - 1, "target": torch.arange(4) % 2}
+    draws = dict(cpu.train_draws(4, p.latent_shape, generator=torch.Generator().manual_seed(1)),
+                 drop=torch.tensor(False))
+    results = []
+    for pipe, dev in ((cpu, "cpu"), (card, "cuda")):
+        before = ops.launch_counts()
+        loss, metrics = pipe.train_loss({k: v.to(dev) for k, v in batch.items()},
+                                        {k: v.to(dev) for k, v in draws.items()})
+        loss.backward()
+        after = ops.launch_counts()
+        results.append((torch.stack([loss.detach(), metrics["moe_aux"].detach()]).cpu(),
+                        {k: q.grad.cpu() for k, q in pipe.noise_estimator.named_parameters()
+                         if q.grad is not None}))
+    depth = len(card.noise_estimator.blocks)
+    for name in ("flash_attention_tokens", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + depth, name
+    (l0, g0), (l1, g1) = results
+    torch.testing.assert_close(l1, l0, rtol=1e-4, atol=0)
+    top = max(g.abs().max().item() for g in g0.values())
+    assert set(g1) == set(g0)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], atol=1e-4 * top, rtol=0, msg=k)

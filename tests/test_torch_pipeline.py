@@ -192,18 +192,20 @@ def test_sample_returns_channels_last_images(pipelines):
 
 
 def test_unported_options_raise(pipelines, capsys):
-    """What is still unported (consistency sampling, also with the flow
-    family or a classifier) is refused by the sampling CLI with a message
-    naming ROADMAP; a noise tensor of the wrong layout is refused."""
+    """What is still unported (the other estimator families) is refused by
+    the sampling CLI with a message naming ROADMAP, and consistency
+    sampling with what the JAX CLI refuses with it (a classifier, the flow
+    family); a noise tensor of the wrong layout is refused."""
     from medfusion_tpu_torch.cli import sample
 
     _, _, pipe = pipelines
-    for flags in (["--sampler", "consistency"],
-                  ["--sampler", "consistency", "--guidance-rescale", "0.5"],
-                  ["--sampler", "consistency", "--classifier-ckpt", "runs/classifier"]):
+    for flags, why in ((["--estimator", "openai"], "ROADMAP Queue 1, item 7"),
+                       (["--sampler", "consistency", "--family", "flow"], "own ODE sampler"),
+                       (["--sampler", "consistency", "--classifier-ckpt", "runs/classifier"],
+                        "consistency sampling")):
         with pytest.raises(SystemExit):
             sample.main(["--preset", "smoke", "--device", "cpu", *flags])
-        assert "ROADMAP Queue 1" in capsys.readouterr().err
+        assert why in capsys.readouterr().err
     x = torch.zeros(LATENT)
     with pytest.raises(ValueError, match="noise must have shape"):
         pipe.denoise(x, steps=2, noise=torch.zeros(3, 2, *LATENT))

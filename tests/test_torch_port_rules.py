@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps: it imports no JAX and nothing of the JAX
 package, its entry points default to the card and raise without one, its
 sampling CLI runs end to end on the CPU when asked to, and its CLIs refuse
-what the JAX CLIs refuse with the flow family and classifier guidance."""
+what the JAX CLIs refuse with the flow family, classifier guidance and the
+distillation family, and nothing of what is ported."""
 
 import ast
 from pathlib import Path
@@ -12,6 +13,7 @@ import torch
 
 import medfusion_tpu_torch
 from medfusion_tpu_torch.cli import (
+    distill,
     evaluate_images,
     evaluate_latent_embedder,
     helpers,
@@ -78,10 +80,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("cli", [train_autoencoder, train_diffusion, sample, sample_dataset,
                                  evaluate_images, evaluate_latent_embedder, helpers,
-                                 train_classifier],
+                                 train_classifier, distill],
                          ids=["train_autoencoder", "train_diffusion", "sample",
                               "sample_dataset", "evaluate_images", "evaluate_latent_embedder",
-                              "helpers", "train_classifier"])
+                              "helpers", "train_classifier", "distill"])
 def test_every_cli_defaults_to_the_card(monkeypatch, tmp_path, cli):
     """Each CLI's --device defaults to cuda and raises without a card."""
     _without_cuda(monkeypatch)
@@ -89,7 +91,8 @@ def test_every_cli_defaults_to_the_card(monkeypatch, tmp_path, cli):
             sample_dataset: ["--preset", "smoke", "--steps-list", "1", "--n-samples", "1"],
             evaluate_images: ["--real", str(tmp_path), "--fake", str(tmp_path)],
             evaluate_latent_embedder: ["--preset", "smoke"],
-            helpers: ["latent-stats", "--preset", "smoke"]}
+            helpers: ["latent-stats", "--preset", "smoke"],
+            distill: ["--preset", "smoke", "--iters-per-stage", "1"]}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(argv.get(cli, ["--preset", "smoke", "--max-steps", "1"]))
 
@@ -252,6 +255,13 @@ REFUSALS = {
                                                         "--zero-terminal-snr"], "no schedule"),
     "train_diffusion-flow-objective": (train_diffusion, ["--family", "flow", "--objective",
                                                          "x_0"], "velocity objective"),
+    # the distillation family's (medfusion_tpu/cli/sample.py, distill.py)
+    "sample-consistency-classifier": (sample, ["--sampler", "consistency", "--classifier-ckpt",
+                                               "c.npz"], "consistency sampling"),
+    "sample-consistency-flow": (sample, ["--family", "flow", "--sampler", "consistency"],
+                                "own ODE sampler"),
+    "distill-ct-teacher": (distill, ["--method", "ct", "--teacher-ckpt", "runs/d"],
+                           "teacher-free"),
 }
 
 
@@ -268,3 +278,13 @@ def test_no_cli_refuses_item_3():
     CLI refuses anything naming it."""
     for path in sorted((ROOT / "medfusion_tpu_torch" / "cli").glob("*.py")):
         assert "item 3" not in path.read_text(), path.name
+
+
+@pytest.mark.parametrize("item", [4, 5, 6])
+def test_no_cli_refuses_items_4_to_6(item):
+    """Queue 1 items 4-6 (the DiT, its mixture-of-experts blocks,
+    distillation) are ported: no CLI and no pipeline refuses anything
+    naming them."""
+    paths = sorted((ROOT / "medfusion_tpu_torch").rglob("*.py"))
+    for path in paths:
+        assert f"item {item})" not in path.read_text(), path.name

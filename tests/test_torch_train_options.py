@@ -114,7 +114,7 @@ def test_train_loss_option_matches_jax(case):
     tloss, tmetrics = tp.train_loss(tbatch, draws_of(KEY_T))
     tloss.backward()
     assert np.isfinite(float(loss)) and abs(float(loss)) > 1e-2
-    expect = {"loss", "L1", "L2"} | ({"variance_scale", "variance_loss"}
+    expect = {"loss", "L1", "L2", "moe_aux"} | ({"variance_scale", "variance_loss"}
                                      if common["estimate_variance"] else set())
     assert set(tmetrics) == expect
     for k in expect:
