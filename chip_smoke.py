@@ -115,7 +115,25 @@ Phases (each raises on failure, so any failure exits non-zero):
     ``cli.distill`` pd (from phase 9's UNet and from the DiT), cd and then
     ``cli.sample --sampler consistency``, ct, and reflow from phase 13's
     flow run; every run's launches held to the counts derived from the
-    architecture.
+    architecture;
+15. the other estimator families and the diffusers autoencoders (slice
+    14): the smoke legacy UNet (attention, deep supervision), the OpenAI
+    UNet (attention in both channel orders, scale-shift norm, resblock
+    up/down; a spatial transformer with a context), the lucidrains UNet
+    (self-conditioning, learned variance and sinusoidal embedding) and the
+    diffusers KL and VQ autoencoders card against CPU (f32: forward, one
+    train step's loss, gradients); kernel 5 and both backward kernels at
+    the chest OpenAI middle block (16 tokens, 8 heads of 128) in both
+    channel orders against their plain versions and timed at the sampling
+    and training batches beside SDPA and the bound; on phase 9's tree,
+    ``cli.train_diffusion --estimator unet_legacy|openai|lucidrains --bf16``
+    (ms a step, peak memory, breakdown), phase 8's gradient check on a
+    perturbed chest OpenAI UNet, ``--remat`` for openai and unet (launches
+    with the recompute; loss and gradients against the plain step, peak
+    memory below it); ``cli.sample`` from each run (DDIM 150, CFG 8);
+    ``cli.train_autoencoder --model diffusers_kl`` and ``diffusers_vq
+    --gan`` (B=8, f32) with a resume; every run's launches held to the
+    counts derived from the architecture.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -1249,21 +1267,26 @@ def grads_of(pipe, batch, draws, dtype):
                            for k, q, g in zip(names, masters, grads)}
 
 
-def split_fused_qkv(grads):
+def split_fused_qkv(grads, qkv_heads=None):
     """A DiT block's fused q/k/v projection as three tensors (its q, k and
     v rows), so that a fault confined to one of them is not diluted by the
-    other two."""
+    other two; with ``qkv_heads`` an OpenAI attention block's ``qkv`` too,
+    its rows in the legacy [H, 3, D] order."""
     out = {}
     for k, g in grads.items():
+        stem, leaf = k.rsplit(".", 1)
         if k.endswith(("attn_qkv.weight", "attn_qkv.bias")):
-            stem, leaf = k.rsplit(".", 1)
             out.update({f"{stem}.{part}.{leaf}": gi for part, gi in zip("qkv", g.chunk(3))})
+        elif qkv_heads and k.endswith((".qkv.weight", ".qkv.bias")):
+            rows = g.unflatten(0, (qkv_heads, 3, -1))
+            out.update({f"{stem}.{part}.{leaf}": rows[:, i].flatten(0, 1)
+                        for i, part in enumerate("qkv")})
         else:
             out[k] = g
     return out
 
 
-def grad_departure(g, ref):
+def grad_departure(g, ref, qkv_heads=None):
     """How far the gradients ``g`` depart from ``ref`` (name -> tensor):
     (the three worst tensors' |d|_2 / |ref|_2 with their names, worst
     first; max |d| over max |ref| across all elements). A tensor whose
@@ -1272,10 +1295,10 @@ def grad_departure(g, ref):
     (:func:`split_fused_qkv`). The key projections' biases are left out:
     softmax is invariant to a shift that is the same for every key, so
     their gradient is zero but for rounding in both dtypes."""
-    g, ref = split_fused_qkv(g), split_fused_qkv(ref)
+    g, ref = split_fused_qkv(g, qkv_heads), split_fused_qkv(ref, qkv_heads)
     rels = []
     for k, r in ref.items():
-        if k.endswith(("to_k.bias", "attn_qkv.k.bias")):
+        if k.endswith(("to_k.bias", "qkv.k.bias")):
             continue
         d, r_norm = (g[k] - r).norm().item(), r.norm().item()
         rels.append((d / r_norm if r_norm > 0 else (0.0 if d == 0 else math.inf), k))
@@ -1302,34 +1325,35 @@ def planted_fault(FA, wrapper, operand, head_dim, heads):
         setattr(FA, wrapper, real)
 
 
-def check_train_grads(FA, pipe, batch, draws, faults=PLANTED_FAULTS):
+def check_train_grads(FA, pipe, batch, draws, faults=PLANTED_FAULTS,
+                      limit=TRAIN_GRAD_REL_LIMIT, qkv_heads=None):
     """A bf16 loss and gradient against an f32 one on the same weights and
-    draws, held to TRAIN_GRAD_REL_LIMIT; then each of ``faults``, which the
-    same check must flag."""
+    draws, held to ``limit``; then each of ``faults``, which the same check
+    must flag (``qkv_heads``: :func:`split_fused_qkv`)."""
     import torch
 
     l32, g32 = grads_of(pipe, batch, draws, None)
     l16, g16 = grads_of(pipe, batch, draws, torch.bfloat16)
-    worst, glob = grad_departure(g16, g32)
+    worst, glob = grad_departure(g16, g32, qkv_heads)
     del g16
     log(f"  bf16 vs f32 step: loss {l16.item():.5f} vs {l32.item():.5f}; gradients: "
         f"worst tensors |d|_2/|g32|_2 = {fmt_worst(worst)} (limit "
-        f"{TRAIN_GRAD_REL_LIMIT}); max|d|/max|g32| over all = {glob:.3e}")
+        f"{limit}); max|d|/max|g32| over all = {glob:.3e}")
     missed = []
     for label, *fault in faults:
         with planted_fault(FA, *fault):
             _, gf = grads_of(pipe, batch, draws, torch.bfloat16)
-        f_worst, f_glob = grad_departure(gf, g32)
+        f_worst, f_glob = grad_departure(gf, g32, qkv_heads)
         del gf
         log(f"  planted fault, {label}: worst tensors {fmt_worst(f_worst)}; "
             f"max|d|/max|g32| over all {f_glob:.3e}")
-        if not f_worst[0][0] >= TRAIN_GRAD_REL_LIMIT:
+        if not f_worst[0][0] >= limit:
             missed.append(label)
     del g32
     torch.cuda.empty_cache()
     if not (torch.isfinite(l16) and abs(l16.item() - l32.item()) <= 5e-2 * abs(l32.item())):
         raise RuntimeError(f"bf16 loss {l16.item()} departs from f32 {l32.item()}")
-    if not worst[0][0] < TRAIN_GRAD_REL_LIMIT:
+    if not worst[0][0] < limit:
         raise RuntimeError(f"bf16 gradients depart from f32: {fmt_worst(worst)}")
     if missed:
         raise RuntimeError(f"the gradient check misses the planted faults {missed}")
@@ -2933,8 +2957,8 @@ def perturb_gn_(module, gen):
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, torch.nn.GroupNorm):
-                m.weight.add_(0.1 * torch.randn(m.weight.shape, generator=gen))
-                m.bias.add_(0.1 * torch.randn(m.bias.shape, generator=gen))
+                for p, x in ((m.weight, 0.1), (m.bias, 0.1)):
+                    p.add_(x * torch.randn(p.shape, generator=gen, device=gen.device).to(p.device))
 
 
 def close_scaled(name, out, ref):
@@ -3492,47 +3516,59 @@ def phase_dit_vs_cpu():
             raise RuntimeError(f"smoke {name}: moe_aux {a0.item()} is not positive")
 
 
+def qkv_slices(b, n, c, heads, dtype, gen, new_order=True):
+    """q, k, v as an attention block makes them from one [B, N, 3C]
+    projection (returned last): column slices (row stride 3C) in the [3, H,
+    D] channel order (the DiT's, the OpenAI UNet's ``new_order``), or
+    copies of each head's columns in the [H, 3, D] order (the OpenAI UNet's
+    legacy ``QKVAttentionLegacy``, ``models/unet_openai.py::_split_qkv``)."""
+    import torch
+
+    from medfusion_tpu_torch.models.unet_openai import _split_qkv
+
+    qkv = torch.randn((b, n, 3 * c), generator=gen, device="cuda").to(dtype)
+    return (*_split_qkv(qkv, heads, new_order), qkv)
+
+
 def dit_qkv(b, dtype, gen):
-    """q, k, v as the DiT block makes them: column slices of one [B, N, 3C]
-    projection, and the projection itself."""
+    return qkv_slices(b, DIT_TOKENS, DIT_WIDTH, DIT_HEADS, dtype, gen)
+
+
+def slice_attention_checks(FA, worst, label, n, c, heads, new_order=True):
+    """Kernel 5 and both backward kernels at B=2 on q/k/v from one [B, N,
+    3C] projection (:func:`qkv_slices`), bf16 and f32, against their plain
+    versions; the forward reads column slices in place (no copy), and the
+    autograd backward returns one [B, N, 3C] gradient of the projection,
+    held to the plain backward's."""
     import torch
 
-    qkv = torch.randn((b, DIT_TOKENS, 3 * DIT_WIDTH), generator=gen, device="cuda").to(dtype)
-    return (*qkv.chunk(3, dim=-1), qkv)
-
-
-def dit_attention_checks(FA, worst):
-    """14a: kernel 5 and both backward kernels at the DiT's shape (B=2, 256
-    tokens, 16 heads of 64) on the strided column slices of one projection,
-    bf16 and f32, against their plain versions; the forward reads the
-    slices in place (no copy), and the autograd backward returns one [B, N,
-    3C] gradient of the projection, held to the plain backward's."""
-    import torch
+    from medfusion_tpu_torch.models.unet_openai import _split_qkv
 
     gen = torch.Generator(device="cuda").manual_seed(15)
-    scale = (DIT_WIDTH // DIT_HEADS) ** -0.25
+    d = c // heads
+    scale = d ** -0.25
+    order = "row stride 3C" if new_order else "[H, 3, D] order, copies"
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        q, k, v, qkv = dit_qkv(2, dtype, gen)
-        ops = FA.flash_attention_forward_operands(q, k, v, DIT_HEADS)
+        q, k, v, qkv = qkv_slices(2, n, c, heads, dtype, gen, new_order)
+        ops = FA.flash_attention_forward_operands(q, k, v, heads)
         if [t.data_ptr() for t in ops[:3]] != [t.data_ptr() for t in (q, k, v)]:
             raise RuntimeError("the token-layout forward copied the strided q/k/v slices")
-        qh, kh, vh = (FA._heads(t, DIT_HEADS) for t in (q, k, v))
+        qh, kh, vh = (FA._heads(t, heads) for t in (q, k, v))
         ro, rlse = FA.naive_attention_reference(qh, kh, vh, scale)
-        o, lse = FA.flash_attention_tokens_cuda(q, k, v, DIT_HEADS, scale)
-        tag = f"DiT attention B=2 N={DIT_TOKENS} H={DIT_HEADS} d=64 (row stride 3C) {name}"
+        o, lse = FA.flash_attention_tokens_cuda(q, k, v, heads, scale)
+        tag = f"{label} attention B=2 N={n} H={heads} d={d} ({order}) {name}"
         keep(worst, "flash_attention_tokens", name,
-             close(tag + " o", FA._heads(o, DIT_HEADS), ro, *attn_o_tol(ro)))
+             close(tag + " o", FA._heads(o, heads), ro, *attn_o_tol(ro)))
         close(tag + " lse", lse.transpose(1, 2), rlse, ATTN_LSE_TOL[name], ATTN_LSE_TOL[name])
         leaf = qkv.detach().requires_grad_()
-        do = torch.randn((2, DIT_TOKENS, DIT_WIDTH), generator=gen, device="cuda").to(dtype)
-        out, _ = FA.flash_attention_tokens(*leaf.chunk(3, dim=-1), DIT_HEADS, scale)
+        do = torch.randn((2, n, c), generator=gen, device="cuda").to(dtype)
+        out, _ = FA.flash_attention_tokens(*_split_qkv(leaf, heads, new_order), heads, scale)
         (g,) = torch.autograd.grad(out, leaf, do)
         refs = FA.flash_attention_backward_reference(
-            qh, kh, vh, FA._heads(o, DIT_HEADS), lse.transpose(1, 2),
-            FA._heads(do, DIT_HEADS), scale)
-        errs = [close(f"{tag} d{w}", FA._heads(gi, DIT_HEADS), r, *attn_bwd_tol(r))
-                for w, gi, r in zip("qkv", g.chunk(3, dim=-1), refs)]
+            qh, kh, vh, FA._heads(o, heads), lse.transpose(1, 2), FA._heads(do, heads), scale)
+        errs = [close(f"{tag} d{w}", FA._heads(gi, heads), r, *attn_bwd_tol(r))
+                for w, gi, r in zip("qkv", _split_qkv(g, heads, new_order), refs)]
         keep(worst, "flash_attention_bwd_dq", name, errs[0])
         keep(worst, "flash_attention_bwd_dkv", name, max(errs[1:]))
         log(f"  {tag}: forward in place, max|d| o {worst['flash_attention_tokens'][name]:.3e}; "
@@ -3540,24 +3576,30 @@ def dit_attention_checks(FA, worst):
             f"dv {errs[2]:.3e}")
 
 
-def dit_attention_times(FA, worst):
-    """14a: kernel 5 at the sampling rows (B=16) and kernels 3 and 4 at the
-    training batch (B=32), bf16, on the DiT's strided slices (replayed graph
-    of 20 launches), each beside its plain version and SDPA (its backward
-    one call for dq, dk and dv), each checked; the bounds as phase 4's;
-    then the copy the backward's token-layout gradients cost (dq, dk and dv
-    come back in [B, H, N, D] order, and their [B, N, C] views are copied
-    before the projection's gradient is assembled)."""
+def dit_attention_checks(FA, worst):
+    """14a: :func:`slice_attention_checks` at the DiT's shape (256 tokens,
+    16 heads of 64)."""
+    slice_attention_checks(FA, worst, "DiT", DIT_TOKENS, DIT_WIDTH, DIT_HEADS)
+
+
+def slice_attention_times(FA, worst, label, n, c, heads, fwd_b, bwd_b, new_order=True):
+    """Kernel 5 at ``fwd_b`` rows and kernels 3 and 4 at ``bwd_b``, bf16, on
+    q/k/v of one projection (:func:`qkv_slices`; replayed graph of 20
+    launches), each beside its plain version and SDPA (its backward one
+    call for dq, dk and dv), each checked; the bounds as phase 4's; then
+    the copy the backward's token-layout gradients cost (dq, dk and dv come
+    back in [B, H, N, D] order, and their [B, N, C] views are copied before
+    the projection's gradient is assembled)."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     exp_per_s = exp_rate()
-    d, h = DIT_WIDTH // DIT_HEADS, DIT_HEADS
-    scale, n = d ** -0.25, DIT_TOKENS
+    d, h = c // heads, heads
+    scale = d ** -0.25
     rows = {}
-    for what, b in (("forward", DIT_FWD_B), ("backward", DIT_BWD_B)):
-        q, k, v, _ = dit_qkv(b, torch.bfloat16, gen)
+    for what, b in (("forward", fwd_b), ("backward", bwd_b)):
+        q, k, v, _ = qkv_slices(b, n, c, h, torch.bfloat16, gen, new_order)
         qh, kh, vh = (FA._heads(t, h) for t in (q, k, v))
         sc = torch.tensor(scale, dtype=torch.bfloat16)
         leaves = [(t * sc).detach().requires_grad_() for t in (qh, kh)] + [
@@ -3566,24 +3608,25 @@ def dit_attention_times(FA, worst):
         def sdpa():
             return F.scaled_dot_product_attention(*leaves, scale=1.0)
 
-        bh, tok, stat = b * h, b * n * DIT_WIDTH * 2, b * h * n * 4
+        bh, tok, stat = b * h, b * n * c * 2, b * h * n * 4
         exp_ms = bh * n * n / exp_per_s * 1e3
         if what == "forward":
             fwd = lambda: FA.flash_attention_tokens_cuda(q, k, v, h, scale)  # noqa: E731
             ref = FA.naive_attention_reference(qh, kh, vh, scale)[0]
             keep(worst, "flash_attention_tokens", "bfloat16",
-                 close(f"DiT attention B={b}", FA._heads(fwd()[0], h), ref, *attn_o_tol(ref)))
+                 close(f"{label} attention B={b}", FA._heads(fwd()[0], h), ref,
+                       *attn_o_tol(ref)))
             flops = 4 * bh * n * n * d
             rows["flash_attention_tokens"] = dict(
                 B=b, ms=graph_ms(fwd, 20),
                 plain_ms=graph_ms(lambda: FA.naive_attention_reference(qh, kh, vh, scale), 3),
                 library_ms=graph_ms(sdpa, 10), **bounds(flops, 4 * tok + stat, exp_ms))
             continue
-        do = torch.randn((b, n, DIT_WIDTH), generator=gen, device="cuda").bfloat16()
+        do = torch.randn((b, n, c), generator=gen, device="cuda").bfloat16()
         ops, _ = bwd_operands(FA, q, k, v, h, "tokens", do)
         t_dq = graph_ms(lambda: FA.flash_attention_bwd_dq(ops, scale), 20)
         t_dkv = graph_ms(lambda: FA.flash_attention_bwd_dkv(ops, scale), 20)
-        for kernel, err in check_bwd(FA, ops, scale, f"DiT attention bwd B={b}").items():
+        for kernel, err in check_bwd(FA, ops, scale, f"{label} attention bwd B={b}").items():
             keep(worst, kernel, "bfloat16", err)
         oh, doh, lse, delta = ops[3], ops[4], ops[8], ops[9]
         p_dq = graph_ms(lambda: FA.flash_attention_bwd_dq_reference(
@@ -3598,20 +3641,27 @@ def dit_attention_times(FA, worst):
                                 **bounds(f * bh * n * n * d, 6 * tok + 2 * stat, exp_ms))
         grads = ops[5:8]
         copy_ms = graph_ms(lambda: [gr.transpose(1, 2).flatten(2) for gr in grads], 20)
-        log(f"  DiT attention backward: dq/dk/dv strides {grads[0].stride()} ([B, H, N, D] "
-            f"order); their [B, N, C] views copied: {copy_ms:.4f} ms a layer at B={b}")
+        log(f"  {label} attention backward: dq/dk/dv strides {grads[0].stride()} ([B, H, N, "
+            f"D] order); their [B, N, C] views copied: {copy_ms:.4f} ms a layer at B={b}")
         rows["grad_copy_ms"] = copy_ms
         del ops, do
     for kernel in ("flash_attention_tokens", "flash_attention_bwd_dq",
                    "flash_attention_bwd_dkv"):
         r = rows[kernel]
-        log(f"  {kernel} at the DiT's shape (B={r['B']}, N={n}, H={h}, d={d}, bf16): "
+        log(f"  {kernel} at the {label}'s shape (B={r['B']}, N={n}, H={h}, d={d}, bf16): "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA{'' if kernel.endswith('tokens') else ' backward'} "
             f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
             f"({'operations' if r['ops_ms'] >= r['bytes_ms'] else 'bytes'}), "
             f"{r['bound_ms'] / r['ms']:.1%} of bound")
     torch.cuda.empty_cache()
     return rows
+
+
+def dit_attention_times(FA, worst):
+    """14a: :func:`slice_attention_times` at the DiT's shape, the sampling
+    rows (B=16) forward and the training batch (B=32) backward."""
+    return slice_attention_times(FA, worst, "DiT", DIT_TOKENS, DIT_WIDTH, DIT_HEADS,
+                                 DIT_FWD_B, DIT_BWD_B)
 
 
 def phase_dit_train(ops, FA, tmp, root):
@@ -3841,6 +3891,445 @@ def phase_distill(ops, tmp, root):
     return report
 
 
+# Phase 15: the other estimator families and the diffusers autoencoders
+# (slice 14). At the chest preset (cli/presets.py::build_unet): unet_legacy
+# has the unet family's widths with one down and up block a level, 14
+# GroupNorm(+SiLU) launches a forward (2 in its inc conv block and in each
+# of its 3 encoder and 3 decoder conv blocks); openai (model channels 256,
+# mult 1, 1, 2, 4, two res blocks, scale-shift norm, resblock up/down)
+# keeps its GroupNorms in float32 with F.group_norm and attends once, in
+# its middle block at 4^2 = 16 tokens of 1,024 channels, 8 heads of 128:
+# one token-layout forward a forward, and in training one dQ and one dK/dV;
+# lucidrains (dim 256) launches nothing. A run's other GroupNorms are the
+# frozen VAE's (8 an encode, 8 a decode). With --remat, the unet family's 17
+# conv blocks (all 34 of its GroupNorms) and the openai family's res and
+# attention blocks run their forward again in the backward.
+FAMILIES = ("unet_legacy", "openai", "lucidrains")
+FAMILY_STEPS = 3
+LEGACY_GN_PER_FORWARD = 14
+OPENAI_TOKENS, OPENAI_WIDTH, OPENAI_HEADS = 16, 1024, 8
+# 15a: the smoke-width families, card against CPU (f32) at phase 14a's
+# tolerances: (label, estimator, model options, pipeline options, context)
+FAMILY_SMOKE = (
+    ("unet_legacy (attention, deep supervision)", "unet_legacy",
+     dict(use_attention=["none", "spatial"], deep_supervision=True), {}, False),
+    ("openai (attention legacy order)", "openai",
+     dict(attention_resolutions=(1, 2), num_heads=4), {}, False),
+    ("openai (attention new order)", "openai",
+     dict(attention_resolutions=(1, 2), num_head_channels=8, use_new_attention_order=True),
+     {}, False),
+    ("openai (spatial transformer, context)", "openai",
+     dict(attention_resolutions=(2,), use_spatial_transformer=True, context_dim=8,
+          num_heads=2), {}, True),
+    ("lucidrains (self-cond, learned variance, learned sinusoidal)", "lucidrains",
+     dict(self_condition=True, learned_variance=True, learned_sinusoidal_cond=True),
+     dict(use_self_conditioning=True, estimate_variance=True), False),
+)
+# 15c: phase 8's bf16-against-f32 check on the chest OpenAI UNet, its
+# middle block's qkv split into q, k and v rows (legacy [H, 3, D] order) so
+# that dq zeroed on every head reads its whole q part. The scale-shift
+# projections' gradients are sums over the positions of products that
+# cancel, and depart further in bf16 than phase 8's UNet's: on an H100
+# (700 W) the sound step read 9.2e-2 at worst (an emb_layers weight),
+# against 2.1e-2 for phase 8's UNet, hence a limit of its own
+OPENAI_GRAD_REL_LIMIT = 0.3
+# 15c: the remat step's gradients against the plain step's on the same
+# weights and draws (bf16): the same operations, but cuDNN's backward is not
+# deterministic, so each tensor within REMAT_GRAD_REL (|d|_2 / |g|_2); the
+# loss to REMAT_LOSS_RTOL (the forward is)
+REMAT_GRAD_REL, REMAT_LOSS_RTOL = 1e-2, 1e-6
+# 15e: the diffusers autoencoders through cli.train_autoencoder, chest, f32,
+# B=8: KL plain, VQ with the GAN (one PatchGAN; the discriminator's terms
+# from optimizer step 2 // 2 = 1, the generator's after 2: both on in batch
+# 3); checkpoints at 2 and 3 and a resume from 2. They launch no kernel.
+DIFFUSERS_RUNS = (("diffusers_kl", []), ("diffusers_vq", ["--gan", "--start-gan-step", "2"]))
+
+
+def ram_dir(need_gib=64):
+    """/dev/shm where the machine has it with ``need_gib`` free, else None
+    (the default temporary directory): phase 15's checkpoints (some GB a
+    run, each saved twice with the best pointer's copy) stay off the disk,
+    to which the earlier phases' runs already write some 40 GiB."""
+    import shutil
+
+    try:
+        return "/dev/shm" if shutil.disk_usage("/dev/shm").free >= need_gib * 2**30 else None
+    except OSError:
+        return None
+
+
+def family_launches(estimator, forwards=0, backwards=0, encodes=0, decodes=0, remat=False):
+    """The kernel launches of estimator forwards and backwards and VAE
+    encodes and decodes at the chest preset, from the architecture; with
+    ``remat`` each backward runs the recomputed blocks' forward again."""
+    fwd = {"unet": {"group_norm_silu": UNET_GN_PER_FORWARD},
+           "unet_legacy": {"group_norm_silu": LEGACY_GN_PER_FORWARD},
+           "openai": {"flash_attention_tokens": 1}, "lucidrains": {}}[estimator]
+    again = backwards if remat else 0
+    out = {k: v * (forwards + again) for k, v in fwd.items()}
+    if estimator == "openai":
+        out.update(flash_attention_bwd_dq=backwards, flash_attention_bwd_dkv=backwards)
+    out["group_norm_silu"] = (out.get("group_norm_silu", 0) + VAE_GN_PER_ENCODE * encodes
+                              + VAE_GN_PER_DECODE * decodes)
+    return out
+
+
+def phase_families_vs_cpu():
+    """15a: the smoke preset's legacy, OpenAI and lucidrains UNets and the
+    diffusers KL and VQ autoencoders, f32, card against CPU from the same
+    perturbed weights, batch and draws: a forward at SMOKE_TOL, one train
+    step's loss (rtol SMOKE_TOL) and its gradients within CLF_GRAD_TOL x
+    max|g| (phase 14a's tolerances). The OpenAI UNet with a context trains
+    on its own MSE (the pipeline passes no context)."""
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import (
+        PRESETS,
+        build_train_pipeline,
+        build_unet,
+        build_vae,
+        seeded,
+    )
+    from medfusion_tpu_torch.train.autoencoder import AutoencoderTrainer
+
+    p = PRESETS["smoke"]
+    b = p.diffusion_batch_size
+    gen = torch.Generator().manual_seed(15)
+    x = torch.randn((b, p.emb_channels, *p.latent_shape[:2]), generator=gen)
+    t = torch.randint(0, p.timesteps, (b,), generator=gen)
+    cond, mask = torch.arange(b) % 2, torch.tensor([1.0, 0.0] * (b // 2))
+    ctx = torch.randn((b, 3, 8), generator=gen)
+    batch = {"source": torch.rand((b, 32, 32, 3), generator=gen) * 2 - 1,
+             "target": torch.arange(b) % 2}
+    report = {}
+    for label, est, options, pipe_options, with_ctx in FAMILY_SMOKE:
+        pipes = {}
+        for dev in ("cpu", "cuda"):
+            pipe = build_train_pipeline(p, device=dev, estimator=est, seed=0)
+            with seeded(torch.device(dev), 0):
+                model = build_unet(p, est, **options)
+            pipes[dev] = dataclasses.replace(pipe, noise_estimator=model, **pipe_options)
+        cpu, card = pipes["cpu"], pipes["cuda"]
+        perturb_(cpu.noise_estimator, gen)
+        perturb_gn_(cpu.noise_estimator, gen)
+        perturb_(cpu.latent_embedder, gen)
+        card.noise_estimator.load_state_dict(cpu.noise_estimator.state_dict())
+        card.latent_embedder.load_state_dict(cpu.latent_embedder.state_dict())
+        draws = dict(cpu.train_draws(b, p.latent_shape, generator=gen), drop=torch.tensor(False))
+        out = {}
+        for dev, pipe in (("cpu", cpu), ("cuda", card)):
+            est_m = pipe.noise_estimator
+            kw = {"context": ctx.to(dev)} if with_ctx else {}
+            if pipe_options.get("use_self_conditioning"):
+                kw["self_cond"] = x.to(dev) * 0.5
+            with torch.no_grad():
+                y, _ = est_m(x.to(dev), t.to(dev), cond.to(dev), mask.to(dev), **kw)
+            est_m.zero_grad(set_to_none=True)
+            if with_ctx:
+                loss = (est_m(x.to(dev), t.to(dev), cond.to(dev), mask.to(dev), **kw)[0] ** 2
+                        ).mean()
+            else:
+                loss, _ = pipe.train_loss({k: v.to(dev) for k, v in batch.items()},
+                                          {k: v.to(dev) for k, v in draws.items()})
+            loss.backward()
+            out[dev] = (y, loss.detach(), {k: q.grad.detach().cpu()
+                                           for k, q in est_m.named_parameters()
+                                           if q.grad is not None})
+        (y0, l0, g0), (y1, l1, g1) = out["cpu"], out["cuda"]
+        close_scaled(f"smoke {label} forward", y1, y0)
+        torch.testing.assert_close(l1.cpu(), l0, rtol=SMOKE_TOL, atol=0)
+        gap = grad_gap(g1, g0)
+        log(f"  smoke {label} train step: loss {l1.item():.6f} vs {l0.item():.6f}; gradients "
+            f"({len(g0)} tensors) max|d| {gap:.3e} of max|g| (limit {CLF_GRAD_TOL})")
+        if set(g1) != set(g0) or not gap <= CLF_GRAD_TOL:
+            raise RuntimeError(f"smoke {label}: card gradients depart by {gap}")
+        report[label] = gap
+    img = batch["source"].movedim(-1, 1).contiguous()
+    noise = torch.randn((b, p.emb_channels, *p.latent_shape[:2]), generator=gen)
+    for kind in ("diffusers_kl", "diffusers_vq"):
+        quantized = kind.endswith("vq")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            with seeded(torch.device(dev), 0):
+                ae = build_vae(p, kind)
+            if dev == "cpu":
+                perturb_(ae, gen)
+                perturb_gn_(ae, gen)
+                weights = ae.state_dict()
+            else:
+                ae.load_state_dict(weights)
+            trainer = AutoencoderTrainer(ae, flavor="vqvae" if quantized else "vae",
+                                         pixel_loss="l2", embedding_loss_weight=1.0,
+                                         use_ssim=False)
+            args = (img.to(dev),) if quantized else (img.to(dev), noise.to(dev))
+            with torch.no_grad():
+                pred = ae(*args)[0]
+            loss, _ = trainer.loss(*args)
+            loss.backward()
+            out[dev] = (pred, loss.detach(), {k: q.grad.detach().cpu()
+                                              for k, q in ae.named_parameters()})
+        (y0, l0, g0), (y1, l1, g1) = out["cpu"], out["cuda"]
+        close_scaled(f"smoke {kind} forward", y1, y0)
+        torch.testing.assert_close(l1.cpu(), l0, rtol=SMOKE_TOL, atol=0)
+        gap = grad_gap(g1, g0)
+        log(f"  smoke {kind} train step: loss {l1.item():.6f} vs {l0.item():.6f}; gradients "
+            f"({len(g0)} tensors) max|d| {gap:.3e} of max|g| (limit {CLF_GRAD_TOL})")
+        if not gap <= CLF_GRAD_TOL:
+            raise RuntimeError(f"smoke {kind}: card gradients depart by {gap}")
+        report[kind] = gap
+    return report
+
+
+def openai_attention_checks_and_times(FA, worst):
+    """15b: kernel 5 and both backward kernels at the chest OpenAI UNet's
+    middle block (16 tokens, 8 heads of 128) in both channel orders
+    against their plain versions, then timed at the sampling rows (B=16:
+    8 samples with CFG) and the training batch (B=32), new order (column
+    slices, as the DiT's) and legacy order (copies, the preset's)."""
+    rows = {}
+    for new_order in (True, False):
+        label = f"OpenAI middle ({'new' if new_order else 'legacy'} order)"
+        slice_attention_checks(FA, worst, label, OPENAI_TOKENS, OPENAI_WIDTH, OPENAI_HEADS,
+                               new_order)
+        rows[label] = slice_attention_times(FA, worst, label, OPENAI_TOKENS, OPENAI_WIDTH,
+                                            OPENAI_HEADS, 2 * N_SAMPLES, TRAIN_BATCH,
+                                            new_order)
+    return rows
+
+
+def family_batch(p, root):
+    """The first TRAIN_BATCH images of phase 9's tree and their labels."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import build_dataset
+
+    ds = build_dataset(p, str(root))
+    items = [ds[i] for i in range(TRAIN_BATCH)]
+    return {"source": torch.stack([torch.from_numpy(it["source"]) for it in items]).cuda(),
+            "target": torch.tensor([it["target"] for it in items]).cuda()}
+
+
+def train_cli(ops, tmp, root, estimator, *flags, out=None):
+    """cli.train_diffusion at the chest preset on phase 9's tree and
+    autoencoder (B=32, bf16, FAMILY_STEPS steps; its run directory ``out``,
+    none when None): (state, losses, pipeline, seconds), with the launches
+    counted from zero."""
+    import torch
+
+    from medfusion_tpu_torch.cli import train_diffusion
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, pipe = train_diffusion.main([
+        "--preset", "chest", "--data-root", str(root), "--vae-ckpt", str(tmp / "ae"),
+        "--estimator", estimator, "--bf16", "--max-steps", str(FAMILY_STEPS), "--device",
+        "cuda", *flags, *([] if out is None else ["--out", str(out)])])
+    torch.cuda.synchronize()
+    if not all(math.isfinite(v) for v in losses) or state.step != FAMILY_STEPS:
+        raise RuntimeError(f"{estimator} {flags} training: step {state.step}, losses {losses}")
+    return state, losses, pipe, time.perf_counter() - t0
+
+
+def phase_family_train(ops, FA, tmp, root):
+    """15c: cli.train_diffusion --estimator unet_legacy|openai|lucidrains
+    --bf16 on phase 9's tree, each run's checkpoint under ``tmp`` for 15d
+    (launches held; ms a step, peak memory and breakdown); phase 8's bf16-against-f32 gradient check on a perturbed
+    chest OpenAI UNet, shown to flag dq zeroed at d = 128; then --remat
+    for openai and unet: the CLI's launches with the recompute, and on the
+    same perturbed weights, latents and draws the remat step's loss and
+    gradients against the plain step's, its ms beside (host clock around
+    3 synchronised forward + backward passes) and its peak memory below (the estimator's
+    forward and backward alone: with the frozen encoder in the step, its
+    256^2 activations set the peak)."""
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline
+    from medfusion_tpu_torch.nn.blocks import Norm
+    from medfusion_tpu_torch.train import make_diffusion_train_step
+
+    p = PRESETS["chest"]
+    batch = family_batch(p, root)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    latents = {"source": torch.randn((TRAIN_BATCH, *p.latent_shape), generator=gen,
+                                     device="cuda"), "target": batch["target"]}
+    draws = None
+    report = {}
+    for est in FAMILIES:
+        state, losses, pipe, seconds = train_cli(ops, tmp, root, est, out=tmp / est)
+        if est == "unet_legacy":
+            norms = sum(isinstance(m, Norm) for m in pipe.noise_estimator.modules())
+            if norms != LEGACY_GN_PER_FORWARD:
+                raise RuntimeError(f"the chest legacy UNet has {norms} GroupNorms, the "
+                                   f"counts assume {LEGACY_GN_PER_FORWARD}")
+        per_step = family_launches(est, 1, 1, encodes=1)
+        check_counts(f"{est} train CLI", ops.launch_counts(),
+                     {k: v * FAMILY_STEPS for k, v in per_step.items()})
+        if draws is None:
+            draws = pipe.train_draws(TRAIN_BATCH, p.latent_shape, generator=gen)
+        step = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
+        ms, peak, wall, kinds = step_ms_and_breakdown(step, state, batch, draws, 3)
+        n_params = sum(q.numel() for q in state.model.parameters())
+        log(f"  {est} train CLI ({n_params / 1e6:.1f} M parameters): {FAMILY_STEPS} steps at "
+            f"B={TRAIN_BATCH} (bf16) in {seconds:.1f} s with loading; losses {losses}; a "
+            f"step launches {per_step}; {ms:.1f} ms/step, peak memory {peak:.2f} GiB; profiled "
+            f"step wall {wall:.1f} ms, {fmt_kinds(kinds)}")
+        report[est] = {"ms": ms, "peak": peak}
+        del state, pipe, step
+        torch.cuda.empty_cache()
+    check = build_train_pipeline(p, device="cuda", estimator="openai", seed=0)
+    perturb_(check.noise_estimator, gen)
+    perturb_gn_(check.noise_estimator, gen)
+    check_train_grads(FA, check, batch, draws, faults=(CLF_FAULT,),
+                      limit=OPENAI_GRAD_REL_LIMIT, qkv_heads=OPENAI_HEADS)
+    del check
+    torch.cuda.empty_cache()
+    for est in ("openai", "unet"):
+        _, losses, _, seconds = train_cli(ops, tmp, root, est, "--remat")
+        expected = {k: v * FAMILY_STEPS
+                    for k, v in family_launches(est, 1, 1, encodes=1, remat=True).items()}
+        check_counts(f"{est} --remat train CLI", ops.launch_counts(), expected)
+        pipes = {remat: dataclasses.replace(
+            build_train_pipeline(p, device="cuda", estimator=est, seed=0, remat=remat),
+            latent_embedder=None) for remat in (False, True)}
+        # away from the zero-initialised output conv, so that every block
+        # has a gradient to compare
+        perturb_(pipes[False].noise_estimator, gen)
+        perturb_gn_(pipes[False].noise_estimator, gen)
+        pipes[True].noise_estimator.load_state_dict(pipes[False].noise_estimator.state_dict())
+        runs = {}
+        for remat, pipe in pipes.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss, grads = grads_of(pipe, latents, draws, torch.bfloat16)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            t0 = time.perf_counter()
+            for _ in range(3):
+                grads_of(pipe, latents, draws, torch.bfloat16)
+            torch.cuda.synchronize()
+            runs[remat] = (loss, grads, peak, (time.perf_counter() - t0) / 3 * 1e3)
+        del pipes, pipe
+        (l0, g0, p0, ms0), (l1, g1, p1, ms1) = runs[False], runs[True]
+        worst, glob = grad_departure(g1, g0)
+        log(f"  {est} --remat: CLI {FAMILY_STEPS} steps in {seconds:.1f} s, losses {losses}; "
+            f"the step on the same weights and draws: loss {l1.item()!r} vs {l0.item()!r}; "
+            f"gradients worst |d|_2/|g|_2 {fmt_worst(worst)} (limit {REMAT_GRAD_REL}); "
+            f"the estimator's forward + backward peak above the weights {p1:.2f} GiB vs "
+            f"{p0:.2f} GiB, {ms1:.1f} ms vs {ms0:.1f} ms")
+        if abs(l1.item() - l0.item()) > REMAT_LOSS_RTOL * abs(l0.item()):
+            raise RuntimeError(f"{est} remat loss {l1.item()} departs from {l0.item()}")
+        if not worst[0][0] <= REMAT_GRAD_REL or not p1 < p0:
+            raise RuntimeError(f"{est} remat: gradients {fmt_worst(worst)}, peak {p1} vs {p0}")
+        del g0, g1
+        torch.cuda.empty_cache()
+        report[f"{est} remat"] = {"peak": p1, "plain_peak": p0, "remat_ms": ms1,
+                                  "plain_ms": ms0}
+    return report
+
+
+def phase_family_sample(ops, tmp):
+    """15d: cli.sample --ckpt from each 15c run (the estimator from the
+    run's config), then the run's directory removed: DDIM 150, CFG 8, B=8,
+    3 conditions; seconds, peak memory and launches held."""
+    import shutil
+
+    from medfusion_tpu_torch.cli import sample
+
+    report = {}
+    for est in FAMILIES:
+        _, seconds, peak = sample_run(
+            ops, sample, ["--preset", "chest", "--ckpt", str(tmp / est), "--vae-ckpt",
+                          str(tmp / "ae"), "--n", str(N_SAMPLES), "--out",
+                          str(tmp / f"{est}_samples")],
+            family_launches(est, 3 * STEPS, decodes=3),
+            f"{est} sample CLI (DDIM {STEPS}, CFG {GUIDANCE})")
+        shutil.rmtree(tmp / est)
+        report[est] = (seconds, peak)
+    return report
+
+
+def phase_diffusers_autoencoders(ops, tmp, root):
+    """15e: cli.train_autoencoder --model diffusers_kl and --model
+    diffusers_vq --gan at the chest preset, f32, B=8, 3 steps on phase 9's
+    tree (no kernel launches); a run that holds only step 2 resumes and its
+    step-3 loss is held to the uninterrupted run's (AE_RESUME_LOSS_RTOL);
+    then the step's ms, peak memory and breakdown."""
+    import shutil
+
+    import torch
+
+    from medfusion_tpu_torch.cli import train_autoencoder
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset
+    from medfusion_tpu_torch.train.adversarial import (
+        AdversarialTrainer,
+        make_adversarial_train_step,
+    )
+    from medfusion_tpu_torch.train.autoencoder import (
+        AutoencoderTrainer,
+        make_autoencoder_train_step,
+    )
+    from medfusion_tpu_torch.utils import checkpoint as C
+
+    p = PRESETS["chest"]
+    ds = build_dataset(p, str(root))
+    batch = {"source": torch.stack([torch.from_numpy(ds[i]["source"])
+                                    for i in range(AE_BATCH)]).cuda()}
+    report = {}
+    for model, flags in DIFFUSERS_RUNS:
+        out, out_b = tmp / model, tmp / f"{model}_resumed"
+        common = ["--preset", "chest", "--data-root", str(root), "--model", model,
+                  "--device", "cuda", "--ckpt-every", str(AE_CKPT_EVERY), "--sample-every",
+                  "0", *flags]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, losses = train_autoencoder.main([*common, "--out", str(out), "--max-steps",
+                                                str(AE_STEPS)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_counts(f"{model} train CLI", ops.launch_counts(), {})
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"{model}: losses {losses}")
+        (out_b / "checkpoints").mkdir(parents=True)
+        for name in (f"step_{AE_CKPT_EVERY}.pt", C.CONFIG_FILE):
+            shutil.copy(out / "checkpoints" / name, out_b / "checkpoints" / name)
+        _, losses_b = train_autoencoder.main([*common, "--out", str(out_b), "--max-steps",
+                                              str(AE_STEPS), "--resume"])
+        log(f"  {' '.join([model, *flags])} train CLI: {AE_STEPS} steps at B={AE_BATCH} (f32) in "
+            f"{seconds:.1f} s with loading; losses {losses}; resume at step {AE_CKPT_EVERY}: "
+            f"step-{AE_STEPS} loss {losses_b[0]!r} vs {losses[-1]!r}")
+        if len(losses_b) != 1 or abs(losses_b[0] - losses[-1]) > (
+                AE_RESUME_LOSS_RTOL * abs(losses[-1])):
+            raise RuntimeError(f"{model}: resumed losses {losses_b} against {losses[-1]}")
+        gan = bool(flags)
+        ae = state.gen.model if gan else state.model
+        quantized = model.endswith("vq")
+        trainer = AutoencoderTrainer(ae, flavor="vqvae" if quantized else "vae",
+                                     pixel_loss="l2", embedding_loss_weight=1.0,
+                                     use_ssim=False)
+        if gan:
+            step = make_adversarial_train_step(AdversarialTrainer(
+                trainer, state.disc.model, start_gan_train_step=2, start_disc_train_step=1))
+        else:
+            step = make_autoencoder_train_step(trainer)
+        noise = None if quantized else torch.randn((AE_BATCH, *p.latent_shape), device="cuda")
+        ms, peak, wall, kinds = step_ms_and_breakdown(step, state, batch, noise, 3)
+        n_params = sum(q.numel() for q in ae.parameters())
+        log(f"  {model} step ({n_params / 1e6:.1f} M parameters{', GAN on' if gan else ''}, "
+            f"B={AE_BATCH}, f32, 256^2): {ms:.1f} ms/step, peak memory {peak:.2f} GiB; "
+            f"profiled step wall {wall:.1f} ms, {fmt_kinds(kinds)}")
+        report[model] = {"ms": ms, "peak": peak}
+        del state, ae, trainer, step
+        torch.cuda.empty_cache()
+        shutil.rmtree(out)
+        shutil.rmtree(out_b)
+    return report
+
+
 def kernel_row(name, source, replaces, launches, err, rows):
     """One entry of the kernels line: times summed over one launch at each
     of ``rows``' shapes."""
@@ -3973,6 +4462,19 @@ def main():
         moe_report = phase_dit_moe(ops)
         distill_report = phase_distill(ops, tmp, root)
 
+        log("[15] the other estimator families (legacy, OpenAI, lucidrains UNets), --remat, "
+            "and the diffusers autoencoders: card against CPU (f32), the kernels at the "
+            "OpenAI middle block's shape, the programs on phase 9's tree")
+        family_smoke = phase_families_vs_cpu()
+        openai_rows = openai_attention_checks_and_times(FA, worst)
+        ftmp = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="families_",
+                                                                    dir=ram_dir())))
+        (ftmp / "ae").symlink_to(tmp / "ae")  # phase 9's autoencoder
+        log(f"  phase 15's runs write under {ftmp}")
+        family_train = phase_family_train(ops, FA, ftmp, root)
+        family_sample = phase_family_sample(ops, ftmp)
+        diffusers_report = phase_diffusers_autoencoders(ops, ftmp, root)
+
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
     attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
@@ -4065,6 +4567,22 @@ def main():
         + "; kernels at the DiT's shape (ms kernel / plain / sdpa / bound): " + "; ".join(
             f"{k} B={r['B']} {r['ms']:.4f}/{r['plain_ms']:.4f}/{r['library_ms']:.4f}/"
             f"{r['bound_ms']:.4f}" for k, r in dit_rows.items() if isinstance(r, dict)))
+    log("  slice 14 on the card: train steps (B=32, bf16) " + ", ".join(
+        f"{k} {v['ms']:.1f} ms ({v['peak']:.2f} GiB)" for k, v in family_train.items()
+        if "ms" in v) + "; remat forward + backward " + ", ".join(
+        f"{k} {v['remat_ms']:.1f} ms, {v['peak']:.2f} GiB above the weights (plain "
+        f"{v['plain_ms']:.1f} ms, {v['plain_peak']:.2f} GiB)"
+        for k, v in family_train.items() if "plain_peak" in v)
+        + f"; sample DDIM {STEPS} " + ", ".join(
+            f"{k} {s:.3f} s ({peak:.3f} GiB)" for k, (s, peak) in family_sample.items())
+        + "; diffusers steps (B=8, f32) " + ", ".join(
+            f"{k} {v['ms']:.1f} ms ({v['peak']:.2f} GiB)" for k, v in diffusers_report.items())
+        + "; smoke gradients card vs cpu (of max|g|) " + ", ".join(
+            f"{k.split(' ')[0]} {v:.2e}" for k, v in family_smoke.items())
+        + "; kernels at the OpenAI middle block (ms kernel / plain / sdpa / bound): " + "; ".join(
+            f"{label} {k} B={r['B']} {r['ms']:.4f}/{r['plain_ms']:.4f}/{r['library_ms']:.4f}/"
+            f"{r['bound_ms']:.4f}" for label, rows in openai_rows.items()
+            for k, r in rows.items() if isinstance(r, dict)))
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

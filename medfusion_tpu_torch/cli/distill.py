@@ -40,7 +40,8 @@ data stream restarts, as in the JAX CLI). Iteration i of a stage draws
 from a generator seeded by (``--seed``, the stage, i), the JAX CLI's
 ``fold_in`` keys made a seed sequence.
 
-``--estimator dit`` distils a Diffusion Transformer; ``--attention`` and
+``--estimator`` distils any family of ``cli.train_diffusion`` (the DiT,
+the legacy, OpenAI or lucidrains UNet); ``--attention`` and
 ``--attention-heads`` must be the teacher's. The teacher's run config is
 checked against ``--estimator``, ``--attention``, ``--attention-heads``,
 ``--objective`` (not for reflow) and the family.

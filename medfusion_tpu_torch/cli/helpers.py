@@ -37,12 +37,12 @@ analogue: a note says it is ignored); ``img2img`` jumps to t =
 The diffusion model is a port diffusion run (``--ckpt``, its EMA copy with
 ``--ema``) or seeded random weights; the VAE is ``--vae-ckpt`` or seeded
 random weights. All draws come from one generator seeded by ``--seed``.
-``--estimator dit`` runs the Diffusion Transformer in place of the UNet
-(with ``--attention`` and ``--attention-heads`` refused, as in the JAX
-package); without it the family is the ``--ckpt`` run's. Refused, naming ROADMAP Queue 1: the other ``--estimator``
-families (item 7), and the kernel switches
-``--flash``, ``--fused-geglu`` and ``--fused-up`` (item 10): the port runs
-its hand-written kernels always.
+``--estimator unet_legacy|openai|lucidrains|dit`` runs that family in place
+of the UNet (``--attention`` and ``--attention-heads`` refused where the
+JAX package refuses them); without it the family is the ``--ckpt`` run's.
+Refused, naming ROADMAP Queue 1 item 10: the kernel switches ``--flash``,
+``--fused-geglu`` and ``--fused-up``: the port runs its hand-written
+kernels always.
 
 Usage:
   python -m medfusion_tpu_torch.cli.helpers latent-stats --preset chest \\
@@ -355,8 +355,7 @@ def main(argv=None):
         if name in ("export-gif", "interpolate", "inpaint", "img2img"):
             s.add_argument("--estimator", default=None, choices=ESTIMATORS,
                            help="the noise-estimator family the checkpoint was trained "
-                                "with ('unet' and 'dit' are ported; default: the --ckpt "
-                                "run's, else unet)")
+                                "with (default: the --ckpt run's, else unet)")
             s.add_argument("--attention", choices=ATTENTION_TYPES, default="none")
             s.add_argument("--attention-heads", type=int, default=8)
             for flag in ("--flash", "--fused-geglu", "--fused-up"):

@@ -63,18 +63,33 @@ PRESETS = {
 }
 
 
-AE_KINDS = ("vae", "vqvae")
+AE_KINDS = ("vae", "vqvae", "diffusers_kl", "diffusers_vq")
 
 
 def build_vae(p: Preset, kind: str = "vae"):
-    """The in-house latent embedder by kind: 'vae' (KL) or 'vqvae' (a
-    codebook of 8,192, beta 0.25), at the preset's widths. The diffusers
-    family ('diffusers_kl', 'diffusers_vq') is not ported (ROADMAP Queue 1)."""
+    """The latent embedder by kind at the preset's widths: 'vae' (KL) or
+    'vqvae' (a codebook of 8,192, beta 0.25) of the in-house family, or
+    'diffusers_kl' / 'diffusers_vq' (the vendored AutoencoderKL / VQModel:
+    ``block_out_channels`` the preset's VAE widths, one resnet a level,
+    GroupNorms of 32 groups or half the narrowest width, 8,192 codes), as
+    the JAX package's ``build_vae``."""
+    if kind not in AE_KINDS:
+        raise ValueError(f"unknown latent embedder {kind!r}; expected one of {AE_KINDS}")
+    if kind.startswith("diffusers"):
+        from medfusion_tpu_torch.models.latent_embedders_diffusers import (
+            AutoencoderKLDiffusers,
+            VQModelDiffusers,
+        )
+
+        groups = 32 if min(p.vae_hid_chs) >= 32 else min(p.vae_hid_chs) // 2
+        common = dict(in_channels=p.in_channels, out_channels=p.in_channels,
+                      emb_channels=p.emb_channels, block_out_channels=p.vae_hid_chs,
+                      layers_per_block=1, norm_num_groups=groups)
+        if kind == "diffusers_vq":
+            return VQModelDiffusers(num_embeddings=8192, **common)
+        return AutoencoderKLDiffusers(**common)
     from medfusion_tpu_torch.models.latent_embedders import VAE, VQVAE
 
-    if kind not in AE_KINDS:
-        raise ValueError(f"latent embedder {kind!r} is not ported; expected one of "
-                         f"{AE_KINDS}")
     n_groups = 8 if min(p.vae_hid_chs) >= 8 else min(p.vae_hid_chs)
     n = len(p.vae_hid_chs)
     common = dict(in_channels=p.in_channels, out_channels=p.in_channels,
@@ -109,11 +124,11 @@ def load_vae(p: Preset, dev: torch.device, seed: int, vae_ckpt=None):
     return vae.eval()
 
 
-def build_discriminators(p: Preset, disc: str = "conv"):
+def build_discriminators(p: Preset, disc: str = "conv", levels: Optional[int] = None):
     """One discriminator for each pyramid level of the preset's autoencoder
-    (``ae_deep_supervision + 1``), in an ``nn.ModuleList``: 'conv', the
-    reference's ``Discriminator``, or 'patch', its ``NLayerDiscriminator``,
-    each at its own default widths."""
+    (``ae_deep_supervision + 1``, or ``levels``), in an ``nn.ModuleList``:
+    'conv', the reference's ``Discriminator``, or 'patch', its
+    ``NLayerDiscriminator``, each at its own default widths."""
     import torch.nn as nn
 
     from medfusion_tpu_torch.models.latent_embedders import (
@@ -122,26 +137,25 @@ def build_discriminators(p: Preset, disc: str = "conv"):
     )
 
     cls = {"conv": Discriminator, "patch": NLayerDiscriminator}[disc]
-    return nn.ModuleList([cls(in_channels=p.in_channels, spatial_dims=2)
-                          for _ in range(p.ae_deep_supervision + 1)])
+    n = p.ae_deep_supervision + 1 if levels is None else levels
+    return nn.ModuleList([cls(in_channels=p.in_channels, spatial_dims=2) for _ in range(n)])
 
 
 ESTIMATORS = ("unet", "unet_legacy", "openai", "lucidrains", "dit")
-PORTED_ESTIMATORS = ("unet", "dit")
+PORTED_ESTIMATORS = ESTIMATORS
+# the families with a ``remat`` option (cli.train_diffusion --remat)
+REMAT_ESTIMATORS = ("unet", "openai")
 
 
 def estimator_refusal(estimator: str, attention: str = "none",
                       attn_heads: int = 8) -> Optional[str]:
     """Why ``estimator`` with these attention options cannot be built, or
-    None: the families not ported yet (ROADMAP Queue 1 item 7), and the JAX
-    package's own refusals (``attention`` configures the UNet families only,
-    ``attn_heads`` the 'unet' family only)."""
+    None: the JAX package's own refusals (``attention`` configures the
+    unet and unet_legacy families only, ``attn_heads`` the 'unet' family
+    only)."""
     if estimator not in ESTIMATORS:
         return f"unknown estimator {estimator!r}; expected one of {ESTIMATORS}"
-    if estimator not in PORTED_ESTIMATORS:
-        return (f"--estimator {estimator}: only the {' and '.join(PORTED_ESTIMATORS)} "
-                f"families are ported (ROADMAP Queue 1, item 7)")
-    if attention != "none" and estimator != "unet":
+    if attention != "none" and estimator not in ("unet", "unet_legacy"):
         return (f"attention={attention!r} only configures the unet/unet_legacy "
                 f"families; estimator {estimator!r} fixes its own attention")
     if attn_heads != 8 and estimator != "unet":
@@ -164,17 +178,32 @@ def dit_sizing(p: Preset) -> dict:
                 cond_emb_num_classes=p.num_classes)
 
 
+def _width_multiples(p: Preset, estimator: str) -> int:
+    mc = p.unet_hid_chs[0]
+    if any(c % mc for c in p.unet_hid_chs):
+        raise ValueError(f"the {estimator} estimator needs hid_chs that are multiples of "
+                         f"hid_chs[0], got {p.unet_hid_chs}")
+    return mc
+
+
 def build_unet(p: Preset, estimator: str = "unet", attention: str = "none",
                attn_heads: int = 8, **options):
-    """The noise estimator by family: 'unet', the reference 'unet2', or
-    'dit', the Diffusion Transformer at :func:`dit_sizing`; the other
-    families are refused (:func:`estimator_refusal`). ``attention`` is the
-    UNet's ``use_attention`` ('none' | 'linear' | 'spatial'; 'spatial' is
-    the eye/colon attention config) and ``attn_heads`` its head count;
-    ``options`` override the estimator's other arguments (the UNet's
-    ``deep_supervision``, ``estimate_variance``, ``use_self_conditioning``;
-    the DiT's ``learn_sigma``, ``use_self_conditioning`` and ``moe_*``),
-    which the CLIs leave at the preset's."""
+    """The noise estimator by family, sized as the JAX package's
+    ``build_unet``: 'unet' (the reference 'unet2'), 'unet_legacy' (the
+    reference's estimators/unet.py, with the unet family's widths),
+    'openai' (the SD/ADM UNet: model channels hid_chs[0], channel_mult
+    hid_chs / hid_chs[0], 2 res blocks, no attention resolutions, 8 heads,
+    scale-shift norm, resblock up/down, 32 GroupNorm groups or half the
+    narrowest width), 'lucidrains' (dim hid_chs[0], dim_mults as openai's,
+    8 groups, unconditional), or 'dit', the Diffusion Transformer at
+    :func:`dit_sizing`. ``attention`` is the unet and unet_legacy families'
+    ``use_attention`` ('none' | 'linear' | 'spatial'; 'spatial' is the
+    eye/colon attention config) and ``attn_heads`` the unet family's head
+    count (:func:`estimator_refusal`); ``options`` override the estimator's
+    other arguments (the UNets' ``deep_supervision``,
+    ``estimate_variance``, ``use_self_conditioning``, ``dropout``,
+    ``remat``; the DiT's ``learn_sigma``, ``use_self_conditioning`` and
+    ``moe_*``), which the CLIs leave at the preset's."""
     why = estimator_refusal(estimator, attention, attn_heads)
     if why is not None:
         raise ValueError(why)
@@ -182,7 +211,24 @@ def build_unet(p: Preset, estimator: str = "unet", attention: str = "none",
         from medfusion_tpu_torch.models.dit import DiT
 
         return DiT(**{**dit_sizing(p), **options})
-    from medfusion_tpu_torch.models.unet import UNet
+    if estimator == "openai":
+        from medfusion_tpu_torch.models.unet_openai import UNetOpenAI
+
+        mc = _width_multiples(p, estimator)
+        groups = 32 if min(p.unet_hid_chs) >= 32 else min(p.unet_hid_chs) // 2
+        kw = dict(in_channels=p.emb_channels, model_channels=mc,
+                  out_channels=p.emb_channels,
+                  channel_mult=tuple(c // mc for c in p.unet_hid_chs), num_res_blocks=2,
+                  attention_resolutions=(), num_classes=p.num_classes, num_heads=8,
+                  use_scale_shift_norm=True, resblock_updown=True, norm_groups=groups)
+        return UNetOpenAI(**{**kw, **options})
+    if estimator == "lucidrains":
+        from medfusion_tpu_torch.models.unet_lucidrains import UNetLucidrains
+
+        mc = _width_multiples(p, estimator)
+        kw = dict(dim=mc, dim_mults=tuple(c // mc for c in p.unet_hid_chs),
+                  channels=p.emb_channels, resnet_block_groups=8 if mc >= 8 else mc // 2)
+        return UNetLucidrains(**{**kw, **options})
 
     n = len(p.unet_hid_chs)
     n_groups = 32 if min(p.unet_hid_chs) >= 32 else min(p.unet_hid_chs) // 2
@@ -190,10 +236,15 @@ def build_unet(p: Preset, estimator: str = "unet", attention: str = "none",
               hid_chs=p.unet_hid_chs, kernel_sizes=(3,) * n,
               strides=(1,) + (2,) * (n - 1), time_emb_dim=p.unet_hid_chs[-1],
               cond_emb_num_classes=p.num_classes, deep_supervision=0,
-              use_attention=attention, attn_heads=attn_heads,
-              use_res_block=True,
+              use_attention=attention,
               norm_name=("GROUP", {"num_groups": n_groups, "affine": True}))
-    return UNet(**{**kw, **options})
+    if estimator == "unet_legacy":
+        from medfusion_tpu_torch.models.unet_legacy import UNetLegacy
+
+        return UNetLegacy(**{**kw, **options})
+    from medfusion_tpu_torch.models.unet import UNet
+
+    return UNet(**{**kw, "attn_heads": attn_heads, "use_res_block": True, **options})
 
 
 def build_scheduler(p: Preset, device="cpu", zero_terminal_snr: bool = False):
@@ -207,7 +258,8 @@ def build_scheduler(p: Preset, device="cpu", zero_terminal_snr: bool = False):
 
 
 def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params=None,
-                   vae_params=None, unet_state=None, vae_ckpt=None, estimator="unet"):
+                   vae_params=None, unet_state=None, vae_ckpt=None, estimator="unet",
+                   **options):
     """(estimator, VAE, device): the modules on ``device``, with a seeded
     torch initialisation, then the JAX package's flax params (nested numpy
     dicts) or a port state dict of the estimator, and a VAE checkpoint
@@ -218,10 +270,11 @@ def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params=N
 
     dev = resolve_device(device)
     with seeded(dev, seed):
-        unet = build_unet(p, estimator, attention=attention, attn_heads=attn_heads)
+        unet = build_unet(p, estimator, attention=attention, attn_heads=attn_heads,
+                          **options)
         vae = build_vae(p)
     if unet_params is not None:
-        load_jax_params(unet, unet_params, kind="dit" if estimator == "dit" else "unet")
+        load_jax_params(unet, unet_params, kind=estimator)  # each family's converter
     if vae_params is not None:
         load_jax_params(vae, vae_params, kind="vae")
     if unet_state is not None:
@@ -276,7 +329,8 @@ def build_train_pipeline(p: Preset, device=None, attention: str = "none",
                          zero_terminal_snr: bool = False,
                          min_snr_gamma: Optional[float] = None,
                          family: str = "diffusion", flow_shift: float = 1.0,
-                         time_sampling: str = "logit_normal", estimator: str = "unet"):
+                         time_sampling: str = "logit_normal", estimator: str = "unet",
+                         remat: bool = False):
     """Training pipeline as ``medfusion_tpu/cli/train_diffusion.py`` builds
     it: CFG dropout ``p.cfg_dropout``, no input centering, no x0 clipping,
     L1 loss, ``objective`` ('x_T', 'x_0' or 'v'), no learned variance and no
@@ -284,15 +338,18 @@ def build_train_pipeline(p: Preset, device=None, attention: str = "none",
     ``zero_terminal_snr``, Min-SNR weighting with ``min_snr_gamma``; with
     ``family`` 'flow' the flow-matching pipeline (L2 on the velocity, time
     drawn by ``time_sampling`` and shifted by ``flow_shift``); ``estimator``
-    'unet' or 'dit' (:func:`build_unet`). Both modules stay float32
+    any family of :func:`build_unet`, with ``remat`` (gradient
+    checkpointing) where the family has it (``REMAT_ESTIMATORS``; ignored
+    elsewhere, as the JAX CLI ignores it). Both modules stay float32
     (the estimator holds the master weights; the train step casts both to
     ``compute_dtype``); the VAE is frozen, loaded from ``vae_ckpt`` where
     given. The model runs on (z - ``latent_shift``) * ``latent_scale``."""
     from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
     from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 
+    options = {"remat": True} if remat and estimator in REMAT_ESTIMATORS else {}
     unet, vae, dev = _build_modules(p, device, seed, attention, attn_heads,
-                                    vae_ckpt=vae_ckpt, estimator=estimator)
+                                    vae_ckpt=vae_ckpt, estimator=estimator, **options)
     if family == "flow":
         return FlowMatchingPipeline(
             noise_estimator=unet, latent_embedder=vae.eval().requires_grad_(False),

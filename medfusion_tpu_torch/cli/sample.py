@@ -19,11 +19,11 @@ whose run directory ``--ckpt`` takes) in ``min(--steps, 8)`` rounds of
 f and renoise, at ``--cd-sigma-data``, one conditional forward a round (no
 CFG); it refuses ``--classifier-ckpt``, as the JAX CLI does.
 
-``--estimator dit`` samples a Diffusion Transformer checkpoint
-(``cli.train_diffusion --estimator dit``); without ``--estimator`` the
-family is the ``--ckpt`` run's (its ``config.json``), else the UNet.
-``--attention`` and ``--attention-heads`` are refused with the DiT, and
-the other families name ROADMAP Queue 1 item 7.
+``--estimator unet_legacy|openai|lucidrains|dit`` samples a checkpoint of
+that family (``cli.train_diffusion --estimator``); without ``--estimator``
+the family is the ``--ckpt`` run's (its ``config.json``), else the UNet.
+``--attention`` is refused but for the unet and unet_legacy families and
+``--attention-heads`` but for the unet family, as in the JAX package.
 
 ``--family flow`` samples a flow-matching checkpoint (``cli.train_diffusion
 --family flow``) with the Heun probability-flow ODE on a grid shifted by
@@ -199,8 +199,7 @@ def add_estimator_args(ap) -> None:
     """The estimator flags shared with ``cli.sample_dataset``."""
     ap.add_argument("--estimator", choices=ESTIMATORS, default=None,
                     help="the noise-estimator family the checkpoint was trained with "
-                         "('unet' and 'dit' are ported; default: the --ckpt run's, else "
-                         "unet)")
+                         "(default: the --ckpt run's, else unet)")
     ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none",
                     help="UNet attention per the reference's use_attention "
                          "config: 'linear' = single-layer transformer, "

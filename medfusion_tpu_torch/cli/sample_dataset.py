@@ -9,7 +9,7 @@ as uint8 ``(clip(x, -1, 1) + 1) * 127.5`` (grey for one channel), with the
 port's own PNG writer. Every sampler of ``cli.sample`` is accepted
 but the consistency sampler, as in the JAX CLI (``--sampler ddim|dpmpp|edm``,
 ``--encoder-key-every``, ``--zero-terminal-snr``, ``--timestep-spacing``,
-``--guidance-rescale``); ``--estimator dit`` as in ``cli.sample``; DDIM and the fast sampler
+``--guidance-rescale``); ``--estimator`` as in ``cli.sample``; DDIM and the fast sampler
 run at eta 1, as the JAX package's bulk sampler does. ``--family flow
 --flow-shift`` bulk-samples a flow-matching checkpoint with the Heun ODE
 (its step counts not capped at T), and ``--classifier-ckpt`` guides DDIM

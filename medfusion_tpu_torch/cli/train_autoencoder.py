@@ -33,8 +33,14 @@ Usage:
 2) with the VGG16 that ``cli.ingest_weights vgg16`` stored; without an
 ingested VGG16 it is refused, not trained against a random backbone.
 
+``--model diffusers_kl|diffusers_vq`` trains the vendored diffusers
+AutoencoderKL / VQModel (``models/latent_embedders_diffusers.py``) with
+their wrappers' losses, as the JAX CLI does: the L2 pixel loss without SSIM
+and 1 x the KL or commitment loss; with ``--gan`` always one PatchGAN
+(``--disc`` is ignored), the lambda taken at ``decoder.conv_out.weight``,
+and the discriminator's terms on from half of ``--start-gan-step``.
+
 Without ``--device cpu`` it runs on the card and raises when there is none.
-Not ported yet: ``--model diffusers_kl|diffusers_vq`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import torch
 
 from medfusion_tpu_torch import resolve_device
 from medfusion_tpu_torch.cli.presets import (
+    AE_KINDS,
     PRESETS,
     build_dataset,
     build_discriminators,
@@ -86,12 +93,13 @@ def main(argv=None):
                     help="the preset's dataset root (default: synthetic data)")
     ap.add_argument("--out", default=None,
                     help="run directory (checkpoints, logs, images); none: write nothing")
-    ap.add_argument("--model", choices=("vae", "vqvae", "diffusers_kl", "diffusers_vq"),
-                    default="vae", help="latent-embedder family (diffusers_*: not ported)")
+    ap.add_argument("--model", choices=AE_KINDS, default="vae",
+                    help="latent-embedder family: the in-house KL or VQ autoencoder, or "
+                         "the diffusers AutoencoderKL / VQModel")
     ap.add_argument("--gan", action="store_true", help="adversarial (VAEGAN/VQGAN) training")
     ap.add_argument("--disc", choices=("conv", "patch"), default="conv",
                     help="discriminator: the conv stack (GroupNorm) or the PatchGAN "
-                         "(BatchNorm)")
+                         "(BatchNorm); the diffusers models always take the PatchGAN")
     ap.add_argument("--start-gan-step", type=int, default=50000,
                     help="optimizer steps (two a batch) before the adversarial terms")
     ap.add_argument("--lpips", action="store_true",
@@ -117,9 +125,6 @@ def main(argv=None):
                  "run python -m medfusion_tpu_torch.cli.ingest_weights vgg16 --src "
                  "vgg16-397923af.pth first — training against a random backbone is "
                  "refused, not warned")
-    if args.model.startswith("diffusers"):
-        ap.error(f"--model {args.model}: the diffusers autoencoder family is not ported "
-                 f"(ROADMAP Queue 1, item 7)")
     if (args.resume or args.auto_restart) and args.out is None:
         ap.error("--resume and --auto-restart need --out")
     if args.auto_restart:
@@ -132,23 +137,30 @@ def _train(args, resume: bool):
     p = PRESETS[args.preset]
     dev = resolve_device(args.device)
     batch_size = args.batch_size or p.ae_batch_size
+    diffusers = args.model.startswith("diffusers")
+    # the vendored diffusers VQGAN / VAEWrapper: one PatchGAN, no pyramid
+    disc = "patch" if diffusers else args.disc
     with seeded(dev, args.seed):
         vae = build_vae(p, args.model)
-        discs = build_discriminators(p, args.disc) if args.gan else None
-    quantized = args.model == "vqvae"
+        discs = (build_discriminators(p, disc, levels=1 if diffusers else None)
+                 if args.gan else None)
+    quantized = args.model in ("vqvae", "diffusers_vq")
     perceiver = None
     if args.lpips:
         perceiver = frozen_lpips(P.load_pretrained(P.VGG16), dev)
         print(f"LPIPS perceptual loss on (ingested weights, {P.artifact_path(P.VGG16)})")
     trainer = AutoencoderTrainer(
-        vae, flavor=args.model, pixel_loss=p.ae_loss, perceiver=perceiver,
-        embedding_loss_weight=1.0 if quantized else p.ae_embedding_loss_weight)
+        vae, flavor="vqvae" if quantized else "vae",
+        pixel_loss="l2" if diffusers else p.ae_loss, perceiver=perceiver,
+        embedding_loss_weight=1.0 if quantized or diffusers else p.ae_embedding_loss_weight,
+        use_ssim=not diffusers)
     schedule = make_lr_schedule(args.lr_schedule, args.warmup_steps, args.max_steps)
     if args.gan:
         # the reference's VAEGAN: lr 1e-6 for both players
         state = GANTrainState(vae, discs, lr=1e-6, lr_schedule=schedule)
         step_fn = make_adversarial_train_step(AdversarialTrainer(
-            trainer, discs, start_gan_train_step=args.start_gan_step))
+            trainer, discs, start_gan_train_step=args.start_gan_step,
+            start_disc_train_step=args.start_gan_step // 2 if diffusers else None))
     else:
         state = TrainState(vae, lr=p.ae_lr, weight_decay=0.0, lr_schedule=schedule)
         step_fn = make_autoencoder_train_step(trainer)
@@ -159,7 +171,7 @@ def _train(args, resume: bool):
     out = None if args.out is None else Path(args.out)
     ckpt_dir = None if out is None else out / "checkpoints"
     run_config = {"model": args.model, "gan": args.gan, "lpips": args.lpips,
-                  "disc": args.disc if args.gan else None}
+                  "disc": disc if args.gan else None}
     if resume and C.latest_step(ckpt_dir) is not None:
         C.check_config(ckpt_dir, run_config, "--resume")
         restore_data_state(ds, C.restore_checkpoint(ckpt_dir, state))

@@ -13,13 +13,20 @@ metrics in ``<out>/logs/metrics.jsonl``, and every ``--sample-every``
 steps 4 images of a 50-step DDIM sample from the EMA (or the model) in
 ``<out>/images``. Without ``--out`` nothing is written.
 
-``--estimator dit`` trains the Diffusion Transformer (``models/dit.py``,
-sized off the preset as the JAX CLI sizes it: hidden 1,024, 16 heads,
-depth 12, patch 2 for the chest preset) in place of the UNet, in either
-family; on the card its attention runs the token-layout flash kernels
-forward and backward. It refuses ``--attention`` and ``--attention-heads``,
-as the JAX package does; the other estimator families are refused naming
-ROADMAP Queue 1 item 7.
+``--estimator`` picks the noise estimator, sized off the preset as the JAX
+CLI sizes it (``cli/presets.py::build_unet``), in either family: ``unet``
+(the reference's unet2), ``unet_legacy`` (one down and up block a level;
+takes ``--attention`` too), ``openai`` (the SD/ADM UNet, scale-shift norm
+and resblock up/down; its middle block attends through the token-layout
+flash kernels), ``lucidrains`` (the compact DDPM UNet, unconditional: the
+labels are ignored) or ``dit`` (the Diffusion Transformer: hidden 1,024, 16
+heads, depth 12, patch 2 for the chest preset; its attention runs the
+token-layout flash kernels forward and backward). ``--attention`` is
+refused but for unet and unet_legacy, ``--attention-heads`` but for unet,
+as the JAX package does. ``--remat`` recomputes the estimator's blocks in
+the backward (gradient checkpointing: the unet family's conv blocks, the
+openai family's res and attention blocks) to save activation memory; the
+other families have no such option and ignore it, as the JAX CLI does.
 
 Step s draws from a generator seeded by (``--seed``, s), and ``--resume``
 continues the data stream where the run stopped (``train/loop.py``), so a
@@ -53,8 +60,7 @@ Usage:
 
 Without ``--device cpu`` it runs on the card and raises when there is none.
 On the card every self-attention runs its forward and backward through the
-hand-written kernels. Not ported (ROADMAP Queue 1): the other
-estimator families, ``--remat`` and the grain loader.
+hand-written kernels. Not ported (ROADMAP Queue 1): the grain loader.
 """
 
 from __future__ import annotations
@@ -105,9 +111,15 @@ def main(argv=None):
     ap.add_argument("--out", default=None,
                     help="run directory (checkpoints, logs, images); none: write nothing")
     ap.add_argument("--estimator", choices=ESTIMATORS, default="unet",
-                    help="noise-estimator family: unet (the reference's unet2) or dit "
-                         "(Diffusion Transformer, arXiv:2212.09748); the others are "
-                         "not ported")
+                    help="noise-estimator family: unet (the reference's unet2), "
+                         "unet_legacy, openai (the SD/ADM UNet), lucidrains (the compact "
+                         "DDPM UNet, unconditional) or dit (Diffusion Transformer, "
+                         "arXiv:2212.09748)")
+    ap.add_argument("--remat", action="store_true",
+                    help="gradient checkpointing: recompute the unet family's conv blocks "
+                         "or the openai family's res and attention blocks in the "
+                         "backward; ignored by the other families, which have no such "
+                         "option")
     ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none")
     ap.add_argument("--attention-heads", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=None)
@@ -180,7 +192,7 @@ def run_config(p, args) -> dict:
             "min_snr_gamma": args.min_snr_gamma,
             "latent_scale": args.latent_scale, "latent_shift": args.latent_shift,
             "family": args.family, "flow_shift": args.flow_shift,
-            "time_sampling": args.time_sampling}
+            "time_sampling": args.time_sampling, "remat": args.remat}
 
 
 def _train(args, resume: bool):
@@ -196,7 +208,7 @@ def _train(args, resume: bool):
                                 min_snr_gamma=args.min_snr_gamma, family=args.family,
                                 flow_shift=args.flow_shift,
                                 time_sampling=args.time_sampling,
-                                estimator=args.estimator)
+                                estimator=args.estimator, remat=args.remat)
     dev = pipe.device
     state = TrainState(pipe.noise_estimator, lr=p.diffusion_lr, weight_decay=1e-2,
                        use_ema=args.use_ema,

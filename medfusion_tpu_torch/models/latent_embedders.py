@@ -15,8 +15,10 @@
 The adversarial training of the reference's VAEGAN/VQGAN is in
 :mod:`medfusion_tpu_torch.train.adversarial`. Submodule names are the
 reference's keys (``quantizer.embedder.weight``, ``out_enc.*``, and
-``inc.*``/``encoder.{i}.*``/``outc.*`` for a discriminator). Not ported: the
-diffusers family (``latent_embedders_diffusers.py``) and dropout.
+``inc.*``/``encoder.{i}.*``/``outc.*`` for a discriminator). A
+discriminator's ``dropout`` goes to each of its BasicBlocks but the head,
+between the norm and the activation. The diffusers family is
+``models/latent_embedders_diffusers.py``.
 """
 
 from __future__ import annotations
@@ -84,11 +86,6 @@ class VectorQuantizer(nn.Module):
         return z + (z_q - z).detach(), loss
 
 
-def _no_dropout(dropout):
-    if dropout is not None:
-        raise NotImplementedError("dropout in the discriminators is not ported (ROADMAP)")
-
-
 class Discriminator(nn.Module):
     """Conv-stack discriminator: BasicBlocks (conv -> GroupNorm -> SiLU) at
     ``hid_chs`` and ``strides``, then a zero-init 3x3 conv to one logit
@@ -101,13 +98,12 @@ class Discriminator(nn.Module):
                  norm_name=("GROUP", {"num_groups": 32, "affine": True}),
                  dropout: Optional[float] = None):
         super().__init__()
-        _no_dropout(dropout)
         n = spatial_dims
         self.inc = BasicBlock(n, in_channels, hid_chs[0], kernel_sizes[0], strides[0],
-                              norm_name, act_name)
+                              norm_name, act_name, dropout=dropout)
         self.encoder = nn.Sequential(*[
             BasicBlock(n, hid_chs[i - 1], hid_chs[i], kernel_sizes[i], strides[i],
-                       norm_name, act_name)
+                       norm_name, act_name, dropout=dropout)
             for i in range(1, len(hid_chs))])
         self.outc = BasicBlock(n, hid_chs[-1], 1, 3, 1, zero_conv=True)
 
@@ -127,13 +123,12 @@ class NLayerDiscriminator(nn.Module):
                  act_name=("LEAKYRELU", {"negative_slope": 0.2}),
                  norm_name=("BATCH", {}), dropout: Optional[float] = None):
         super().__init__()
-        _no_dropout(dropout)
         n = spatial_dims
         self.inc = BasicBlock(n, in_channels, hid_chs[0], kernel_sizes[0], strides[0],
-                              None, act_name)
+                              None, act_name, dropout=dropout)
         self.encoder = nn.Sequential(*[
             BasicBlock(n, hid_chs[i - 1], hid_chs[i], kernel_sizes[i], strides[i],
-                       norm_name, act_name)
+                       norm_name, act_name, dropout=dropout)
             for i in range(1, len(strides))])
         self.outc = BasicBlock(n, hid_chs[-1], 1, 4, 1)
 

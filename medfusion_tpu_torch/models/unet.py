@@ -20,6 +20,11 @@ in conv takes ``[x_t | self_cond]`` (zeros for a missing ``self_cond``).
 The forward is ``embed`` -> ``encode_features`` (in conv and encoder: the
 skip stack) -> ``decode_features`` (middle and decoder), so that a sampler
 can reuse an encoder's skips across steps (``pipelines/diffusion/fast.py``).
+
+``dropout`` goes to every conv block and attention. ``remat`` recomputes
+each conv block in the backward (``nn/functional.py::checkpointed``), as
+the JAX package's ``nn.remat`` of its ConvBlocks: their GroupNorm kernels
+then launch twice a training step.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from medfusion_tpu_torch.nn.blocks import (
     UnetResBlock,
     conv_nd,
 )
-from medfusion_tpu_torch.nn.functional import save_add
+from medfusion_tpu_torch.nn.functional import checkpointed, save_add
 
 
 class UnetOutBlock(nn.Module):
@@ -68,7 +73,8 @@ class UNet(nn.Module):
                  deep_supervision=True, use_res_block: bool = True,
                  estimate_variance: bool = False,
                  use_attention="none", attn_heads: int = 8,
-                 num_res_blocks: int = 2, use_self_conditioning: bool = False):
+                 num_res_blocks: int = 2, use_self_conditioning: bool = False,
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
         depth = len(strides)
         attn = (list(use_attention) if isinstance(use_attention, (list, tuple))
@@ -89,18 +95,20 @@ class UNet(nn.Module):
                         f"use_attention level {i}={attn[i]!r})")
         self.cond_emb_num_classes = cond_emb_num_classes
         self.use_self_conditioning = use_self_conditioning
+        self.remat = remat
         self.num_res_blocks = nrb = num_res_blocks
+        dropout = dropout if dropout else None
         t_dim = time_emb_dim or hid_chs[0] * 4
         ConvBlock = UnetResBlock if use_res_block else UnetBasicBlock
         n = spatial_dims
 
         def conv_block(cin, cout, k):
             return ConvBlock(n, cin, cout, k, 1, norm_name, act_name,
-                             emb_channels=t_dim)
+                             emb_channels=t_dim, dropout=dropout)
 
         def attention(ch, kind):
             return Attention(n, ch, attn_heads, ch // attn_heads, norm_name,
-                             None, t_dim, 1, kind)
+                             dropout, t_dim, 1, kind)
 
         self.time_embedder = TimeEmbedding(emb_dim=t_dim)
         if cond_emb_num_classes is not None:
@@ -171,6 +179,11 @@ class UNet(nn.Module):
                 cond_emb = cond_emb * cond_mask.to(cond_emb.dtype)[:, None]
         return save_add(time_emb, cond_emb)
 
+    def _conv(self, block, h, emb):
+        if self.remat and torch.is_grad_enabled():
+            return checkpointed(block, h, emb)
+        return block(h, emb)
+
     def encode_features(self, x_t, emb, self_cond=None):
         """In conv and encoder: the skip stack, as a tuple."""
         if self.use_self_conditioning:
@@ -181,15 +194,15 @@ class UNet(nn.Module):
             if isinstance(blk, BasicDown):
                 x.append(blk(x[-1]))
             else:
-                x.append(blk[1](blk[0](x[-1], emb), emb))
+                x.append(blk[1](self._conv(blk[0], x[-1], emb), emb))
         return tuple(x)
 
     def decode_features(self, skips, emb):
         """Middle and decoder on the skip stack: (y, deep-supervision heads)."""
         x = list(skips)
-        h = self.middle_block[0](x[-1], emb)
+        h = self._conv(self.middle_block[0], x[-1], emb)
         h = self.middle_block[1](h, emb)
-        h = self.middle_block[2](h, emb)
+        h = self._conv(self.middle_block[2], h, emb)
 
         y_ver = []
         nrb1 = self.num_res_blocks + 1
@@ -199,7 +212,7 @@ class UNet(nn.Module):
             if (len(self.outc_ver) >= d > 0) and (j == 0):
                 y_ver.append(self.outc_ver[d - 1](h))
             stage = self.out_blocks[i - 1]
-            h = stage[1](stage[0](h, emb), emb)
+            h = stage[1](self._conv(stage[0], h, emb), emb)
             if len(stage) > 2:
                 h = stage[2](h)
         return self.outc(h), y_ver[::-1]

@@ -1,25 +1,31 @@
-"""The noisy-image classifier of classifier guidance: the encoder half of
-the OpenAI UNet (port of the classifier half of
-``medfusion_tpu/models/unet_openai.py``: ``sd_timestep_embedding``,
-``SDResBlock``, ``SDDownsample``, ``SDAttentionBlock``, ``SDAttentionPool``
-and ``EncoderUNetOpenAI``).
+"""The OpenAI / Stable-Diffusion UNet family, NCHW (port of
+``medfusion_tpu/models/unet_openai.py``): ``sd_timestep_embedding``,
+``SDResBlock``, ``SDUpsample``, ``SDDownsample``, ``SDAttentionBlock``, the
+cross-attention transformer (``SDCrossAttention``, ``SDGEGLU``,
+``SDFeedForward``, ``SDBasicTransformerBlock``, ``SDSpatialTransformer``),
+the ``UNetOpenAI`` noise estimator, and the noisy-image classifier of
+classifier guidance (``SDAttentionPool``, ``EncoderUNetOpenAI``).
 
-NCHW modules whose names are the reference ``EncoderUNetModel``'s torch keys
-(``time_embed.0``, ``input_blocks.{i}.{j}.in_layers.0``, ``middle_block.{j}``,
-``out.{k}``), so :func:`openai_key_to_path` (the port's copy of the JAX
-package's ``_openai_key_to_path``) maps each to its flax path and
-``utils/weights.py::jax_classifier_to_state_dict`` loads flax params with
-``strict=True``. The reference's 1x1 ``conv1d`` projections (``qkv``,
-``proj_out``, ``qkv_proj``, ``c_proj``) are ``nn.Linear`` over the tokens, as
-the JAX package's ``Dense``.
+Modules whose names are the reference ``UNetModel``'s and
+``EncoderUNetModel``'s torch keys (``time_embed.0``, ``label_emb``,
+``input_blocks.{i}.{j}.in_layers.0``, ``middle_block.{j}``,
+``output_blocks.{i}.{j}``, ``out.{k}``), so :func:`openai_key_to_path` (the
+port's copy of the JAX package's ``_openai_key_to_path``) maps each to its
+flax path and ``utils/weights.py::jax_classifier_to_state_dict`` loads
+flax params with ``strict=True``. The reference's 1x1 ``conv1d``
+projections (``qkv``, ``proj_out``, ``qkv_proj``, ``c_proj``) are
+``nn.Linear`` over the tokens, as the JAX package's ``Dense``.
 
 GroupNorm32 normalises in float32 and returns the input dtype, as the JAX
 package's flax ``GroupNorm`` does outside its Pallas kernel (here
-``F.group_norm``). Both attentions go through ``ops.attention``: the
-hand-written flash-attention kernels on the card, their plain versions on the
-CPU, each differentiable, so classifier guidance's input gradient runs the
-backward kernels. The full ``UNetOpenAI`` estimator is not ported (ROADMAP
-Queue 1, item 7); dropout raises, as nothing sets it.
+``F.group_norm``). ``SDAttentionBlock`` and the attention pool go through
+``ops.attention``: the hand-written flash-attention kernels on the card,
+their plain versions on the CPU, each differentiable. ``SDCrossAttention``
+is a plain matmul softmax, as the JAX package's einsum. Dropout
+(``nn.Dropout``) sits in the reference's ``out_layers.2`` slot of a
+ResBlock. ``UNetOpenAI(remat=True)`` recomputes each ResBlock and
+attention block in the backward (not the spatial transformers), as the JAX
+package's ``nn.remat``. 2-D only: the 3-D UNet is ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from medfusion_tpu_torch import ops
+from medfusion_tpu_torch.nn.functional import checkpointed
 
 
 def sd_timestep_embedding(t, dim: int, max_period: float = 10000.0):
@@ -49,10 +56,11 @@ def sd_timestep_embedding(t, dim: int, max_period: float = 10000.0):
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm with eps 1e-5 computed in float32, returned in the input dtype."""
+    """GroupNorm (eps 1e-5 by default) computed in float32, returned in the
+    input dtype."""
 
-    def __init__(self, channels: int, groups: int = 32):
-        super().__init__(groups, channels, eps=1e-5)
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5):
+        super().__init__(groups, channels, eps=eps)
 
     def forward(self, x):
         return F.group_norm(x.float(), self.num_groups, self.weight.float(),
@@ -67,6 +75,25 @@ def _zero(module: nn.Module) -> nn.Module:
 
 def _avg_pool2x(x):
     return F.avg_pool2d(x, 2)
+
+
+def _upsample2x(x):
+    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+class SDUpsample(nn.Module):
+    """Nearest 2x upsample, then a 3x3 conv when ``use_conv``."""
+
+    def __init__(self, channels: int, out_channels: int, use_conv: bool):
+        super().__init__()
+        if use_conv:
+            self.conv = nn.Conv2d(channels, out_channels, 3, padding=1)
+        elif channels != out_channels:
+            raise ValueError("an upsample without its conv keeps the width")
+
+    def forward(self, x, emb=None):
+        x = _upsample2x(x)
+        return self.conv(x) if hasattr(self, "conv") else x
 
 
 class SDDownsample(nn.Module):
@@ -87,23 +114,23 @@ class SDResBlock(nn.Module):
     """GN -> SiLU -> conv, the time embedding added (or as a FiLM scale and
     shift with ``use_scale_shift_norm``), GN -> SiLU -> zero-init conv, a
     residual (through a 1x1, or 3x3, conv where the width changes);
-    ``down`` average-pools both paths after the first SiLU."""
+    ``down`` average-pools and ``up`` nearest-upsamples both paths after the
+    first SiLU; a ``dropout`` before the last conv."""
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
                  dropout: float = 0.0, use_conv_shortcut: bool = False,
                  use_scale_shift_norm: bool = False, down: bool = False,
-                 norm_groups: int = 32):
+                 norm_groups: int = 32, up: bool = False):
         super().__init__()
-        if dropout:
-            raise NotImplementedError("dropout in the classifier's blocks is not ported")
-        self.down = down
+        self.down, self.up = down, up
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.Sequential(GroupNorm32(channels, norm_groups), nn.SiLU(),
                                        nn.Conv2d(channels, out_channels, 3, padding=1))
         emb_out = 2 * out_channels if use_scale_shift_norm else out_channels
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, emb_out))
         self.out_layers = nn.Sequential(
-            GroupNorm32(out_channels, norm_groups), nn.SiLU(), nn.Identity(),
+            GroupNorm32(out_channels, norm_groups), nn.SiLU(),
+            nn.Dropout(dropout) if dropout else nn.Identity(),
             _zero(nn.Conv2d(out_channels, out_channels, 3, padding=1)))
         if out_channels != channels:
             k = 3 if use_conv_shortcut else 1
@@ -113,7 +140,9 @@ class SDResBlock(nn.Module):
 
     def forward(self, x, emb):
         h = self.in_layers[:-1](x)
-        if self.down:
+        if self.up:
+            h, x = _upsample2x(h), _upsample2x(x)
+        elif self.down:
             h, x = _avg_pool2x(h), _avg_pool2x(x)
         h = self.in_layers[-1](h)
         emb_out = self.emb_layers(emb).to(h.dtype)[..., None, None]
@@ -122,7 +151,7 @@ class SDResBlock(nn.Module):
             h = F.silu(self.out_layers[0](h) * (1 + scale) + shift)
         else:
             h = self.out_layers[:2](h + emb_out)
-        return self.skip_connection(x) + self.out_layers[3](h)
+        return self.skip_connection(x) + self.out_layers[3](self.out_layers[2](h))
 
 
 def _split_qkv(qkv, heads: int, new_order: bool):
@@ -158,6 +187,218 @@ class SDAttentionBlock(nn.Module):
         tokens = self.norm(x).flatten(2).transpose(1, 2)  # [B, N, C]
         out = self.proj_out(_attend(self.qkv(tokens), self.num_heads, self.new_order))
         return x + out.transpose(1, 2).reshape(x.shape)
+
+
+class SDCrossAttention(nn.Module):
+    """Multi-head attention with bias-free q/k/v projections, the context
+    (default: ``x`` itself) as keys and values, a plain softmax of the
+    d^-0.5-scaled products, as the JAX package's einsum."""
+
+    def __init__(self, query_dim: int, context_dim: Optional[int] = None,
+                 heads: int = 8, dim_head: int = 64):
+        super().__init__()
+        inner = heads * dim_head
+        ctx = context_dim or query_dim
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(ctx, inner, bias=False)
+        self.to_v = nn.Linear(ctx, inner, bias=False)
+        self.to_out = nn.Sequential(nn.Linear(inner, query_dim))
+
+    def forward(self, x, context=None):
+        ctx = x if context is None else context
+        q, k, v = (t.unflatten(-1, (self.heads, self.dim_head)).transpose(1, 2)
+                   for t in (self.to_q(x), self.to_k(ctx), self.to_v(ctx)))
+        attn = torch.softmax(q @ k.transpose(-1, -2) * self.dim_head ** -0.5, dim=-1)
+        return self.to_out((attn @ v).transpose(1, 2).flatten(2))
+
+
+class SDGEGLU(nn.Module):
+    """x * gelu(gate) (exact erf) of one projection to twice the width."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, dim_out * 2)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class SDFeedForward(nn.Module):
+    """GEGLU MLP under the reference's ``net.0.proj`` / ``net.2`` keys."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.Sequential(SDGEGLU(dim, dim * mult), nn.Identity(),
+                                 nn.Linear(dim * mult, dim))
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class SDBasicTransformerBlock(nn.Module):
+    """Pre-LayerNorm self-attention, cross-attention and GEGLU MLP, each
+    with a residual, on [B, N, C] tokens."""
+
+    def __init__(self, dim: int, n_heads: int, d_head: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        self.attn1 = SDCrossAttention(dim, None, n_heads, d_head)
+        self.ff = SDFeedForward(dim)
+        self.attn2 = SDCrossAttention(dim, context_dim, n_heads, d_head)
+        self.norm1, self.norm2, self.norm3 = (nn.LayerNorm(dim, eps=1e-5) for _ in range(3))
+
+    def forward(self, x, context=None):
+        x = self.attn1(self.norm1(x)) + x
+        x = self.attn2(self.norm2(x), context=context) + x
+        return self.ff(self.norm3(x)) + x
+
+
+class SDSpatialTransformer(nn.Module):
+    """GroupNorm (eps 1e-6, float32) -> 1x1 ``proj_in`` -> ``depth``
+    transformer blocks over the positions -> zero-init 1x1 ``proj_out`` +
+    residual."""
+
+    def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
+                 context_dim: Optional[int] = None, norm_groups: int = 32):
+        super().__init__()
+        inner = n_heads * d_head
+        self.norm = GroupNorm32(in_channels, norm_groups, eps=1e-6)
+        self.proj_in = nn.Conv2d(in_channels, inner, 1)
+        self.transformer_blocks = nn.ModuleList([
+            SDBasicTransformerBlock(inner, n_heads, d_head, context_dim)
+            for _ in range(depth)])
+        self.proj_out = _zero(nn.Conv2d(inner, in_channels, 1))
+
+    def forward(self, x, context=None):
+        h = self.proj_in(self.norm(x))
+        tokens = h.flatten(2).transpose(1, 2)
+        for block in self.transformer_blocks:
+            tokens = block(tokens, context=context)
+        return self.proj_out(tokens.transpose(1, 2).reshape(h.shape)) + x
+
+
+class UNetOpenAI(nn.Module):
+    """The full SD/ADM UNet: ``channel_mult`` level widths, attention at the
+    downsample factors in ``attention_resolutions`` (a
+    :class:`SDAttentionBlock`, or with ``use_spatial_transformer`` an
+    :class:`SDSpatialTransformer` over ``context``), the FiLM scale-shift
+    norm, residual up/downsampling, and a label embedding that a
+    per-sample ``cond_mask`` zeroes. ``forward(x_t, t, condition,
+    cond_mask, self_cond, context) -> (y, [])``, the estimator contract of
+    the ``unet`` family; it has no self-conditioning."""
+
+    def __init__(self, in_channels: int = 4, model_channels: int = 256,
+                 out_channels: int = 4, num_res_blocks: int = 2,
+                 attention_resolutions: Sequence[int] = (4, 2, 1), dropout: float = 0.0,
+                 channel_mult: Sequence[int] = (1, 2, 4), conv_resample: bool = True,
+                 spatial_dims: int = 2, num_classes: Optional[int] = None,
+                 num_heads: int = 8, num_head_channels: int = -1,
+                 num_heads_upsample: int = -1, use_scale_shift_norm: bool = False,
+                 resblock_updown: bool = False, use_new_attention_order: bool = False,
+                 use_spatial_transformer: bool = False, transformer_depth: int = 1,
+                 context_dim: Optional[int] = None, norm_groups: int = 32,
+                 remat: bool = False):
+        super().__init__()
+        if spatial_dims != 2:
+            raise NotImplementedError("the 3-D UNetOpenAI is ROADMAP Queue 1 item 8")
+        mc, ted = model_channels, model_channels * 4
+        self.model_channels = mc
+        self.num_classes = num_classes
+        self.remat = remat
+
+        def heads(ch, upsample=False):
+            if num_head_channels == -1:
+                return num_heads_upsample if upsample and num_heads_upsample != -1 else num_heads
+            if ch % num_head_channels:
+                raise ValueError(f"{ch} channels are not a multiple of "
+                                 f"num_head_channels={num_head_channels}")
+            return ch // num_head_channels
+
+        def res(ch_in, ch_out, **updown):
+            return SDResBlock(ch_in, ted, ch_out, dropout,
+                              use_scale_shift_norm=use_scale_shift_norm,
+                              norm_groups=norm_groups, **updown)
+
+        def attn(ch, upsample=False):
+            h = heads(ch, upsample)
+            if use_spatial_transformer:
+                return SDSpatialTransformer(ch, h, ch // h, transformer_depth, context_dim,
+                                            norm_groups)
+            return SDAttentionBlock(ch, h, new_order=use_new_attention_order,
+                                    norm_groups=norm_groups)
+
+        self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
+        if num_classes is not None:
+            self.label_emb = nn.Embedding(num_classes, ted)
+        blocks = [_EmbedSequential(nn.Conv2d(in_channels, mc, 3, padding=1))]
+        ch, ds, chans = mc, 1, [mc]
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [res(ch, mult * mc)]
+                ch = mult * mc
+                if ds in attention_resolutions:
+                    layers.append(attn(ch))
+                blocks.append(_EmbedSequential(*layers))
+                chans.append(ch)
+            if level != len(channel_mult) - 1:
+                blocks.append(_EmbedSequential(
+                    res(ch, ch, down=True) if resblock_updown
+                    else SDDownsample(ch, ch, conv_resample)))
+                chans.append(ch)
+                ds *= 2
+        self.input_blocks = nn.ModuleList(blocks)
+        self.middle_block = _EmbedSequential(res(ch, ch), attn(ch), res(ch, ch))
+        out_blocks = []
+        for level, mult in list(enumerate(channel_mult))[::-1]:
+            for i in range(num_res_blocks + 1):
+                layers = [res(ch + chans.pop(), mult * mc)]
+                ch = mult * mc
+                if ds in attention_resolutions:
+                    layers.append(attn(ch, upsample=True))
+                if level and i == num_res_blocks:
+                    layers.append(res(ch, ch, up=True) if resblock_updown
+                                  else SDUpsample(ch, ch, conv_resample))
+                    ds //= 2
+                out_blocks.append(_EmbedSequential(*layers))
+        self.output_blocks = nn.ModuleList(out_blocks)
+        self.out = nn.Sequential(GroupNorm32(ch, norm_groups), nn.SiLU(),
+                                 _zero(nn.Conv2d(mc, out_channels, 3, padding=1)))
+
+    def _run(self, layers, h, emb, context):
+        for layer in layers:
+            if isinstance(layer, SDSpatialTransformer):
+                h = layer(h, context)
+            elif isinstance(layer, nn.Conv2d):
+                h = layer(h)
+            elif (self.remat and torch.is_grad_enabled()
+                  and isinstance(layer, (SDResBlock, SDAttentionBlock))):
+                h = checkpointed(layer, h, emb)
+            else:
+                h = layer(h, emb)
+        return h
+
+    def forward(self, x_t, t=None, condition=None, cond_mask=None, self_cond=None,
+                context=None):
+        if self_cond is not None:
+            raise ValueError("UNetOpenAI has no self-conditioning (use the unet family)")
+        emb = self.time_embed(sd_timestep_embedding(t, self.model_channels).to(
+            self.time_embed[0].weight.dtype))
+        if condition is not None and self.num_classes is not None:
+            lab = self.label_emb(condition.long())
+            if cond_mask is not None:
+                lab = lab * cond_mask.to(lab.dtype)[:, None]
+            emb = emb + lab
+        emb = emb.to(x_t.dtype)  # keep the activations in the compute dtype
+        hs, h = [], x_t
+        for block in self.input_blocks:
+            h = self._run(block, h, emb, context)
+            hs.append(h)
+        h = self._run(self.middle_block, h, emb, context)
+        for block in self.output_blocks:
+            h = self._run(block, torch.cat([h, hs.pop()], dim=1), emb, context)
+        return self.out(h.to(x_t.dtype)), []
 
 
 class SDAttentionPool(nn.Module):

@@ -10,7 +10,9 @@
   cross-attention.
 * :class:`GEGLU`, :class:`BasicTransformerBlock` — self-attention,
   cross-attention against the embedding, and the LayerNorm + GEGLU + down
-  projection MLP, which always runs through ``ops.geglu.fused_geglu_mlp``.
+  projection MLP, which runs through ``ops.geglu.fused_geglu_mlp`` without
+  dropout; with dropout it runs LayerNorm -> GEGLU -> Dropout -> down
+  projection unfused, as the JAX package's block does.
 * :class:`SpatialTransformer` — norm -> proj_in -> blocks -> proj_out +
   residual.
 * :class:`Attention` — dispatcher over 'none' | 'linear' | 'spatial'.
@@ -20,8 +22,9 @@ Submodule names are the reference's torch keys (``norm_x``, ``to_q``,
 ``transformer_blocks.i``), so a JAX checkpoint loads with ``strict=True``.
 The 1x1 projections are ``nn.Linear`` over the tokens, as the JAX package
 leaves them to XLA outside any Pallas kernel. Every block's input width is
-its output width (the UNet's only use), so every residual applies; dropout
-is not ported.
+its output width (the UNet's only use), so every residual applies. Dropout
+(``nn.Dropout``, in the reference's slots ``to_out.1`` and ``proj_out.1``)
+follows each attention's out projection and the GEGLU's product.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Optional
 import torch.nn as nn
 
 from medfusion_tpu_torch import ops
-from medfusion_tpu_torch.nn.blocks import Norm, NormName
+from medfusion_tpu_torch.nn.blocks import Norm, NormName, make_dropout
 from medfusion_tpu_torch.ops.geglu import fused_geglu_mlp
 
 ATTENTION_TYPES = ("none", "linear", "spatial")
@@ -51,11 +54,6 @@ def _spatial(t, spatial):
     return t.transpose(1, 2).unflatten(2, tuple(spatial))
 
 
-def _no_dropout(dropout):
-    if dropout is not None:
-        raise NotImplementedError("dropout in the attention blocks is not ported")
-
-
 class LinearTransformer(nn.Module):
     """Single-layer self/cross attention. ``embedding`` is [B, E] (one
     token) or [B, M, E] tokens; without it the block attends to itself."""
@@ -64,7 +62,6 @@ class LinearTransformer(nn.Module):
                  ch_per_head: int = 32, norm_name: NormName = _GROUP32,
                  dropout: Optional[float] = None, emb_dim: Optional[int] = None):
         super().__init__()
-        _no_dropout(dropout)
         ch = out_channels
         hid = num_heads * ch_per_head
         self.num_heads = num_heads
@@ -74,7 +71,8 @@ class LinearTransformer(nn.Module):
         self.to_q = nn.Linear(ch, hid)
         self.to_k = nn.Linear(kv_ch, hid)
         self.to_v = nn.Linear(kv_ch, hid)
-        self.to_out = nn.Sequential(nn.Linear(hid, ch))
+        drop = make_dropout(dropout)
+        self.to_out = nn.Sequential(nn.Linear(hid, ch), *([drop] if drop else []))
         nn.init.zeros_(self.to_out[0].weight)
         nn.init.zeros_(self.to_out[0].bias)
 
@@ -86,8 +84,13 @@ class LinearTransformer(nn.Module):
                 # Softmax over one key is 1 for every query, so each token
                 # gets to_out(to_v(kv)): norm_x, to_q and to_k are skipped
                 # (their parameters stay, so the state dict loads strictly).
-                out = self.to_out(self.to_v(kv))
-                return x + out.reshape(b, -1, *[1] * len(spatial))
+                # A dropout draws its mask over every token, as in JAX.
+                out = self.to_out[0](self.to_v(kv))
+                if len(self.to_out) == 1:
+                    return x + out.reshape(b, -1, *[1] * len(spatial))
+                n = x[0, 0].numel()
+                out = self.to_out[1](out.expand(b, n, out.shape[-1]))
+                return x + _spatial(out, spatial)
         xt = _tokens(self.norm_x(x))
         kv = xt if embedding is None else kv
         out = compute_attention(self.to_q(xt), self.to_k(kv), self.to_v(kv),
@@ -96,15 +99,19 @@ class LinearTransformer(nn.Module):
 
 
 class GEGLU(nn.Module):
-    """The parameters of LayerNorm (over channels) -> Linear to 2*out ->
-    h * gelu(gate), under the reference's ``norm`` and ``proj`` keys. It has
-    no forward of its own: the transformer block runs it fused with the down
-    projection (:func:`fused_geglu_mlp`)."""
+    """LayerNorm (over channels) -> Linear to 2*out -> h * gelu(gate) (exact
+    erf), under the reference's ``norm`` and ``proj`` keys, on [B, N, C]
+    tokens. Without dropout the transformer block runs it fused with the
+    down projection (:func:`fused_geglu_mlp`) and not through this forward."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.norm = nn.LayerNorm(in_channels, eps=1e-5)
         self.proj = nn.Linear(in_channels, out_channels * 2)
+
+    def forward(self, x):
+        h, gate = self.proj(self.norm(x)).chunk(2, dim=-1)
+        return h * nn.functional.gelu(gate)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -115,27 +122,30 @@ class BasicTransformerBlock(nn.Module):
                  ch_per_head: int = 32, norm_name: NormName = _GROUP32,
                  dropout: Optional[float] = None, emb_dim: Optional[int] = None):
         super().__init__()
-        _no_dropout(dropout)
         ch = out_channels
         self.self_atn = LinearTransformer(spatial_dims, ch, num_heads,
-                                          ch_per_head, norm_name)
+                                          ch_per_head, norm_name, dropout)
         if emb_dim is not None:
             self.cros_atn = LinearTransformer(spatial_dims, ch, num_heads,
-                                              ch_per_head, norm_name,
+                                              ch_per_head, norm_name, dropout,
                                               emb_dim=emb_dim)
         # reference keys: proj_out.0 = GEGLU, proj_out.1 = dropout slot,
         # proj_out.2 = the down projection
-        self.proj_out = nn.ModuleList([GEGLU(ch, ch * 4), nn.Identity(),
+        self.proj_out = nn.ModuleList([GEGLU(ch, ch * 4),
+                                       make_dropout(dropout) or nn.Identity(),
                                        nn.Linear(ch * 4, ch)])
 
     def forward(self, x, embedding=None):
         x = self.self_atn(x)
         if embedding is not None:
             x = self.cros_atn(x, embedding)
-        geglu, _, down = self.proj_out
-        out = fused_geglu_mlp(_tokens(x), geglu.norm.weight, geglu.norm.bias,
-                              geglu.proj.weight.t(), geglu.proj.bias,
-                              down.weight.t(), down.bias)
+        geglu, drop, down = self.proj_out
+        if isinstance(drop, nn.Dropout):
+            out = down(drop(geglu(_tokens(x))))
+        else:
+            out = fused_geglu_mlp(_tokens(x), geglu.norm.weight, geglu.norm.bias,
+                                  geglu.proj.weight.t(), geglu.proj.bias,
+                                  down.weight.t(), down.bias)
         return x + _spatial(out, x.shape[2:])
 
 

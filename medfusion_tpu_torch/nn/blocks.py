@@ -4,15 +4,20 @@ Submodule names follow the reference's torch modules, which are the keys that
 ``medfusion_tpu.utils.torch_compat.to_torch_state_dict`` emits, so a JAX
 checkpoint loads here with ``strict=True`` (see ``utils/weights.py``).
 
-GROUP norm always runs through :func:`medfusion_tpu_torch.ops.group_norm.
-group_norm_silu` (the CUDA kernel on the card), and a BasicBlock whose
-epilogue is exactly GroupNorm -> SiLU folds the SiLU into the same call, as
-the JAX package's BasicBlock does with its fused-GroupNorm switch on. BATCH
-norm (the PatchGAN discriminator's) is an ``nn.BatchNorm2d``. The down and
-up blocks take attention ('linear' or 'spatial', 8 heads of ch/8, depth 1)
-before their conv block, as the JAX package's do.
-Dropout, the space-to-depth tail and the fused 2x up-conv are not ported:
-the last two are exact rewrites of the plain conv used here.
+GROUP norm, with or without its affine parameters, always runs through
+:func:`medfusion_tpu_torch.ops.group_norm.group_norm_silu` (the CUDA kernel
+on the card), and a BasicBlock whose epilogue is exactly GroupNorm -> SiLU,
+with no dropout between, folds the SiLU into the same call, as the JAX
+package's BasicBlock does with its fused-GroupNorm switch on. BATCH norm
+(the PatchGAN discriminator's) is an ``nn.BatchNorm2d``; LAYER is a
+LayerNorm over the channels and INSTANCE a GroupNorm of one channel a
+group (affine off by default), both plain, as the JAX package leaves them
+to flax. Dropout (``nn.Dropout``, the global RNG, which
+``torch.utils.checkpoint`` replays in a recompute) sits between a
+BasicBlock's norm and its activation. The down and up blocks take attention
+('linear' or 'spatial', 8 heads of ch/8, depth 1) before their conv block,
+as the JAX package's do. The space-to-depth tail and the fused 2x up-conv
+are not ported: they are exact rewrites of the plain conv used here.
 """
 
 from __future__ import annotations
@@ -58,42 +63,63 @@ def make_act(act_name: ActName):
 
 
 class Norm(nn.Module):
-    """GROUP norm with torch eps, through the GroupNorm(+SiLU) kernel wrapper.
-    ``fuse_silu`` applies the SiLU in the same call. Params ``weight`` and
-    ``bias`` (the reference's ``nn.GroupNorm`` names)."""
+    """GROUP, LAYER or INSTANCE norm of NCHW ``x`` with torch eps. GROUP
+    runs through the GroupNorm(+SiLU) kernel wrapper (``fuse_silu`` applies
+    the SiLU in the same call; without ``affine`` the scale is one and the
+    bias zero); LAYER normalises each position over its channels, INSTANCE
+    each channel over its positions (``affine`` False by default). The
+    affine params are ``weight`` and ``bias`` (the reference's names)."""
 
     def __init__(self, norm_name: NormName, channels: int, fuse_silu: bool = False):
         super().__init__()
         kind, kw = _parse(norm_name)
-        if kind != "group":
-            raise NotImplementedError(
-                f"norm {norm_name!r}: only GROUP and BATCH are ported")
-        self.num_groups = kw.get("num_groups", 32)
+        if kind not in ("group", "layer", "instance"):
+            raise NotImplementedError(f"norm {norm_name!r}")
+        self.kind = kind
         self.eps = kw.get("eps", 1e-5)
         self.fuse_silu = fuse_silu
+        self.num_groups = {"group": kw.get("num_groups", 32), "layer": 1,
+                           "instance": channels}[kind]
         if channels % self.num_groups:
             raise ValueError(
                 f"channels {channels} not divisible by num_groups={self.num_groups}")
-        if not kw.get("affine", True):
-            raise NotImplementedError("GROUP norm without affine is not ported")
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        if kw.get("affine", kind != "instance"):
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+        else:
+            self.weight = self.bias = None
 
     def forward(self, x):
-        return group_norm_silu(x, self.weight, self.bias, self.num_groups,
-                               self.eps, apply_silu=self.fuse_silu)
+        if self.kind == "layer":
+            return F.layer_norm(x.movedim(1, -1), x.shape[1:2], self.weight, self.bias,
+                                self.eps).movedim(-1, 1)
+        if self.kind == "instance":
+            return F.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
+        weight, bias = self.weight, self.bias
+        if weight is None:
+            weight = torch.ones(x.shape[1], dtype=x.dtype, device=x.device)
+            bias = torch.zeros_like(weight)
+        return group_norm_silu(x, weight, bias, self.num_groups, self.eps,
+                               apply_silu=self.fuse_silu)
 
 
 def make_norm(norm_name: NormName, channels: int, fuse_silu: bool = False) -> nn.Module:
-    """:class:`Norm` for GROUP; ``nn.BatchNorm2d`` for BATCH, with flax's
-    momentum 0.9 as torch's 0.1. BatchNorm normalises by the batch's
-    statistics in train mode, in which the adversarial trainer always runs
-    the discriminators (as Lightning does); torch updates ``running_var``
-    with the unbiased batch variance, flax with the biased one."""
+    """:class:`Norm` for GROUP, LAYER and INSTANCE; ``nn.BatchNorm2d`` for
+    BATCH, with flax's momentum 0.9 as torch's 0.1. BatchNorm normalises by
+    the batch's statistics in train mode, in which the adversarial trainer
+    always runs the discriminators (as Lightning does); torch updates
+    ``running_var`` with the unbiased batch variance, flax with the biased
+    one."""
     kind, kw = _parse(norm_name)
     if kind == "batch":
         return nn.BatchNorm2d(channels, eps=kw.get("eps", 1e-5), momentum=0.1)
     return Norm(norm_name, channels, fuse_silu=fuse_silu)
+
+
+def make_dropout(dropout: Optional[float]) -> Optional[nn.Module]:
+    """``nn.Dropout(dropout)``, or None for None (the JAX package's
+    Dropout is skipped only for None; a rate of 0 is the identity)."""
+    return None if dropout is None else nn.Dropout(float(dropout))
 
 
 def conv_nd(in_channels: int, out_channels: int, kernel_size=3, stride=1,
@@ -111,25 +137,31 @@ def conv_nd(in_channels: int, out_channels: int, kernel_size=3, stride=1,
 
 
 class BasicBlock(nn.Module):
-    """Conv -> Norm -> Act (norm-after-conv, as the reference)."""
+    """Conv -> Norm -> Dropout -> Act (norm-after-conv, as the reference).
+    With dropout the SiLU is not fused into the GroupNorm, as in the JAX
+    package."""
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
                  kernel_size=3, stride=1, norm_name: NormName = None,
-                 act_name: ActName = None, zero_conv: bool = False):
+                 act_name: ActName = None, zero_conv: bool = False,
+                 dropout: Optional[float] = None):
         super().__init__()
         self.conv = conv_nd(in_channels, out_channels, kernel_size, stride,
                             zero_conv, spatial_dims)
         norm_kind, _ = _parse(norm_name)
         act_kind, _ = _parse(act_name)
-        fuse = norm_kind == "group" and act_kind in ("swish", "silu")
+        fuse = norm_kind == "group" and act_kind in ("swish", "silu") and dropout is None
         if norm_name is not None:
             self.norm = make_norm(norm_name, out_channels, fuse_silu=fuse)
+        self.drop = make_dropout(dropout)
         self.act = None if fuse else make_act(act_name)
 
     def forward(self, x):
         x = self.conv(x)
         if hasattr(self, "norm"):
             x = self.norm(x)
+        if self.drop is not None:
+            x = self.drop(x)
         if self.act is not None:
             x = self.act(x)
         return x
@@ -140,11 +172,12 @@ class BasicResBlock(nn.Module):
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
                  kernel_size=3, stride=1, norm_name: NormName = None,
-                 act_name: ActName = None, zero_conv: bool = False):
+                 act_name: ActName = None, zero_conv: bool = False,
+                 dropout: Optional[float] = None):
         super().__init__()
         self.basic_block = BasicBlock(spatial_dims, in_channels, out_channels,
                                       kernel_size, stride, norm_name, act_name,
-                                      zero_conv)
+                                      zero_conv, dropout)
         self.conv_res = (conv_nd(in_channels, out_channels, 1, stride,
                                  spatial_dims=spatial_dims)
                          if in_channels != out_channels else None)
@@ -160,12 +193,12 @@ class _UnetBlockBase(nn.Module):
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
                  kernel_size=3, stride=1, norm_name: NormName = None,
                  act_name: ActName = None, emb_channels: Optional[int] = None,
-                 blocks: int = 2):
+                 blocks: int = 2, dropout: Optional[float] = None):
         super().__init__()
         self.block_seq = nn.ModuleList([
             self.Block(spatial_dims, in_channels if i == 0 else out_channels,
                        out_channels, kernel_size, stride, norm_name, act_name,
-                       zero_conv=(i == blocks - 1))
+                       zero_conv=(i == blocks - 1), dropout=dropout)
             for i in range(blocks)
         ])
         self.emb_act = make_act(act_name)
@@ -241,7 +274,8 @@ def _conv_block(use_res_block: bool):
 
 
 def _attention(spatial_dims: int, channels: int, norm_name: NormName,
-               use_attention: str, emb_channels: Optional[int]):
+               use_attention: str, emb_channels: Optional[int],
+               dropout: Optional[float] = None):
     """The blocks' attention: 8 heads of ``channels // 8``, depth 1, the
     block's norm; ``None`` for 'none'."""
     from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES, Attention
@@ -254,8 +288,8 @@ def _attention(spatial_dims: int, channels: int, norm_name: NormName,
     if channels < 8:
         raise ValueError(f"attention of 8 heads needs at least 8 channels, got {channels}")
     return Attention(spatial_dims, channels, num_heads=8, ch_per_head=channels // 8,
-                     norm_name=norm_name, emb_dim=emb_channels, depth=1,
-                     attention_type=use_attention)
+                     norm_name=norm_name, dropout=dropout, emb_dim=emb_channels,
+                     depth=1, attention_type=use_attention)
 
 
 class DownBlock(nn.Module):
@@ -264,7 +298,8 @@ class DownBlock(nn.Module):
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
                  kernel_size, stride, downsample_kernel_size, norm_name: NormName,
                  act_name: ActName, use_res_block: bool = False,
-                 use_attention: str = "none", emb_channels: Optional[int] = None):
+                 use_attention: str = "none", emb_channels: Optional[int] = None,
+                 dropout: Optional[float] = None):
         super().__init__()
         n = spatial_dims
         self.enable_down = FN.ensure_tuple(stride, n) != FN.ensure_tuple(1, n)
@@ -272,10 +307,11 @@ class DownBlock(nn.Module):
             self.down_op = BasicDown(n, in_channels, out_channels,
                                      downsample_kernel_size, stride)
         ch = out_channels if self.enable_down else in_channels
-        self.attention = _attention(n, ch, norm_name, use_attention, emb_channels)
+        self.attention = _attention(n, ch, norm_name, use_attention, emb_channels,
+                                    dropout)
         self.conv_block = _conv_block(use_res_block)(
             n, ch, out_channels, kernel_size, 1, norm_name, act_name,
-            emb_channels=emb_channels)
+            emb_channels=emb_channels, dropout=dropout)
 
     def forward(self, x, emb=None):
         if self.enable_down:
@@ -291,7 +327,8 @@ class UpBlock(nn.Module):
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
                  kernel_size, stride, upsample_kernel_size, norm_name: NormName,
                  act_name: ActName, use_res_block: bool = False,
-                 use_attention: str = "none", emb_channels: Optional[int] = None):
+                 use_attention: str = "none", emb_channels: Optional[int] = None,
+                 dropout: Optional[float] = None):
         super().__init__()
         n = spatial_dims
         self.enable_up = FN.ensure_tuple(stride, n) != FN.ensure_tuple(1, n)
@@ -299,10 +336,11 @@ class UpBlock(nn.Module):
             self.up_op = BasicUp(n, in_channels, out_channels,
                                  upsample_kernel_size, stride)
         ch = out_channels if self.enable_up else in_channels
-        self.attention = _attention(n, ch, norm_name, use_attention, emb_channels)
+        self.attention = _attention(n, ch, norm_name, use_attention, emb_channels,
+                                    dropout)
         self.conv_block = _conv_block(use_res_block)(
             n, ch, out_channels, kernel_size, 1, norm_name, act_name,
-            emb_channels=emb_channels)
+            emb_channels=emb_channels, dropout=dropout)
 
     def forward(self, x_enc, x_skip=None, emb=None):
         x = self.up_op(x_enc) if self.enable_up else x_enc

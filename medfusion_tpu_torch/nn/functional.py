@@ -59,3 +59,18 @@ def save_add(*args):
     """None-tolerant sum."""
     args = [a for a in args if a is not None]
     return sum(args[1:], args[0]) if args else None
+
+
+def checkpointed(module: torch.nn.Module, *args):
+    """``module(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in the backward. The parameters the
+    module holds at the call (the cast ones that ``functional_call`` swaps
+    in, which are restored before the backward runs) are passed to the
+    recompute, so both forwards read the same tensors; the global RNG is
+    replayed, so a dropout draws the same mask."""
+    from torch.func import functional_call
+    from torch.utils.checkpoint import checkpoint
+
+    params = dict(module.named_parameters())
+    return checkpoint(lambda p, *a: functional_call(module, p, a), params, *args,
+                      use_reentrant=False)

@@ -19,7 +19,8 @@ counts optimizer steps, two a batch.
   conv weight, from two ``torch.autograd.grad`` calls, as the reference.
 * Discriminator loss: ``gan_loss`` (hinge by default) of D(target) and
   D(pred.detach()) at each level that has a discriminator, summed, once
-  step + 1 > start_gan_train_step.
+  step + 1 > start_disc_train_step (start_gan_train_step when None; the
+  diffusers autoencoders' VQGAN gate is half of it).
 
 While a gate is closed no discriminator is called, as in the reference: the
 BatchNorm statistics stay where they are, a closed term reads 0 (lambda
@@ -58,9 +59,10 @@ class AdversarialTrainer:
     gan_loss: Callable = hinge_d_loss
     gan_loss_weight: float = 1.0
     start_gan_train_step: int = 50000
+    start_disc_train_step: Optional[int] = None
 
     def __post_init__(self):
-        levels = 1 + len(self.ae_trainer.autoencoder.outc_ver)
+        levels = 1 + len(getattr(self.ae_trainer.autoencoder, "outc_ver", ()))
         if len(self.discriminators) < min(levels, 2):
             raise ValueError(f"{len(self.discriminators)} discriminators for the generator "
                              f"loss's {min(levels, 2)} adversarial levels")
@@ -109,7 +111,9 @@ class AdversarialTrainer:
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of the discriminators at optimizer step ``step``:
         at each level with a discriminator, D(target) then D(pred.detach())."""
-        active = step > self.start_gan_train_step
+        start = (self.start_gan_train_step if self.start_disc_train_step is None
+                 else self.start_disc_train_step)
+        active = step > start
         levels = [(pred, x)] + [(p, interpolate_area(x, p.shape[2:])) for p in pred_vertical]
         loss = torch.zeros((), device=x.device)
         metrics = {}

@@ -2,7 +2,9 @@
 ``medfusion_tpu/train/autoencoder.py``).
 
 The loss of each pyramid level is the elementwise pixel loss plus each
-image's (1 - SSIM) and, with a ``perceiver`` (a frozen :class:`LPIPS`), each
+image's (1 - SSIM) (unless ``use_ssim`` is off, as for the diffusers
+autoencoders, which train on the pixel loss alone) and, with a
+``perceiver`` (a frozen :class:`LPIPS`), each
 image's LPIPS (weight 1) at pyramid depths below 2, both broadcast over its
 elements; each deep-supervision output is held against the target shrunk
 with 'nearest-exact'. The 'vae' flavour
@@ -45,14 +47,16 @@ FLAVORS = ("vae", "vqvae")
 
 @dataclasses.dataclass(frozen=True)
 class AutoencoderTrainer:
-    """The AE loss of ``autoencoder`` (a :class:`VAE` for 'vae', a
-    :class:`VQVAE` for 'vqvae')."""
+    """The AE loss of ``autoencoder`` (a KL autoencoder, :class:`VAE` or
+    ``AutoencoderKLDiffusers``, for 'vae'; a quantised one, :class:`VQVAE`
+    or ``VQModelDiffusers``, for 'vqvae')."""
 
     autoencoder: torch.nn.Module
     flavor: str = "vae"
     pixel_loss: str = "l1"
     perceiver: Optional[torch.nn.Module] = None
     embedding_loss_weight: float = 1e-6
+    use_ssim: bool = True
 
     def __post_init__(self):
         if self.flavor not in FLAVORS:
@@ -62,7 +66,9 @@ class AutoencoderTrainer:
             raise ValueError(f"unknown pixel loss {self.pixel_loss!r}")
 
     def _level_elems(self, pred, target, depth: int):
-        elems = _pixel_elems(pred, target, self.pixel_loss) + ssim_loss_per_image(pred, target)
+        elems = _pixel_elems(pred, target, self.pixel_loss)
+        if self.use_ssim:
+            elems = elems + ssim_loss_per_image(pred, target)
         if self.perceiver is not None and depth < 2:
             elems = elems + self.perceiver(pred, target)
         return elems

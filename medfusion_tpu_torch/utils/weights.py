@@ -4,16 +4,20 @@ The port's own copy of the export direction of
 ``medfusion_tpu/utils/torch_compat.py`` (``flax_path_to_torch_key``,
 ``_to_torch_leaf``, ``to_torch_state_dict``), with the rules of the modules
 ported so far (UNet with its attention blocks, VAE and VQVAE with theirs, the
-two discriminators; the DiT by its own rule, :func:`jax_dit_to_state_dict`):
+two discriminators, and the legacy UNet by the VAE's rules; the DiT by its
+own rule, :func:`jax_dit_to_state_dict`):
 a nested dict of numpy arrays, keyed as the flax param
 tree, becomes a state dict with the reference's torch key names, with conv
 kernels moved from HWIO to OIHW and dense kernels to [out, in]. A BatchNorm's
 flax ``batch_stats`` (mean, var) become ``running_mean``/``running_var``,
 with a ``num_batches_tracked`` of 0: flax keeps no count, and torch reads it
 only with ``momentum=None``, which the port never sets. The flax tree is
-flattened by plain recursion. The noisy-latent classifier's converter
-(:func:`jax_classifier_to_state_dict`) follows the OpenAI family's key rule
-instead.
+flattened by plain recursion. The OpenAI family (the noisy-latent
+classifier and ``UNetOpenAI``, :func:`jax_classifier_to_state_dict`), the
+lucidrains UNet and the diffusers autoencoders go the other way: each key of
+the port module's state dict is mapped to its flax path by the rule of the
+JAX package's ``convert_*_state_dict`` (torch -> flax), and every flax leaf
+must be read.
 """
 
 from __future__ import annotations
@@ -129,10 +133,12 @@ def jax_dit_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def jax_params_to_state_dict(params: Mapping, kind: str = "unet") -> Dict[str, torch.Tensor]:
     """Nested flax param dict (numpy leaves) -> the port's state dict;
-    ``kind`` 'unet' or 'vae' by the reference's key rules, 'dit' by
-    :func:`jax_dit_to_state_dict`."""
+    ``kind`` 'unet' or 'vae' ('unet_legacy' is the VAE's) by the
+    reference's key rules, 'dit' by :func:`jax_dit_to_state_dict`."""
     if kind == "dit":
         return jax_dit_to_state_dict(params)
+    if kind == "unet_legacy":
+        kind = "vae"  # a BasicBlock outc, the VAE's encoders/decoders
     out = {}
     for path, val in _flatten(params):
         tkey = flax_path_to_torch_key(path, kind=kind)
@@ -172,8 +178,16 @@ def jax_gan_to_state_dicts(gen_params: Mapping, disc_params: Mapping,
 def load_jax_params(module: torch.nn.Module, params: Mapping,
                     kind: str = "unet") -> torch.nn.Module:
     """Load flax params into ``module`` with ``strict=True``, keeping the
-    module's device and dtype."""
-    sd = jax_params_to_state_dict(params, kind)
+    module's device and dtype. ``kind``: 'unet', 'vae', 'unet_legacy' or
+    'dit' (:func:`jax_params_to_state_dict`), 'openai' (the UNet or the
+    classifier), 'lucidrains', or 'diffusers' (the KL or VQ autoencoder)."""
+    by_model = {"openai": jax_classifier_to_state_dict,
+                "lucidrains": jax_lucidrains_to_state_dict,
+                "diffusers": jax_diffusers_vae_to_state_dict}
+    if kind in by_model:
+        sd = by_model[kind](params, module)
+    else:
+        sd = jax_params_to_state_dict(params, kind)
     module.load_state_dict(sd, strict=True)
     return module
 
@@ -234,24 +248,72 @@ def jax_vgg16_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def jax_classifier_to_state_dict(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The JAX ``EncoderUNetOpenAI``'s flax params -> the state dict of the
-    port's ``model`` (``models/unet_openai.py``): each of the model's keys
-    goes to its flax path by ``openai_key_to_path``; conv kernels HWIO ->
-    OIHW, dense kernels [I, O] -> [O, I]. Raises on a flax leaf that no key
-    reads."""
-    from medfusion_tpu_torch.models.unet_openai import openai_key_to_path
-
+def _by_model_keys(params: Mapping, model: torch.nn.Module, key_to_path,
+                   what: str) -> Dict[str, torch.Tensor]:
+    """Each of ``model``'s state-dict keys -> its flax path by
+    ``key_to_path(key, ndim)``; conv kernels HWIO -> OIHW, dense kernels
+    [I, O] -> [O, I], a lucidrains ``g`` [C] -> [1, C, 1, 1]. Raises on a
+    key without a flax leaf and on a flax leaf that no key reads."""
     flat = {path: np.array(val, np.float32) for path, val in _flatten(params)}
     out = {}
     for key, ref in model.state_dict().items():
-        path = openai_key_to_path(key, ref.ndim)
+        path = key_to_path(key, ref.ndim)
         if path not in flat:
-            raise ValueError(f"no flax leaf {path} for the classifier's {key}")
+            raise ValueError(f"no flax leaf {path} for the {what}'s {key}")
         arr = flat.pop(path)
         if path.endswith("/kernel"):
             arr = arr.T if arr.ndim == 2 else np.transpose(arr, (3, 2, 0, 1))
+        elif path.endswith("/g"):
+            arr = arr.reshape(ref.shape)
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     if flat:
-        raise ValueError(f"flax leaves the classifier does not hold: {sorted(flat)[:5]}")
+        raise ValueError(f"flax leaves the {what} does not hold: {sorted(flat)[:5]}")
     return out
+
+
+def jax_classifier_to_state_dict(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The flax params of the JAX OpenAI family (``EncoderUNetOpenAI`` or
+    ``UNetOpenAI``) -> the state dict of the port's ``model``
+    (``models/unet_openai.py``), each key by ``openai_key_to_path``."""
+    from medfusion_tpu_torch.models.unet_openai import openai_key_to_path
+
+    return _by_model_keys(params, model, openai_key_to_path, "OpenAI model")
+
+
+def lucidrains_key_to_path(key: str, ndim: Optional[int] = None) -> str:
+    """A torch key of the lucidrains UNet -> its flax path (the rule of the
+    JAX package's ``convert_lucidrains_state_dict``)."""
+    k = re.sub(r"\.(\d+)", r"_\1", key).replace(".", "/")
+    k = k.replace("time_mlp_0/weights", "time_mlp_0_weights")
+    k = re.sub(r"(ups_\d+_3)_1/", r"\1/conv_1/", k)  # an upsample's conv
+    if k.endswith("/weight"):
+        k = k[: -len("weight")] + ("scale" if k.endswith("norm/weight") else "kernel")
+    return k
+
+
+def jax_lucidrains_to_state_dict(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``UNetLucidrains``'s flax params -> the port's state dict."""
+    return _by_model_keys(params, model, lucidrains_key_to_path, "lucidrains UNet")
+
+
+_DIFFUSERS_NORM = re.compile(r"(norm1|norm2|group_norm|conv_norm_out)/weight$")
+
+
+def diffusers_key_to_path(key: str, ndim: Optional[int] = None) -> str:
+    """A torch key of the diffusers autoencoders -> its flax path (the rule
+    of the JAX package's ``convert_diffusers_vae_state_dict``; the port's
+    codebook ``quantize.embedder.weight`` is ``quantize/codebook``)."""
+    k = re.sub(r"\.(\d+)", r"_\1", key).replace(".", "/")
+    if k in ("quantize/embedding/weight", "quantize/embedder/weight"):
+        return "quantize/codebook"
+    if _DIFFUSERS_NORM.search(k):
+        return k[: -len("weight")] + "scale"
+    if k.endswith("/weight"):
+        return k[: -len("weight")] + "kernel"
+    return k
+
+
+def jax_diffusers_vae_to_state_dict(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``AutoencoderKLDiffusers``'s or ``VQModelDiffusers``'s flax
+    params -> the port's state dict."""
+    return _by_model_keys(params, model, diffusers_key_to_path, "diffusers autoencoder")

@@ -336,10 +336,18 @@ def test_spatial_transformer_matches_flax(depth):
 
 
 def test_attention_dispatcher_rejects_unknown_type_and_dropout():
+    """An unknown type is refused; dropout (ported since) builds, and in
+    eval mode the block is the one without it on the same weights."""
     with pytest.raises(ValueError, match="unknown attention type"):
         A.Attention(2, 16, 2, 8, GROUPS4, attention_type="flash")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        A.Attention(2, 16, 2, 8, GROUPS4, dropout=0.1, attention_type="spatial")
+    torch.manual_seed(0)
+    dropped = A.Attention(2, 16, 2, 8, GROUPS4, dropout=0.1, emb_dim=24,
+                          attention_type="spatial").eval()
+    plain = A.Attention(2, 16, 2, 8, GROUPS4, emb_dim=24, attention_type="spatial")
+    plain.load_state_dict(dropped.state_dict(), strict=True)
+    xe, e = torch.randn(2, 16, 3, 3), torch.randn(2, 24)
+    with torch.no_grad():
+        torch.testing.assert_close(dropped(xe, e), plain(xe, e))
     x = torch.randn(1, 16, 2, 2)
     assert A.Attention(2, 16, attention_type="none")(x) is x
 

@@ -45,6 +45,10 @@ The samplers (DPM-Solver++, EDM, the encoder-propagation sampler) on the
 smoke preset, f32, card against CPU from the same weights and draws: the
 decoded images within 1e-4 x max(1, max|ref|), rtol 1e-4 (the smoke
 tolerance of ``chip_smoke.py``).
+
+A ``remat`` training step against the plain step on the card (the same
+weights, draws and kernels, the blocks' forward run again in the
+backward): the loss equal, each gradient within 1e-6 of its tensor's max.
 """
 
 import copy
@@ -865,3 +869,91 @@ def test_smoke_dit_train_loss_matches_the_cpu(cuda, moe):
     assert set(g1) == set(g0)
     for k in g0:
         torch.testing.assert_close(g1[k], g0[k], atol=1e-4 * top, rtol=0, msg=k)
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("new_order", [True, False], ids=["new_order", "legacy_order"])
+def test_openai_middle_attention_matches_plain_version(cuda, dtype, new_order):
+    """The chest OpenAI UNet's middle-block attention (16 tokens, 8 heads of
+    128), B=2, with q, k and v from one [B, N, 3C] projection in either
+    channel order (``models/unet_openai.py::_split_qkv``): the forward and
+    the projection's gradient through the kernels against the plain
+    versions."""
+    from medfusion_tpu_torch.models.unet_openai import _split_qkv
+
+    n, c, heads = 16, 1024, 8
+    scale = (c // heads) ** -0.25
+    qkv = torch.randn((2, n, 3 * c), generator=cuda, device="cuda").to(dtype)
+    leaf = qkv.detach().requires_grad_()
+    o, lse = FA.flash_attention_tokens(*_split_qkv(leaf, heads, new_order), heads, scale)
+    hs = [FA._heads(t, heads) for t in _split_qkv(qkv, heads, new_order)]
+    ro, rlse = FA.naive_attention_reference(*hs, scale)
+    torch.testing.assert_close(FA._heads(o.detach(), heads), ro, atol=_attn_o_tol(ro)[0],
+                               rtol=_attn_o_tol(ro)[1])
+    torch.testing.assert_close(lse.transpose(1, 2), rlse, atol=ATTN_LSE_TOL[dtype],
+                               rtol=ATTN_LSE_TOL[dtype])
+    do = torch.randn((2, n, c), generator=cuda, device="cuda").to(dtype)
+    (g,) = torch.autograd.grad(o, leaf, do)
+    refs = FA.flash_attention_backward_reference(*hs, FA._heads(o.detach(), heads),
+                                                 lse.transpose(1, 2), FA._heads(do, heads),
+                                                 scale)
+    for what, gi, r in zip("qkv", _split_qkv(g, heads, new_order), refs):
+        atol, rtol = _bwd_tol(r)
+        torch.testing.assert_close(FA._heads(gi, heads), r, atol=atol, rtol=rtol,
+                                   msg=lambda msg, w=what: f"d{w}: {msg}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("estimator", ["unet", "openai"])
+def test_remat_step_on_the_card_equals_the_plain_step(cuda, estimator):
+    """The smoke UNet and OpenAI UNet (attention at 2x downsampling) with
+    ``remat``, bf16 on perturbed f32 masters: the loss equal and the
+    gradients within 1e-6 of each tensor's max of the plain step's on the
+    same weights and draws; the recompute launches each checkpointed
+    block's kernels again (the UNet's GroupNorms, the OpenAI attention's
+    forward)."""
+    import dataclasses
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline, build_unet, seeded
+    from medfusion_tpu_torch.nn.blocks import Norm
+    from medfusion_tpu_torch.train.diffusion import estimator_params, with_compute_dtype
+
+    p = PRESETS["smoke"]
+    options = {"attention_resolutions": (2,)} if estimator == "openai" else {}
+    gen = torch.Generator().manual_seed(3)
+    batch = {"source": (torch.rand((4, 32, 32, 3), generator=gen) * 2 - 1).cuda(),
+             "target": torch.arange(4, device="cuda") % 2}
+    base = build_train_pipeline(p, device="cuda", estimator=estimator, seed=0)
+    draws = base.train_draws(4, p.latent_shape,
+                             generator=torch.Generator(device="cuda").manual_seed(1))
+    weights, out = None, {}
+    for remat in (False, True):
+        with seeded(torch.device("cuda"), 0):
+            model = build_unet(p, estimator, remat=remat, **options)
+        if weights is None:
+            with torch.no_grad():
+                for prm in model.parameters():
+                    prm.add_(0.05 * torch.randn(prm.shape, generator=gen).cuda())
+            weights = model.state_dict()
+        model.load_state_dict(weights)
+        pipe = with_compute_dtype(dataclasses.replace(base, noise_estimator=model),
+                                  torch.bfloat16)
+        before = ops.launch_counts()
+        loss, _ = pipe.train_loss(batch, draws,
+                                  estimator_params=estimator_params(model, torch.bfloat16))
+        loss.backward()
+        after = ops.launch_counts()
+        out[remat] = (loss.detach(), {k: q.grad for k, q in model.named_parameters()},
+                      {k: after[k] - before[k] for k in after})
+    (l0, g0, n0), (l1, g1, n1) = out[False], out[True]
+    assert torch.equal(l1, l0)
+    for k, g in g0.items():
+        torch.testing.assert_close(g1[k], g, rtol=0, atol=1e-6 * g.abs().max().item(),
+                                   msg=lambda msg, k=k: f"{k}: {msg}")
+    if estimator == "openai":
+        assert n1["flash_attention_tokens"] == 2 * n0["flash_attention_tokens"] > 0
+        assert n1["flash_attention_bwd_dq"] == n0["flash_attention_bwd_dq"] > 0
+    else:
+        norms = sum(isinstance(m, Norm) for m in model.modules())
+        assert n1["group_norm_silu"] == n0["group_norm_silu"] + norms > norms

@@ -191,16 +191,19 @@ def test_sample_returns_channels_last_images(pipelines):
     assert imgs.shape == (2, 32, 32, 3) and torch.isfinite(imgs).all()
 
 
-def test_unported_options_raise(pipelines, capsys):
-    """What is still unported (the other estimator families) is refused by
-    the sampling CLI with a message naming ROADMAP, and consistency
-    sampling with what the JAX CLI refuses with it (a classifier, the flow
-    family); a noise tensor of the wrong layout is refused."""
+def test_unported_options_raise(pipelines, capsys, tmp_path):
+    """The other estimator families, once refused naming ROADMAP, sample
+    (the OpenAI UNet here); consistency sampling is refused with what the
+    JAX CLI refuses with it (a classifier, the flow family); a noise tensor
+    of the wrong layout is refused."""
     from medfusion_tpu_torch.cli import sample
 
     _, _, pipe = pipelines
-    for flags, why in ((["--estimator", "openai"], "ROADMAP Queue 1, item 7"),
-                       (["--sampler", "consistency", "--family", "flow"], "own ODE sampler"),
+    out = sample.main(["--preset", "smoke", "--device", "cpu", "--estimator", "openai",
+                       "--dtype", "f32", "--steps", "2", "--n", "2", "--out",
+                       str(tmp_path / "s")])
+    assert all(np.isfinite(v).all() for v in out.values())
+    for flags, why in ((["--sampler", "consistency", "--family", "flow"], "own ODE sampler"),
                        (["--sampler", "consistency", "--classifier-ckpt", "runs/classifier"],
                         "consistency sampling")):
         with pytest.raises(SystemExit):

@@ -98,19 +98,21 @@ def test_every_cli_defaults_to_the_card(monkeypatch, tmp_path, cli):
 
 
 def test_autoencoder_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
-    """The plain VAE runs; what it cannot run is refused with a message that
-    says why: --lpips without ingested VGG16 weights (an empty store here),
-    the diffusers family (not ported)."""
+    """The plain VAE and the diffusers family (ported since) run; --lpips
+    without ingested VGG16 weights (an empty store here) is refused with a
+    message that says why."""
     monkeypatch.setenv("MEDFUSION_WEIGHTS_DIR", str(tmp_path / "no_weights"))
     state, losses = train_autoencoder.main(["--preset", "smoke", "--device", "cpu",
                                             "--max-steps", "2"])
     assert state.step == 2 and len(losses) == 2 and np.isfinite(losses).all()
     assert "done: 2 steps" in capsys.readouterr().out
-    for flag, why in ((["--lpips"], "VGG16"), (["--model", "diffusers_kl"], "Queue 1"),
-                      (["--model", "diffusers_vq"], "Queue 1")):
-        with pytest.raises(SystemExit):
-            train_autoencoder.main(["--preset", "smoke", "--device", "cpu", *flag])
-        assert why in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        train_autoencoder.main(["--preset", "smoke", "--device", "cpu", "--lpips"])
+    assert "VGG16" in capsys.readouterr().err
+    for model in ("diffusers_kl", "diffusers_vq"):
+        state, losses = train_autoencoder.main(["--preset", "smoke", "--device", "cpu",
+                                                "--model", model, "--max-steps", "1"])
+        assert state.step == 1 and np.isfinite(losses).all()
 
 
 @pytest.mark.parametrize("flags", [["--gan"], ["--gan", "--disc", "patch"],
