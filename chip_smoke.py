@@ -94,7 +94,7 @@ Phases (each raises on failure, so any failure exits non-zero):
     shown to flag dq zeroed at d = 128; on phase 9's tree,
     ``cli.train_diffusion --family flow`` (ms a step) and ``cli.sample
     --family flow`` (Heun 25), ``cli.train_classifier`` with a resume, and
-    ``cli.sample --classifier-ckpt`` (DDIM 150 with each pool, DPM++ 25)
+    ``cli.sample --classifier-ckpt`` (DDIM 50 with each pool, DPM++ 25)
     beside the unguided run (seconds, peak memory), each run's launches
     held to the counts derived here;
 14. the DiT estimator, its mixture-of-experts blocks and distillation
@@ -130,10 +130,31 @@ Phases (each raises on failure, so any failure exits non-zero):
     (ms a step, peak memory, breakdown), phase 8's gradient check on a
     perturbed chest OpenAI UNet, ``--remat`` for openai and unet (launches
     with the recompute; loss and gradients against the plain step, peak
-    memory below it); ``cli.sample`` from each run (DDIM 150, CFG 8);
+    memory below it); ``cli.sample`` from each run (DDIM 50, CFG 8);
     ``cli.train_autoencoder --model diffusers_kl`` and ``diffusers_vq
     --gan`` (B=8, f32) with a resume; every run's launches held to the
-    counts derived from the architecture.
+    counts derived from the architecture;
+16. serving and the 3-D models (slice 15): seeded, perturbed chest weights
+    written as a reference Lightning ``.ckpt``; ``cli.sample --ckpt``
+    bit-equal to a direct call on them; ``demo.server`` in this process on
+    127.0.0.1:0 from that file (bf16, ``--serve-batch 8``, kernels built
+    and warmed before it serves): a ``/sample`` page and its ``/img``
+    fetches at once, deduplicated onto one run and equal to the direct
+    call; 32 concurrent ``/one`` requests (PNGs decoded, batches, latency
+    p50/p95, images/s, a batch's time), two seeds served alone against their
+    burst rows (bit-equal, or equal to their row of a batch of copies: the
+    row position, and cuDNN's bf16 convs measured at 16 identical rows); a
+    spatial-attention server's ``/one`` batch; the
+    refusal of ``--no-flash`` (exit 2); the smoke ``/one`` batch function
+    card against CPU; kernel 1 against its plain version at the 3-D chest
+    VAE's GroupNorm shapes (B=2, 64x128x128, 8 groups, f32 and bf16; the
+    partly resident cluster route among them) with each plan, and its time
+    at the largest beside ``F.group_norm`` + ``F.silu`` and the bytes bound;
+    one f32 train step of the chest-width 3-D VAE and VQVAE at that size;
+    the chest-width 3-D UNet's DDIM 50 with CFG 4 at B=2 and the decode;
+    ``tests/test_3d.py``'s sizes card against CPU; a ``.nii.gz`` read
+    through ``SimpleDataset3D``; every run's launches held to the counts
+    derived from the architecture.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -966,13 +987,14 @@ def perturb_(module, gen):
 
     with torch.no_grad():
         for m in module.modules():
-            if (isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))
+            if (isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear))
                     and not m.weight.any()):
                 bound = (m.weight[0].numel()) ** -0.5
                 for p in (m.weight, m.bias):
                     p.copy_((torch.rand(p.shape, generator=gen, device=p.device)
                              * 2 - 1) * bound)
-            elif isinstance(m, (Norm, torch.nn.LayerNorm, torch.nn.BatchNorm2d)):
+            elif isinstance(m, (Norm, torch.nn.LayerNorm, torch.nn.BatchNorm2d,
+                                torch.nn.BatchNorm3d)) and m.weight is not None:
                 for p, base in ((m.weight, 1.0), (m.bias, 0.0)):
                     p.copy_(base + 0.1 * torch.randn(p.shape, generator=gen,
                                                      device=p.device))
@@ -2943,10 +2965,14 @@ FLOW_GN_PER_CONDITION = (2 * FLOW_STEPS - 1) * UNET_GN_PER_FORWARD + VAE_GN_PER_
 # step), a resume, then cli.sample --classifier-ckpt from phase 9's
 # diffusion run, B=8: (name, flags, UNet forwards a condition, classifier
 # attentions a forward); the classifier runs once a forward on the 2
-# labelled conditions, not on the unconditioned one
+# labelled conditions, not on the unconditioned one. The DDIM runs take
+# GUIDED_STEPS steps (150 through PR 14; cut to keep the whole script near
+# its time).
 CLF_TRAIN_STEPS, CLF_CKPT_EVERY = 3, 2
-GUIDED_RUNS = (("ddim-150-adaptive", [], STEPS, 1),
-               ("ddim-150-attention", ["--classifier-pool", "attention"], STEPS, 2),
+GUIDED_STEPS = 50
+GUIDED_RUNS = ((f"ddim-{GUIDED_STEPS}-adaptive", [], GUIDED_STEPS, 1),
+               (f"ddim-{GUIDED_STEPS}-attention", ["--classifier-pool", "attention"],
+                GUIDED_STEPS, 2),
                ("dpmpp-25-adaptive", ["--sampler", "dpmpp", "--steps", "25"], 25, 1))
 
 
@@ -3385,11 +3411,11 @@ def phase_classifier_program(ops, tmp, root):
     torch.cuda.empty_cache()
 
     base = ["--preset", "chest", "--ckpt", str(diff), "--ema", "--vae-ckpt", str(ae),
-            "--n", str(N_SAMPLES)]
+            "--n", str(N_SAMPLES), "--steps", str(GUIDED_STEPS)]
     plain, p_s, p_peak = sample_run(
         ops, sample, [*base, "--out", str(tmp / "unguided")],
-        {"group_norm_silu": 3 * (STEPS * UNET_GN_PER_FORWARD + VAE_GN_PER_DECODE)},
-        f"unguided sample CLI (DDIM {STEPS}, CFG {GUIDANCE})")
+        {"group_norm_silu": 3 * (GUIDED_STEPS * UNET_GN_PER_FORWARD + VAE_GN_PER_DECODE)},
+        f"unguided sample CLI (DDIM {GUIDED_STEPS}, CFG {GUIDANCE})")
     report = {"unguided": (p_s, p_peak)}
     for name, flags, forwards, attn in GUIDED_RUNS:
         ckpt = clf_attn if "attention" in flags else clf
@@ -3402,7 +3428,7 @@ def phase_classifier_program(ops, tmp, root):
              "flash_attention_bwd_dkv": 2 * forwards * attn},
             f"guided sample CLI {name}")
         report[name] = (s, peak)
-        if name.startswith("ddim-150"):
+        if name.startswith("ddim-"):
             if not np.array_equal(images[None], plain[None]):
                 raise RuntimeError(f"{name}: the unconditioned samples moved")
             moved = max(np.abs(images[c] - plain[c]).max() for c in (0, 1))
@@ -3410,7 +3436,7 @@ def phase_classifier_program(ops, tmp, root):
                 f"labelled ones moved by up to {moved:.3e}")
             if not moved > 0:
                 raise RuntimeError(f"{name}: the guidance moved nothing")
-    log("  guided sampling against unguided (DDIM 150, B=8): " + "; ".join(
+    log(f"  guided sampling against unguided (DDIM {GUIDED_STEPS}, B=8): " + "; ".join(
         f"{k} {s:.3f} s, {peak:.3f} GiB" for k, (s, peak) in report.items()))
     return report
 
@@ -3906,6 +3932,7 @@ def phase_distill(ops, tmp, root):
 # attention blocks run their forward again in the backward.
 FAMILIES = ("unet_legacy", "openai", "lucidrains")
 FAMILY_STEPS = 3
+FAMILY_SAMPLE_STEPS = 50  # 15d's DDIM (150 through PR 14; cut for the script's time)
 LEGACY_GN_PER_FORWARD = 14
 OPENAI_TOKENS, OPENAI_WIDTH, OPENAI_HEADS = 16, 1024, 8
 # 15a: the smoke-width families, card against CPU (f32) at phase 14a's
@@ -4234,8 +4261,9 @@ def phase_family_train(ops, FA, tmp, root):
 
 def phase_family_sample(ops, tmp):
     """15d: cli.sample --ckpt from each 15c run (the estimator from the
-    run's config), then the run's directory removed: DDIM 150, CFG 8, B=8,
-    3 conditions; seconds, peak memory and launches held."""
+    run's config), then the run's directory removed: DDIM
+    FAMILY_SAMPLE_STEPS, CFG 8, B=8, 3 conditions; seconds, peak memory and
+    launches held."""
     import shutil
 
     from medfusion_tpu_torch.cli import sample
@@ -4244,10 +4272,10 @@ def phase_family_sample(ops, tmp):
     for est in FAMILIES:
         _, seconds, peak = sample_run(
             ops, sample, ["--preset", "chest", "--ckpt", str(tmp / est), "--vae-ckpt",
-                          str(tmp / "ae"), "--n", str(N_SAMPLES), "--out",
-                          str(tmp / f"{est}_samples")],
-            family_launches(est, 3 * STEPS, decodes=3),
-            f"{est} sample CLI (DDIM {STEPS}, CFG {GUIDANCE})")
+                          str(tmp / "ae"), "--n", str(N_SAMPLES), "--steps",
+                          str(FAMILY_SAMPLE_STEPS), "--out", str(tmp / f"{est}_samples")],
+            family_launches(est, 3 * FAMILY_SAMPLE_STEPS, decodes=3),
+            f"{est} sample CLI (DDIM {FAMILY_SAMPLE_STEPS}, CFG {GUIDANCE})")
         shutil.rmtree(tmp / est)
         report[est] = (seconds, peak)
     return report
@@ -4327,6 +4355,546 @@ def phase_diffusers_autoencoders(ops, tmp, root):
         torch.cuda.empty_cache()
         shutil.rmtree(out)
         shutil.rmtree(out_b)
+    return report
+
+
+# Phase 16: serving and the 3-D models. The served chest pipeline (bf16;
+# /one at SERVE_STEPS DDIM steps, eta 0, CFG 4, in batches of SERVE_BATCH;
+# /sample pages DDIM eta 1, CFG PAGE_GUIDANCE) from a reference Lightning
+# checkpoint of seeded, perturbed chest weights. Every UNet forward launches
+# the UNet's GroupNorms (a CFG step is one batched forward), every decode
+# the VAE's; with spatial attention each forward adds what EXPECTED
+# counts a step.
+SERVE_BATCH, SERVE_BURST, SERVE_STEPS = 8, 32, 50
+PAGE_N, PAGE_STEPS, PAGE_GUIDANCE = 4, 50, 8.0
+SERVE_ALONE = (3, 17)  # served again alone, against their burst rows
+# The 3-D volume path: the chest VAE's widths on B=2 volumes of one channel,
+# 64 x 128 x 128 (latent 8 x 16 x 16 x 8, strides 1, 2, 2, 2), f32 training
+# steps; GroupNorm at its four levels (C, downsampling), 8 groups: the first
+# a group of 8 x 1,048,576 elements, which no block of clusters holds.
+VOL3D, VOL3D_BATCH = (64, 128, 128), 2
+GN3D_SHAPES = ((64, 1), (128, 2), (256, 4), (512, 8))
+VOL3D_STEPS, VOL3D_GUIDANCE = 50, 4.0
+
+
+def spatial_launches(forwards=0, decodes=0):
+    """The chest spatial-attention UNet's launches a forward (EXPECTED's
+    per step) and the VAE's a decode."""
+    per = {k: v // STEPS for k, v in EXPECTED["spatial"].items() if k != "group_norm_silu"}
+    out = {k: v * forwards for k, v in per.items()}
+    out["group_norm_silu"] = ((UNET_GN_PER_FORWARD + 2 * TRANSFORMERS) * forwards
+                              + VAE_GN_PER_DECODE * decodes)
+    return out
+
+
+def times(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def conv_row_spread():
+    """The cause of a served image's dependence on its row in the batch:
+    cuDNN's bf16 3x3 convs at the UNet's two lowest levels, 16 identical
+    rows (a CFG batch of 8), each row's largest difference from row 0, with
+    ``cudnn.deterministic`` off and on."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {}
+    for c, side in ((512, 16), (1024, 8)):
+        w = (torch.randn((c, c, 3, 3), generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+        x = torch.randn((1, c, side, side), generator=gen, device="cuda").to(torch.bfloat16)
+        x = x.expand(2 * SERVE_BATCH, -1, -1, -1).contiguous()
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            y = F.conv2d(x, w, padding=1).float()
+            out[(c, side, det)] = [(y[k] - y[0]).abs().max().item() for k in range(y.shape[0])]
+        torch.backends.cudnn.deterministic = False
+    log("  cuDNN bf16 3x3 conv, 16 identical rows, each row's max|d| from row 0: " + "; ".join(
+        f"{c}x{side}^2 deterministic={det}: {v}" for (c, side, det), v in out.items()))
+    return out
+
+
+def write_reference_ckpt(path, unet, vae):
+    """A Lightning-format checkpoint of the reference's DiffusionPipeline:
+    one ``state_dict`` with both prefixes, plain ``hyper_parameters``."""
+    import torch
+
+    sd = {f"noise_estimator.{k}": v.detach().cpu() for k, v in unet.state_dict().items()}
+    sd.update({f"latent_embedder.{k}": v.detach().cpu() for k, v in vae.state_dict().items()})
+    torch.save({"state_dict": sd, "hyper_parameters": {"num_classes": 2, "timesteps": 1000},
+                "pytorch-lightning_version": "1.9.0", "epoch": 0, "global_step": 0}, path)
+    return path
+
+
+def serve_in_thread(server, argv):
+    """``demo.server`` on 127.0.0.1:0 in this process: (http server, state,
+    thread, base url); built and warmed before it serves."""
+    import threading
+
+    httpd, state = server.make_server(server.parse_args([*argv, "--port", "0"]))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, state, thread, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def stop_server(httpd, state, thread):
+    httpd.shutdown()
+    httpd.server_close()
+    state.close()
+    thread.join(timeout=30)
+
+
+def http_get(url):
+    """(body, seconds) of one GET."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=600) as r:
+        body = r.read()
+    return body, time.perf_counter() - t0
+
+
+def concurrent_gets(urls):
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(urls)) as ex:
+        return list(ex.map(http_get, urls))
+
+
+def phase_reference_ckpt(ops, tmp):
+    """16a: seeded chest weights, perturbed, as a reference ``.ckpt``;
+    ``cli.sample --ckpt`` bit-equal to a direct call on the same weights
+    (condition 1), launches counted. Returns (checkpoint, direct images)."""
+    import numpy as np
+    import torch
+
+    from medfusion_tpu_torch.cli import sample
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
+    from medfusion_tpu_torch.utils import torch_compat
+
+    p = PRESETS["chest"]
+    f32 = build_pipeline(p, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    perturb_(f32.noise_estimator, gen)
+    perturb_(f32.latent_embedder, gen)
+    ckpt = write_reference_ckpt(tmp / "chest.ckpt", f32.noise_estimator, f32.latent_embedder)
+    del f32
+    log(f"  wrote a Lightning-format chest checkpoint ({ckpt.stat().st_size / 2**20:.1f} MiB)")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    images = sample.main(["--preset", "chest", "--ckpt", str(ckpt), "--n", str(PAGE_N),
+                          "--steps", str(PAGE_STEPS), "--guidance", str(PAGE_GUIDANCE),
+                          "--seed", "0", "--out", str(tmp / "ckpt_samples"),
+                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    log(f"  cli.sample --ckpt x.ckpt: {PAGE_N} images x 3 conditions, DDIM {PAGE_STEPS}, "
+        f"in {time.perf_counter() - t0:.3f} s")
+    check_counts("cli.sample --ckpt x.ckpt", ops.launch_counts(),
+                 unet_launches(forwards=3 * PAGE_STEPS, decodes=3))
+    unet_state, vae_state = torch_compat.pipeline_states(ckpt)
+    if vae_state is None:
+        raise RuntimeError("the checkpoint's latent_embedder part is missing")
+    direct = build_pipeline(p, device="cuda", compute_dtype=torch.bfloat16, seed=1,
+                            unet_state=unet_state, vae_ckpt=str(ckpt))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cond = torch.full((PAGE_N,), 1, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        want = direct.sample(PAGE_N, p.latent_shape, condition=cond, generator=g,
+                             steps=min(PAGE_STEPS, p.timesteps), use_ddim=True,
+                             guidance_scale=PAGE_GUIDANCE,
+                             eta=1.0).float().cpu().numpy()
+    del direct
+    torch.cuda.empty_cache()
+    if want.shape != (PAGE_N, 256, 256, 3) or not np.isfinite(want).all():
+        raise RuntimeError(f"direct chest samples {want.shape} or non-finite")
+    if not np.array_equal(images[1], want):
+        raise RuntimeError(f"cli.sample --ckpt departs from the direct call by "
+                           f"{np.abs(images[1] - want).max()}")
+    log(f"  cli.sample --ckpt x.ckpt condition 1 bit-equal to the direct call (range "
+        f"[{want.min():.3f}, {want.max():.3f}])")
+    return ckpt, want
+
+
+def phase_serving(ops, tmp):
+    """16b: ``demo.server`` with the chest checkpoint: a /sample page and
+    its /img fetches deduplicated onto one run (and equal to phase 16a's
+    direct call), a burst of concurrent /one requests (PNGs, batches,
+    latencies, launches), two seeds served alone against their burst rows
+    (bit-equal, or else equal to their row of a batch of copies of them:
+    the row position, measured on cuDNN's convs by :func:`conv_row_spread`);
+    then a spatial-attention server's /one batch (kernels 1, 2, 5, 6
+    counted), the card's refusal of --no-flash, and the smoke /one batch
+    function card against CPU."""
+    import numpy as np
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
+    from medfusion_tpu_torch.data.png import decode_png
+    from medfusion_tpu_torch.demo import server
+    from medfusion_tpu_torch.demo.serving import make_sample_batch_fn
+
+    ckpt, want = phase_reference_ckpt(ops, tmp)
+    report = {}
+    t0 = time.perf_counter()
+    httpd, state, thread, url = serve_in_thread(server, [
+        "--preset", "chest", "--ckpt", str(ckpt), "--serve-batch", str(SERVE_BATCH),
+        "--device", "cuda"])
+    report["start_s"] = time.perf_counter() - t0
+    log(f"  demo.server --ckpt x.ckpt: built, warmed and serving at {url} in "
+        f"{report['start_s']:.2f} s")
+    try:
+        q = f"preset=chest&n={PAGE_N}&steps={PAGE_STEPS}&guidance={PAGE_GUIDANCE}&cond=1&seed=0"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = concurrent_gets([f"{url}/sample?{q}"]
+                              + [f"{url}/img?{q}&i={i}" for i in range(PAGE_N)])
+        check_counts(f"a /sample page and its {PAGE_N} /img fetches, at once",
+                     ops.launch_counts(), unet_launches(forwards=PAGE_STEPS, decodes=1))
+        served = np.stack([decode_png(body) for body, _ in res[1:]])
+        if not np.array_equal(served, server.to_uint8(want)):
+            raise RuntimeError("the server's page departs from the direct call on the "
+                               "checkpoint's weights")
+        log(f"  the page's {PAGE_N} PNGs equal the direct call's images as uint8")
+
+        batcher = state.batcher("chest")
+        before = batcher.batches_run
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = concurrent_gets([f"{url}/one?preset=chest&seed={s}&cond={s % 2}"
+                               for s in range(SERVE_BURST)])
+        wall = time.perf_counter() - t0
+        batches = batcher.batches_run - before
+        imgs = [decode_png(body) for body, _ in res]
+        if any(im.shape != (256, 256, 3) for im in imgs):
+            raise RuntimeError(f"/one PNG shapes {sorted({im.shape for im in imgs})}")
+        if batches > SERVE_BURST // SERVE_BATCH + 1:
+            raise RuntimeError(f"{SERVE_BURST} requests ran {batches} batches")
+        check_counts(f"/one burst of {SERVE_BURST} ({batches} batches)", ops.launch_counts(),
+                     times(unet_launches(forwards=SERVE_STEPS, decodes=1), batches))
+        lat = np.asarray([dt for _, dt in res])
+        seeds = torch.arange(SERVE_BATCH)
+        batcher.batch_fn(seeds, seeds % 2)  # warm, then one batch timed alone
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        batcher.batch_fn(seeds, seeds % 2)
+        torch.cuda.synchronize()
+        report.update(batches=batches, p50_s=float(np.percentile(lat, 50)),
+                      p95_s=float(np.percentile(lat, 95)), images_per_s=SERVE_BURST / wall,
+                      burst_s=wall, batch_s=time.perf_counter() - t1)
+        log(f"  /one burst: {SERVE_BURST} concurrent requests in {wall:.3f} s = "
+            f"{report['images_per_s']:.3f} images/s, {batches} batches of {SERVE_BATCH}, "
+            f"latency p50 {report['p50_s']:.3f} s, p95 {report['p95_s']:.3f} s, max "
+            f"{lat.max():.3f} s; one batch alone {report['batch_s']:.3f} s (DDIM "
+            f"{SERVE_STEPS}, eta 0, CFG {server.ONE_GUIDANCE}, bf16)")
+        report["alone_max_d"] = {}
+        for s in SERVE_ALONE:
+            again = decode_png(http_get(f"{url}/one?preset=chest&seed={s}&cond={s % 2}")[0])
+            d = int(np.abs(again.astype(np.int16) - imgs[s].astype(np.int16)).max())
+            report["alone_max_d"][s] = d
+            log(f"  seed {s} served alone (a padded batch, its row 0): max|d| {d} against "
+                f"its burst row")
+            if d:  # the cause must be the row position: a batch of copies of it
+                copies = server.to_uint8(batcher.batch_fn(
+                    torch.full((SERVE_BATCH,), s), torch.full((SERVE_BATCH,), s % 2)).cpu().numpy())
+                rows = [j for j in range(SERVE_BATCH) if np.array_equal(copies[j], imgs[s])]
+                log(f"    its burst image equals rows {rows} of a batch of {SERVE_BATCH} copies "
+                    f"of it, whose rows differ from row 0 by "
+                    f"{[int(np.abs(copies[j].astype(np.int16) - copies[0]).max()) for j in range(SERVE_BATCH)]}")
+                if not rows:
+                    raise RuntimeError(f"seed {s}: the image depends on its batch beyond its "
+                                       f"row position (max|d| {d})")
+        report["conv_row_spread"] = conv_row_spread()
+    finally:
+        stop_server(httpd, state, thread)
+    torch.cuda.empty_cache()
+
+    httpd, state, thread, url = serve_in_thread(server, [
+        "--preset", "chest", "--attention", "spatial", "--serve-batch", str(SERVE_BATCH),
+        "--device", "cuda"])
+    try:
+        batcher = state.batcher("chest")
+        before = batcher.batches_run
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = concurrent_gets([f"{url}/one?preset=chest&seed={s}&cond={s % 2}"
+                               for s in range(SERVE_BATCH)])
+        report["spatial_s"] = time.perf_counter() - t0
+        batches = batcher.batches_run - before
+        check_counts(f"--attention spatial: {SERVE_BATCH} /one requests ({batches} batches)",
+                     ops.launch_counts(),
+                     times(spatial_launches(forwards=SERVE_STEPS, decodes=1), batches))
+        if batches < 1 or any(decode_png(b).shape != (256, 256, 3) for b, _ in res):
+            raise RuntimeError("the spatial-attention /one batch failed")
+        log(f"  --attention spatial /one: {SERVE_BATCH} requests in {report['spatial_s']:.3f} s")
+    finally:
+        stop_server(httpd, state, thread)
+    torch.cuda.empty_cache()
+
+    try:
+        server.main(["--preset", "chest", "--attention", "spatial", "--no-flash"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    log(f"  demo.server --attention spatial --no-flash on the card: exit {code}")
+    if code != 2:
+        raise RuntimeError(f"--no-flash on the card exited {code}, expected 2")
+
+    p = PRESETS["smoke"]
+    cpu = build_pipeline(p, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(16)
+    perturb_(cpu.noise_estimator, gen)
+    perturb_(cpu.latent_embedder, gen)
+    card = build_pipeline(p, device="cuda", seed=0)
+    card.noise_estimator.load_state_dict(cpu.noise_estimator.state_dict())
+    card.latent_embedder.load_state_dict(cpu.latent_embedder.state_dict())
+    seeds, conds = torch.tensor([0, 1, 2, 3]), torch.tensor([0, 1, 1, 0])
+    noise = {int(s): torch.randn(p.latent_shape, generator=gen) for s in seeds}
+
+    def init(slots):
+        return torch.stack([noise[s] for s in slots])
+
+    outs = [make_sample_batch_fn(pipe, p.latent_shape, steps=min(SERVE_STEPS, p.timesteps),
+                                 guidance_scale=server.ONE_GUIDANCE, init_noise=init)(seeds, conds)
+            for pipe in (cpu, card)]
+    close_scaled("smoke /one batch function card vs cpu (f32, the same initial noise)",
+                 outs[1], outs[0])
+    return report
+
+
+def volume_vae(kind="vae"):
+    """The chest VAE's (or VQVAE's) widths on one-channel volumes."""
+    from medfusion_tpu_torch.models import latent_embedders as le
+
+    kw = dict(in_channels=1, out_channels=1, spatial_dims=3, emb_channels=8,
+              hid_chs=(64, 128, 256, 512), kernel_sizes=(3,) * 4, strides=(1, 2, 2, 2),
+              deep_supervision=1, norm_name=("GROUP", {"num_groups": 8, "affine": True}))
+    return le.VQVAE(num_embeddings=8192, **kw) if kind == "vqvae" else le.VAE(**kw)
+
+
+def phase_3d_group_norm(G, worst):
+    """16c: kernel 1 against its plain version at the 3-D VAE's GroupNorm
+    shapes ([2, C, D, H, W], 8 groups), f32 and bf16, SiLU on, bit for bit
+    across two launches, each with its plan; then its time at the largest
+    f32 shape beside F.group_norm + F.silu and the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    partly = False
+    for c, f in GN3D_SHAPES:
+        dims = tuple(v // f for v in VOL3D)
+        s = math.prod(dims)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = (torch.randn((VOL3D_BATCH, c, *dims), generator=gen, device="cuda") * 2 + 1
+                 ).to(dtype)
+            scale = (1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")).to(dtype)
+            bias = (0.1 * torch.randn((c,), generator=gen, device="cuda")).to(dtype)
+            out = G.group_norm_silu_cuda(x, scale, bias, 8)
+            again = G.group_norm_silu_cuda(x, scale, bias, 8)
+            ref = G.group_norm_silu_reference(x, scale, bias, 8)
+            err = close(f"gn 3-D C={c} {dims} {name}", out, ref, TOL[name], TOL[name])
+            keep(worst, "group_norm_silu", name, err)
+            if not torch.equal(out, again):
+                raise RuntimeError(f"gn 3-D C={c} {name}: two launches differ")
+            plan = G._plan_for(VOL3D_BATCH, c, s, 8, dtype, True)
+            partly = partly or (plan["route"] == "cluster" and plan["resident"] < plan["slice"])
+            log(f"  gn 3-D B={VOL3D_BATCH} C={c} {dims} G=8 {name}: a group of "
+                f"{plan['n']:,} ({gn_route(G, VOL3D_BATCH, c, s, 8, dtype, plan)}), "
+                f"resident share {plan['resident'] / plan['slice'] if plan['route'] == 'cluster' else 1:.3f}; "
+                f"max|d| {err:.3e} (atol=rtol={TOL[name]}), bitwise equal across two launches")
+            del x, out, again, ref
+    if not partly:
+        raise RuntimeError("no 3-D shape took the partly resident cluster route")
+    c, f = GN3D_SHAPES[0]
+    x = torch.randn((VOL3D_BATCH, c, *VOL3D), generator=gen, device="cuda")
+    scale, bias = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    k = cuda_ms(lambda: G.group_norm_silu_cuda(x, scale, bias, 8), 5)
+    lib = cuda_ms(lambda: F.silu(F.group_norm(x, 8, scale, bias, 1e-5)), 5)
+    plain = cuda_ms(lambda: G.group_norm_silu_reference(x, scale, bias, 8), 5)
+    bound = bounds(0, 2 * x.numel() * x.element_size() + 2 * c * 4)["bound_ms"]
+    log(f"  gn 3-D time at B={VOL3D_BATCH} C={c} {VOL3D} f32: kernel {k:.4f} ms, "
+        f"F.group_norm+F.silu {lib:.4f} ms, plain {plain:.4f} ms, bytes bound {bound:.4f} ms "
+        f"({bound / k:.1%} of bound)")
+    return {"ms": k, "library_ms": lib, "plain_ms": plain, "bound_ms": bound}
+
+
+def phase_3d_training(ops):
+    """16d: one f32 train step of the chest-width VAE and of the VQVAE on
+    B=2 64x128x128 volumes (L2 + SSIM + KL or codebook loss, Adam): the
+    second step's ms and the peak memory, GroupNorm launches a step held
+    to the encoder's and decoder's."""
+    import torch
+
+    from medfusion_tpu_torch.train import TrainState
+    from medfusion_tpu_torch.train.autoencoder import (
+        AutoencoderTrainer,
+        make_autoencoder_train_step,
+    )
+
+    report = {}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand((VOL3D_BATCH, *VOL3D, 1), generator=gen, device="cuda") * 2 - 1
+    latent = tuple(v // 8 for v in VOL3D)
+    for kind in ("vae", "vqvae"):
+        torch.manual_seed(0)
+        with torch.device("cuda"):
+            model = volume_vae(kind)
+        perturb_(model, gen)
+        state = TrainState(model, lr=1e-4, weight_decay=0.0)
+        step = make_autoencoder_train_step(AutoencoderTrainer(
+            model, flavor=kind, pixel_loss="l2", embedding_loss_weight=1e-6))
+        noise = (torch.randn((VOL3D_BATCH, *latent, 8), generator=gen, device="cuda")
+                 if kind == "vae" else None)
+        step(state, {"source": x}, noise)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = step(state, {"source": x}, noise)
+        loss = float(metrics["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_counts(f"3-D {kind} train step", ops.launch_counts(),
+                     {"group_norm_silu": AE_GN_PER_STEP})
+        if not math.isfinite(loss):
+            raise RuntimeError(f"3-D {kind} step loss {loss}")
+        log(f"  3-D {kind} f32 train step B={VOL3D_BATCH} {VOL3D}: {ms:.1f} ms, peak "
+            f"{peak:.2f} GiB, loss {loss:.5f}")
+        report[kind] = {"ms": ms, "peak": peak}
+        del model, state, step
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_3d_sampling(ops):
+    """16e: the chest-width 3-D UNet (widths 256-1024, 32 groups) on the
+    [8, 16, 16] x 8 latent, DDIM 50 with CFG 4 at B=2, then the 3-D VAE's
+    decode to 64x128x128, bf16: seconds and launches."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import build_scheduler, PRESETS
+    from medfusion_tpu_torch.models.unet import UNet
+    from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
+
+    torch.manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.device("cuda"):
+        unet = UNet(in_ch=8, out_ch=8, spatial_dims=3, hid_chs=(256, 256, 512, 1024),
+                    kernel_sizes=(3,) * 4, strides=(1, 2, 2, 2), time_emb_dim=1024,
+                    cond_emb_num_classes=2, deep_supervision=0, use_res_block=True,
+                    norm_name=("GROUP", {"num_groups": 32, "affine": True}))
+        vae = volume_vae()
+    perturb_(unet, gen)
+    perturb_(vae, gen)
+    pipe = DiffusionPipeline(scheduler=build_scheduler(PRESETS["chest"], "cuda"),
+                             noise_estimator=unet.to(torch.bfloat16).eval(),
+                             latent_embedder=vae.to(torch.bfloat16).eval(), clip_x0=False,
+                             do_input_centering=False, compute_dtype=torch.bfloat16)
+    latent = (*(v // 8 for v in VOL3D), 8)
+    cond = torch.tensor([0, 1], device="cuda")
+    sgen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        vols = pipe.sample(VOL3D_BATCH, latent, condition=cond, generator=sgen,
+                           steps=VOL3D_STEPS, use_ddim=True, guidance_scale=VOL3D_GUIDANCE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_counts("3-D sampling", ops.launch_counts(),
+                 unet_launches(forwards=VOL3D_STEPS, decodes=1))
+    if tuple(vols.shape) != (VOL3D_BATCH, *VOL3D, 1) or not torch.isfinite(vols).all():
+        raise RuntimeError(f"3-D samples {tuple(vols.shape)} or non-finite")
+    log(f"  3-D sampling: DDIM {VOL3D_STEPS}, CFG {VOL3D_GUIDANCE}, B={VOL3D_BATCH}, latent "
+        f"{latent}, decoded {tuple(vols.shape)} in {seconds:.3f} s")
+    return seconds
+
+
+def phase_3d_vs_cpu(tmp):
+    """16f: tests/test_3d.py's sizes (8^3 volumes, widths 4-8; the UNet 16-32
+    with spatial attention, since the GEGLU kernel takes widths that are
+    multiples of 16) card against CPU, f32: the VAE, VQVAE, both
+    discriminators and the UNet forward, each
+    autoencoder's train loss and gradients (the phase-15 tolerances); and a
+    .nii.gz volume written here read through SimpleDataset3D."""
+    import numpy as np
+    import torch
+
+    from medfusion_tpu_torch.data import nifti
+    from medfusion_tpu_torch.data.datasets_3d import SimpleDataset3D
+    from medfusion_tpu_torch.models import latent_embedders as le
+    from medfusion_tpu_torch.models.unet import UNet
+    from medfusion_tpu_torch.train.autoencoder import AutoencoderTrainer
+
+    gn2 = ("GROUP", {"num_groups": 2, "affine": True})
+    ae = dict(in_channels=1, out_channels=1, spatial_dims=3, emb_channels=2, hid_chs=(4, 8),
+              strides=(1, 2), kernel_sizes=(3, 3), norm_name=gn2)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand((2, 1, 8, 8, 8), generator=gen) * 2 - 1
+    noise = torch.randn((2, 2, 4, 4, 4), generator=gen)
+    models = {
+        "vae": lambda: le.VAE(deep_supervision=1, **ae),
+        "vqvae": lambda: le.VQVAE(num_embeddings=32, **ae),
+        "disc": lambda: le.Discriminator(in_channels=1, spatial_dims=3, hid_chs=(4, 8),
+                                         kernel_sizes=(3, 3), strides=(1, 2), norm_name=gn2),
+        "patch": lambda: le.NLayerDiscriminator(in_channels=1, spatial_dims=3,
+                                                hid_chs=(4, 8, 8), kernel_sizes=(4, 4, 4),
+                                                strides=(2, 2, 1)),
+        "unet": lambda: UNet(in_ch=2, out_ch=2, spatial_dims=3, hid_chs=(16, 32),
+                             kernel_sizes=(3, 3), strides=(1, 2), time_emb_dim=16,
+                             cond_emb_num_classes=2, use_attention="spatial", norm_name=gn2),
+    }
+    report = {}
+    for name, make in models.items():
+        torch.manual_seed(0)
+        cpu = make()
+        perturb_(cpu, gen)
+        card = make().cuda()
+        card.load_state_dict(cpu.state_dict())
+        out = {}
+        for dev, m in (("cpu", cpu), ("cuda", card)):
+            m.train()
+            if name == "unet":
+                z = noise.to(dev)
+                t, c = torch.tensor([3, 17], device=dev), torch.tensor([0, 1], device=dev)
+                y, _ = m(z, t, c)
+                loss = (y ** 2).mean()
+            elif name in ("vae", "vqvae"):
+                args = (x.to(dev), noise.to(dev)) if name == "vae" else (x.to(dev),)
+                y = m(*args)[0]
+                loss, _ = AutoencoderTrainer(m, flavor=name, pixel_loss="l2",
+                                             embedding_loss_weight=1e-2).loss(*args)
+            else:
+                y = m(x.to(dev))
+                loss = (y ** 2).mean()
+            loss.backward()
+            out[dev] = (y.detach(), loss.detach(), {k: q.grad.detach().cpu()
+                                                    for k, q in m.named_parameters()
+                                                    if q.grad is not None})
+        (y0, l0, g0), (y1, l1, g1) = out["cpu"], out["cuda"]
+        close_scaled(f"3-D {name} forward card vs cpu", y1, y0)
+        torch.testing.assert_close(l1.cpu(), l0, rtol=SMOKE_TOL, atol=0)
+        gap = grad_gap(g1, g0)
+        log(f"  3-D {name}: loss {l1.item():.6f} vs {l0.item():.6f}; gradients ({len(g0)} "
+            f"tensors) max|d| {gap:.3e} of max|g| (limit {CLF_GRAD_TOL})")
+        if set(g1) != set(g0) or not gap <= CLF_GRAD_TOL:
+            raise RuntimeError(f"3-D {name}: card gradients depart by {gap}")
+        report[name] = gap
+    vol = np.random.default_rng(6).standard_normal((20, 24, 16)).astype(np.float32) * 50 + 10
+    (tmp / "vol3d").mkdir(exist_ok=True)
+    nifti.write_nifti(tmp / "vol3d" / "a.nii.gz", vol, scl_slope=2.0, scl_inter=1.0)
+    item = SimpleDataset3D(tmp / "vol3d", crawler_ext="nii.gz", image_resize=(16, 16, 16),
+                           image_crop=(12, None, 20))[0]
+    src = item["source"]
+    if src.shape != (12, 16, 20, 1) or not abs(float(src.mean())) < 1e-4:
+        raise RuntimeError(f"SimpleDataset3D item {src.shape}, mean {src.mean()}")
+    log(f"  SimpleDataset3D read a .nii.gz volume {vol.shape} -> {src.shape} "
+        f"(z-normalised: mean {src.mean():.2e}, std {src.std():.4f})")
     return report
 
 
@@ -4475,6 +5043,16 @@ def main():
         family_sample = phase_family_sample(ops, ftmp)
         diffusers_report = phase_diffusers_autoencoders(ops, ftmp, root)
 
+        log("[16] serving (a reference Lightning checkpoint, demo.server's pages and "
+            "micro-batched /one) and the 3-D models and data")
+        stmp = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="serving_",
+                                                                    dir=ram_dir(8))))
+        serve_report = phase_serving(ops, stmp)
+        gn3d = phase_3d_group_norm(G, worst)
+        train3d = phase_3d_training(ops)
+        sample3d_s = phase_3d_sampling(ops)
+        smoke3d = phase_3d_vs_cpu(stmp)
+
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
     attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
@@ -4573,7 +5151,7 @@ def main():
         f"{k} {v['remat_ms']:.1f} ms, {v['peak']:.2f} GiB above the weights (plain "
         f"{v['plain_ms']:.1f} ms, {v['plain_peak']:.2f} GiB)"
         for k, v in family_train.items() if "plain_peak" in v)
-        + f"; sample DDIM {STEPS} " + ", ".join(
+        + f"; sample DDIM {FAMILY_SAMPLE_STEPS} " + ", ".join(
             f"{k} {s:.3f} s ({peak:.3f} GiB)" for k, (s, peak) in family_sample.items())
         + "; diffusers steps (B=8, f32) " + ", ".join(
             f"{k} {v['ms']:.1f} ms ({v['peak']:.2f} GiB)" for k, v in diffusers_report.items())
@@ -4583,6 +5161,16 @@ def main():
             f"{label} {k} B={r['B']} {r['ms']:.4f}/{r['plain_ms']:.4f}/{r['library_ms']:.4f}/"
             f"{r['bound_ms']:.4f}" for label, rows in openai_rows.items()
             for k, r in rows.items() if isinstance(r, dict)))
+    log(f"  slice 15 on the card: /one burst of {SERVE_BURST} at --serve-batch {SERVE_BATCH}: "
+        f"{serve_report['images_per_s']:.3f} images/s, latency p50 {serve_report['p50_s']:.3f} "
+        f"s, p95 {serve_report['p95_s']:.3f} s, {serve_report['batches']} batches, one batch "
+        f"{serve_report['batch_s']:.3f} s; server start {serve_report['start_s']:.2f} s; seeds "
+        f"served alone against their burst rows, max|d| {serve_report['alone_max_d']}; 3-D "
+        f"GroupNorm at B={VOL3D_BATCH} C=64 {VOL3D} f32 {gn3d['ms']:.4f} ms (F.group_norm+F.silu "
+        f"{gn3d['library_ms']:.4f}, bound {gn3d['bound_ms']:.4f}); 3-D train steps (f32) "
+        + ", ".join(f"{k} {v['ms']:.1f} ms ({v['peak']:.2f} GiB)" for k, v in train3d.items())
+        + f"; 3-D sampling DDIM {VOL3D_STEPS} + decode {sample3d_s:.3f} s; small 3-D "
+        f"gradients card vs cpu " + ", ".join(f"{k} {v:.2e}" for k, v in smoke3d.items()))
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

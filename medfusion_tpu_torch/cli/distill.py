@@ -44,7 +44,10 @@ from a generator seeded by (``--seed``, the stage, i), the JAX CLI's
 the legacy, OpenAI or lucidrains UNet); ``--attention`` and
 ``--attention-heads`` must be the teacher's. The teacher's run config is
 checked against ``--estimator``, ``--attention``, ``--attention-heads``,
-``--objective`` (not for reflow) and the family.
+``--objective`` (not for reflow) and the family. The kernel switches follow
+the JAX CLI's rules (``cli/kernels.py``; ``--no-flash`` and
+``--no-fused-geglu`` are refused on the card); ``--vae-ckpt`` also takes a
+reference Lightning ``.ckpt``.
 
 Usage:
   python -m medfusion_tpu_torch.cli.distill --preset chest --method pd \\
@@ -66,6 +69,7 @@ import numpy as np
 import torch
 
 from medfusion_tpu_torch import resolve_device
+from medfusion_tpu_torch.cli.kernels import add_kernel_args, resolve_kernel_flags
 from medfusion_tpu_torch.cli.presets import (
     ESTIMATORS,
     PRESETS,
@@ -176,7 +180,8 @@ def main(argv=None):
                     help="a port cli.train_diffusion run (its --family flow run for "
                          "reflow); a seeded random estimator when omitted (smoke/testing)")
     ap.add_argument("--vae-ckpt", default=None,
-                    help="a port autoencoder run, or an .npz of the JAX VAE's params")
+                    help="a port autoencoder run, an .npz of the JAX VAE's params, or a "
+                         "reference Lightning .ckpt")
     ap.add_argument("--out", default="runs/distill")
     ap.add_argument("--objective", choices=("x_T", "x_0", "v"), default="v",
                     help="the teacher's parameterization; the paper recommends v "
@@ -234,6 +239,7 @@ def main(argv=None):
     ap.add_argument("--estimator", choices=ESTIMATORS, default="unet")
     ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none")
     ap.add_argument("--attention-heads", type=int, default=8)
+    add_kernel_args(ap, attention=False)
     ap.add_argument("--resume", action="store_true",
                     help="restore each stage's latest checkpoint and continue "
                          "(finished stages fast-forward)")
@@ -244,6 +250,7 @@ def main(argv=None):
     why = estimator_refusal(args.estimator, args.attention, args.attention_heads)
     if why is not None:
         ap.error(why)
+    resolve_kernel_flags(args, ap)
     if args.method == "ct" and args.teacher_ckpt:
         ap.error("--method ct is teacher-free (consistency TRAINING); drop "
                  "--teacher-ckpt (use cd to distill a diffusion teacher)")

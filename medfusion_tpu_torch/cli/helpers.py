@@ -40,9 +40,10 @@ random weights. All draws come from one generator seeded by ``--seed``.
 ``--estimator unet_legacy|openai|lucidrains|dit`` runs that family in place
 of the UNet (``--attention`` and ``--attention-heads`` refused where the
 JAX package refuses them); without it the family is the ``--ckpt`` run's.
-Refused, naming ROADMAP Queue 1 item 10: the kernel switches ``--flash``,
-``--fused-geglu`` and ``--fused-up``: the port runs its hand-written
-kernels always.
+``export-gif``, ``export-images``, ``interpolate``, ``inpaint`` and
+``img2img`` take the kernel switches of ``cli/kernels.py`` (``--flash``,
+``--fused-geglu``, ``--fused-up``, ``--s2d-tail``) with the JAX CLI's
+rules; ``--no-flash`` and ``--no-fused-geglu`` are refused on the card.
 
 Usage:
   python -m medfusion_tpu_torch.cli.helpers latent-stats --preset chest \\
@@ -64,12 +65,12 @@ import numpy as np
 import torch
 
 from medfusion_tpu_torch import resolve_device
+from medfusion_tpu_torch.cli.kernels import add_kernel_args, resolve_kernel_flags
 from medfusion_tpu_torch.cli.presets import (ESTIMATORS, PRESETS, build_dataset, build_pipeline,
                                              build_vae, estimator_refusal, load_vae)
-from medfusion_tpu_torch.cli.sample import load_unet_state, run_estimator
+from medfusion_tpu_torch.cli.sample import load_unet_state, run_estimator, vae_source
 from medfusion_tpu_torch.core import schedules as S
 from medfusion_tpu_torch.data.png import write_png
-from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw, _to_nhwc
 from medfusion_tpu_torch.pipelines.diffusion.editing import slerp
 from medfusion_tpu_torch.utils import checkpoint as C
@@ -182,7 +183,7 @@ def load_pipeline(args, p, dev):
             "zero_terminal_snr": False, "family": family})
     pipe = build_pipeline(p, device=dev, seed=args.seed, attention=args.attention,
                           attn_heads=args.attention_heads, unet_state=unet_state,
-                          vae_ckpt=args.vae_ckpt, family=family,
+                          vae_ckpt=vae_source(args), family=family,
                           flow_shift=getattr(args, "flow_shift", 1.0),
                           estimator=estimator)
     return dataclasses.replace(pipe, do_input_centering=False)
@@ -352,15 +353,11 @@ def main(argv=None):
         s.add_argument("--steps", type=int, default=25)
         s.add_argument("--seed", type=int, default=0)
         s.add_argument("--device", default="cuda")
-        if name in ("export-gif", "interpolate", "inpaint", "img2img"):
+        if name in ("export-gif", "export-images", "interpolate", "inpaint", "img2img"):
             s.add_argument("--estimator", default=None, choices=ESTIMATORS,
                            help="the noise-estimator family the checkpoint was trained "
                                 "with (default: the --ckpt run's, else unet)")
-            s.add_argument("--attention", choices=ATTENTION_TYPES, default="none")
-            s.add_argument("--attention-heads", type=int, default=8)
-            for flag in ("--flash", "--fused-geglu", "--fused-up"):
-                s.add_argument(flag, action=argparse.BooleanOptionalAction, default=None,
-                               help="not ported: the port runs its kernels always")
+            add_kernel_args(s)
         if name in ("interpolate", "inpaint", "img2img"):
             s.add_argument("--family", choices=("diffusion", "flow"), default="diffusion",
                            help="flow = a flow-matching checkpoint (path noising and "
@@ -396,11 +393,8 @@ def main(argv=None):
                             getattr(args, "attention_heads", 8))
     if why is not None:
         ap.error(why)
-    switches = [f for f in ("flash", "fused_geglu", "fused_up") if getattr(args, f, None)
-                is not None]
-    if switches:
-        ap.error(f"--{switches[0].replace('_', '-')}: the kernel switches are not ported; "
-                 f"the port runs its hand-written kernels always (ROADMAP Queue 1, item 10)")
+    if hasattr(args, "flash"):
+        resolve_kernel_flags(args, ap)
     if args.cmd == "export-gif" and args.out == "results/helpers":
         args.out = "results/helpers/trajectory.gif"
     return COMMANDS[args.cmd](args, resolve_device(args.device))

@@ -262,10 +262,12 @@ def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params=N
                    **options):
     """(estimator, VAE, device): the modules on ``device``, with a seeded
     torch initialisation, then the JAX package's flax params (nested numpy
-    dicts) or a port state dict of the estimator, and a VAE checkpoint
-    (``utils/checkpoint.py::restore_ae_params``) where given, each loaded
-    with ``strict=True``."""
+    dicts) or a state dict of the estimator (the port's, or a reference
+    checkpoint's, ``utils/torch_compat.py::load_strict``), and a VAE
+    checkpoint (``utils/checkpoint.py::restore_ae_params``) where given,
+    each loaded with ``strict=True``."""
     from medfusion_tpu_torch.utils.checkpoint import restore_ae_params
+    from medfusion_tpu_torch.utils.torch_compat import load_strict
     from medfusion_tpu_torch.utils.weights import load_jax_params
 
     dev = resolve_device(device)
@@ -278,7 +280,7 @@ def _build_modules(p: Preset, device, seed, attention, attn_heads, unet_params=N
     if vae_params is not None:
         load_jax_params(vae, vae_params, kind="vae")
     if unet_state is not None:
-        unet.load_state_dict(unet_state, strict=True)
+        load_strict(unet, unet_state)
     if vae_ckpt is not None:
         restore_ae_params(vae_ckpt, vae)
     return unet, vae, dev

@@ -55,11 +55,18 @@ have been trained with the ``--estimator``, ``--attention``,
 ``--attention-heads``, ``--objective``, ``--latent-scale`` and
 ``--latent-shift`` given here (its
 ``config.json`` is checked). ``--vae-ckpt`` is a port autoencoder run or an
-``.npz`` of the JAX VAE's flax params.
+``.npz`` of the JAX VAE's flax params. Either may instead be a reference
+Lightning ``.ckpt`` (``utils/torch_compat.py``): ``--ckpt`` takes its
+``noise_estimator.`` weights, and its ``latent_embedder.`` weights where it
+has them (over ``--vae-ckpt``, as in the JAX CLI); ``--vae-ckpt`` takes a
+reference autoencoder's file.
 
 ``--attention`` is the UNet's ``use_attention`` config ('spatial' is the
 reference's eye/colon attention config); on the card every attention and
-transformer MLP runs through the hand-written kernels.
+transformer MLP runs through the hand-written kernels. The kernel switches
+(``--flash``, ``--fused-geglu``, ``--fused-up``, ``--s2d-tail``) are the JAX
+CLI's, with its rules (``cli/kernels.py``); ``--no-flash`` and
+``--no-fused-geglu`` are refused on the card.
 
 ``--params`` is an ``.npz`` of the JAX package's flax params, keyed by the
 flax paths joined by '/', with ``noise_estimator/`` and ``latent_embedder/``
@@ -75,6 +82,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from medfusion_tpu_torch.cli.kernels import add_kernel_args, resolve_kernel_flags
 from medfusion_tpu_torch.cli.presets import (
     ESTIMATORS,
     PRESETS,
@@ -88,6 +96,7 @@ from medfusion_tpu_torch.pipelines.diffusion import make_classifier_grad
 from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 from medfusion_tpu_torch.train.consistency import consistency_sample
 from medfusion_tpu_torch.utils import checkpoint as C
+from medfusion_tpu_torch.utils.torch_compat import is_lightning_checkpoint, pipeline_states
 
 DTYPES = {"bf16": torch.bfloat16, "f32": None}
 
@@ -130,7 +139,14 @@ def load_classifier_arg(args, p, dev):
 
 def load_unet_state(path, ema: bool, flags: dict):
     """The UNet state dict of a port diffusion run's latest step (its EMA
-    copy with ``ema``), after checking the run's config against ``flags``."""
+    copy with ``ema``), after checking the run's config against ``flags``;
+    or the ``noise_estimator.`` part of a reference Lightning ``.ckpt``
+    (which has no port config and no EMA copy that the port reads)."""
+    if is_lightning_checkpoint(path):
+        if ema:
+            raise SystemExit(f"--ema: {path} is a reference Lightning checkpoint; its "
+                             f"estimator weights are the only ones read")
+        return pipeline_states(path)[0]
     ckpt_dir = C.ckpt_dir_of(Path(path))
     C.check_config(ckpt_dir, flags, f"--ckpt {path}")
     state = C.load_payload(ckpt_dir)["state"]
@@ -139,10 +155,19 @@ def load_unet_state(path, ema: bool, flags: dict):
     return state["ema"] if ema else state["model"]
 
 
+def vae_source(args):
+    """Where the pipeline's VAE comes from: a reference ``--ckpt`` file that
+    holds a latent embedder (as the JAX CLI, it wins over ``--vae-ckpt``),
+    else ``--vae-ckpt``."""
+    if is_lightning_checkpoint(args.ckpt) and pipeline_states(args.ckpt)[1] is not None:
+        return args.ckpt
+    return args.vae_ckpt
+
+
 def run_estimator(ckpt) -> str:
     """The estimator family a port run was trained with (its config's
     ``estimator``; 'unet' for a run without one, or without ``ckpt``)."""
-    if not ckpt:
+    if not ckpt or is_lightning_checkpoint(ckpt):
         return "unet"
     cfg = C.ckpt_dir_of(Path(ckpt)) / C.CONFIG_FILE
     return json.loads(cfg.read_text()).get("estimator", "unet") if cfg.exists() else "unet"
@@ -158,9 +183,7 @@ def check_args(ap, args) -> None:
     why = estimator_refusal(args.estimator, args.attention, args.attention_heads)
     if why is not None:
         ap.error(why)
-    if args.attention_heads != 8 and args.attention == "none":
-        ap.error("--attention-heads has no effect without attention layers; "
-                 "add --attention spatial|linear")
+    resolve_kernel_flags(args, ap)
     if args.ema and not args.ckpt:
         ap.error("--ema needs --ckpt")
     if args.family == "flow":
@@ -196,7 +219,8 @@ def check_args(ap, args) -> None:
 
 
 def add_estimator_args(ap) -> None:
-    """The estimator flags shared with ``cli.sample_dataset``."""
+    """The estimator flags shared with ``cli.sample_dataset``, the kernel
+    switches (``cli/kernels.py``) among them."""
     ap.add_argument("--estimator", choices=ESTIMATORS, default=None,
                     help="the noise-estimator family the checkpoint was trained with "
                          "(default: the --ckpt run's, else unet)")
@@ -207,6 +231,7 @@ def add_estimator_args(ap) -> None:
     ap.add_argument("--attention-heads", type=int, default=8,
                     help="attention heads (reference geometry: 8); must "
                          "divide every attended level's width")
+    add_kernel_args(ap, attention=False)
 
 
 def add_sampler_args(ap, consistency: bool = True) -> None:
@@ -299,10 +324,12 @@ def main(argv=None):
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     add_estimator_args(ap)
     ap.add_argument("--params", default=None, help="flax params .npz")
-    ap.add_argument("--ckpt", default=None, help="a port diffusion run")
+    ap.add_argument("--ckpt", default=None,
+                    help="a port diffusion run, or a reference Lightning .ckpt")
     ap.add_argument("--ema", action="store_true", help="--ckpt's EMA copy")
     ap.add_argument("--vae-ckpt", default=None,
-                    help="a port autoencoder run, or an .npz of the JAX VAE's params")
+                    help="a port autoencoder run, an .npz of the JAX VAE's params, or a "
+                         "reference Lightning .ckpt")
     ap.add_argument("--objective", choices=("x_T", "x_0", "v"), default="x_T")
     ap.add_argument("--latent-scale", type=float, default=1.0)
     ap.add_argument("--latent-shift", type=float, default=0.0)
@@ -328,7 +355,7 @@ def main(argv=None):
                           seed=args.seed, unet_params=unet_params,
                           vae_params=vae_params, attention=args.attention,
                           attn_heads=args.attention_heads, unet_state=unet_state,
-                          vae_ckpt=args.vae_ckpt, objective=args.objective,
+                          vae_ckpt=vae_source(args), objective=args.objective,
                           latent_scale=args.latent_scale, latent_shift=args.latent_shift,
                           zero_terminal_snr=args.zero_terminal_snr, family=args.family,
                           flow_shift=args.flow_shift, estimator=args.estimator)

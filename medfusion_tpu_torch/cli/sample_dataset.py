@@ -13,8 +13,9 @@ but the consistency sampler, as in the JAX CLI (``--sampler ddim|dpmpp|edm``,
 run at eta 1, as the JAX package's bulk sampler does. ``--family flow
 --flow-shift`` bulk-samples a flow-matching checkpoint with the Heun ODE
 (its step counts not capped at T), and ``--classifier-ckpt`` guides DDIM
-or DPM++ toward each chunk's label, as in ``cli.sample``; the refusals are
-``cli.sample``'s.
+or DPM++ toward each chunk's label, as in ``cli.sample``; the refusals,
+the kernel switches and the reference ``.ckpt`` files (``--ckpt``,
+``--vae-ckpt``) are ``cli.sample``'s.
 
 Seeding: the JAX CLI folds (steps, label, chunk) into its key; torch has no
 ``fold_in``, so each chunk draws from a ``torch.Generator`` seeded by
@@ -51,6 +52,7 @@ from medfusion_tpu_torch.cli.sample import (
     run_flags,
     run_sampler,
     sampling_steps,
+    vae_source,
 )
 from medfusion_tpu_torch.data.png import write_png
 
@@ -69,10 +71,12 @@ def chunk_generator(device, seed: int, steps: int, label_id: int, chunk_idx: int
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", choices=sorted(PRESETS), default="chest")
-    ap.add_argument("--ckpt", default=None, help="a port diffusion run")
+    ap.add_argument("--ckpt", default=None,
+                    help="a port diffusion run, or a reference Lightning .ckpt")
     ap.add_argument("--ema", action="store_true", help="--ckpt's EMA copy")
     ap.add_argument("--vae-ckpt", default=None,
-                    help="a port autoencoder run, or an .npz of the JAX VAE's params")
+                    help="a port autoencoder run, an .npz of the JAX VAE's params, or a "
+                         "reference Lightning .ckpt")
     ap.add_argument("--out", default="results/fake")
     ap.add_argument("--n-samples", type=int, default=7869)
     ap.add_argument("--chunk", type=int, default=200)
@@ -102,7 +106,7 @@ def main(argv=None):
     pipe = build_pipeline(p, device=args.device, compute_dtype=DTYPES[args.dtype],
                           seed=args.seed, attention=args.attention,
                           attn_heads=args.attention_heads, unet_state=unet_state,
-                          vae_ckpt=args.vae_ckpt, objective=args.objective,
+                          vae_ckpt=vae_source(args), objective=args.objective,
                           latent_scale=args.latent_scale, latent_shift=args.latent_shift,
                           zero_terminal_snr=args.zero_terminal_snr, family=args.family,
                           flow_shift=args.flow_shift, estimator=args.estimator)

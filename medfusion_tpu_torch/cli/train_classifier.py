@@ -101,7 +101,8 @@ def main(argv=None):
     ap.add_argument("--preset", choices=sorted(PRESETS), default="chest")
     ap.add_argument("--data-root", default=None)
     ap.add_argument("--vae-ckpt", default=None,
-                    help="a port autoencoder run, or an .npz of the JAX VAE's params")
+                    help="a port autoencoder run, an .npz of the JAX VAE's params, or a "
+                         "reference Lightning .ckpt")
     ap.add_argument("--out", default="runs/classifier")
     ap.add_argument("--max-steps", type=int, default=20000)
     ap.add_argument("--batch-size", type=int, default=None)

@@ -2,8 +2,9 @@
 
 The counterpart of ``medfusion_tpu/cli/train_diffusion.py``: the preset's
 dataset under ``--data-root`` (weighted as the JAX package weights it) or
-synthetic data, a frozen VAE (``--vae-ckpt``: a port autoencoder run, or an
-``.npz`` of the JAX VAE's flax params; else a seeded random VAE), the UNet,
+synthetic data, a frozen VAE (``--vae-ckpt``: a port autoencoder run, an
+``.npz`` of the JAX VAE's flax params, or a reference Lightning ``.ckpt``;
+else a seeded random VAE), the UNet,
 T=1000 scaled-linear schedule, CFG dropout 0.5, L1 loss, AdamW (lr 1e-4,
 weight decay 0.01) over the UNet only, optional EMA, batch 32 for the chest
 preset. ``--bf16`` trains with bf16 compute and float32 master weights,
@@ -60,7 +61,10 @@ Usage:
 
 Without ``--device cpu`` it runs on the card and raises when there is none.
 On the card every self-attention runs its forward and backward through the
-hand-written kernels. Not ported (ROADMAP Queue 1): the grain loader.
+hand-written kernels. The kernel switches (``--flash``, ``--fused-geglu``,
+``--fused-up``, ``--s2d-tail``) follow the JAX CLI's rules
+(``cli/kernels.py``); ``--no-flash`` and ``--no-fused-geglu`` are refused
+on the card. Not ported (ROADMAP Queue 1): the grain loader.
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ from pathlib import Path
 
 import torch
 
+from medfusion_tpu_torch.cli.kernels import add_kernel_args, resolve_kernel_flags
 from medfusion_tpu_torch.cli.presets import (
     ESTIMATORS,
     PRESETS,
@@ -106,8 +111,9 @@ def main(argv=None):
     ap.add_argument("--data-root", default=None,
                     help="the preset's dataset root (default: synthetic data)")
     ap.add_argument("--vae-ckpt", default=None,
-                    help="a port autoencoder run (or its checkpoints directory), or "
-                         "an .npz of the JAX VAE's flax params")
+                    help="a port autoencoder run (or its checkpoints directory), an "
+                         ".npz of the JAX VAE's flax params, or a reference Lightning "
+                         ".ckpt")
     ap.add_argument("--out", default=None,
                     help="run directory (checkpoints, logs, images); none: write nothing")
     ap.add_argument("--estimator", choices=ESTIMATORS, default="unet",
@@ -122,6 +128,7 @@ def main(argv=None):
                          "option")
     ap.add_argument("--attention", choices=ATTENTION_TYPES, default="none")
     ap.add_argument("--attention-heads", type=int, default=8)
+    add_kernel_args(ap, attention=False)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--max-steps", type=int, default=200000)
     ap.add_argument("--ckpt-every", type=int, default=1000)
@@ -164,9 +171,7 @@ def main(argv=None):
     why = estimator_refusal(args.estimator, args.attention, args.attention_heads)
     if why is not None:
         ap.error(why)
-    if args.attention_heads != 8 and args.attention == "none":
-        ap.error("--attention-heads has no effect without attention layers; "
-                 "add --attention spatial|linear")
+    resolve_kernel_flags(args, ap)
     if args.family == "flow":
         if args.zero_terminal_snr or args.min_snr_gamma is not None:
             ap.error("--zero-terminal-snr/--min-snr-gamma are diffusion-schedule "

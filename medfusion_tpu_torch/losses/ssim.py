@@ -1,4 +1,5 @@
-"""SSIM and MS-SSIM on NCHW images (port of ``medfusion_tpu/losses/ssim.py``).
+"""SSIM and MS-SSIM on NCHW images, SSIM also on NCDHW volumes (port of
+``medfusion_tpu/losses/ssim.py``).
 
 The semantics of the ``pytorch_msssim`` package the reference trains with
 (``ssim(..., data_range=1, size_average=False, nonnegative_ssim=True)``): a
@@ -26,11 +27,16 @@ def _gaussian_kernel1d(win_size: int, sigma: float) -> np.ndarray:
 
 
 def _gaussian_filter(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Depthwise VALID blur of [B, C, H, W] along H, then W."""
-    c = x.shape[1]
+    """Depthwise VALID blur of [B, C, *spatial] (2 or 3 spatial dims) along
+    each spatial axis in turn."""
+    c, n = x.shape[1], x.ndim - 2
     k = kernel.to(x.dtype)
-    x = F.conv2d(x, k.reshape(1, 1, -1, 1).expand(c, 1, -1, 1), groups=c)
-    return F.conv2d(x, k.reshape(1, 1, 1, -1).expand(c, 1, 1, -1), groups=c)
+    conv = {2: F.conv2d, 3: F.conv3d}[n]
+    for axis in range(n):
+        shape = [1] * n
+        shape[axis] = -1
+        x = conv(x, k.reshape(1, 1, *shape).expand(c, 1, *shape), groups=c)
+    return x
 
 
 def _ssim_per_channel(x: torch.Tensor, y: torch.Tensor, data_range: float,
@@ -54,14 +60,16 @@ def _ssim_per_channel(x: torch.Tensor, y: torch.Tensor, data_range: float,
 
     cs_map = (2 * sigma_xy + c2) / (sigma_xx + sigma_yy + c2)
     ssim_map = ((2 * mu_xy + c1) / (mu_xx + mu_yy + c1)) * cs_map
-    return ssim_map.mean(dim=(2, 3)), cs_map.mean(dim=(2, 3))
+    dims = tuple(range(2, x.ndim))
+    return ssim_map.mean(dim=dims), cs_map.mean(dim=dims)
 
 
 def ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
          size_average: bool = True, win_size: int = 11, win_sigma: float = 1.5,
          k: Tuple[float, float] = (0.01, 0.03),
          nonnegative_ssim: bool = False) -> torch.Tensor:
-    """SSIM of NCHW images: a scalar (``size_average``) or [B]."""
+    """SSIM of NCHW images or NCDHW volumes: a scalar (``size_average``) or
+    [B]."""
     s, _ = _ssim_per_channel(x, y, data_range, win_size, win_sigma, k)
     if nonnegative_ssim:
         s = torch.relu(s)

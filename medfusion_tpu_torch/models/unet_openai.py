@@ -25,7 +25,10 @@ is a plain matmul softmax, as the JAX package's einsum. Dropout
 (``nn.Dropout``) sits in the reference's ``out_layers.2`` slot of a
 ResBlock. ``UNetOpenAI(remat=True)`` recomputes each ResBlock and
 attention block in the backward (not the spatial transformers), as the JAX
-package's ``nn.remat``. 2-D only: the 3-D UNet is ROADMAP Queue 1 item 8.
+package's ``nn.remat``. ``UNetOpenAI(spatial_dims=3)`` runs on [B, C, D,
+H, W] with the JAX package's 3-D rules: the 2x upsampling and the average
+pool act on the inner two dims only, and the conv downsample has stride
+(1, 2, 2). The classifier is 2-D.
 """
 
 from __future__ import annotations
@@ -73,21 +76,29 @@ def _zero(module: nn.Module) -> nn.Module:
     return module
 
 
+def _conv(n: int, *args, **kwargs) -> nn.Module:
+    """``nn.Conv2d`` or, at ``n`` = 3, ``nn.Conv3d``."""
+    return {2: nn.Conv2d, 3: nn.Conv3d}[n](*args, **kwargs)
+
+
 def _avg_pool2x(x):
-    return F.avg_pool2d(x, 2)
+    """Stride-2 average pool; on [B, C, D, H, W] of the inner two dims."""
+    return F.avg_pool3d(x, (1, 2, 2)) if x.ndim == 5 else F.avg_pool2d(x, 2)
 
 
 def _upsample2x(x):
+    """Nearest 2x upsample of the last two dims (in 3-D: (D, 2H, 2W))."""
     return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
 
 class SDUpsample(nn.Module):
     """Nearest 2x upsample, then a 3x3 conv when ``use_conv``."""
 
-    def __init__(self, channels: int, out_channels: int, use_conv: bool):
+    def __init__(self, channels: int, out_channels: int, use_conv: bool,
+                 spatial_dims: int = 2):
         super().__init__()
         if use_conv:
-            self.conv = nn.Conv2d(channels, out_channels, 3, padding=1)
+            self.conv = _conv(spatial_dims, channels, out_channels, 3, padding=1)
         elif channels != out_channels:
             raise ValueError("an upsample without its conv keeps the width")
 
@@ -97,12 +108,14 @@ class SDUpsample(nn.Module):
 
 
 class SDDownsample(nn.Module):
-    """Stride-2 3x3 conv or 2x2 average pool."""
+    """Stride-2 3x3 conv (stride (1, 2, 2) in 3-D) or 2x2 average pool."""
 
-    def __init__(self, channels: int, out_channels: int, use_conv: bool):
+    def __init__(self, channels: int, out_channels: int, use_conv: bool,
+                 spatial_dims: int = 2):
         super().__init__()
         if use_conv:
-            self.op = nn.Conv2d(channels, out_channels, 3, stride=2, padding=1)
+            stride = (1, 2, 2) if spatial_dims == 3 else 2
+            self.op = _conv(spatial_dims, channels, out_channels, 3, stride=stride, padding=1)
         elif channels != out_channels:
             raise ValueError("an average-pool downsample keeps the width")
 
@@ -120,21 +133,22 @@ class SDResBlock(nn.Module):
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
                  dropout: float = 0.0, use_conv_shortcut: bool = False,
                  use_scale_shift_norm: bool = False, down: bool = False,
-                 norm_groups: int = 32, up: bool = False):
+                 norm_groups: int = 32, up: bool = False, spatial_dims: int = 2):
         super().__init__()
+        n = spatial_dims
         self.down, self.up = down, up
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.Sequential(GroupNorm32(channels, norm_groups), nn.SiLU(),
-                                       nn.Conv2d(channels, out_channels, 3, padding=1))
+                                       _conv(n, channels, out_channels, 3, padding=1))
         emb_out = 2 * out_channels if use_scale_shift_norm else out_channels
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, emb_out))
         self.out_layers = nn.Sequential(
             GroupNorm32(out_channels, norm_groups), nn.SiLU(),
             nn.Dropout(dropout) if dropout else nn.Identity(),
-            _zero(nn.Conv2d(out_channels, out_channels, 3, padding=1)))
+            _zero(_conv(n, out_channels, out_channels, 3, padding=1)))
         if out_channels != channels:
             k = 3 if use_conv_shortcut else 1
-            self.skip_connection = nn.Conv2d(channels, out_channels, k, padding=k // 2)
+            self.skip_connection = _conv(n, channels, out_channels, k, padding=k // 2)
         else:
             self.skip_connection = nn.Identity()
 
@@ -145,7 +159,8 @@ class SDResBlock(nn.Module):
         elif self.down:
             h, x = _avg_pool2x(h), _avg_pool2x(x)
         h = self.in_layers[-1](h)
-        emb_out = self.emb_layers(emb).to(h.dtype)[..., None, None]
+        emb_out = self.emb_layers(emb).to(h.dtype)
+        emb_out = emb_out.reshape(*emb_out.shape, *(1,) * (h.ndim - 2))
         if self.use_scale_shift_norm:
             scale, shift = torch.chunk(emb_out, 2, dim=1)
             h = F.silu(self.out_layers[0](h) * (1 + scale) + shift)
@@ -261,15 +276,16 @@ class SDSpatialTransformer(nn.Module):
     residual."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
-                 context_dim: Optional[int] = None, norm_groups: int = 32):
+                 context_dim: Optional[int] = None, norm_groups: int = 32,
+                 spatial_dims: int = 2):
         super().__init__()
         inner = n_heads * d_head
         self.norm = GroupNorm32(in_channels, norm_groups, eps=1e-6)
-        self.proj_in = nn.Conv2d(in_channels, inner, 1)
+        self.proj_in = _conv(spatial_dims, in_channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
             SDBasicTransformerBlock(inner, n_heads, d_head, context_dim)
             for _ in range(depth)])
-        self.proj_out = _zero(nn.Conv2d(inner, in_channels, 1))
+        self.proj_out = _zero(_conv(spatial_dims, inner, in_channels, 1))
 
     def forward(self, x, context=None):
         h = self.proj_in(self.norm(x))
@@ -301,8 +317,9 @@ class UNetOpenAI(nn.Module):
                  context_dim: Optional[int] = None, norm_groups: int = 32,
                  remat: bool = False):
         super().__init__()
-        if spatial_dims != 2:
-            raise NotImplementedError("the 3-D UNetOpenAI is ROADMAP Queue 1 item 8")
+        if spatial_dims not in (2, 3):
+            raise ValueError(f"spatial_dims must be 2 or 3, got {spatial_dims}")
+        n = spatial_dims
         mc, ted = model_channels, model_channels * 4
         self.model_channels = mc
         self.num_classes = num_classes
@@ -319,20 +336,20 @@ class UNetOpenAI(nn.Module):
         def res(ch_in, ch_out, **updown):
             return SDResBlock(ch_in, ted, ch_out, dropout,
                               use_scale_shift_norm=use_scale_shift_norm,
-                              norm_groups=norm_groups, **updown)
+                              norm_groups=norm_groups, spatial_dims=n, **updown)
 
         def attn(ch, upsample=False):
             h = heads(ch, upsample)
             if use_spatial_transformer:
                 return SDSpatialTransformer(ch, h, ch // h, transformer_depth, context_dim,
-                                            norm_groups)
+                                            norm_groups, spatial_dims=n)
             return SDAttentionBlock(ch, h, new_order=use_new_attention_order,
                                     norm_groups=norm_groups)
 
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
         if num_classes is not None:
             self.label_emb = nn.Embedding(num_classes, ted)
-        blocks = [_EmbedSequential(nn.Conv2d(in_channels, mc, 3, padding=1))]
+        blocks = [_EmbedSequential(_conv(n, in_channels, mc, 3, padding=1))]
         ch, ds, chans = mc, 1, [mc]
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
@@ -345,7 +362,7 @@ class UNetOpenAI(nn.Module):
             if level != len(channel_mult) - 1:
                 blocks.append(_EmbedSequential(
                     res(ch, ch, down=True) if resblock_updown
-                    else SDDownsample(ch, ch, conv_resample)))
+                    else SDDownsample(ch, ch, conv_resample, n)))
                 chans.append(ch)
                 ds *= 2
         self.input_blocks = nn.ModuleList(blocks)
@@ -359,18 +376,18 @@ class UNetOpenAI(nn.Module):
                     layers.append(attn(ch, upsample=True))
                 if level and i == num_res_blocks:
                     layers.append(res(ch, ch, up=True) if resblock_updown
-                                  else SDUpsample(ch, ch, conv_resample))
+                                  else SDUpsample(ch, ch, conv_resample, n))
                     ds //= 2
                 out_blocks.append(_EmbedSequential(*layers))
         self.output_blocks = nn.ModuleList(out_blocks)
         self.out = nn.Sequential(GroupNorm32(ch, norm_groups), nn.SiLU(),
-                                 _zero(nn.Conv2d(mc, out_channels, 3, padding=1)))
+                                 _zero(_conv(n, mc, out_channels, 3, padding=1)))
 
     def _run(self, layers, h, emb, context):
         for layer in layers:
             if isinstance(layer, SDSpatialTransformer):
                 h = layer(h, context)
-            elif isinstance(layer, nn.Conv2d):
+            elif isinstance(layer, (nn.Conv2d, nn.Conv3d)):
                 h = layer(h)
             elif (self.remat and torch.is_grad_enabled()
                   and isinstance(layer, (SDResBlock, SDAttentionBlock))):

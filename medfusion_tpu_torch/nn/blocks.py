@@ -1,4 +1,8 @@
-"""Conv/norm/act building blocks, NCHW (port of ``medfusion_tpu/nn/blocks.py``).
+"""Conv/norm/act building blocks, NCHW or NCDHW (port of
+``medfusion_tpu/nn/blocks.py``): every block takes ``spatial_dims`` 2 or 3,
+as the JAX package's do (``nn.Conv2d``/``nn.Conv3d``,
+``nn.BatchNorm2d``/``nn.BatchNorm3d``; the norms, attention and resizes act
+on any number of spatial dims).
 
 Submodule names follow the reference's torch modules, which are the keys that
 ``medfusion_tpu.utils.torch_compat.to_torch_state_dict`` emits, so a JAX
@@ -9,7 +13,7 @@ GROUP norm, with or without its affine parameters, always runs through
 on the card), and a BasicBlock whose epilogue is exactly GroupNorm -> SiLU,
 with no dropout between, folds the SiLU into the same call, as the JAX
 package's BasicBlock does with its fused-GroupNorm switch on. BATCH norm
-(the PatchGAN discriminator's) is an ``nn.BatchNorm2d``; LAYER is a
+(the PatchGAN discriminator's) is an ``nn.BatchNorm{2,3}d``; LAYER is a
 LayerNorm over the channels and INSTANCE a GroupNorm of one channel a
 group (affine off by default), both plain, as the JAX package leaves them
 to flax. Dropout (``nn.Dropout``, the global RNG, which
@@ -103,16 +107,18 @@ class Norm(nn.Module):
                                apply_silu=self.fuse_silu)
 
 
-def make_norm(norm_name: NormName, channels: int, fuse_silu: bool = False) -> nn.Module:
-    """:class:`Norm` for GROUP, LAYER and INSTANCE; ``nn.BatchNorm2d`` for
-    BATCH, with flax's momentum 0.9 as torch's 0.1. BatchNorm normalises by
+def make_norm(norm_name: NormName, channels: int, fuse_silu: bool = False,
+              spatial_dims: int = 2) -> nn.Module:
+    """:class:`Norm` for GROUP, LAYER and INSTANCE; ``nn.BatchNorm2d`` (or
+    ``3d``) for BATCH, with flax's momentum 0.9 as torch's 0.1. BatchNorm normalises by
     the batch's statistics in train mode, in which the adversarial trainer
     always runs the discriminators (as Lightning does); torch updates
     ``running_var`` with the unbiased batch variance, flax with the biased
     one."""
     kind, kw = _parse(norm_name)
     if kind == "batch":
-        return nn.BatchNorm2d(channels, eps=kw.get("eps", 1e-5), momentum=0.1)
+        cls = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[spatial_dims]
+        return cls(channels, eps=kw.get("eps", 1e-5), momentum=0.1)
     return Norm(norm_name, channels, fuse_silu=fuse_silu)
 
 
@@ -123,13 +129,16 @@ def make_dropout(dropout: Optional[float]) -> Optional[nn.Module]:
 
 
 def conv_nd(in_channels: int, out_channels: int, kernel_size=3, stride=1,
-            zero_init: bool = False, spatial_dims: int = 2) -> nn.Conv2d:
-    """``nn.Conv2d`` with MONAI padding (k - s + 1) // 2 and torch init."""
-    if spatial_dims != 2:
-        raise NotImplementedError("only 2D convs are ported")
-    k = FN.ensure_tuple(kernel_size, 2)
-    s = FN.ensure_tuple(stride, 2)
-    conv = nn.Conv2d(in_channels, out_channels, k, s, FN.get_padding(k, s, 2))
+            zero_init: bool = False, spatial_dims: int = 2) -> nn.Module:
+    """``nn.Conv2d`` (``nn.Conv3d`` at ``spatial_dims=3``) with MONAI padding
+    (k - s + 1) // 2 and torch init."""
+    cls = {2: nn.Conv2d, 3: nn.Conv3d}.get(spatial_dims)
+    if cls is None:
+        raise ValueError(f"spatial_dims must be 2 or 3, got {spatial_dims}")
+    n = spatial_dims
+    k = FN.ensure_tuple(kernel_size, n)
+    s = FN.ensure_tuple(stride, n)
+    conv = cls(in_channels, out_channels, k, s, FN.get_padding(k, s, n))
     if zero_init:
         nn.init.zeros_(conv.weight)
         nn.init.zeros_(conv.bias)
@@ -152,7 +161,8 @@ class BasicBlock(nn.Module):
         act_kind, _ = _parse(act_name)
         fuse = norm_kind == "group" and act_kind in ("swish", "silu") and dropout is None
         if norm_name is not None:
-            self.norm = make_norm(norm_name, out_channels, fuse_silu=fuse)
+            self.norm = make_norm(norm_name, out_channels, fuse_silu=fuse,
+                                  spatial_dims=spatial_dims)
         self.drop = make_dropout(dropout)
         self.act = None if fuse else make_act(act_name)
 

@@ -1,5 +1,5 @@
 """Small functional helpers with PyTorch/MONAI semantics
-(port of ``medfusion_tpu/nn/functional.py``; NCHW here)."""
+(port of ``medfusion_tpu/nn/functional.py``; NCHW or NCDHW here)."""
 
 from __future__ import annotations
 
@@ -48,11 +48,13 @@ def interpolate_nearest_exact(x: torch.Tensor, size: Sequence[int]) -> torch.Ten
 
 
 def interpolate_area(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
-    """torch ``F.interpolate(mode='area')`` on [B, C, H, W]: the mean over
-    bin [floor(b*in/out), ceil((b+1)*in/out)) of each axis."""
+    """torch ``F.interpolate(mode='area')`` on [B, C, H, W] or [B, C, D, H,
+    W]: the mean over bin [floor(b*in/out), ceil((b+1)*in/out)) of each
+    axis."""
     if tuple(x.shape[2:]) == tuple(size):
         return x
-    return F.adaptive_avg_pool2d(x, tuple(size))
+    pool = {2: F.adaptive_avg_pool2d, 3: F.adaptive_avg_pool3d}[x.ndim - 2]
+    return pool(x, tuple(size))
 
 
 def save_add(*args):

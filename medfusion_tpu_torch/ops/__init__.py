@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from medfusion_tpu_torch.ops import flash_attention as _fa
 from medfusion_tpu_torch.ops import geglu, group_norm
+from medfusion_tpu_torch.ops.build import LAUNCH_LOCK
 
 # KV length from which attention takes the head-layout entry; shorter KV
 # takes the token-layout entry. This is the JAX package's split
@@ -41,18 +42,20 @@ def attention(q, k, v, num_heads: int, scale: float):
 
 def launch_counts() -> dict:
     """Kernel name -> launches since the last :func:`reset_launch_counts`."""
-    return {"group_norm_silu": group_norm.LAUNCHES,
-            "flash_attention": _fa.LAUNCHES,
-            "flash_attention_tokens": _fa.TOKEN_LAUNCHES,
-            "flash_attention_bwd_dq": _fa.BWD_DQ_LAUNCHES,
-            "flash_attention_bwd_dkv": _fa.BWD_DKV_LAUNCHES,
-            "geglu_mlp": geglu.LAUNCHES}
+    with LAUNCH_LOCK:
+        return {"group_norm_silu": group_norm.LAUNCHES,
+                "flash_attention": _fa.LAUNCHES,
+                "flash_attention_tokens": _fa.TOKEN_LAUNCHES,
+                "flash_attention_bwd_dq": _fa.BWD_DQ_LAUNCHES,
+                "flash_attention_bwd_dkv": _fa.BWD_DKV_LAUNCHES,
+                "geglu_mlp": geglu.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    group_norm.LAUNCHES = 0
-    _fa.LAUNCHES = 0
-    _fa.TOKEN_LAUNCHES = 0
-    _fa.BWD_DQ_LAUNCHES = 0
-    _fa.BWD_DKV_LAUNCHES = 0
-    geglu.LAUNCHES = 0
+    with LAUNCH_LOCK:
+        group_norm.LAUNCHES = 0
+        _fa.LAUNCHES = 0
+        _fa.TOKEN_LAUNCHES = 0
+        _fa.BWD_DQ_LAUNCHES = 0
+        _fa.BWD_DKV_LAUNCHES = 0
+        geglu.LAUNCHES = 0

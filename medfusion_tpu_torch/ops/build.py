@@ -6,7 +6,11 @@ one shared library (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 each. Libraries land in ``medfusion_tpu_torch/_build/`` under a name that
 carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source or header rebuilds and an unchanged one is
-reused. A failed build raises with the compiler's output.
+reused. A failed build raises with the compiler's output. One lock
+serialises the builds and loads, so threads that launch their first kernels
+at once (a server's worker and handler threads) run one ``nvcc`` a source,
+not one each into the same temporary file; :data:`LAUNCH_LOCK` guards the
+wrappers' launch counts.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -29,6 +34,11 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 BUILD_LOG: Dict[str, str] = {}  # stem -> compiler output (ptxas register use)
 BUILD_SECONDS: Dict[str, float] = {}  # stem -> seconds from the builds' start to its end
+_BUILD_LOCK = threading.RLock()  # build_all and the loads in library/function
+# Held by each wrapper around its ``LAUNCHES += 1`` (a read-modify-write of a
+# module global) and by ``ops.reset_launch_counts``, so counts taken while
+# several threads launch are exact.
+LAUNCH_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -50,7 +60,12 @@ def _target(src: Path) -> Path:
 
 def build_all() -> Dict[str, Path]:
     """Compile every ``csrc/*.cu`` that has no up-to-date library, all at
-    once. Returns stem -> library path."""
+    once, under the build lock. Returns stem -> library path."""
+    with _BUILD_LOCK:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, Path]:
     sources = sorted(CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {s.stem: _target(s) for s in sources}
@@ -89,10 +104,13 @@ def library(stem: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<stem>.cu``."""
     lib = _LIBS.get(stem)
     if lib is None:
-        targets = build_all()
-        if stem not in targets:
-            raise RuntimeError(f"no kernel source csrc/{stem}.cu")
-        lib = _LIBS[stem] = ctypes.CDLL(str(targets[stem]))
+        with _BUILD_LOCK:
+            lib = _LIBS.get(stem)
+            if lib is None:
+                targets = build_all()
+                if stem not in targets:
+                    raise RuntimeError(f"no kernel source csrc/{stem}.cu")
+                lib = _LIBS[stem] = ctypes.CDLL(str(targets[stem]))
     return lib
 
 
@@ -101,8 +119,11 @@ def function(stem: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     int CUDA error code, with its argument types set once."""
     fn = _FNS.get(symbol)
     if fn is None:
-        fn = getattr(library(stem), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[symbol] = fn
+        with _BUILD_LOCK:
+            fn = _FNS.get(symbol)
+            if fn is None:
+                fn = getattr(library(stem), symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _FNS[symbol] = fn
     return fn

@@ -39,6 +39,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from medfusion_tpu_torch.ops.build import LAUNCH_LOCK
+
 # Launches of the CUDA kernel through each entry since import (or since a
 # caller reset them).
 LAUNCHES = 0  # head layout, flash_attention
@@ -278,7 +280,8 @@ def flash_attention_bwd_dq(ops, scale: float):
     writes dq and delta = rowsum(do * o)."""
     global BWD_DQ_LAUNCHES
     _launch_bwd("dq", ops, scale)
-    BWD_DQ_LAUNCHES += 1
+    with LAUNCH_LOCK:
+        BWD_DQ_LAUNCHES += 1
 
 
 def flash_attention_bwd_dkv(ops, scale: float):
@@ -286,7 +289,8 @@ def flash_attention_bwd_dkv(ops, scale: float):
     before it on the same stream) and writes dk and dv."""
     global BWD_DKV_LAUNCHES
     _launch_bwd("dkv", ops, scale)
-    BWD_DKV_LAUNCHES += 1
+    with LAUNCH_LOCK:
+        BWD_DKV_LAUNCHES += 1
 
 
 def flash_attention_backward_cuda(q, k, v, o, lse, do, scale: float):
@@ -317,7 +321,8 @@ def flash_attention_cuda(q, k, v, scale: float):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda takes a CUDA tensor, got {q.device}")
     _launch(*ops, scale)
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return ops[3][..., :d], ops[4]
 
 
@@ -336,7 +341,8 @@ def flash_attention_tokens_cuda(q, k, v, num_heads: int, scale: float):
         raise ValueError(f"flash_attention_tokens_cuda takes a CUDA tensor, "
                          f"got {q.device}")
     _launch(*ops, scale)
-    TOKEN_LAUNCHES += 1
+    with LAUNCH_LOCK:
+        TOKEN_LAUNCHES += 1
     return ops[3][..., :d].transpose(1, 2).flatten(2), ops[4].transpose(1, 2)
 
 

@@ -28,6 +28,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from medfusion_tpu_torch.ops.build import LAUNCH_LOCK
+
 # Launches of the CUDA kernel since import (or since a caller reset it).
 LAUNCHES = 0
 
@@ -150,7 +152,8 @@ def geglu_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2):
         raise ValueError(f"geglu_mlp_cuda takes a CUDA tensor, got {x.device}")
     out = launch(function("geglu_mlp", "mf_geglu_mlp", _ARGTYPES),
                  x, ln_scale, ln_bias, w1, b1, w2, b2)
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return out
 
 

@@ -22,6 +22,8 @@ import math
 
 import torch
 
+from medfusion_tpu_torch.ops.build import LAUNCH_LOCK
+
 # Launches of the CUDA kernel since import (or since a caller reset it).
 LAUNCHES = 0
 
@@ -211,7 +213,8 @@ def group_norm_silu_cuda(x, scale, bias, num_groups: int, eps: float = 1e-5,
                          x.dtype, x.data_ptr() % VEC_BYTES == 0)
     y = launch(function("group_norm_silu", "mf_group_norm_silu", _ARGTYPES), x,
                scale.contiguous(), bias.contiguous(), num_groups, eps, apply_silu, plan)
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return y
 
 
@@ -235,11 +238,15 @@ class _GroupNormSiLU(torch.autograd.Function):
 def group_norm_silu(x, scale, bias, num_groups: int, eps: float = 1e-5,
                     apply_silu: bool = True):
     """GroupNorm(+SiLU) of NCHW ``x``: the CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    the plain version for a CPU tensor. A CUDA ``x`` in another memory
+    layout is copied to contiguous NCHW first: cuDNN answers a conv whose
+    input has one channel (a grey image or a volume, whose strides also read
+    as channels-last) in the channels-last layout."""
     if x.device.type == "cpu":
         return group_norm_silu_reference(x, scale, bias, num_groups, eps, apply_silu)
     if x.device.type != "cuda":
         raise ValueError(f"no group_norm_silu for device {x.device}")
+    x = x.contiguous()
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, scale, bias)):
         return _GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)

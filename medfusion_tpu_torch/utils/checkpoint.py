@@ -160,9 +160,10 @@ def restore_ae_params(path, vae: torch.nn.Module, step: Optional[int] = None) ->
     """Load autoencoder weights into ``vae`` with ``strict=True``: from a port
     autoencoder run, plain or adversarial (its directory or its
     ``checkpoints`` directory; the latest step, or ``step``; a GAN run's
-    generator), or from an ``.npz`` of the JAX VAE's flax params (paths
+    generator), from an ``.npz`` of the JAX VAE's flax params (paths
     joined by '/', bare, under ``latent_embedder/`` or a GAN state's
-    ``gen/params/``). Raises
+    ``gen/params/``), or from a reference Lightning ``.ckpt``
+    (``utils/torch_compat.py::autoencoder_state``). Raises
     ValueError on any missing, unexpected or misshapen tensor: a silent
     fallback would train diffusion on a random VAE's latents. Returns the
     file it loaded."""
@@ -174,6 +175,10 @@ def restore_ae_params(path, vae: torch.nn.Module, step: Optional[int] = None) ->
             tree = unflatten_npz({k: f[k] for k in f.files})
         tree = tree["gen"]["params"] if "gen" in tree else tree.get("latent_embedder", tree)
         sd, src = jax_params_to_state_dict(tree, kind="vae"), path
+    elif path.suffix == ".ckpt":
+        from medfusion_tpu_torch.utils.torch_compat import autoencoder_state, fit_layout
+
+        sd, src = fit_layout(vae, autoencoder_state(path)), path
     else:
         ckpt_dir = ckpt_dir_of(path)
         step = latest_step(ckpt_dir) if step is None else step

@@ -8,7 +8,9 @@ two discriminators, and the legacy UNet by the VAE's rules; the DiT by its
 own rule, :func:`jax_dit_to_state_dict`):
 a nested dict of numpy arrays, keyed as the flax param
 tree, becomes a state dict with the reference's torch key names, with conv
-kernels moved from HWIO to OIHW and dense kernels to [out, in]. A BatchNorm's
+kernels moved from [*k, in, out] to [out, in, *k] (HWIO to OIHW, or
+[kd, kh, kw, in, out] to [out, in, kd, kh, kw] in 3-D) and dense kernels to
+[out, in]. A BatchNorm's
 flax ``batch_stats`` (mean, var) become ``running_mean``/``running_var``,
 with a ``num_batches_tracked`` of 0: flax keeps no count, and torch reads it
 only with ``momentum=None``, which the port never sets. The flax tree is
@@ -251,7 +253,8 @@ def jax_vgg16_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 def _by_model_keys(params: Mapping, model: torch.nn.Module, key_to_path,
                    what: str) -> Dict[str, torch.Tensor]:
     """Each of ``model``'s state-dict keys -> its flax path by
-    ``key_to_path(key, ndim)``; conv kernels HWIO -> OIHW, dense kernels
+    ``key_to_path(key, ndim)``; conv kernels [*k, I, O] -> [O, I, *k] (2-D
+    or 3-D), dense kernels
     [I, O] -> [O, I], a lucidrains ``g`` [C] -> [1, C, 1, 1]. Raises on a
     key without a flax leaf and on a flax leaf that no key reads."""
     flat = {path: np.array(val, np.float32) for path, val in _flatten(params)}
@@ -262,7 +265,8 @@ def _by_model_keys(params: Mapping, model: torch.nn.Module, key_to_path,
             raise ValueError(f"no flax leaf {path} for the {what}'s {key}")
         arr = flat.pop(path)
         if path.endswith("/kernel"):
-            arr = arr.T if arr.ndim == 2 else np.transpose(arr, (3, 2, 0, 1))
+            n = arr.ndim - 2
+            arr = arr.T if arr.ndim == 2 else np.transpose(arr, (n + 1, n, *range(n)))
         elif path.endswith("/g"):
             arr = arr.reshape(ref.shape)
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))

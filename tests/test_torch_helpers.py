@@ -208,13 +208,16 @@ def test_extract_vae(tmp_path):
 @pytest.mark.parametrize("flags,why", [
     (["interpolate", "--family", "flow", "--estimator", "openai", "--steps", "2"], None),
     (["img2img", "--estimator", "openai", "--steps", "2"], None),
-    (["inpaint", "--flash"], "item 10"),
-    (["interpolate", "--no-fused-geglu"], "item 10"),
-    (["export-gif", "--fused-up"], "item 10"),
+    (["inpaint", "--flash"], "--flash has no effect without attention layers"),
+    (["interpolate", "--attention", "spatial", "--no-fused-geglu", "--steps", "2", "--n", "2"],
+     None),
+    (["export-images", "--fused-up", "--n", "2"], None),
 ], ids=["flow", "estimator", "flash", "no-fused-geglu", "fused-up"])
 def test_helper_refusals(capsys, tmp_path, flags, why):
-    """The kernel switches are refused naming ROADMAP item 10; a case
-    without a reason (the OpenAI family, ported since) runs."""
+    """The kernel switches follow the JAX CLI's rules (``cli/kernels.py``):
+    ``--flash`` without attention is refused; ``--no-fused-geglu`` runs the
+    plain MLP on the CPU, and ``--fused-up`` changes nothing. A case without
+    a reason runs."""
     if why is None:
         helpers.main([*flags, "--device", "cpu", "--out", str(tmp_path / "h")])
         assert list((tmp_path / "h").glob("*.png"))

@@ -957,3 +957,24 @@ def test_remat_step_on_the_card_equals_the_plain_step(cuda, estimator):
     else:
         norms = sum(isinstance(m, Norm) for m in model.modules())
         assert n1["group_norm_silu"] == n0["group_norm_silu"] + norms > norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spatial_dims", [2, 3])
+def test_group_norm_silu_takes_the_channels_last_output_of_a_one_channel_conv(
+        cuda, spatial_dims):
+    """A one-channel input reads as channels-last, and cuDNN answers its
+    conv in that layout; the wrapper copies it to contiguous NCHW (NCDHW)
+    before the kernel, forward and backward."""
+    from medfusion_tpu_torch.nn.blocks import BasicBlock
+
+    side = (8, 16, 16) if spatial_dims == 3 else (32, 32)
+    block = BasicBlock(spatial_dims, 1, 16, 3, 1, ("GROUP", {"num_groups": 4}),
+                       ("SWISH", {})).cuda()
+    x = torch.randn((2, 1, *side), generator=cuda, device="cuda").requires_grad_()
+    out = block(x)
+    h = block.conv(x).contiguous()
+    ref = G.group_norm_silu_reference(h, block.norm.weight, block.norm.bias, 4)
+    torch.testing.assert_close(out, ref, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+    out.sum().backward()
+    assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
