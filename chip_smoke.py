@@ -154,7 +154,22 @@ Phases (each raises on failure, so any failure exits non-zero):
     the chest-width 3-D UNet's DDIM 50 with CFG 4 at B=2 and the decode;
     ``tests/test_3d.py``'s sizes card against CPU; a ``.nii.gz`` read
     through ``SimpleDataset3D``; every run's launches held to the counts
-    derived from the architecture.
+    derived from the architecture;
+17. the last data and utility modules and the diffusers blocks (slice 16):
+    ``cli.train_diffusion --grain --no-donate`` on phase 9's tree (chest,
+    B=32, bf16, EMA, 3 steps): kernel 1's launches held, each step's
+    indices held to grain's order of seed + epoch, a run resumed at step 2
+    bit-equal to the unbroken one (cuDNN's deterministic algorithms on);
+    ``prefetch_to_device`` over that loader's batches bit-equal and in order
+    on the card, a 5-step loop's ms with and without it, and that loop inside
+    ``utils.profiling.trace`` whose trace file must hold the ``annotate``
+    region with CUDA kernels in it; the FIR resamplers, ``DResnetBlock``'s FIR
+    modes, the factories' 14 block types and a small
+    ``UNet2DConditionDiffusers`` card against CPU (f32, TF32 off), and the
+    small UNet's bf16 step against its f32 step; the UNet at its default
+    widths (859.5 M parameters) on the chest latent: a B=32 bf16 step with
+    AdamW + EMA (ms, peak memory, breakdown) and DDIM 50 with CFG 4 at B=8
+    and the decode.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -4898,6 +4913,567 @@ def phase_3d_vs_cpu(tmp):
     return report
 
 
+# ---- phase 17: the grain order, the prefetch and the profiling layer, the
+# diffusers blocks with FIR resampling and the conditional diffusers UNet ----
+
+GRAIN_STEPS, GRAIN_RESUME_AT, GRAIN_SEED = 3, 2, 3
+PREFETCH_STEPS, PREFETCH_SIZE = 5, 2
+PREFETCH_REGION = "prefetch_steps"
+# 17c: the small diffusers UNet whose bf16 training step is held to its f32
+# step, on the worst tensor's |d|_2 / |g32|_2. bf16 keeps 8 significant
+# bits and the backward rounds at every layer; the attention is plain, as
+# in the JAX package (its softmax in bf16, over 1,024 tokens at the first
+# level), and the LayerNorms' and projections' gradients are sums over the
+# tokens that cancel, as the OpenAI UNet's scale-shift ones do (phase 15c):
+# its limit. A CPU rehearsal at the smoke latent (B=4, CPU bf16) read 0.17
+# on a transformer's norm1.bias. The cross-attentions' q and k projections
+# are left out: with one context token (a 1-D label) the softmax is 1
+# whatever q.k, so their gradient is zero but for rounding in both dtypes.
+DIFFUSERS_SMALL = dict(block_out_channels=(64, 128), layers_per_block=1, norm_num_groups=32,
+                       cross_attention_dim=64, attention_head_dim=8,
+                       down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                       up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"))
+DIFFUSERS_GRAD_REL_LIMIT = OPENAI_GRAD_REL_LIMIT
+# 17d: the conditional diffusers UNet at its default widths on the chest
+# latent (8 channels in and out, 2 classes); its parameters, counted by the
+# JAX package's eval_shape and the port alike
+DIFFUSERS_PARAMS = 859_545_544
+DIFFUSERS_STEP_REPS = 3
+DIFFUSERS_SAMPLE_N, DIFFUSERS_DDIM, DIFFUSERS_CFG = 8, 50, 4.0
+# AdamW's two moments, the master weights, their gradients, the EMA copy and
+# the step's bf16 copy: 4 + 4 + 4 + 4 + 4 + 2 bytes a parameter
+STATE_BYTES_PER_PARAM = 22
+
+
+def tree_gap(a, b, path=""):
+    """max |a - b| over the tensors of two nested checkpoints (dicts, lists,
+    tensors, numbers), and the paths whose values are not bit-equal."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return math.inf, [path]
+        if torch.equal(a, b):
+            return 0.0, []
+        d = (a.double() - b.double()).abs().max().item() if a.is_floating_point() else math.inf
+        return d, [path]
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return math.inf, [path]
+        parts = [tree_gap(a[k], b[k], f"{path}/{k}") for k in a]
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return math.inf, [path]
+        parts = [tree_gap(x, y, f"{path}/{i}") for i, (x, y) in enumerate(zip(a, b))]
+    else:
+        return (0.0, []) if a == b else (math.inf, [path])
+    return max([0.0] + [d for d, _ in parts]), [p for _, ps in parts for p in ps]
+
+
+@contextlib.contextmanager
+def recorded_grain_batches():
+    """Within the block, the index lists of every epoch that
+    ``GrainDataModule`` loads, as (epoch, first batch, [indices a batch])."""
+    from medfusion_tpu_torch.data import grain_loader
+
+    real, seen = grain_loader._Batches, []
+
+    class Recording(real):
+        def __init__(self, ds, batches, seed, epoch, first):
+            super().__init__(ds, batches, seed, epoch, first)
+            seen.append((epoch, first, [[int(i) for i in b] for b in batches]))
+
+    grain_loader._Batches = Recording
+    try:
+        yield seen
+    finally:
+        grain_loader._Batches = real
+
+
+def phase_grain_training(ops, tmp, root):
+    """17a: cli.train_diffusion --grain --no-donate, chest preset on the
+    CheXpert_2 tree ``root`` (B=32, bf16, EMA, GRAIN_STEPS steps, seed
+    GRAIN_SEED): kernel 1's launches counted from zero and held to the
+    diffusion CLI's count (phase 9); each step's batch indices held to
+    ``grain_order`` of seed + epoch; a run stopped at GRAIN_RESUME_AT and
+    resumed bit-equal to the unbroken one (cuDNN's deterministic algorithms
+    on in both). Returns the unbroken run's (state, pipeline) and a report."""
+    import shutil
+
+    import torch
+
+    from medfusion_tpu_torch.cli import train_diffusion
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset
+    from medfusion_tpu_torch.data.grain_loader import grain_order
+    from medfusion_tpu_torch.utils import checkpoint as C
+
+    p = PRESETS["chest"]
+    n = len(build_dataset(p, str(root)))
+    per_epoch = n // TRAIN_BATCH
+    want = []
+    for step in range(GRAIN_STEPS):
+        epoch, b = divmod(step, per_epoch)
+        want.append(grain_order(n, GRAIN_SEED + epoch)[b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH]
+                    .tolist())
+    argv = ["--preset", "chest", "--data-root", str(root), "--device", "cuda", "--bf16",
+            "--use-ema", "--grain", "--no-donate", "--seed", str(GRAIN_SEED),
+            "--batch-size", str(TRAIN_BATCH), "--ckpt-every", str(GRAIN_RESUME_AT)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with recorded_grain_batches() as seen:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, losses, pipe = train_diffusion.main(
+                [*argv, "--out", str(tmp / "grain"), "--max-steps", str(GRAIN_STEPS)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            check_counts("--grain train CLI", launches, {
+                "group_norm_silu": (UNET_GN_PER_FORWARD + VAE_GN_PER_ENCODE) * GRAIN_STEPS})
+            got = [b for _, _, batches in seen for b in batches][:GRAIN_STEPS]
+            if got != want:
+                raise RuntimeError(f"--grain batches {[g[:4] for g in got]}... differ from "
+                                   f"grain's order {[w[:4] for w in want]}...")
+            if not all(math.isfinite(v) for v in losses) or state.step != GRAIN_STEPS:
+                raise RuntimeError(f"--grain run: step {state.step}, losses {losses}")
+            log(f"  --grain --no-donate train CLI: {GRAIN_STEPS} steps at B={TRAIN_BATCH} "
+                f"(bf16, EMA) on {n} images ({per_epoch} batch(es) an epoch) in "
+                f"{seconds:.1f} s with loading; losses {losses}; each step's indices equal "
+                f"grain's order of seed {GRAIN_SEED} + epoch (first batch {got[0][:6]}...)")
+            seen.clear()
+            train_diffusion.main([*argv, "--out", str(tmp / "grain_b"), "--max-steps",
+                                  str(GRAIN_RESUME_AT)])
+            _, rest, _ = train_diffusion.main([*argv, "--out", str(tmp / "grain_b"),
+                                               "--max-steps", str(GRAIN_STEPS), "--resume"])
+            resumed = [b for _, first, batches in seen for b in batches]
+            if resumed[GRAIN_RESUME_AT] != want[GRAIN_RESUME_AT]:
+                raise RuntimeError("the resumed --grain run read another batch")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gap, paths = tree_gap(C.load_payload(tmp / "grain_b" / "checkpoints", GRAIN_STEPS)["state"],
+                          C.load_payload(tmp / "grain" / "checkpoints", GRAIN_STEPS)["state"])
+    for run in ("grain", "grain_b"):
+        shutil.rmtree(tmp / run)
+    log(f"  resumed at step {GRAIN_RESUME_AT}: step-{GRAIN_STEPS} loss {rest!r} vs "
+        f"{losses[GRAIN_RESUME_AT:]!r}; the saved state (weights, EMA, AdamW moments) "
+        f"max|d| {gap!r} over {len(paths)} differing tensors")
+    if rest != losses[GRAIN_RESUME_AT:] or paths:
+        raise RuntimeError(f"the resumed --grain run departs: losses {rest} vs "
+                           f"{losses[GRAIN_RESUME_AT:]}, {paths[:5]}")
+    return state, pipe, {"launches": launches["group_norm_silu"], "seconds": seconds}
+
+
+def read_trace_region(log_dir, region):
+    """The trace file ``utils.profiling.trace`` wrote into ``log_dir``: the
+    host span of the ``annotate`` region ``region`` and the CUDA kernels that
+    ran inside it (its device span where the trace has one, else its host
+    span, which ends after a synchronize), as (span ms, [kernel names])."""
+    files = sorted(Path(log_dir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise RuntimeError(f"trace: {len(files)} trace files in {log_dir}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    spans = {e.get("cat"): e for e in events if e.get("name") == region and "dur" in e}
+    if "user_annotation" not in spans:
+        raise RuntimeError(f"trace: no region {region!r} in {files[0].name}")
+    span = spans.get("gpu_user_annotation", spans["user_annotation"])
+    start, end = span["ts"], span["ts"] + span["dur"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+               and start <= e.get("ts", -1) <= end]
+    return spans["user_annotation"]["dur"] / 1e3, kernels, sorted(spans)
+
+
+def phase_prefetch_and_trace(ops, tmp, root, state, pipe):
+    """17b: the --grain loader's B=32 batches through ``prefetch_to_device``
+    (size PREFETCH_SIZE) on the card against the same batches copied
+    without it: bit-equal, in order. Over a loop of PREFETCH_STEPS chest
+    training steps (bf16), the ms a step and the ms spent waiting for a
+    batch, with and without the prefetch (for the record); ``StepTimer``'s
+    stats of the prefetched loop; then that loop again inside
+    ``utils.profiling.trace`` and an ``annotate`` region, whose trace file
+    must hold the region with CUDA kernels (kernel 1's among them) in it."""
+    import itertools
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_dataset
+    from medfusion_tpu_torch.data import GrainDataModule, prefetch_to_device
+    from medfusion_tpu_torch.train import make_diffusion_train_step
+    from medfusion_tpu_torch.train.loop import batch_stream
+    from medfusion_tpu_torch.utils import profiling
+
+    p = PRESETS["chest"]
+    dm = GrainDataModule(build_dataset(p, str(root), seed=GRAIN_SEED),
+                         batch_size=TRAIN_BATCH, seed=GRAIN_SEED)
+    step = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
+    draws = pipe.train_draws(TRAIN_BATCH, p.latent_shape,
+                             generator=torch.Generator(device="cuda").manual_seed(17))
+
+    def to_card(batch):
+        return {k: torch.from_numpy(batch[k]).cuda() for k in ("source", "target")}
+
+    def loop(prefetch, timer=None):
+        stream = batch_stream(dm, 0)
+        batches = itertools.islice(stream, PREFETCH_STEPS)
+        source = (prefetch_to_device(batches, size=PREFETCH_SIZE) if prefetch
+                  else map(to_card, batches))
+        seen, wait = [], 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while True:
+            t1 = time.perf_counter()
+            batch = next(source, None)
+            wait += time.perf_counter() - t1
+            if batch is None:
+                break
+            step(state, batch, draws)
+            seen.append((batch["source"], batch["target"]))
+            if timer is not None:
+                timer.tick()
+        torch.cuda.synchronize()
+        stream.close()
+        return (time.perf_counter() - t0) / PREFETCH_STEPS * 1e3, wait / PREFETCH_STEPS * 1e3, seen
+
+    loop(True)  # warm-up: the step, the pinned pool, the side stream
+    timer = profiling.StepTimer()
+    # in turns (without, with, with, without), on one card
+    runs = [loop(False), loop(True, timer), loop(True), loop(False)]
+    plain, pre = runs[0][2], runs[1][2]
+    if not len(plain) == len(pre) == PREFETCH_STEPS:
+        raise RuntimeError(f"prefetch gave {len(pre)} batches, the loader {len(plain)}")
+    for i, ((s0, t0), (s1, t1)) in enumerate(zip(plain, pre)):
+        if not (s1.is_cuda and torch.equal(s0, s1) and torch.equal(t0, t1)):
+            raise RuntimeError(f"prefetched batch {i} differs from the loader's")
+    ms_plain, wait_plain = ((runs[0][k] + runs[3][k]) / 2 for k in (0, 1))
+    ms_pre, wait_pre = ((runs[1][k] + runs[2][k]) / 2 for k in (0, 1))
+    log(f"  prefetch_to_device (size {PREFETCH_SIZE}): {PREFETCH_STEPS} B={TRAIN_BATCH} batches "
+        f"bit-equal to the loader's, in order; loops of {PREFETCH_STEPS} bf16 steps in "
+        f"turns (without, with, with, without): ms a step " + ", ".join(
+            f"{r[0]:.1f}" for r in runs) + "; ms a batch waiting for the loader and the "
+        "copy " + ", ".join(f"{r[1]:.1f}" for r in runs) + f"; means without {ms_plain:.1f} "
+        f"/ {wait_plain:.1f}, with {ms_pre:.1f} / {wait_pre:.1f}; StepTimer {timer.stats()}")
+    log_dir = tmp / "trace"
+    with profiling.trace(log_dir):
+        with profiling.annotate(PREFETCH_REGION):
+            loop(True)
+    span_ms, kernels, cats = read_trace_region(log_dir, PREFETCH_REGION)
+    kinds = sorted({kind_of(k) for k in kernels})
+    log(f"  trace: {next(Path(log_dir).glob('*.pt.trace.json')).name}, region "
+        f"{PREFETCH_REGION!r} ({', '.join(cats)}) {span_ms:.1f} ms on the host, "
+        f"{len(kernels)} CUDA kernels inside it, of kinds {kinds}")
+    if not kernels or "group_norm_silu" not in kinds:
+        raise RuntimeError(f"the trace's region holds {len(kernels)} kernels, kinds {kinds}")
+    return {"ms_plain": ms_plain, "ms_prefetch": ms_pre, "wait_plain": wait_plain,
+            "wait_prefetch": wait_pre, "trace_kernels": len(kernels),
+            "timer": timer.stats()}
+
+
+def diffusers_block_cases():
+    """(type, factory arguments, the block's inputs as a function of a
+    generator and a device): each of the 14 types at a small width."""
+    import torch
+
+    temb, ctx = 16, 16
+
+    def down(c_in, *extra):
+        def make(gen, dev):
+            x = torch.randn((2, c_in, 16, 16), generator=gen).to(dev)
+            t = torch.randn((2, temb), generator=gen).to(dev)
+            args = {"x": (x,), "temb": (x, t), "ctx": (x, t, torch.randn(
+                (2, 3, ctx), generator=gen).to(dev)), "skip": (x, t, torch.randn(
+                    (2, 3, 16, 16), generator=gen).to(dev))}
+            return args[extra[0] if extra else "temb"]
+        return make
+
+    def up(prev, c_in, c_out, kind):
+        def make(gen, dev):
+            x = torch.randn((2, prev, 8, 8), generator=gen).to(dev)
+            t = torch.randn((2, temb), generator=gen).to(dev)
+            states = [torch.randn((2, c_in if i == 0 else c_out, 8, 8), generator=gen).to(dev)
+                      for i in range(2)]
+            return {"x": (x,), "temb": (x, states, t),
+                    "ctx": (x, states, t, torch.randn((2, 3, ctx), generator=gen).to(dev)),
+                    "skip": (x, states, t, torch.randn((2, 3, 4, 4), generator=gen).to(dev))
+                    }[kind]
+        return make
+
+    common = dict(num_layers=2, temb_channels=temb)
+    return (
+        ("DownBlock2D", dict(common, in_channels=32, out_channels=64, add_downsample=True,
+                             resnet_groups=8), down(32)),
+        ("CrossAttnDownBlock2D", dict(common, in_channels=32, out_channels=64,
+                                      add_downsample=True, resnet_groups=8,
+                                      attn_num_head_channels=8, cross_attention_dim=ctx),
+         down(32, "ctx")),
+        ("AttnDownBlock2D", dict(common, in_channels=32, out_channels=64, add_downsample=True,
+                                 resnet_groups=8, attn_num_head_channels=16), down(32)),
+        ("SkipDownBlock2D", dict(common, in_channels=64, out_channels=64,
+                                 add_downsample=True), down(64, "skip")),
+        ("AttnSkipDownBlock2D", dict(common, in_channels=64, out_channels=64,
+                                     add_downsample=True, attn_num_head_channels=32),
+         down(64, "skip")),
+        ("DownEncoderBlock2D", dict(common, in_channels=32, out_channels=64,
+                                    add_downsample=True, resnet_groups=8), down(32, "x")),
+        ("AttnDownEncoderBlock2D", dict(common, in_channels=32, out_channels=64,
+                                        add_downsample=True, resnet_groups=8,
+                                        attn_num_head_channels=16), down(32, "x")),
+        ("UpBlock2D", dict(common, in_channels=32, prev_output_channel=64, out_channels=64,
+                           add_upsample=True, resnet_groups=8), up(64, 32, 64, "temb")),
+        ("CrossAttnUpBlock2D", dict(common, in_channels=32, prev_output_channel=64,
+                                    out_channels=64, add_upsample=True, resnet_groups=8,
+                                    attn_num_head_channels=4, cross_attention_dim=ctx),
+         up(64, 32, 64, "ctx")),
+        ("AttnUpBlock2D", dict(common, in_channels=32, prev_output_channel=64,
+                               out_channels=64, add_upsample=True, resnet_groups=8,
+                               attn_num_head_channels=16), up(64, 32, 64, "temb")),
+        ("SkipUpBlock2D", dict(common, in_channels=64, prev_output_channel=64,
+                               out_channels=64, add_upsample=True), up(64, 64, 64, "skip")),
+        ("AttnSkipUpBlock2D", dict(common, in_channels=64, prev_output_channel=64,
+                                   out_channels=64, add_upsample=True,
+                                   attn_num_head_channels=32), up(64, 64, 64, "skip")),
+        ("UpDecoderBlock2D", dict(common, in_channels=32, prev_output_channel=32,
+                                  out_channels=64, add_upsample=True, resnet_groups=8),
+         up(32, 32, 64, "x")),
+        ("AttnUpDecoderBlock2D", dict(common, in_channels=32, prev_output_channel=32,
+                                      out_channels=64, add_upsample=True, resnet_groups=8,
+                                      attn_num_head_channels=16), up(32, 32, 64, "x")),
+    )
+
+
+def flat_outputs(out):
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in flat_outputs(o)]
+    return []
+
+
+def phase_diffusers_vs_cpu():
+    """17c: f32 with TF32 off, card against CPU from the same weights and
+    inputs at phase 15's tolerances: ``upfirdn2d`` at four (up, down, pad)
+    cases, both FIR resamplers with and without their conv, ``DResnetBlock``
+    with ``up_fir`` and ``down_fir``, each of the factories' 14 block types
+    at a small width (forward), and a small ``UNet2DConditionDiffusers``
+    (forward with labels and a CFG mask, one ``train_loss`` and its
+    gradients); then that UNet's bf16 training step's gradients against its
+    f32 step's, the worst tensor held to DIFFUSERS_GRAD_REL_LIMIT."""
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline
+    from medfusion_tpu_torch.models import diffusers_blocks as db
+    from medfusion_tpu_torch.models.latent_embedders_diffusers import DResnetBlock
+    from medfusion_tpu_torch.models.unet_diffusers import UNet2DConditionDiffusers
+
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn((2, 16, 24, 20), generator=gen)
+    kernel = torch.outer(torch.tensor([1.0, 3, 3, 1]), torch.tensor([1.0, 2, 3, 4]))
+    kernel = kernel / kernel.sum()
+    for up, down, pad in ((1, 1, (1, 1)), (2, 1, (2, 1)), (1, 2, (1, 1)), (2, 2, (3, 2))):
+        close_scaled(f"upfirdn2d up {up} down {down} pad {pad}",
+                     db.upfirdn2d(x.cuda(), kernel.cuda(), up, down, pad),
+                     db.upfirdn2d(x, kernel, up, down, pad))
+    modules = [(f"{cls.__name__} conv={use_conv}", lambda c=cls, u=use_conv: c(16, 32, u),
+                (x,)) for cls in (db.FirUpsample, db.FirDownsample) for use_conv in (False, True)]
+    temb = torch.randn((2, 8), generator=gen)
+    modules += [(f"DResnetBlock {mode}", lambda m=mode: DResnetBlock(
+        16, 32, 8, 8, groups_out=16, output_scale_factor=2.0, updown=m), (x, temb))
+        for mode in ("up_fir", "down_fir")]
+    modules += [(name, lambda n=name, k=kw: (db.get_down_block if "Down" in n
+                                             else db.get_up_block)(n, **k), make(gen, "cpu"))
+                for name, kw, make in diffusers_block_cases()]
+    for name, make, args in modules:
+        torch.manual_seed(0)
+        cpu = make()
+        perturb_(cpu, gen)
+        perturb_gn_(cpu, gen)
+        card = make().cuda()
+        card.load_state_dict(cpu.state_dict())
+
+        def to(a, dev):
+            return [to(v, dev) for v in a] if isinstance(a, list) else a.to(dev)
+
+        with torch.no_grad():
+            ref = flat_outputs(cpu(*args))
+            out = flat_outputs(card(*[to(a, "cuda") for a in args]))
+        if len(ref) != len(out) or not ref:
+            raise RuntimeError(f"{name}: {len(out)} outputs on the card, {len(ref)} on the CPU")
+        for i, (o, r) in enumerate(zip(out, ref)):
+            close_scaled(f"{name} output {i} {tuple(r.shape)}", o, r)
+
+    p = PRESETS["smoke"]
+    b = 4
+    pipes = {}
+    for dev in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        unet = UNet2DConditionDiffusers(in_channels=p.emb_channels, out_channels=p.emb_channels,
+                                        num_classes=2, **dict(DIFFUSERS_SMALL,
+                                                              block_out_channels=(32, 64),
+                                                              cross_attention_dim=32))
+        pipe = build_train_pipeline(p, device=dev, seed=0)
+        pipes[dev] = dataclasses.replace(pipe, noise_estimator=unet.to(dev), latent_embedder=None)
+    perturb_(pipes["cpu"].noise_estimator, gen)
+    perturb_gn_(pipes["cpu"].noise_estimator, gen)
+    pipes["cuda"].noise_estimator.load_state_dict(pipes["cpu"].noise_estimator.state_dict())
+    z = torch.randn((b, *p.latent_shape), generator=gen)
+    t = torch.randint(0, p.timesteps, (b,), generator=gen)
+    cond, mask = torch.arange(b) % 2, torch.tensor([1.0, 0.0] * (b // 2))
+    batch = {"source": z, "target": cond}
+    draws = dict(pipes["cpu"].train_draws(b, p.latent_shape, generator=gen),
+                 drop=torch.tensor(False))
+    out = {}
+    for dev, pipe in pipes.items():
+        est = pipe.noise_estimator
+        with torch.no_grad():
+            y, _ = est(z.movedim(-1, 1).to(dev), t.to(dev), cond.to(dev), mask.to(dev))
+        loss, _ = pipe.train_loss({k: v.to(dev) for k, v in batch.items()},
+                                  {k: v.to(dev) for k, v in draws.items()})
+        loss.backward()
+        out[dev] = (y, loss.detach(), {k: q.grad.detach().cpu()
+                                       for k, q in est.named_parameters() if q.grad is not None})
+    (y0, l0, g0), (y1, l1, g1) = out["cpu"], out["cuda"]
+    close_scaled("small UNet2DConditionDiffusers forward", y1, y0)
+    torch.testing.assert_close(l1.cpu(), l0, rtol=SMOKE_TOL, atol=0)
+    gap = grad_gap(g1, g0)
+    log(f"  small UNet2DConditionDiffusers train step: loss {l1.item():.6f} vs "
+        f"{l0.item():.6f}; gradients ({len(g0)} tensors) max|d| {gap:.3e} of max|g| (limit "
+        f"{CLF_GRAD_TOL})")
+    if set(g1) != set(g0) or not gap <= CLF_GRAD_TOL:
+        raise RuntimeError(f"small diffusers UNet: card gradients depart by {gap}")
+    del pipes, out
+
+    # bf16 against f32 on the chest latent, B=32
+    c = PRESETS["chest"]
+    with torch.device("cuda"):
+        torch.manual_seed(0)
+        unet = UNet2DConditionDiffusers(in_channels=c.emb_channels, out_channels=c.emb_channels,
+                                        num_classes=c.num_classes, **DIFFUSERS_SMALL)
+    pipe = dataclasses.replace(build_train_pipeline(c, device="cuda", seed=0),
+                               noise_estimator=unet, latent_embedder=None)
+    cgen = torch.Generator(device="cuda").manual_seed(18)
+    perturb_(unet, cgen)
+    perturb_gn_(unet, cgen)
+    latents = {"source": torch.randn((TRAIN_BATCH, *c.latent_shape), generator=cgen,
+                                     device="cuda"),
+               "target": torch.arange(TRAIN_BATCH, device="cuda") % 2}
+    cdraws = dict(pipe.train_draws(TRAIN_BATCH, c.latent_shape, generator=cgen),
+                  drop=torch.tensor(False, device="cuda"))
+    l32, g32 = grads_of(pipe, latents, cdraws, None)
+    l16, g16 = grads_of(pipe, latents, cdraws, torch.bfloat16)
+    single_token = (".attn2.to_q.", ".attn2.to_k.")
+    keep = [k for k in g32 if not any(s in k for s in single_token)]
+    worst, glob = grad_departure({k: g16[k] for k in keep}, {k: g32[k] for k in keep})
+    n_params = sum(q.numel() for q in unet.parameters())
+    log(f"  small UNet2DConditionDiffusers ({n_params / 1e6:.1f} M, widths "
+        f"{DIFFUSERS_SMALL['block_out_channels']}) bf16 vs f32 step at B={TRAIN_BATCH}: loss "
+        f"{l16.item():.5f} vs {l32.item():.5f}; gradients ({len(keep)} of {len(g32)} tensors) "
+        f"worst |d|_2/|g32|_2 = {fmt_worst(worst)} (limit {DIFFUSERS_GRAD_REL_LIMIT}); "
+        f"max|d|/max|g32| {glob:.3e}")
+    if not (torch.isfinite(l16) and abs(l16.item() - l32.item()) <= 5e-2 * abs(l32.item())):
+        raise RuntimeError(f"bf16 loss {l16.item()} departs from f32 {l32.item()}")
+    if not worst[0][0] < DIFFUSERS_GRAD_REL_LIMIT:
+        raise RuntimeError(f"diffusers UNet bf16 gradients depart: {fmt_worst(worst)}")
+    return {"grad_gap": gap, "bf16_worst": worst[0][0]}
+
+
+def phase_diffusers_full_width(ops, root):
+    """17d: ``UNet2DConditionDiffusers`` at its default widths (320 / 640 /
+    1,280 / 1,280, 2 layers a block, 32 groups, cross-attention 768, 8
+    heads) on the chest latent (8 channels, 32x32, 2 classes) with the chest
+    schedule and VAE, seeded weights: one bf16 training step on f32 masters
+    with AdamW + EMA at B=32 on phase 9's images (the VAE's encode the only
+    kernel launches: VAE_GN_PER_ENCODE a step), ms a step (host clock around
+    DIFFUSERS_STEP_REPS synchronised steps) and peak memory, a profiled
+    step's device time by kind; then DDIM DIFFUSERS_DDIM (eta 0, CFG
+    DIFFUSERS_CFG) at B=DIFFUSERS_SAMPLE_N in bf16 with the decode: seconds
+    and launches (the decode's only)."""
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline, seeded
+    from medfusion_tpu_torch.models.unet_diffusers import UNet2DConditionDiffusers
+    from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step
+
+    p = PRESETS["chest"]
+    pipe = build_train_pipeline(p, device="cuda", seed=0)
+    with seeded(torch.device("cuda"), 0):
+        unet = UNet2DConditionDiffusers(in_channels=p.emb_channels, out_channels=p.emb_channels,
+                                        num_classes=p.num_classes)
+    n_params = sum(q.numel() for q in unet.parameters())
+    if n_params != DIFFUSERS_PARAMS:
+        raise RuntimeError(f"the default diffusers UNet has {n_params} parameters, the JAX "
+                           f"package's {DIFFUSERS_PARAMS}")
+    pipe = dataclasses.replace(pipe, noise_estimator=unet)
+    # the seeded VAE's zero-initialised out conv would decode every latent to 0
+    perturb_(pipe.latent_embedder, torch.Generator(device="cuda").manual_seed(21))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState(unet, lr=p.diffusion_lr, weight_decay=1e-2, use_ema=True)
+    step = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
+    batch = family_batch(p, root)
+    draws = pipe.train_draws(TRAIN_BATCH, p.latent_shape,
+                             generator=torch.Generator(device="cuda").manual_seed(19))
+    ops.reset_launch_counts()
+    metrics = step(state, batch, draws)
+    torch.cuda.synchronize()
+    check_counts("full-width diffusers UNet train step", ops.launch_counts(),
+                 {"group_norm_silu": VAE_GN_PER_ENCODE})
+    loss0 = float(metrics["loss"])
+    ms, peak, wall, kinds = step_ms_and_breakdown(step, state, batch, draws,
+                                                  DIFFUSERS_STEP_REPS)
+    loss = float(step(state, batch, draws)["loss"])
+    state_gib = n_params * STATE_BYTES_PER_PARAM / 2**30
+    log(f"  UNet2DConditionDiffusers ({n_params:,} parameters) train step at B={TRAIN_BATCH} "
+        f"(bf16 on f32 masters, AdamW + EMA): {ms:.1f} ms/step, peak memory {peak:.2f} GiB "
+        f"(the state alone {state_gib:.2f} GiB at {STATE_BYTES_PER_PARAM} bytes a "
+        f"parameter); profiled step wall {wall:.1f} ms, {fmt_kinds(kinds)}; losses "
+        f"{loss0:.5f} -> {loss:.5f}")
+    if not (math.isfinite(loss0) and math.isfinite(loss)):
+        raise RuntimeError(f"full-width diffusers UNet losses {loss0}, {loss}")
+    report = {"params": n_params, "ms": ms, "peak": peak, "wall": wall, "kinds": kinds}
+    del state, step, batch, draws, metrics
+    torch.cuda.empty_cache()
+
+    sampler = dataclasses.replace(pipe, noise_estimator=unet.to(torch.bfloat16).eval(),
+                                  latent_embedder=pipe.latent_embedder.to(torch.bfloat16),
+                                  compute_dtype=torch.bfloat16)
+    cond = torch.arange(DIFFUSERS_SAMPLE_N, device="cuda") % 2
+    kw = dict(condition=cond, steps=DIFFUSERS_DDIM, guidance_scale=DIFFUSERS_CFG, eta=0.0,
+              decode=False)
+    with torch.no_grad():
+        sampler.sample(2, p.latent_shape, condition=cond[:2], steps=2,
+                       guidance_scale=DIFFUSERS_CFG, eta=0.0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        z = sampler.sample(DIFFUSERS_SAMPLE_N, p.latent_shape,
+                           generator=torch.Generator(device="cuda").manual_seed(20), **kw)
+        images = sampler.decode_latent(z.movedim(-1, 1)).movedim(1, -1)  # as decode=True
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sample_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_counts(f"diffusers UNet DDIM {DIFFUSERS_DDIM}", ops.launch_counts(),
+                 {"group_norm_silu": VAE_GN_PER_DECODE})
+    side = p.image_size
+    finite = bool(torch.isfinite(z).all() and torch.isfinite(images).all())
+    if images.shape != (DIFFUSERS_SAMPLE_N, side, side, 3) or not finite:
+        raise RuntimeError(f"diffusers UNet samples {tuple(images.shape)}, finite {finite}")
+    log(f"  UNet2DConditionDiffusers DDIM {DIFFUSERS_DDIM} (eta 0, CFG {DIFFUSERS_CFG}: "
+        f"{2 * DIFFUSERS_SAMPLE_N} rows a forward) at B={DIFFUSERS_SAMPLE_N} with the decode, "
+        f"bf16: {seconds:.3f} s, peak {sample_peak:.2f} GiB; latents {tuple(z.shape)} std "
+        f"{z.float().std().item():.3f}, max|z| {z.float().abs().max().item():.3f}; images "
+        f"{tuple(images.shape)} in [{images.min().item():.3f}, {images.max().item():.3f}]")
+    report.update(sample_s=seconds, sample_peak=sample_peak)
+    del sampler, pipe, unet, images, z
+    torch.cuda.empty_cache()
+    return report
+
+
 def kernel_row(name, source, replaces, launches, err, rows):
     """One entry of the kernels line: times summed over one launch at each
     of ``rows``' shapes."""
@@ -5053,6 +5629,19 @@ def main():
         sample3d_s = phase_3d_sampling(ops)
         smoke3d = phase_3d_vs_cpu(stmp)
 
+        log("[17] the grain order (cli.train_diffusion --grain --no-donate), the prefetch "
+            "to the card and the profiling layer on phase 9's tree; the diffusers blocks "
+            "with FIR resampling and the conditional diffusers UNet: card against CPU "
+            "(f32), bf16 against f32, and at full width")
+        gtmp = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="grain_",
+                                                                    dir=ram_dir(32))))
+        gstate, gpipe, grain_report = phase_grain_training(ops, gtmp, root)
+        prefetch_report = phase_prefetch_and_trace(ops, gtmp, root, gstate, gpipe)
+        del gstate, gpipe
+        torch.cuda.empty_cache()
+        diffusers_small = phase_diffusers_vs_cpu()
+        diffusers_full = phase_diffusers_full_width(ops, root)
+
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
     attn_fwd = sum(r["ms"] * r["launches_per_forward"] for r in attn_rows)
@@ -5171,6 +5760,17 @@ def main():
         + ", ".join(f"{k} {v['ms']:.1f} ms ({v['peak']:.2f} GiB)" for k, v in train3d.items())
         + f"; 3-D sampling DDIM {VOL3D_STEPS} + decode {sample3d_s:.3f} s; small 3-D "
         f"gradients card vs cpu " + ", ".join(f"{k} {v:.2e}" for k, v in smoke3d.items()))
+    log(f"  slice 16 on the card: --grain train CLI {GRAIN_STEPS} steps "
+        f"{grain_report['seconds']:.1f} s, group_norm_silu {grain_report['launches']}; "
+        f"prefetch loop {prefetch_report['ms_prefetch']:.1f} ms a step (without "
+        f"{prefetch_report['ms_plain']:.1f}), waiting {prefetch_report['wait_prefetch']:.1f} "
+        f"ms a batch (without {prefetch_report['wait_plain']:.1f}), {prefetch_report['trace_kernels']} "
+        f"kernels in the traced region; small diffusers UNet gradients card vs cpu "
+        f"{diffusers_small['grad_gap']:.2e}, bf16 vs f32 worst {diffusers_small['bf16_worst']:.3e}; "
+        f"UNet2DConditionDiffusers ({diffusers_full['params']:,}) step B={TRAIN_BATCH} "
+        f"{diffusers_full['ms']:.1f} ms, peak {diffusers_full['peak']:.2f} GiB; DDIM "
+        f"{DIFFUSERS_DDIM} CFG {DIFFUSERS_CFG} B={DIFFUSERS_SAMPLE_N} "
+        f"{diffusers_full['sample_s']:.3f} s")
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,7 +9,9 @@
   ``roundtrip.png`` (the images above their reconstructions).
 * ``extract-vae``: the generator of an adversarial run (``--ckpt``, a
   ``GANTrainState`` checkpoint) as a plain autoencoder checkpoint at the same
-  step, which ``cli.train_diffusion --vae-ckpt`` takes.
+  step, which ``cli.train_diffusion --vae-ckpt`` takes. ``--disc conv|patch``
+  is the JAX CLI's flag; the run's ``config.json`` records its discriminator,
+  and a value that differs from it is refused.
 * ``export-images``: a grid of random dataset images.
 * ``export-gif``: a DDIM (eta 0) trajectory as a GIF, one decoded frame a
   step; needs PIL.
@@ -147,6 +149,9 @@ def extract_vae(args, dev):
         raise SystemExit(f"--ckpt {args.ckpt}: not an adversarial (--gan) run")
     cfg_file = ckpt_dir / C.CONFIG_FILE
     config = json.loads(cfg_file.read_text()) if cfg_file.exists() else {}
+    if args.disc is not None and args.disc != config.get("disc"):
+        raise SystemExit(f"--disc {args.disc}: the run {args.ckpt} was trained with "
+                         f"--disc {config.get('disc')} (its config.json)")
     with torch.device(dev):
         model = build_vae(p, config.get("model", "vae"))
     model.load_state_dict(state["gen"]["model"], strict=True)
@@ -358,6 +363,11 @@ def main(argv=None):
                            help="the noise-estimator family the checkpoint was trained "
                                 "with (default: the --ckpt run's, else unet)")
             add_kernel_args(s)
+        if name == "extract-vae":
+            s.add_argument("--disc", choices=("conv", "patch"), default=None,
+                           help="the discriminator the run was trained with (default: "
+                                "the run's, from its config.json; a value that differs "
+                                "from it is refused)")
         if name in ("interpolate", "inpaint", "img2img"):
             s.add_argument("--family", choices=("diffusion", "flow"), default="diffusion",
                            help="flow = a flow-matching checkpoint (path noising and "

@@ -114,6 +114,10 @@ def main(argv=None):
     ap.add_argument("--num-workers", type=int, default=0,
                     help="worker processes that read and transform the images "
                          "(0: in this process, in the JAX package's order)")
+    ap.add_argument("--no-donate", action="store_true",
+                    help="accepted for the JAX CLI's command lines, where it turns off "
+                         "buffer donation; the port donates no buffers, so it changes "
+                         "nothing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--auto-restart", type=int, default=0, metavar="N",

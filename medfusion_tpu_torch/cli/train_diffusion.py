@@ -33,8 +33,9 @@ Step s draws from a generator seeded by (``--seed``, s), and ``--resume``
 continues the data stream where the run stopped (``train/loop.py``), so a
 resumed run equals an uninterrupted one. ``--resume`` refuses a run saved
 with another ``--use-ema``, ``--objective``, ``--estimator``, ``--attention``,
-``--attention-heads``, ``--zero-terminal-snr``, ``--min-snr-gamma`` or
-``--family``. A batch label outside the preset's classes raises on the host.
+``--attention-heads``, ``--zero-terminal-snr``, ``--min-snr-gamma``,
+``--family`` or ``--grain``. A batch label outside the preset's classes
+raises on the host.
 
 ``--zero-terminal-snr`` rescales the schedule to abar_T = 0
 (arXiv:2305.08891; needs ``--objective v`` or ``x_0``; sample with
@@ -64,7 +65,13 @@ On the card every self-attention runs its forward and backward through the
 hand-written kernels. The kernel switches (``--flash``, ``--fused-geglu``,
 ``--fused-up``, ``--s2d-tail``) follow the JAX CLI's rules
 (``cli/kernels.py``); ``--no-flash`` and ``--no-fused-geglu`` are refused
-on the card. Not ported (ROADMAP Queue 1): the grain loader.
+on the card.
+
+``--grain`` reads the data in the order of the JAX CLI's grain loader
+(``data/grain_loader.py``): epoch e a permutation seeded by ``--seed`` +
+e, the dataset's weights ignored, full batches only; a resumed run
+continues the epoch. ``--no-donate`` is accepted for the JAX CLI's command
+lines and changes nothing: the port donates no buffers.
 """
 
 from __future__ import annotations
@@ -84,7 +91,7 @@ from medfusion_tpu_torch.cli.presets import (
     build_train_pipeline,
     estimator_refusal,
 )
-from medfusion_tpu_torch.data import SimpleDataModule
+from medfusion_tpu_torch.data import GrainDataModule, SimpleDataModule
 from medfusion_tpu_torch.nn.attention import ATTENTION_TYPES
 from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step, make_lr_schedule
@@ -102,7 +109,7 @@ from medfusion_tpu_torch.utils.resilience import run_with_auto_restore
 
 # what --resume must find unchanged in the saved config
 RESUME_KEYS = ("use_ema", "objective", "estimator", "attention", "attention_heads",
-               "zero_terminal_snr", "min_snr_gamma", "family")
+               "zero_terminal_snr", "min_snr_gamma", "family", "grain")
 
 
 def main(argv=None):
@@ -162,6 +169,13 @@ def main(argv=None):
     ap.add_argument("--num-workers", type=int, default=0,
                     help="worker processes that read and transform the images "
                          "(0: in this process, in the JAX package's order)")
+    ap.add_argument("--grain", action="store_true",
+                    help="the JAX CLI's grain order: epoch e a uniform permutation "
+                         "seeded by --seed + e (the dataset's weights ignored)")
+    ap.add_argument("--no-donate", action="store_true",
+                    help="accepted for the JAX CLI's command lines, where it turns off "
+                         "buffer donation; the port donates no buffers, so it changes "
+                         "nothing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--auto-restart", type=int, default=0, metavar="N",
@@ -197,7 +211,7 @@ def run_config(p, args) -> dict:
             "min_snr_gamma": args.min_snr_gamma,
             "latent_scale": args.latent_scale, "latent_shift": args.latent_shift,
             "family": args.family, "flow_shift": args.flow_shift,
-            "time_sampling": args.time_sampling, "remat": args.remat}
+            "time_sampling": args.time_sampling, "remat": args.remat, "grain": args.grain}
 
 
 def _train(args, resume: bool):
@@ -222,8 +236,12 @@ def _train(args, resume: bool):
     step_fn = make_diffusion_train_step(
         pipe, compute_dtype=torch.bfloat16 if args.bf16 else None)
     ds = build_dataset(p, args.data_root, n_synthetic=max(batch_size * 4, 16), seed=args.seed)
-    dm = SimpleDataModule(ds, batch_size=batch_size, seed=args.seed,
-                          weights=ds.get_weights(), num_workers=args.num_workers)
+    if args.grain:
+        dm = GrainDataModule(ds, batch_size=batch_size, seed=args.seed,
+                             num_workers=args.num_workers)
+    else:
+        dm = SimpleDataModule(ds, batch_size=batch_size, seed=args.seed,
+                              weights=ds.get_weights(), num_workers=args.num_workers)
 
     out = None if args.out is None else Path(args.out)
     ckpt_dir = None if out is None else out / "checkpoints"

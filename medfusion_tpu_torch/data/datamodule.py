@@ -53,6 +53,25 @@ class _Batches:
         return _stack([self.ds[int(j)] for j in self.batches[i]])
 
 
+def load_batches(source: _Batches, num_workers: int) -> Iterator[Dict[str, np.ndarray]]:
+    """``source``'s batches in order: in this process, or spread over
+    ``num_workers`` spawned worker processes."""
+    if num_workers == 0:
+        for i in range(len(source)):
+            yield source[i]
+        return
+    from torch.utils.data import DataLoader
+
+    loader = DataLoader(source, batch_size=None, shuffle=False, num_workers=num_workers,
+                        collate_fn=_identity, multiprocessing_context="spawn")
+    it = iter(loader)
+    try:
+        yield from it
+    finally:
+        # stop the workers also when the caller leaves mid-epoch
+        it._shutdown_workers()
+
+
 class SimpleDataModule:
     def __init__(self, ds_train, ds_val=None, ds_test=None, batch_size: int = 1,
                  seed: int = 0, weights: Optional[List[float]] = None,
@@ -80,17 +99,8 @@ class SimpleDataModule:
             for idx in batches:
                 yield _stack([ds[int(i)] for i in idx])
             return
-        from torch.utils.data import DataLoader
-
-        loader = DataLoader(_Batches(ds, batches, self.seed, epoch, start_batch),
-                            batch_size=None, shuffle=False, num_workers=self.num_workers,
-                            collate_fn=_identity, multiprocessing_context="spawn")
-        it = iter(loader)
-        try:
-            yield from it
-        finally:
-            # stop the workers also when the caller leaves mid-epoch
-            it._shutdown_workers()
+        yield from load_batches(_Batches(ds, batches, self.seed, epoch, start_batch),
+                                self.num_workers)
 
     def train_dataloader(self, epoch: int = 0,
                          start_batch: int = 0) -> Iterator[Dict[str, np.ndarray]]:

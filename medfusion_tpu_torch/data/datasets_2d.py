@@ -4,8 +4,14 @@ file crawler and the labelled datasets of the presets.
 * ``SimpleDataset2D``    — rglob crawler, items {'uid', 'source'}.
 * ``AIROGSDataset``      — eye fundus JPEGs, labels from ``train_labels.csv``
   (NRG=0, RG=1), inverse-frequency weights.
+* ``MSIvsMSSDataset``   — colon histology, label from the parent
+  directory's name (MSIMUT=0, MSS=1), with the item's ``uid``.
 * ``MSIvsMSS_2_Dataset`` — colon histology, label from the parent
   directory's name (MSIH=0, nonMSIH=1).
+* ``CheXpertDataset``    — the CheXpert release's own CSV
+  (``<root.parent>/<root.name>.csv``): its frontal rows, the path's first
+  20 characters (``CheXpert-v1.0-small/``) cut, Cardiomegaly -1 / 0 / 1 /
+  empty as the labels 0 / 1 / 2 / 3, with the item's ``uid``.
 * ``CheXpert_2_Dataset`` — the flagship chest dataset: PNGs under
   ``data/``, labels from a join of two CSV files, Cardiomegaly with NaN
   and < 0 mapped to 2, inverse-frequency weights.
@@ -15,8 +21,7 @@ pandas) in the same row order, with the same filters and the same join.
 Images are read by ``data/png.py`` (PNG) or PIL (any other format) and
 converted to RGB. Items are channels-last float32 numpy arrays in [-1, 1];
 each item's flips draw from the dataset's one ``rng``, in the order the
-items are read. Not ported: ``MSIvsMSSDataset`` and ``CheXpertDataset``,
-which no preset uses.
+items are read. No preset uses ``MSIvsMSSDataset`` or ``CheXpertDataset``.
 """
 
 from __future__ import annotations
@@ -124,6 +129,16 @@ class AIROGSDataset(SimpleDataset2D):
         return []
 
 
+class MSIvsMSSDataset(SimpleDataset2D):
+    STR_2_INT = {"MSIMUT": 0, "MSS": 1}
+
+    def __getitem__(self, index):
+        rel = Path(self.item_pointers[index])
+        img = self.load_item(self.path_root / rel)
+        target = self.STR_2_INT[(self.path_root / rel).parent.name]
+        return {"uid": rel.stem, "source": self.transform(img, self.rng), "target": target}
+
+
 class MSIvsMSS_2_Dataset(SimpleDataset2D):
     STR_2_INT = {"MSIH": 0, "nonMSIH": 1}
 
@@ -132,6 +147,34 @@ class MSIvsMSS_2_Dataset(SimpleDataset2D):
         img = self.load_item(self.path_root / rel)
         target = self.STR_2_INT[(self.path_root / rel).parent.name]
         return {"source": self.transform(img, self.rng), "target": target}
+
+
+class CheXpertDataset(SimpleDataset2D):
+    """The rows of ``<root.parent>/<root.name>.csv`` whose ``Frontal/Lateral``
+    is ``Frontal``, in file order; item i reads ``root / Path[20:]``, and its
+    target is Cardiomegaly + 1 with an empty cell read as 2 (pandas'
+    ``fillna(2)``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        rows = _read_csv(self.path_root.parent / f"{self.path_root.name}.csv")
+        frontal = [r for r in rows if r["Frontal/Lateral"] == "Frontal"]
+        self.paths = [r["Path"][20:] for r in frontal]
+        cardio = (_float(r["Cardiomegaly"]) for r in frontal)
+        self.targets = [int((2.0 if math.isnan(v) else v) + 1) for v in cardio]
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, index):
+        rel = self.paths[index]
+        img = self.load_item(self.path_root / rel)
+        return {"uid": rel, "source": self.transform(img, self.rng),
+                "target": self.targets[index]}
+
+    @classmethod
+    def run_item_crawler(cls, path_root, extension, **kwargs):
+        return []
 
 
 class CheXpert_2_Dataset(SimpleDataset2D):

@@ -20,11 +20,15 @@ with the reparameterisation draw ``noise`` given by the caller;
 ``forward_with_hiddens`` also returns the decoder's activation before
 ``conv_out`` (the adversarial lambda's anchor, ``out_head(0)``). The
 GroupNorms and the attention are plain PyTorch: the JAX package runs them
-in flax and XLA, outside Pallas. The FIR resamplers of
-``diffusers_blocks.py`` are ROADMAP Queue 1 item 7. The submodules carry
-the reference's torch keys (``encoder.down_blocks.{i}.resnets.{j}.norm1``,
+in flax and XLA, outside Pallas. ``DResnetBlock``'s FIR resampling modes
+(``up_fir``, ``down_fir``) run ``models/diffusers_blocks.py``'s
+``fir_upsample_2d`` / ``fir_downsample_2d``. The submodules carry the
+reference's torch keys (``encoder.down_blocks.{i}.resnets.{j}.norm1``,
 ``mid_block.attentions.0.query``, ``downsamplers.0.conv``; the codebook is
-``quantize.embedder.weight``).
+``quantize.embedder.weight``). The reference's ``Upsample2D`` registers its
+conv under ``conv`` and again under ``Conv2d_0``; ``DUpsample`` loads a
+state dict that carries both (the alias must equal its twin) and writes
+``conv`` only, as the JAX converter drops the alias.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch.nn.functional as F
 
 from medfusion_tpu_torch.models.latent_embedders import VectorQuantizer
 
-UPDOWN = ("none", "up", "down", "up_sde", "down_sde")
+UPDOWN = ("none", "up", "down", "up_sde", "down_sde", "up_fir", "down_fir")
 
 
 def _gn(channels: int, groups: int, eps: float = 1e-6) -> nn.GroupNorm:
@@ -56,8 +60,9 @@ class DResnetBlock(nn.Module):
     """GroupNorm -> act -> conv, the time embedding added, GroupNorm -> act
     -> conv, plus a 1x1 shortcut (where the width changes, or by
     ``use_in_shortcut``), divided by ``output_scale_factor``; ``updown``
-    resamples both paths after the first activation (nearest 2x, or a 2x2
-    average pool); ``non_linearity`` 'swish' or 'mish'."""
+    resamples both paths after the first activation (nearest 2x, a 2x2
+    average pool, or the (1, 3, 3, 1) FIR filter's 2x up or down);
+    ``non_linearity`` 'swish' or 'mish'."""
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
                  temb_channels: Optional[int] = None, eps: float = 1e-6,
@@ -65,9 +70,6 @@ class DResnetBlock(nn.Module):
                  use_in_shortcut: Optional[bool] = None, updown: str = "none",
                  non_linearity: str = "swish"):
         super().__init__()
-        if updown in ("up_fir", "down_fir"):
-            raise NotImplementedError(f"updown={updown!r}: the FIR resamplers "
-                                      "(diffusers_blocks.py) are ROADMAP Queue 1 item 7")
         if updown not in UPDOWN:
             raise ValueError(f"unknown updown {updown!r}")
         self.updown, self.non_linearity = updown, non_linearity
@@ -87,8 +89,17 @@ class DResnetBlock(nn.Module):
         return F.mish(x) if self.non_linearity == "mish" else F.silu(x)
 
     def _resample(self, x):
+        from medfusion_tpu_torch.models.diffusers_blocks import (
+            fir_downsample_2d,
+            fir_upsample_2d,
+        )
+
         if self.updown in ("up", "up_sde"):
             return _upsample2x(x)
+        if self.updown == "up_fir":
+            return fir_upsample_2d(x)
+        if self.updown == "down_fir":
+            return fir_downsample_2d(x)
         return F.avg_pool2d(x, 2)
 
     def forward(self, x, temb=None):
@@ -137,13 +148,14 @@ class DAttentionBlock(nn.Module):
 
 
 class DDownsample(nn.Module):
-    """3x3 stride-2 conv; ``padding=0`` pads (0, 1, 0, 1) first, any other
-    value is the conv's own symmetric padding."""
+    """3x3 stride-2 conv to ``out_channels`` (default ``channels``);
+    ``padding=0`` pads (0, 1, 0, 1) first, any other value is the conv's own
+    symmetric padding."""
 
-    def __init__(self, channels: int, padding: int = 0):
+    def __init__(self, channels: int, padding: int = 0, out_channels: Optional[int] = None):
         super().__init__()
         self.padding = padding
-        self.conv = _conv3(channels, channels, stride=2, padding=padding)
+        self.conv = _conv3(channels, out_channels or channels, stride=2, padding=padding)
 
     def forward(self, x):
         if self.padding == 0:
@@ -151,12 +163,28 @@ class DDownsample(nn.Module):
         return self.conv(x)
 
 
+def _drop_conv_alias(module, state_dict, prefix, *args):
+    """Load-state-dict pre-hook: a ``Conv2d_0`` alias of ``conv`` (the
+    reference's ``Upsample2D`` registers one conv under both names) is taken
+    out, or read as ``conv`` when that key is absent."""
+    for leaf in ("weight", "bias"):
+        alias = state_dict.pop(f"{prefix}Conv2d_0.{leaf}", None)
+        if alias is None:
+            continue
+        twin = state_dict.setdefault(f"{prefix}conv.{leaf}", alias)
+        if not torch.equal(twin, alias):
+            raise ValueError(f"{prefix}Conv2d_0.{leaf} differs from its twin "
+                             f"{prefix}conv.{leaf}")
+
+
 class DUpsample(nn.Module):
-    """Nearest 2x, then a 3x3 conv."""
+    """Nearest 2x, then a 3x3 conv (``conv``; a ``Conv2d_0`` alias of it is
+    read when loading)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.conv = _conv3(channels, channels)
+        self.register_load_state_dict_pre_hook(_drop_conv_alias)
 
     def forward(self, x):
         return self.conv(_upsample2x(x))

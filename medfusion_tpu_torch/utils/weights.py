@@ -16,7 +16,8 @@ with a ``num_batches_tracked`` of 0: flax keeps no count, and torch reads it
 only with ``momentum=None``, which the port never sets. The flax tree is
 flattened by plain recursion. The OpenAI family (the noisy-latent
 classifier and ``UNetOpenAI``, :func:`jax_classifier_to_state_dict`), the
-lucidrains UNet and the diffusers autoencoders go the other way: each key of
+lucidrains UNet, the diffusers autoencoders, blocks and conditional UNet go
+the other way: each key of
 the port module's state dict is mapped to its flax path by the rule of the
 JAX package's ``convert_*_state_dict`` (torch -> flax), and every flax leaf
 must be read.
@@ -182,10 +183,14 @@ def load_jax_params(module: torch.nn.Module, params: Mapping,
     """Load flax params into ``module`` with ``strict=True``, keeping the
     module's device and dtype. ``kind``: 'unet', 'vae', 'unet_legacy' or
     'dit' (:func:`jax_params_to_state_dict`), 'openai' (the UNet or the
-    classifier), 'lucidrains', or 'diffusers' (the KL or VQ autoencoder)."""
+    classifier), 'lucidrains', 'diffusers' (the KL or VQ autoencoder),
+    'diffusers_blocks' (a block of ``models/diffusers_blocks.py`` or a FIR
+    resampler) or 'diffusers_unet' (``UNet2DConditionDiffusers``)."""
     by_model = {"openai": jax_classifier_to_state_dict,
                 "lucidrains": jax_lucidrains_to_state_dict,
-                "diffusers": jax_diffusers_vae_to_state_dict}
+                "diffusers": jax_diffusers_vae_to_state_dict,
+                "diffusers_blocks": jax_diffusers_blocks_to_state_dict,
+                "diffusers_unet": jax_diffusers_unet_to_state_dict}
     if kind in by_model:
         sd = by_model[kind](params, module)
     else:
@@ -321,3 +326,45 @@ def jax_diffusers_vae_to_state_dict(params: Mapping, model: torch.nn.Module) -> 
     """The JAX ``AutoencoderKLDiffusers``'s or ``VQModelDiffusers``'s flax
     params -> the port's state dict."""
     return _by_model_keys(params, model, diffusers_key_to_path, "diffusers autoencoder")
+
+
+_BLOCK_NORM = re.compile(r"(norm\d*|group_norm|skip_norm|conv_norm_out)/weight$")
+
+
+def diffusers_block_key_to_path(key: str, ndim: Optional[int] = None) -> str:
+    """A torch key of a diffusers block -> its flax path (the rule of the JAX
+    package's ``convert_diffusers_block_state_dict``: a norm's weight is its
+    ``scale``, any other weight a ``kernel``)."""
+    k = re.sub(r"\.(\d+)", r"_\1", key).replace(".", "/")
+    if _BLOCK_NORM.search(k):
+        return k[: -len("weight")] + "scale"
+    if k.endswith("/weight"):
+        return k[: -len("weight")] + "kernel"
+    return k
+
+
+def diffusers_unet_key_to_path(key: str, ndim: Optional[int] = None) -> str:
+    """A torch key of the conditional diffusers UNet -> its flax path (the
+    rule of ``convert_diffusers_unet_state_dict``: the label table's weight
+    is ``emb/embedding``, a 1-D weight a ``scale``, any other a ``kernel``)."""
+    k = re.sub(r"\.(\d+)", r"_\1", key).replace(".", "/")
+    k = k.replace("time_embedding/linear_", "time_embedding_linear_")
+    if k == "emb/weight":
+        return "emb/embedding"
+    if k.endswith("/weight"):
+        return k[: -len("weight")] + ("scale" if ndim == 1 else "kernel")
+    return k
+
+
+def jax_diffusers_blocks_to_state_dict(params: Mapping,
+                                       model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The flax params of a JAX diffusers block (``diffusers_blocks.py``) ->
+    the port's state dict."""
+    return _by_model_keys(params, model, diffusers_block_key_to_path, "diffusers block")
+
+
+def jax_diffusers_unet_to_state_dict(params: Mapping,
+                                     model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``UNet2DConditionDiffusers``'s flax params -> the port's state
+    dict."""
+    return _by_model_keys(params, model, diffusers_unet_key_to_path, "diffusers UNet")

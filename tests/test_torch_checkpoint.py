@@ -165,6 +165,16 @@ def test_resume_equals_an_uninterrupted_run(tmp_path, image_preset, cli):
 
 
 @pytest.mark.parametrize("cli", ["autoencoder", "diffusion"])
+def test_no_donate_is_accepted_and_changes_nothing(tmp_path, image_preset, cli):
+    """The JAX CLIs' --no-donate (a debug aid there) runs, and one step with
+    it equals one without it: the port donates no buffers."""
+    root = write_chexpert_2(tmp_path / "data")
+    _run(cli, image_preset, root, tmp_path / "a", 1)
+    _run(cli, image_preset, root, tmp_path / "b", 1, "--no-donate")
+    _equal_trees(_final(tmp_path / "b", 1), _final(tmp_path / "a", 1))
+
+
+@pytest.mark.parametrize("cli", ["autoencoder", "diffusion"])
 def test_auto_restart_recovers_from_a_crash_at_step_3(tmp_path, image_preset, cli,
                                                       monkeypatch, capsys):
     root = write_chexpert_2(tmp_path / "data")

@@ -413,7 +413,7 @@ def test_diffusers_vq_matches_jax():
     assert np.abs(np.asarray(pred)).max() > 1e-2
 
 
-@pytest.mark.parametrize("updown", ["up", "down_sde", "none_mish"])
+@pytest.mark.parametrize("updown", ["up", "down_sde", "none_mish", "up_fir", "down_fir"])
 def test_diffusers_resnet_options_match_jax(updown):
     kw = dict(in_channels=8, out_channels=16, groups=4, temb_channels=6, groups_out=8,
               output_scale_factor=2.0, updown=updown.replace("_mish", ""),
@@ -427,12 +427,6 @@ def test_diffusers_resnet_options_match_jax(updown):
     with torch.no_grad():
         got = blk(nchw(x), torch.from_numpy(temb))
     np.testing.assert_allclose(nhwc(got), np.asarray(want), **AE_TOL)
-
-
-def test_fir_resampling_is_refused_naming_the_roadmap():
-    for mode in ("up_fir", "down_fir"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            led.DResnetBlock(8, 8, 4, updown=mode)
 
 
 def test_converters_are_strict():

@@ -205,6 +205,22 @@ def test_extract_vae(tmp_path):
                       "--out", str(tmp_path / "again")])
 
 
+@pytest.mark.parametrize("disc", ["conv", "patch"])
+def test_extract_vae_takes_the_runs_disc_and_refuses_another(tmp_path, disc):
+    """The JAX subcommand's --disc: the run's own value runs, the other is
+    refused naming both."""
+    train_autoencoder.main(["--preset", "smoke", "--device", "cpu", "--max-steps", "1",
+                            "--gan", "--disc", disc, "--start-gan-step", "-1",
+                            "--out", str(tmp_path / "gan")])
+    out = helpers.main(["extract-vae", "--device", "cpu", "--ckpt", str(tmp_path / "gan"),
+                        "--disc", disc, "--out", str(tmp_path / "vae")])
+    assert out.step == 2 and C.latest_step(tmp_path / "vae") == 2
+    other = "patch" if disc == "conv" else "conv"
+    with pytest.raises(SystemExit, match=f"--disc {other}: .* trained with --disc {disc}"):
+        helpers.main(["extract-vae", "--device", "cpu", "--ckpt", str(tmp_path / "gan"),
+                      "--disc", other, "--out", str(tmp_path / "other")])
+
+
 @pytest.mark.parametrize("flags,why", [
     (["interpolate", "--family", "flow", "--estimator", "openai", "--steps", "2"], None),
     (["img2img", "--estimator", "openai", "--steps", "2"], None),

@@ -36,7 +36,7 @@ def one_thread():
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "medfusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "medfusion_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "medfusion_tpu")
 
 
 def _imported_modules(path):
@@ -290,3 +290,13 @@ def test_no_cli_refuses_items_4_to_6(item):
     paths = sorted((ROOT / "medfusion_tpu_torch").rglob("*.py"))
     for path in paths:
         assert f"item {item})" not in path.read_text(), path.name
+
+
+@pytest.mark.parametrize("item", [7, 8])
+def test_no_port_file_refuses_items_7_and_8(item):
+    """Queue 1 items 7 (the diffusers block inventory with FIR resampling,
+    the conditional diffusers UNet) and 8 (the grain order, the prefetch,
+    the profiling layer, the last two datasets) are ported: no port file
+    refuses anything naming them."""
+    for path in PORT_FILES:
+        assert f"item {item}" not in path.read_text(), path.name
