@@ -169,7 +169,24 @@ Phases (each raises on failure, so any failure exits non-zero):
     small UNet's bf16 step against its f32 step; the UNet at its default
     widths (859.5 M parameters) on the chest latent: a B=32 bf16 step with
     AdamW + EMA (ms, peak memory, breakdown) and DDIM 50 with CFG 4 at B=8
-    and the decode.
+    and the decode;
+18. parallelism (slice 17) at world 1, the one card, over NCCL (two ranks
+    on one card are refused): torch's and NCCL's versions and whether
+    ``fully_shard`` takes ``shard_placement_fn``; ``initialize_multihost``
+    and the ('data', 'model') mesh; ``make_sharded_sampler`` at the chest
+    preset's full width (B=32, bf16, DDIM 50, eta 1, CFG with
+    un_cond = 1 - label, decode) bit-equal to ``pipe.denoise`` on the same
+    generator with kernel 1's launches held; ``cli.sample_dataset`` under
+    ``torch.distributed.run`` (one process) writing PNGs byte-equal to a
+    plain run; two chest-UNet train steps (B=32, bf16) through
+    ``shard_params``/``shard_batch`` for dp, FSDP and TP (min_shard_dim
+    256), each bit-equal to the plain steps; ring attention bit-equal to
+    kernel 2 alone (its launch counted) and the lse merge over K/V in 2 and
+    4 blocks against the plain merge; the chest DiT-MoE with
+    ``moe_expert_axis``, its forward and train steps bit-equal to the dense
+    layout with kernels 3-5 counted; ``pipeline_apply`` at one stage
+    bit-equal to the stage, forward and gradients; each path's ms beside
+    its unsharded ms.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
@@ -180,6 +197,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -2325,6 +2343,35 @@ def timed_calls(module, name):
         setattr(module, name, real)
 
 
+@contextlib.contextmanager
+def timed_samplers(module):
+    """Within the block, each call of a sampler that
+    ``module.make_sharded_sampler`` makes is timed (host clock, after a
+    synchronize before and after); yields the list of seconds."""
+    import torch
+
+    real, seconds = module.make_sharded_sampler, []
+
+    def make(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    module.make_sharded_sampler = make
+    try:
+        yield seconds
+    finally:
+        module.make_sharded_sampler = real
+
+
 def forward_launches(attention):
     """Launches of one chest UNet forward, by kernel (EXPECTED less the
     decode, over the steps)."""
@@ -2410,7 +2457,7 @@ def phase_option_samplers(ops, tmp):
         out = tmp / f"fake_{name}"
         expected = option_expected(forwards, samplings=2)
         ops.reset_launch_counts()
-        with timed_calls(sample_dataset, "run_sampler") as seconds:
+        with timed_samplers(sample_dataset) as seconds:
             dirs = sample_dataset.main(["--preset", "chest", "--chunk", str(DATASET_CHUNK),
                                         "--n-samples", str(DATASET_CHUNK), "--out", str(out),
                                         *flags])
@@ -5474,6 +5521,357 @@ def phase_diffusers_full_width(ops, root):
     return report
 
 
+# ---- phase 18: parallelism at world 1 over NCCL ------------------------------
+# The card run is one process: NCCL refuses two ranks on one card and gloo
+# has no CUDA all-to-all or point-to-point, so every sharded path runs at
+# world 1 and is held bit for bit to its unsharded counterpart. The sharded
+# sampler and the CLI at the chest preset's full width (B=32, bf16, DDIM 50,
+# eta 1; the sampler with CFG and un_cond = 1 - label); two chest-UNet
+# train steps at B=32 for each placement; ring attention at the 32^2 level
+# of chest-spatial (8 heads of 32, 1,024 tokens) at the sampling batch's 16
+# rows; the chest DiT-MoE (DIT_MOE) forward and step; a one-stage pipeline
+# of residual MLP blocks on the DiT's tokens.
+PAR_N, PAR_STEPS, PAR_TRAIN_STEPS = 32, 50, 2
+RING_SPLITS = (2, 4)
+PIPE_TOKENS, PIPE_WIDTH = 256, 384
+
+
+def fully_shard_takes_placement_fn():
+    import inspect
+
+    try:
+        from torch.distributed.fsdp import fully_shard
+    except ImportError:
+        from torch.distributed._composable.fsdp import fully_shard
+    return "shard_placement_fn" in inspect.signature(fully_shard).parameters
+
+
+def same(name, out, ref):
+    """Raise unless ``out`` and ``ref`` are equal bit for bit."""
+    import torch
+
+    if out.shape != ref.shape or out.dtype != ref.dtype or not torch.equal(out, ref):
+        diff = ((out.float() - ref.float()).abs().max().item()
+                if out.shape == ref.shape else None)
+        raise RuntimeError(f"{name}: not bit-equal to the unsharded path (max|d| {diff}, "
+                           f"{tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} {ref.dtype})")
+
+
+def same_params(name, a, b):
+    for (k, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        same(f"{name} {k}", x, y)
+
+
+def phase_parallel_init():
+    """18a: versions, the NCCL group at world 1, the mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from medfusion_tpu_torch.parallel import make_mesh
+    from medfusion_tpu_torch.parallel.multihost import initialize_multihost
+
+    log(f"  torch {torch.__version__}, NCCL {torch.cuda.nccl.version()}, fully_shard takes "
+        f"shard_placement_fn: {fully_shard_takes_placement_fn()}")
+    t0 = time.perf_counter()
+    info = initialize_multihost(device="cuda")
+    mesh = make_mesh(n_model=1, device="cuda")
+    log(f"  initialize_multihost(device='cuda'): {info}, backend {dist.get_backend()}, mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} in {time.perf_counter() - t0:.2f} s")
+    if info["process_count"] != 1 or dist.get_backend() != "nccl":
+        raise RuntimeError(f"expected NCCL at world 1, got {info}, {dist.get_backend()}")
+    return mesh
+
+
+def phase_sharded_sampler(ops, mesh):
+    """18b: ``make_sharded_sampler`` against ``pipe.denoise`` with the same
+    generator, chest, B=PAR_N, bf16, DDIM PAR_STEPS at eta 1, CFG GUIDANCE
+    with un_cond = 1 - label, decode: bit-equal, kernel 1's launches held."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
+    from medfusion_tpu_torch.parallel import make_sharded_sampler
+
+    p = PRESETS["chest"]
+    pipe = build_pipeline(p, device="cuda", compute_dtype=torch.bfloat16, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    perturb_(pipe.noise_estimator, gen)
+    cond = torch.arange(PAR_N, device="cuda") % 2
+    kw = dict(steps=PAR_STEPS, guidance_scale=GUIDANCE, eta=1.0)
+    expected = unet_launches(forwards=PAR_STEPS, decodes=1)
+    out = {}
+    for name in ("unsharded", "sharded", "unsharded ", "sharded "):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if name.strip() == "sharded":
+            sampler = make_sharded_sampler(pipe, mesh, p.latent_shape, **kw)
+            imgs = sampler(g, PAR_N, cond, 1 - cond)
+        else:
+            x_T = torch.randn((PAR_N, *p.latent_shape), generator=g, device="cuda")
+            imgs = pipe.denoise(x_T, condition=cond, un_cond=1 - cond, generator=g, **kw)
+        torch.cuda.synchronize()
+        out.setdefault(name.strip(), []).append(time.perf_counter() - t0)
+        check_counts(f"{name.strip()} sampler", ops.launch_counts(), expected)
+        out[name.strip() + " images"] = imgs
+    same("sharded sampler", out["sharded images"], out["unsharded images"])
+    if not torch.isfinite(out["sharded images"]).all():
+        raise RuntimeError("non-finite images")
+    s = {k: min(v) for k, v in out.items() if not k.endswith("images")}
+    log(f"  sharded sampler (chest, B={PAR_N}, bf16, DDIM {PAR_STEPS}, CFG {GUIDANCE}, "
+        f"decode): bit-equal to pipe.denoise; {s['sharded']:.3f} s, unsharded "
+        f"{s['unsharded']:.3f} s")
+    return {"sharded_s": s["sharded"], "unsharded_s": s["unsharded"],
+            "launches": expected["group_norm_silu"]}
+
+
+def phase_sample_dataset_torchrun(tmp):
+    """18c: ``cli.sample_dataset`` (chest, chunk PAR_N, PAR_N samples a
+    label, DDIM PAR_STEPS) under ``torch.distributed.run`` at one process
+    and run alone: the PNGs byte for byte."""
+    argv = ["-m", "medfusion_tpu_torch.cli.sample_dataset", "--preset", "chest",
+            "--chunk", str(PAR_N), "--n-samples", str(PAR_N), "--steps-list",
+            str(PAR_STEPS)]
+    runs = {"torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc_per_node", "1"] + argv,
+            "alone": [sys.executable] + argv}
+    seconds = {}
+    for name, cmd in runs.items():
+        out = tmp / name
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd + ["--out", str(out)], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        seconds[name] = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(f"cli.sample_dataset ({name}) exited {res.returncode}:\n"
+                               f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+        for line in res.stdout.splitlines():
+            if "samples ->" in line:
+                log(f"    {name}: {line.strip()}")
+    files = sorted(q.relative_to(tmp / "alone") for q in (tmp / "alone").rglob("*.png"))
+    other = sorted(q.relative_to(tmp / "torchrun") for q in (tmp / "torchrun").rglob("*.png"))
+    if files != other or len(files) != 2 * PAR_N:
+        raise RuntimeError(f"torchrun wrote {len(other)} PNGs, alone {len(files)}")
+    for f in files:
+        if (tmp / "alone" / f).read_bytes() != (tmp / "torchrun" / f).read_bytes():
+            raise RuntimeError(f"{f} differs between torchrun and a plain run")
+    log(f"  cli.sample_dataset under torchrun (1 process, NCCL): {len(files)} PNGs "
+        f"byte-equal to the plain run; wall {seconds['torchrun']:.1f} s, alone "
+        f"{seconds['alone']:.1f} s (each with its start-up)")
+    return seconds
+
+
+def phase_parallel_train(ops, mesh):
+    """18d: two chest-UNet steps at B=32, bf16 on f32 masters, AdamW + EMA,
+    through ``shard_params``/``shard_batch`` (dp, FSDP, TP with
+    min_shard_dim 256), each bit-equal to the plain steps (cuDNN's
+    deterministic algorithms on) with kernel 1's launches held."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline
+    from medfusion_tpu_torch.parallel import shard_batch, shard_params
+    from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step
+
+    p = PRESETS["chest"]
+    pipe = build_train_pipeline(p, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    perturb_(pipe.noise_estimator, gen)
+    batches = train_batches(p, PAR_TRAIN_STEPS, seed=18)
+    draws = [pipe.train_draws(TRAIN_BATCH, p.latent_shape, generator=gen) for _ in batches]
+    base = copy.deepcopy(pipe.noise_estimator)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    expected = {"group_norm_silu": PAR_TRAIN_STEPS * (UNET_GN_PER_FORWARD + VAE_GN_PER_ENCODE)}
+    runs = {}
+    try:
+        for name, placement in (("plain", None), ("dp", {}), ("fsdp", {"fsdp": True}),
+                                ("tp", {"tensor_parallel": True, "min_shard_dim": 256}),
+                                ("plain again", None)):
+            unet = copy.deepcopy(base)
+            if placement is not None:
+                shard_params(unet, mesh, **placement)
+            state = TrainState(unet, lr=p.diffusion_lr, weight_decay=1e-2, use_ema=True)
+            step = make_diffusion_train_step(
+                dataclasses.replace(pipe, noise_estimator=unet), compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            losses = []
+            for b, d in zip(batches, draws):  # the last step timed: the first warms up
+                t0 = time.perf_counter()
+                if placement is not None:
+                    b, d = shard_batch(b, mesh), shard_batch(d, mesh)
+                losses.append(step(state, b, d)["loss"])
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check_counts(f"{name} train steps", ops.launch_counts(), expected)
+            runs[name] = (state, torch.stack(losses), ms)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ref = runs["plain"][0]
+    same_params("plain step again", runs["plain again"][0].model, ref.model)
+    for name in ("dp", "fsdp", "tp"):
+        state, losses, _ = runs[name]
+        same(f"{name} losses", losses, runs["plain"][1])
+        same_params(f"{name} params", state.model, ref.model)
+        same_params(f"{name} EMA", state.ema, ref.ema)
+    ms = {k: v[2] for k, v in runs.items()}
+    log(f"  chest train steps (B={TRAIN_BATCH}, bf16, {PAR_TRAIN_STEPS} steps) through "
+        f"shard_params: dp, FSDP, TP bit-equal to the plain steps; ms of the last step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    return ms
+
+
+def phase_ring_attention(ops, FA, mesh):
+    """18e: ring attention at world 1 bit-equal to kernel 2 alone, its launch
+    counted; the lse merge of kernel 2 over K/V split into RING_SPLITS
+    blocks against the same merge of the plain version's blocks (bf16, two
+    ulps of the blocks' largest |o|) and against kernel 2 on the whole."""
+    import torch
+
+    from medfusion_tpu_torch.parallel import ring_attention
+    from medfusion_tpu_torch.parallel.ring_attention import merge_attention_blocks
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    b, h, n, d = 2 * N_SAMPLES, 8, 1024, 32
+    q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    scale = d ** -0.25
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        out = ring_attention(q, k, v, mesh, scale=scale, axis="data")
+        check_counts("ring attention (world 1)", ops.launch_counts(), {"flash_attention": 1})
+        whole, _ = FA.flash_attention(q, k, v, scale)
+        same("ring attention", out, whole)
+        ring_ms = cuda_ms(lambda: ring_attention(q, k, v, mesh, scale=scale, axis="data"), 20)
+        kernel_ms = cuda_ms(lambda: FA.flash_attention(q, k, v, scale), 20)
+        errs = {}
+        for parts in RING_SPLITS:
+            blocks = list(zip(k.chunk(parts, dim=2), v.chunk(parts, dim=2)))
+            ops.reset_launch_counts()
+            kern = [FA.flash_attention(q, kb, vb, scale) for kb, vb in blocks]
+            check_counts(f"merge over {parts} blocks", ops.launch_counts(),
+                         {"flash_attention": parts})
+            plain = [FA.naive_attention_reference(q, kb, vb, scale) for kb, vb in blocks]
+            got = merge_attention_blocks(*zip(*kern))
+            want = merge_attention_blocks(*zip(*plain))
+            atol, _ = attn_o_tol(torch.stack([o for o, _ in plain]))
+            errs[parts] = close(f"merge of {parts} blocks", got, want, atol, 0.0)
+            errs[f"{parts} vs whole"] = (got.float() - whole.float()).abs().max().item()
+            merge_ms = cuda_ms(lambda: merge_attention_blocks(
+                *zip(*[FA.flash_attention(q, kb, vb, scale) for kb, vb in blocks])), 20)
+            errs[f"{parts} ms"] = merge_ms
+    log(f"  ring attention (B={b}, 8 heads x 32, {n} tokens, bf16): bit-equal to kernel 2, "
+        f"{ring_ms:.4f} ms (kernel alone {kernel_ms:.4f}); lse merge vs the plain merge "
+        f"max|d| " + ", ".join(f"{p} blocks {errs[p]:.3e} ({errs[f'{p} ms']:.4f} ms; vs the "
+                                f"whole {errs[f'{p} vs whole']:.3e})" for p in RING_SPLITS))
+    return {"ring_ms": ring_ms, "kernel_ms": kernel_ms, "errs": errs}
+
+
+def phase_expert_parallel(ops, mesh):
+    """18f: the chest DiT-MoE (DIT_MOE) with ``moe_expert_axis`` against the
+    one without on the same weights: a bf16 forward bit for bit, then
+    PAR_TRAIN_STEPS bf16 train steps on one batch (loss, params, EMA bit
+    for bit), kernels 3-5 counted."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_train_pipeline, build_unet, seeded
+    from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step
+
+    p = PRESETS["chest"]
+    pipe = build_train_pipeline(p, device="cuda", estimator="dit", seed=0)
+    with seeded(torch.device("cuda"), 18):
+        dense = build_unet(p, "dit", **DIT_MOE)
+        ep = build_unet(p, "dit", **DIT_MOE, moe_expert_axis=mesh["data"])
+    ep.load_state_dict(dense.state_dict(), strict=True)
+    batch = train_batches(p, 1, seed=18)[0]
+    draws = pipe.train_draws(TRAIN_BATCH, p.latent_shape,
+                             generator=torch.Generator(device="cuda").manual_seed(18))
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn((TRAIN_BATCH, *p.latent_shape[2:], *p.latent_shape[:2]),
+                    generator=gen, device="cuda").bfloat16()
+    t = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device="cuda")
+    c = torch.arange(TRAIN_BATCH, device="cuda") % 2
+    with torch.no_grad():
+        fwd = [copy.deepcopy(m).bfloat16()(x, t, c, with_aux=True) for m in (dense, ep)]
+    same("DiT-MoE forward", fwd[1][0], fwd[0][0])
+    same("DiT-MoE aux", fwd[1][2], fwd[0][2])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for name, model in (("dense", dense), ("expert-parallel", ep)):
+            state = TrainState(model, lr=p.diffusion_lr, weight_decay=1e-2, use_ema=True)
+            step = make_diffusion_train_step(dataclasses.replace(pipe, noise_estimator=model),
+                                             compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            for _ in range(PAR_TRAIN_STEPS):  # the last step timed: the first warms up
+                t0 = time.perf_counter()
+                metrics = step(state, batch, draws)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check_counts(f"DiT-MoE {name} train steps", ops.launch_counts(),
+                         dit_launches(PAR_TRAIN_STEPS, PAR_TRAIN_STEPS,
+                                      encodes=PAR_TRAIN_STEPS))
+            runs[name] = (state, metrics, ms)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (sd, md, ms_d), (se, me, ms_e) = runs["dense"], runs["expert-parallel"]
+    same("DiT-MoE loss", me["loss"], md["loss"])
+    same("DiT-MoE moe_aux", me["moe_aux"], md["moe_aux"])
+    same_params("DiT-MoE params", se.model, sd.model)
+    same_params("DiT-MoE EMA", se.ema, sd.ema)
+    log(f"  DiT-MoE with moe_expert_axis (world 1): bf16 forward and {PAR_TRAIN_STEPS} train "
+        f"steps (B={TRAIN_BATCH}) bit-equal to the dense layout; the last step {ms_e:.1f} ms "
+        f"(dense {ms_d:.1f})")
+    return {"ep_ms": ms_e, "dense_ms": ms_d}
+
+
+def phase_pipeline_world1(mesh):
+    """18g: ``pipeline_apply`` at world 1 (one stage: a residual MLP block
+    on [B, PIPE_TOKENS, PIPE_WIDTH] tokens, f32) against the stage applied
+    directly: output and parameter gradients bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from medfusion_tpu_torch.parallel import pipeline_apply, stack_stage_params
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    def stage(prm, x):
+        h = F.layer_norm(x, x.shape[-1:])
+        return x + F.gelu(h @ prm["w1"] + prm["b1"]) @ prm["w2"]
+
+    c = PIPE_WIDTH
+    params = {"w1": rnd(c, 4 * c, std=c ** -0.5), "b1": rnd(4 * c, std=0.1),
+              "w2": rnd(4 * c, c, std=(4 * c) ** -0.5)}
+    x = rnd(TRAIN_BATCH, PIPE_TOKENS, c)
+    stacked = {k: v.requires_grad_(True) for k, v in stack_stage_params([params]).items()}
+    y = pipeline_apply(stage, stacked, x, mesh=mesh, axis="model")
+    g = torch.autograd.grad((y ** 2).mean(), list(stacked.values()))
+    flat = {k: v[0].detach().requires_grad_(True) for k, v in stacked.items()}
+    y_ref = stage(flat, x)
+    g_ref = torch.autograd.grad((y_ref ** 2).mean(), list(flat.values()))
+    same("pipeline output", y, y_ref)
+    for k, a, b in zip(flat, g, g_ref):
+        same(f"pipeline grad {k}", a[0], b)
+    with torch.no_grad():
+        pipe_ms = cuda_ms(lambda: pipeline_apply(stage, stacked, x, mesh=mesh), 20)
+        plain_ms = cuda_ms(lambda: stage(flat, x), 20)
+    log(f"  pipeline_apply at world 1 (one stage, x {tuple(x.shape)}): output and gradients "
+        f"bit-equal to the stage; forward {pipe_ms:.4f} ms (stage alone {plain_ms:.4f})")
+    return {"pipe_ms": pipe_ms, "plain_ms": plain_ms}
+
+
 def kernel_row(name, source, replaces, launches, err, rows):
     """One entry of the kernels line: times summed over one launch at each
     of ``rows``' shapes."""
@@ -5506,6 +5904,9 @@ def main():
     from medfusion_tpu_torch.ops import group_norm as G
 
     t_all = time.perf_counter()
+    # the CLIs' process groups (NCCL at world 1) on a machine with no network:
+    # loopback only, for this process and the ones it starts
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -5641,6 +6042,26 @@ def main():
         torch.cuda.empty_cache()
         diffusers_small = phase_diffusers_vs_cpu()
         diffusers_full = phase_diffusers_full_width(ops, root)
+        torch.cuda.empty_cache()
+
+        log("[18] parallelism at world 1 over NCCL: the sharded sampler, cli.sample_dataset "
+            "under torchrun, dp / FSDP / TP train steps, ring attention, expert-parallel "
+            "DiT-MoE and the pipeline, each bit-equal to its unsharded path")
+        t18 = time.perf_counter()
+        mesh = phase_parallel_init()
+        par_sampler = phase_sharded_sampler(ops, mesh)
+        torch.cuda.empty_cache()
+        ptmp = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="parallel_",
+                                                                    dir=ram_dir(4))))
+        par_cli = phase_sample_dataset_torchrun(ptmp)
+        par_train = phase_parallel_train(ops, mesh)
+        torch.cuda.empty_cache()
+        par_ring = phase_ring_attention(ops, FA, mesh)
+        par_moe = phase_expert_parallel(ops, mesh)
+        torch.cuda.empty_cache()
+        par_pipe = phase_pipeline_world1(mesh)
+        par_seconds = time.perf_counter() - t18
+        torch.distributed.destroy_process_group()
 
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
@@ -5771,6 +6192,16 @@ def main():
         f"{diffusers_full['ms']:.1f} ms, peak {diffusers_full['peak']:.2f} GiB; DDIM "
         f"{DIFFUSERS_DDIM} CFG {DIFFUSERS_CFG} B={DIFFUSERS_SAMPLE_N} "
         f"{diffusers_full['sample_s']:.3f} s")
+    log(f"  slice 17 on the card (world 1, NCCL): sharded sampler {par_sampler['sharded_s']:.3f} "
+        f"s (pipe.denoise {par_sampler['unsharded_s']:.3f} s), group_norm_silu "
+        f"{par_sampler['launches']}; cli.sample_dataset torchrun {par_cli['torchrun']:.1f} s "
+        f"(alone {par_cli['alone']:.1f} s); train ms a step " + ", ".join(
+            f"{k} {v:.1f}" for k, v in par_train.items())
+        + f"; ring attention {par_ring['ring_ms']:.4f} ms (kernel {par_ring['kernel_ms']:.4f}); "
+        f"DiT-MoE step expert-parallel {par_moe['ep_ms']:.1f} ms (dense "
+        f"{par_moe['dense_ms']:.1f}); "
+        f"pipeline {par_pipe['pipe_ms']:.4f} ms (stage {par_pipe['plain_ms']:.4f}); phase 18 "
+        f"{par_seconds:.1f} s")
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -125,7 +125,7 @@ class DiTBlock(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0,
                  moe_experts: Optional[int] = None, moe_num_selected: int = 2,
-                 moe_capacity_factor: float = 1.25):
+                 moe_capacity_factor: float = 1.25, moe_expert_axis=None):
         super().__init__()
         self.num_heads = num_heads
         self.scale = (hidden_size // num_heads) ** -0.25
@@ -136,7 +136,8 @@ class DiTBlock(nn.Module):
         if moe_experts is not None:
             self.moe_mlp = MoEMLP(hidden_size, mlp_dim, moe_experts,
                                   num_selected=moe_num_selected,
-                                  capacity_factor=moe_capacity_factor)
+                                  capacity_factor=moe_capacity_factor,
+                                  expert_axis=moe_expert_axis)
         else:
             self.moe_mlp = None
             self.mlp_fc1 = _xavier_linear(hidden_size, mlp_dim)
@@ -174,7 +175,9 @@ class DiT(nn.Module):
     """Class-conditional latent Diffusion Transformer on [B, in_ch, H, W]
     with H and W divisible by ``patch_size``. ``moe_experts`` makes block i
     an expert-MLP block where ``i % moe_every == moe_every - 1``;
-    ``moe_expert_axis`` (expert parallelism) is ROADMAP Queue 1 item 9."""
+    ``moe_expert_axis`` (a process group or a 1-D DeviceMesh) splits the
+    experts of every expert-MLP block over its ranks, which hold their own
+    rows of the batch (``parallel/moe.py``)."""
 
     # the pipelines ask for the aux loss of a training forward
     returns_aux = True
@@ -192,9 +195,6 @@ class DiT(nn.Module):
         if hidden_size % 4:
             raise ValueError("hidden_size must be divisible by 4 (the 2-D sin-cos "
                              "pos-embed splits it in quarters)")
-        if moe_expert_axis is not None:
-            raise NotImplementedError("moe_expert_axis (expert parallelism) is not "
-                                      "ported (ROADMAP Queue 1, item 9)")
         self.patch_size = patch_size
         self.hidden_size = hidden_size
         self.cond_emb_num_classes = cond_emb_num_classes
@@ -212,7 +212,8 @@ class DiT(nn.Module):
                      moe_experts=(moe_experts if moe_experts is not None
                                   and i % moe_every == moe_every - 1 else None),
                      moe_num_selected=moe_num_selected,
-                     moe_capacity_factor=moe_capacity_factor)
+                     moe_capacity_factor=moe_capacity_factor,
+                     moe_expert_axis=moe_expert_axis)
             for i in range(depth)])
         self.final_layer = DiTFinalLayer(hidden_size, patch_size, self.out_ch)
         self._pos = {}

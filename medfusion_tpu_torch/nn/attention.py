@@ -114,6 +114,19 @@ class GEGLU(nn.Module):
         return h * nn.functional.gelu(gate)
 
 
+def _whole_weight(linear: nn.Linear):
+    """``linear``'s weight, gathered whole where tensor parallelism holds a
+    slice of its rows (``parallel/mesh.py::shard_params``): the fused MLP
+    kernel reads whole matrices, as GSPMD gathers a sharded operand of the
+    JAX package's Pallas call. The gradient comes back sliced."""
+    tp = getattr(linear, "tensor_parallel", None)
+    if tp is None:
+        return linear.weight
+    from medfusion_tpu_torch.parallel import comm
+
+    return comm.gather_replicated(linear.weight, 0, tp.value)
+
+
 class BasicTransformerBlock(nn.Module):
     """self-attn (+ cross-attn against the embedding) + GEGLU MLP, on
     [B, C, *spatial] with C = ``out_channels``."""
@@ -144,8 +157,8 @@ class BasicTransformerBlock(nn.Module):
             out = down(drop(geglu(_tokens(x))))
         else:
             out = fused_geglu_mlp(_tokens(x), geglu.norm.weight, geglu.norm.bias,
-                                  geglu.proj.weight.t(), geglu.proj.bias,
-                                  down.weight.t(), down.bias)
+                                  _whole_weight(geglu.proj).t(), geglu.proj.bias,
+                                  _whole_weight(down).t(), down.bias)
         return x + _spatial(out, x.shape[2:])
 
 

@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from medfusion_tpu_torch.core.draws import normal
 from medfusion_tpu_torch.core import schedules as S
 
 
@@ -135,8 +136,7 @@ class DDIMSamplerMixin:
         def draw(i, j):
             if noise is not None:
                 return noise[i, j].contiguous()
-            return torch.randn(x.shape, generator=generator, device=x.device,
-                               dtype=x.dtype)
+            return normal(x.shape, generator, x.device, x.dtype)
 
         def full(t):
             return torch.full((b,), t, dtype=torch.long, device=x.device)

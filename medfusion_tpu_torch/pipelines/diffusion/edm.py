@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from medfusion_tpu_torch.core.draws import normal
 from medfusion_tpu_torch.core import schedules as S
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw, _to_nhwc
 
@@ -88,7 +89,7 @@ class EDMSamplerMixin:
             if s_churn > 0.0:
                 sigma_hat = sigma * churn_scale
                 z = (churn_noise[i] if churn_noise is not None else
-                     torch.randn(x.shape, generator=generator, device=x.device))
+                     normal(x.shape, generator, x.device))
                 x = x + torch.sqrt(torch.clamp(sigma_hat ** 2 - sigma ** 2, min=0.0)) * z
             else:
                 sigma_hat = sigma

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from medfusion_tpu_torch.core.draws import normal
 from medfusion_tpu_torch.core import schedules as S
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw, _to_nhwc
 
@@ -75,7 +76,7 @@ class FastSamplerMixin:
                                      estimator=propagate)
             pred, _ = self._split_variance(pred)
             z = (noise[i].contiguous() if noise is not None else
-                 torch.randn(x.shape, generator=generator, device=x.device))
+                 normal(x.shape, generator, x.device))
             x_prior, x_0, x_T, _ = self._pred_to_states(x, t_b, pred, z)
             if more:
                 x = S.ddim_step(sched, x_0, x_T, t, t_next,

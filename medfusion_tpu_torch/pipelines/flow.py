@@ -40,6 +40,7 @@ from typing import Any, ClassVar, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from medfusion_tpu_torch.core.draws import normal
 from medfusion_tpu_torch.nn.functional import interpolate_area
 from medfusion_tpu_torch.pipelines.diffusion.core import DiffusionPipeline
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw, _to_nhwc
@@ -225,7 +226,7 @@ class FlowMatchingPipeline:
         def draw(i, r, j):
             if noise is not None:
                 return noise[i, r, j].contiguous()
-            return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            return normal(x.shape, generator, x.device, x.dtype)
 
         def velocity(x, t):
             return self._velocity(x, t, condition, guidance_scale, un_cond)

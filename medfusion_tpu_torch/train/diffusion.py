@@ -9,7 +9,15 @@ optimizer state and the loss stay float32. The frozen latent embedder runs
 in the compute dtype too, from a private cast copy made once (the JAX
 package casts its parameters on every call, to the same values). There is
 no jit and no buffer donation: the step runs eagerly and updates the state
-in place."""
+in place.
+
+On a mesh (``parallel/mesh.py::shard_params``, or a DiT whose expert-MLP
+blocks are expert-parallel) the same step runs on each rank's rows of the
+batch and of the draws (``shard_batch``): :func:`estimator_params`
+all-gathers each FSDP slice where it builds the parameter dict, before the
+cast, and :func:`train_on` reduces the gradients and the metrics to their
+means over the ranks the rows are split over, so the loss is the global
+batch's mean, as the JAX package's is."""
 
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import Callable, Dict, Mapping
 
 import torch
 
+from medfusion_tpu_torch.parallel import mesh as parallel_mesh
 from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
 from medfusion_tpu_torch.train.state import TrainState
 
@@ -40,8 +49,12 @@ def with_compute_dtype(pipeline: DiffusionPipeline, compute_dtype=None) -> Diffu
 
 def estimator_params(model: torch.nn.Module, dtype=None) -> Dict[str, torch.Tensor]:
     """The model's parameters by name, cast to ``dtype`` inside the autograd
-    graph (so that gradients reach the masters in their own dtype)."""
+    graph (so that gradients reach the masters in their own dtype); an FSDP
+    slice all-gathered first (its gradient comes back reduce-scattered)."""
     params = dict(model.named_parameters())
+    plan = getattr(model, "parallel_plan", None)
+    if plan is not None:
+        params = {k: plan.gather_fsdp(k, p) for k, p in params.items()}
     if dtype is None:
         return params
     return {k: p.to(dtype) for k, p in params.items()}
@@ -58,7 +71,8 @@ def frozen_params(model: torch.nn.Module, dtype=None) -> Dict[str, torch.Tensor]
 def train_on(state: TrainState, compute_dtype, loss_fn: Callable) -> Dict[str, torch.Tensor]:
     """One loss and gradient of ``state.model`` and one AdamW + EMA update:
     ``loss_fn(params) -> (loss, metrics)`` on the model's parameters cast to
-    ``compute_dtype`` (:func:`estimator_params`). Returns the metrics,
+    ``compute_dtype`` (:func:`estimator_params`); on a mesh the gradients
+    and the metrics are the means over the data ranks. Returns the metrics,
     detached."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(estimator_params(state.model, compute_dtype))
@@ -69,8 +83,13 @@ def train_on(state: TrainState, compute_dtype, loss_fn: Callable) -> Dict[str, t
         # still decays it, as optax's adamw does
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    group = parallel_mesh.data_parallel_group(state.model)
+    if group is not None:
+        parallel_mesh.sync_gradients(state.model, group)
+        metrics = parallel_mesh.mean_metrics(metrics, group)
     state.apply_gradients()
-    return {k: v.detach() for k, v in metrics.items()}
+    return metrics
 
 
 def make_diffusion_train_step(pipeline: DiffusionPipeline,

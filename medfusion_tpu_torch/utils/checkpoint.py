@@ -20,6 +20,13 @@ Each file is written to a temporary name and moved into place with
 ``keep_top_k`` keeps the latest k steps (Orbax's ``max_to_keep``); the
 sibling store keeps the best step after the main directory has let it go,
 so the best pointer never dangles.
+
+Several processes (a state placed on a mesh, ``parallel/mesh.py``): every
+rank calls :func:`save_checkpoint`; the pieces of each placed tensor are
+gathered, rank 0 writes the whole state as above, and all ranks wait at a
+barrier, so the file is there when any of them returns.
+:func:`restore_checkpoint` reads the whole state on every rank and gives
+each rank its own pieces again.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 BEST_FILE = "best_checkpoint.json"
 CONFIG_FILE = "config.json"
@@ -62,18 +70,26 @@ def step_file(ckpt_dir, step: int) -> Path:
 def save_checkpoint(ckpt_dir, state, step: int, config: Optional[Dict] = None,
                     keep_top_k: Optional[int] = None, extra: Optional[Dict] = None) -> Path:
     """Save ``state`` (a :class:`TrainState`) as step ``step``, then drop all
-    but the latest ``keep_top_k`` steps. Returns the file."""
+    but the latest ``keep_top_k`` steps. Returns the file. With several
+    processes every rank calls it and rank 0 writes the whole state."""
+    from medfusion_tpu_torch.parallel.mesh import whole_state_dict
+
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    payload = {"step": int(step), "state": state.state_dict(), "extra": extra or {}}
     path = step_file(ckpt_dir, step)
-    _atomic_write(path, lambda tmp: torch.save(payload, tmp))
-    if config is not None:
-        text = json.dumps(config, indent=2, default=str)
-        _atomic_write(ckpt_dir / CONFIG_FILE, lambda tmp: tmp.write_text(text))
-    if keep_top_k is not None:
-        for old in _steps(ckpt_dir)[:-keep_top_k]:
-            step_file(ckpt_dir, old).unlink()
+    ranks = dist.is_initialized() and dist.get_world_size() > 1
+    sd = whole_state_dict(state, state.state_dict())
+    if not ranks or dist.get_rank() == 0:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        payload = {"step": int(step), "state": sd, "extra": extra or {}}
+        _atomic_write(path, lambda tmp: torch.save(payload, tmp))
+        if config is not None:
+            text = json.dumps(config, indent=2, default=str)
+            _atomic_write(ckpt_dir / CONFIG_FILE, lambda tmp: tmp.write_text(text))
+        if keep_top_k is not None:
+            for old in _steps(ckpt_dir)[:-keep_top_k]:
+                step_file(ckpt_dir, old).unlink()
+    if ranks:
+        dist.barrier()
     return path
 
 
@@ -94,10 +110,13 @@ def load_payload(ckpt_dir, step: Optional[int] = None) -> Dict[str, Any]:
 
 
 def restore_checkpoint(ckpt_dir, state, step: Optional[int] = None) -> Dict:
-    """Load step ``step`` (default: the latest) into ``state`` in place;
-    returns the checkpoint's ``extra``."""
+    """Load step ``step`` (default: the latest) into ``state`` in place,
+    each rank's pieces of a placed state; returns the checkpoint's
+    ``extra``."""
+    from medfusion_tpu_torch.parallel.mesh import local_state_dict
+
     payload = load_payload(ckpt_dir, step)
-    state.load_state_dict(payload["state"])
+    state.load_state_dict(local_state_dict(state, payload["state"]))
     return payload["extra"]
 
 

@@ -242,9 +242,31 @@ def test_prefetch_keeps_order_values_and_pulls_ahead(n, size):
         assert batch["uid"].tolist() == [f"a{i}", f"b{i}"]
 
 
+class _TwoRankMesh:
+    """The parts of a ('data', 'model') DeviceMesh that batch sharding
+    reads, as rank 1 of 2 data ranks sees them."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return (2, 1)[dim]
+
+    def get_local_rank(self, axis):
+        return {"data": 1, "model": 0}[axis]
+
+
 def test_prefetch_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        next(prefetch_to_device(iter([{"x": np.zeros(2)}]), device="cpu", mesh=object()))
+    """With a mesh each batch comes as this rank's rows over 'data' (rank 1
+    of 2: the second half); scalars and rows of strings are cut alike."""
+    batches = [{"x": np.arange(8, dtype=np.float32).reshape(4, 2) + i, "uid": np.asarray(list("abcd")),
+                "step": i} for i in range(3)]
+    out = list(prefetch_to_device(iter(batches), device="cpu", mesh=_TwoRankMesh()))
+    assert len(out) == 3
+    for i, batch in enumerate(out):
+        torch.testing.assert_close(batch["x"], torch.arange(4.0, 8.0).reshape(2, 2) + i)
+        assert batch["uid"].tolist() == ["c", "d"] and batch["step"] == i
+    with pytest.raises(ValueError, match="does not split over 2"):
+        next(prefetch_to_device(iter([{"x": np.zeros(3)}]), device="cpu", mesh=_TwoRankMesh()))
 
 
 # ---- profiling -------------------------------------------------------------------

@@ -30,6 +30,7 @@ from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
 from medfusion_tpu_torch.utils.weights import jax_dit_to_state_dict, load_jax_params
 from tests.test_torch_models import _randomize, nchw, nhwc
 from tests.test_torch_train import _batch, _close_tensors
+from tests.torch_parallel_worker import one_rank_group
 
 SMOKE = presets.PRESETS["smoke"]
 KW = dict(in_ch=2, patch_size=2, hidden_size=32, depth=2, num_heads=2,
@@ -201,8 +202,17 @@ def test_dit_refuses_what_the_jax_package_refuses():
         DiT(in_ch=2, hidden_size=18, num_heads=3)
     with pytest.raises(ValueError, match="not divisible by patch"):
         DiT(**KW)(torch.zeros(1, 2, 7, 8))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        DiT(**KW, moe_experts=2, moe_expert_axis="model")
+    # expert parallelism over a group of one rank: the same weights, the same
+    # forward and aux loss bit for bit
+    torch.manual_seed(0)
+    dense = DiT(**KW, moe_experts=2)
+    x = torch.randn(2, 2, 8, 8)
+    t, c = torch.tensor([3, 5]), torch.tensor([0, 1])
+    with one_rank_group() as group:
+        ep = DiT(**KW, moe_experts=2, moe_expert_axis=group)
+        ep.load_state_dict(dense.state_dict(), strict=True)
+        want, got = dense(x, t, c, with_aux=True), ep(x, t, c, with_aux=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
     for kw, why in ((dict(attention="spatial"), "fixes its own attention"),
                     (dict(attn_heads=4), "unet-family option")):
         with pytest.raises(ValueError, match=why):

@@ -42,6 +42,7 @@ from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 from medfusion_tpu_torch.utils.weights import load_jax_params
 from tests.test_torch_models import _randomize
 from tests.test_torch_train import _batch
+from tests.torch_parallel_worker import one_rank_group
 
 D, M, E, N = 16, 32, 4, 24
 
@@ -140,7 +141,14 @@ def test_expert_weights_use_flax_fan_avg_bound():
     assert np.abs(np.asarray(jw)).max() <= bound and np.abs(np.asarray(jw)).max() > 0.99 * bound
     assert not tm.b1.any() and not tm.b2.any()
     assert abs(tm.router.weight.std().item() - 0.02) < 2e-3
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # an expert-parallel layer holds its share of the experts at the bound of all E
+    with one_rank_group() as group:
+        torch.manual_seed(0)
+        ep = MoEMLP(64, 256, 8, expert_axis=group)
+        assert ep.expert_group is group and ep.w1.shape == tm.w1.shape
+        for a, b in zip(ep.parameters(), tm.parameters()):
+            assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="process group"):
         MoEMLP(8, 16, 2, expert_axis="model")
 
 
