@@ -88,7 +88,8 @@ Phases (each raises on failure, so any failure exits non-zero):
     pipeline's train loss and gradients, a Heun sample, the ODE inversion
     and inpainting card against CPU (f32); the f32 attention kernels at the
     classifier's shapes (1 head of 128 and 4 of 32 at 256 tokens, 4 of 32
-    at 257) against their plain versions and timed beside SDPA; the chest
+    at 257) against their plain versions and timed beside SDPA and the
+    split-TF32 and f32 FMA bounds; the chest
     classifier's logits and input gradient with both attending pools and
     one classifier train step card against CPU, and the gradient check
     shown to flag dq zeroed at d = 128; on phase 9's tree,
@@ -3012,6 +3013,9 @@ def phase_ingest_and_lpips(ops, tmp, root):
 CLF_ATTN_SHAPES = ((256, 128, 1), (256, 128, 4), (257, 128, 4))
 CLF_GRAD_TOL = 1e-4
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# f32-accurate products on the tensor cores: split-TF32, three tf32 products
+# for each f32 one (SDPA's f32 kernels and the f32 attention backward)
+SPLIT_TF32_FLOPS_PER_S = 495e12 / 3
 CLF_CHANNELS = 64
 # 13b: the classifier gradient's check must flag dq zeroed at d = 128
 CLF_FAULT = ("dq zeroed at d=128, every head", "flash_attention_bwd_dq", 5, 128,
@@ -3278,9 +3282,16 @@ def clf_attention_times(FA, worst):
     """13a: the f32 attention kernels at the classifier's shapes and the
     guided sampler's batch (B=8, token layout): the forward and each
     backward kernel (replayed graph of 20 launches) beside the plain
-    versions and SDPA's forward and backward (f32: no TF32), each held to
-    the plain version; bounds with float32's 67 TFLOP/s (the kernels run
-    f32 FMA, not TF32) and the SFU's exponentials."""
+    versions and SDPA's forward and backward, each held to the plain
+    version. SDPA's f32 kernels (CUTLASS's memory-efficient attention) run
+    their products on the tensor cores in split-TF32
+    (``OpMultiplyAddFastF32``: three tf32 products for each f32 one, not
+    single-pass TF32, whatever ``allow_tf32`` says), as the backward kernels
+    do; the forward kernel runs f32 FMA. So the bound is the least time for
+    f32-accurate work: the FLOPs at the split-TF32 rate (495 / 3 TFLOP/s),
+    the bytes, or the SFU's exponentials, whichever is longest; each
+    kernel's share of it is printed beside its share of the f32 FMA bound
+    (67 TFLOP/s)."""
     import torch
     import torch.nn.functional as F
 
@@ -3329,12 +3340,14 @@ def clf_attention_times(FA, worst):
                 ("dQ", t_dq, p_dq, l_bwd, 6, 6 * tok + 2 * stat),
                 ("dK/dV", t_dkv, p_dkv, l_bwd, 8, 6 * tok + 2 * stat)):
             flops *= bh * n * n * d
-            bd = bounds(flops, nbytes, exp_ms, flops_per_s=F32_FLOPS_PER_S)
-            row[what] = dict(ms=t_k, plain_ms=t_p, library_ms=lib, **bd)
+            bd = bounds(flops, nbytes, exp_ms, flops_per_s=SPLIT_TF32_FLOPS_PER_S)
+            fma = bounds(flops, nbytes, exp_ms, flops_per_s=F32_FLOPS_PER_S)["bound_ms"]
+            row[what] = dict(ms=t_k, plain_ms=t_p, library_ms=lib, fma_bound_ms=fma, **bd)
             log(f"  f32 attention {what} B={b} N={n} H={heads} d={d}: {t_k:.4f} ms, plain "
                 f"{t_p:.4f}, sdpa {'backward ' if what != 'forward' else ''}{lib:.4f}; bound "
                 f"{bd['bound_ms']:.4f} ms ({'operations' if bd['ops_ms'] >= bd['bytes_ms'] else 'bytes'}"
-                f"), {bd['bound_ms'] / t_k:.1%} of bound")
+                f", split-TF32), {bd['bound_ms'] / t_k:.1%} of bound; f32 FMA bound "
+                f"{fma:.4f} ms, {fma / t_k:.1%}")
         rows.append(row)
         del q, k, v, do, ops, leaves
     torch.cuda.empty_cache()

@@ -85,10 +85,10 @@
 // operand (K for dQ; dO and Q for dK/dV) for the accumulating products.
 // Every chunk recomputes the scores (d / 128 times their FLOPs); the dQ
 // kernel's chunk 0 writes D.
-// f32 (not on the training path): the simple version, plain f32 FMA (not
-// TF32), 32 rows a block, four lanes a row, a chunk of DC = min(128, next
-// width >= d) columns of the gradients per block (gridDim.z chunks), the
-// scores summed over DC-wide slices, tiles staged with synchronous loads.
+// f32 (classifier guidance and training, the f32 paths): every product on
+// the tensor cores in split-TF32 (three tf32 mma.syncs, f32-accurate), 16
+// output rows a block, the loop over the other side split across the
+// block's warps, each with its own cp.async ring; see "f32" below.
 //
 // Launches go on the caller's stream; the kernels allocate nothing. Each
 // entry point returns cudaGetLastError() after its launch, or 10000 plus
@@ -121,8 +121,6 @@ __device__ __forceinline__ T* base(const BwdParams& p, int which, int b, int h) 
 }
 
 constexpr int kTile = 64;  // rows of a bf16 block: one warpgroup's wgmma M
-constexpr int kThreads = 128;
-constexpr int kTile32 = 32;  // f32
 constexpr int kConsumers = 128;  // warps 0-3
 constexpr int kBf16Threads = kConsumers + 32;  // + the producer warp
 constexpr float kLog2e = 1.4426950408889634f;
@@ -839,191 +837,467 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
   }
 }
 
-// ---- f32 ----
-// 32 rows a block, four lanes a row; columns [c0, c0 + DC) of the gradient
-// per block (c0 = DC * blockIdx.z); lane `sub` takes columns 4 i + sub of
-// each DC-wide slice, and sums over d are reduced over the four lanes with
-// shuffles.
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// ---- f32: split-TF32 products on the tensor cores ----
+// A block owns 16 output rows (query rows for dQ, key rows for dK/dV), one
+// m16 tile, resident in shared memory with the rows' other operand (q and
+// dO; k and v), already split into tf32 big and small parts (d <= 128), and
+// read there by every warp, never again from device memory. Its W warps
+// split the loop over the other side (keys; queries) into tiles of 8 rows,
+// one n8 tile of the scores and one k8 step of the accumulating products:
+// warp w takes tiles w, w + W, w + 2W, ..., each through its own cp.async
+// ring (16-byte copies, zero-filled past N, M and d; 4 stages at d <= 64,
+// 2 at 128), synchronised by the warp alone. Each warp keeps its own
+// partial sums; at the end they meet in shared memory and are added in warp
+// order: no atomics, the same bits on every run. Every product is
+// mma_split3 (split-TF32, flash_attention_common.cuh): the scores and dP
+// over the head dim in k8 steps with the resident rows as A, then P and dS
+// as A fragments straight from the score accumulators. A score tile's n-th
+// column is the tile's row pi(n) = n ^ (n >> 2), so that the score loads
+// ([8][DC + 8] tile, lane g on row pi(g), 8-byte loads) and the
+// accumulating products' loads (rows pi(2 t4) and pi(2 t4 + 1), column g)
+// both hit 32 distinct banks. dK/dV computes S^T and dP^T of a query tile
+// once and feeds both P^T dO and dS^T Q from them.
+// Head widths: d <= 128 runs the kernels compiled for the next of 16, 32,
+// 64 and 128 on zero-filled columns; d > 128 (WIDE) splits the gradients'
+// columns into 128-wide chunks over gridDim.z, keeps the rows' whole d
+// resident unsplit (129 KB at d = 1,024), streams the looped operands in
+// 128-column slices (the chunk's own slice into a buffer kept for the
+// accumulating products), two warps a block; every chunk recomputes the
+// scores.
+// Occupancy on an H100 at the classifier's shapes, B = 8: d = 128, N = 256,
+// one head: 16 x 8 = 128 blocks of 8 warps (171 KB of shared memory, one
+// block an SM), so 128 of the 132 SMs hold 8 warps, each warp 4 key (query)
+// tiles; d = 32, N = 256 or 257, 4 heads: 16 or 17 x 32 blocks of 4 warps
+// (51 KB, 128 registers a thread), four blocks an SM, one wave.
+// Bound: 6 (dQ) and 8 (dK/dV) BH N M d FLOPs at the split-TF32 rate (495 /
+// 3 TFLOP/s), against each input read and each output written once (at
+// these shapes the FLOPs). What sets the pace instead: the tensor pipe's
+// three mma.syncs a product and the splits' conversions (each about a
+// quarter of the time at d = 128, PERF.md), and each warp's few tiles, whose
+// fixed costs (the resident rows, D, the partial sums) and load latency a
+// 16-row block cannot spread further.
+
+constexpr int kF32Rows = 16;  // a block's output rows: one m16 tile
+constexpr int kF32Tile = 8;   // a looped tile's rows: one n8 tile, one k8 step
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Shared memory of an f32 block, in floats: W slots, each a warp's ring
+// and then its partial sums; the two resident [16][res_ld] tiles; lse and
+// D of the block's rows (dQ).
+template <int DC, bool WIDE>
+struct F32Smem {
+  // warps a block, the loop's shares: 8 at DC 64 and 128 (one or two
+  // blocks an SM), 4 at DC <= 32 (four blocks an SM), 2 for WIDE
+  static constexpr int W = WIDE ? 2 : DC <= 32 ? 4 : 8;
+  static constexpr int S = DC + 8;  // a tile's row stride, 8 mod 16: no bank conflicts
+  static constexpr int kTileF = kF32Tile * S;  // one looped operand's [8][S] tile
+  static constexpr int kBuf = 2 * kTileF;  // both looped operands
+  static constexpr int kStat = 2 * kF32Tile;  // lse and D of a query tile (dK/dV)
+  // a warp's ring: kStages buffers (and stats) by tile, deeper where the
+  // tiles are small; WIDE also the slice ring by step parity
+  static constexpr int kStages = !WIDE && DC <= 64 ? 4 : 2;
+  static constexpr int kRing = (kStages + (WIDE ? 2 : 0)) * kBuf + kStages * kStat;
+  static constexpr int kPartial = 2 * kF32Rows * S;  // dK and dV (dQ: the first)
+  static constexpr int kSlot = kRing > kPartial ? kRing : kPartial;
+  static constexpr int kPool = W * kSlot;
+  __host__ __device__ static constexpr int res_stride(int d) { return round_up(d, DC) + 8; }
+  // a resident tile's row stride: raw (WIDE), or split in pairs
+  __host__ __device__ static constexpr int res_ld(int d) {
+    return (WIDE ? 1 : 2) * res_stride(d);
+  }
+  __host__ __device__ static constexpr int bytes(int d) {
+    return 4 * (kPool + 2 * kF32Rows * res_ld(d) + 2 * kF32Rows);
+  }
+};
+
+// Blocks an SM each f32 kernel is compiled for: 16 warps (128 registers a
+// thread) at DC <= 32, where a block's work is small and more of them hide
+// each other's loads; one block at the wider DC, whose accumulators need
+// the registers.
+template <int DC, bool WIDE>
+__host__ __device__ constexpr int f32_min_blocks() {
+  return DC <= 32 ? 16 / F32Smem<DC, WIDE>::W : 1;
 }
 
-template <int DC>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(BwdParams p) {
-  constexpr int DP = DC / 4;
-  __shared__ float Ks[kTile32][DC];
-  __shared__ float Vs[kTile32][DC];
+__device__ __forceinline__ int score_row(int n) { return n ^ (n >> 2); }
 
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int row = blockIdx.x * kTile32 + (threadIdx.x >> 2);
-  const int sub = threadIdx.x & 3;
-  const int c0 = blockIdx.z * DC;
-  const bool valid = row < p.N;
-  const float* q = base<const float>(p, kQ, b, h) + row * p.st[kQ][2];
-  const float* o = base<const float>(p, kO, b, h) + row * p.st[kO][2];
-  const float* dout = base<const float>(p, kDO, b, h) + row * p.st[kDO][2];
-  const float* k = base<const float>(p, kK, b, h);
-  const float* v = base<const float>(p, kV, b, h);
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  float dsum = 0.f;
-  for (int col = sub; col < p.d; col += 4) {
-    dsum = fmaf(valid ? dout[col] : 0.f, valid ? o[col] : 0.f, dsum);
+// Rows [r0, r0 + rows) and columns [c0, c0 + cols) of a strided f32
+// operand into a [rows][ld] tile, by threads tid of n; zeros past row
+// `limit` and column d.
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, long long st,
+                                          int r0, int limit, int rows, int c0, int cols, int d,
+                                          int tid, int n) {
+  const int chunks = cols / 4;
+#pragma unroll 4
+  for (int i = tid; i < rows * chunks; i += n) {
+    const int r = i / chunks, c = (i - r * chunks) * 4;
+    const bool ok = r0 + r < limit && c0 + c < d;
+    cp_async16(dst + r * ld + c, ok ? src + (r0 + r) * st + c0 + c : src, ok);
   }
-  dsum = quad_sum(dsum);
-  if (valid && sub == 0 && blockIdx.z == 0)
-    base<float>(p, kDelta, b, h)[row * p.st[kDelta][2]] = dsum;
-  const float l = valid ? base<const float>(p, kLse, b, h)[row * p.st[kLse][2]] : 0.f;
-  float acc[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) acc[i] = 0.f;
+}
 
-  for (int k0 = 0; k0 < p.M; k0 += kTile32) {
-    float sp[kTile32], dpp[kTile32];
+// The block's 16 resident rows of one operand, zero past row `limit` and
+// column d: WIDE, as they are (cp.async, columns [0, cols)); else split in
+// pairs (tf32_split_pair), converted once for every looped tile.
+template <bool WIDE>
+__device__ __forceinline__ void load_resident(float* dst, int ld, const float* src,
+                                              long long st, int r0, int limit, int cols,
+                                              int d, int n) {
+  if (WIDE) {
+    load_rows(dst, ld, src, st, r0, limit, kF32Rows, 0, cols, d, threadIdx.x, n);
+    return;
+  }
+  const int chunks = cols / 4;
+  for (int i = threadIdx.x; i < kF32Rows * chunks; i += n) {
+    const int r = i / chunks, c = (i - r * chunks) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < limit && c < d) x = *reinterpret_cast<const float4*>(src + (r0 + r) * st + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + 2 * c) = tf32_split_pair(x.x, x.y);
+    *reinterpret_cast<uint4*>(dst + r * ld + 2 * c + 4) = tf32_split_pair(x.z, x.w);
+  }
+}
+
+// The scores (S or S^T) and dP (or dP^T) of one looped tile over one DC-wide
+// slice: rows of the resident tiles x and y (columns [c, c + DC)) against
+// rows pi(g) of the looped tiles tx and ty. The tensor cores round their
+// f32 sums toward zero, a bias that grows with the length of a chain of
+// mma.syncs on one accumulator (at d = 1,024 it cost the scores 2^-15 of
+// their size); so each 16 columns are summed on a fresh accumulator and
+// added to the scores in f32, rounded to nearest.
+template <int DC, int S, bool WIDE>
+__device__ __forceinline__ void f32_scores(float* sc, float* dp, const float* x, const float* y,
+                                           int ld, const float* tx, const float* ty, int g,
+                                           int t4) {
+  constexpr int kSteps = DC / 8 < 2 ? DC / 8 : 2;  // k8 steps a fresh accumulator
+  const int row = score_row(g) * S;
 #pragma unroll
-    for (int j = 0; j < kTile32; ++j) sp[j] = dpp[j] = 0.f;
-    for (int s0 = 0; s0 < p.d; s0 += DC) {
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < kTile32 * DC; idx += kThreads) {
-        const int j = idx / DC, c = idx % DC;
-        const bool ok = k0 + j < p.M && s0 + c < p.d;
-        Ks[j][c] = ok ? k[(k0 + j) * p.st[kK][2] + s0 + c] : 0.f;
-        Vs[j][c] = ok ? v[(k0 + j) * p.st[kV][2] + s0 + c] : 0.f;
+  for (int k0 = 0; k0 < DC / 8; k0 += kSteps) {
+    float ps[4] = {0.f, 0.f, 0.f, 0.f}, pd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = k0; kk < k0 + kSteps; ++kk) {
+      const int c = kk * 8 + 2 * t4;
+      Tf32A a;
+      if (WIDE) {
+        tf32_load_a(a, x, ld, g, c);
+      } else {
+        tf32_load_a_split(a, x, ld, g, c);
       }
-      __syncthreads();
+      const float2 kb = *reinterpret_cast<const float2*>(tx + row + c);
+      mma_split3(ps, a, kb.x, kb.y);
+      if (WIDE) {
+        tf32_load_a(a, y, ld, g, c);
+      } else {
+        tf32_load_a_split(a, y, ld, g, c);
+      }
+      const float2 vb = *reinterpret_cast<const float2*>(ty + row + c);
+      mma_split3(pd, a, vb.x, vb.y);
+    }
 #pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        const int col = s0 + 4 * i + sub;
-        const bool in = valid && col < p.d;
-        const float qv = in ? q[col] : 0.f;
-        const float dv = in ? dout[col] : 0.f;
+    for (int e = 0; e < 4; ++e) {
+      sc[e] += ps[e];
+      dp[e] += pd[e];
+    }
+  }
+}
+
+// acc[j] += A m[:, 8j : 8j + 8] over one k8 step: rows pi(2 t4) and
+// pi(2 t4 + 1) of the looped tile m, column g of each n-tile.
+template <int DC, int S>
+__device__ __forceinline__ void f32_accumulate(float (&acc)[DC / 8][4], const Tf32A& a,
+                                               const float* m, int g, int t4) {
+  const float* r0 = m + score_row(2 * t4) * S + g;
+  const float* r1 = m + score_row(2 * t4 + 1) * S + g;
 #pragma unroll
-        for (int j = 0; j < kTile32; ++j) {
-          sp[j] = fmaf(qv, Ks[j][4 * i + sub], sp[j]);
-          dpp[j] = fmaf(dv, Vs[j][4 * i + sub], dpp[j]);
+  for (int j = 0; j < DC / 8; ++j) mma_split3(acc[j], a, r0[8 * j], r1[8 * j]);
+}
+
+// A warp's partial [16][DC] sum (C fragments) into its slot, row stride S.
+template <int DC, int S>
+__device__ __forceinline__ void f32_partial(float* part, const float (&acc)[DC / 8][4], int g,
+                                            int t4) {
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j) {
+    *reinterpret_cast<float2*>(part + g * S + 8 * j + 2 * t4) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(part + (g + 8) * S + 8 * j + 2 * t4) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+// The W partial sums at offset `off` of each slot, added in warp order,
+// times `scale`, to rows [r0, limit) and columns [c0, d) of out.
+template <int DC, int S, int W, int SLOT>
+__device__ __forceinline__ void f32_store(float* out, long long st, const float* pool, int off,
+                                          int r0, int limit, int c0, int d, float scale) {
+  constexpr int kChunks = DC / 4;
+  for (int i = threadIdx.x; i < kF32Rows * kChunks; i += W * 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    if (r0 + r >= limit || c0 + c >= d) continue;
+    float4 s = *reinterpret_cast<const float4*>(pool + off + r * S + c);
+#pragma unroll
+    for (int w = 1; w < W; ++w) {
+      const float4 v = *reinterpret_cast<const float4*>(pool + w * SLOT + off + r * S + c);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    *reinterpret_cast<float4*>(out + (r0 + r) * st + c0 + c) =
+        make_float4(__fmul_rn(scale, s.x), __fmul_rn(scale, s.y), __fmul_rn(scale, s.z),
+                    __fmul_rn(scale, s.w));
+  }
+}
+
+template <int DC, bool WIDE>
+__global__ void __launch_bounds__(F32Smem<DC, WIDE>::W * 32, f32_min_blocks<DC, WIDE>())
+    flash_bwd_dq_f32(BwdParams p) {
+  using L = F32Smem<DC, WIDE>;
+  constexpr int W = L::W, S = L::S;
+  extern __shared__ __align__(16) float f32_smem[];
+  const int ld = L::res_ld(p.d);
+  float* resQ = f32_smem + L::kPool;
+  float* resDO = resQ + kF32Rows * ld;
+  float* rowL = resDO + kF32Rows * ld;
+  float* rowD = rowL + kF32Rows;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int r0 = blockIdx.x * kF32Rows;
+  const int chunk = blockIdx.z;  // dq's columns [chunk * DC, chunk * DC + DC)
+  const int ns = WIDE ? (p.d + DC - 1) / DC : 1;  // slices of the head dim
+  const float* kp = base<const float>(p, kK, b, h);
+  const float* vp = base<const float>(p, kV, b, h);
+  const long long kst = p.st[kK][2], vst = p.st[kV][2];
+
+  load_resident<WIDE>(resQ, ld, base<const float>(p, kQ, b, h), p.st[kQ][2], r0, p.N,
+                      ns * DC, p.d, W * 32);
+  load_resident<WIDE>(resDO, ld, base<const float>(p, kDO, b, h), p.st[kDO][2], r0, p.N,
+                      ns * DC, p.d, W * 32);
+  cp_async_commit();
+
+  float* slot = f32_smem + warp * L::kSlot;
+  const int tiles = (p.M + kF32Tile - 1) / kF32Tile;
+  const int mine = warp < tiles ? (tiles - warp + W - 1) / W : 0;
+  const int steps = mine * ns;
+  // step i: the warp's tile i / ns, slice i % ns; the chunk's own slice
+  // goes to the tile's buffer, the others (WIDE) through the slice ring
+  auto chunk_buf = [&](int lt) { return slot + (lt % L::kStages) * L::kBuf; };
+  auto buffer = [&](int i) {
+    const int lt = i / ns, s = i - lt * ns;
+    return s == chunk ? chunk_buf(lt) : slot + (L::kStages + (i & 1)) * L::kBuf;
+  };
+  auto prefetch = [&](int i) {
+    if (i < steps) {
+      const int lt = i / ns, s = i - lt * ns;
+      const int k0 = (warp + lt * W) * kF32Tile;
+      float* dst = buffer(i);
+      load_rows(dst, S, kp, kst, k0, p.M, kF32Tile, s * DC, DC, p.d, lane, 32);
+      load_rows(dst + L::kTileF, S, vp, vst, k0, p.M, kF32Tile, s * DC, DC, p.d, lane, 32);
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < L::kStages - 1; ++i) prefetch(i);
+  cp_async_wait<L::kStages - 1>();
+  __syncthreads();
+
+  // D = rowsum(dO * O) and lse of the block's rows (zero past N)
+  for (int r = warp; r < kF32Rows; r += W) {
+    const int row = r0 + r;
+    float sum = 0.f;
+    if (row < p.N) {
+      const float* o = base<const float>(p, kO, b, h) + row * p.st[kO][2];
+      for (int c = 4 * lane; c < p.d; c += 128) {
+        const float4 ov = *reinterpret_cast<const float4*>(o + c);
+        float4 dv;
+        if (WIDE) {
+          dv = *reinterpret_cast<const float4*>(resDO + r * ld + c);
+        } else {  // big + small is dO exactly
+          const float4 lo = *reinterpret_cast<const float4*>(resDO + r * ld + 2 * c);
+          const float4 hi = *reinterpret_cast<const float4*>(resDO + r * ld + 2 * c + 4);
+          dv = make_float4(lo.x + lo.z, lo.y + lo.w, hi.x + hi.z, hi.y + hi.w);
         }
+        sum = fmaf(dv.x, ov.x, sum);
+        sum = fmaf(dv.y, ov.y, sum);
+        sum = fmaf(dv.z, ov.z, sum);
+        sum = fmaf(dv.w, ov.w, sum);
       }
     }
-    if (p.d > DC) {  // K's columns of this block's chunk
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < kTile32 * DC; idx += kThreads) {
-        const int j = idx / DC, c = idx % DC;
-        Ks[j][c] = k0 + j < p.M && c0 + c < p.d ? k[(k0 + j) * p.st[kK][2] + c0 + c] : 0.f;
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+    if (lane == 0) {
+      rowD[r] = sum;
+      rowL[r] = row < p.N ? base<const float>(p, kLse, b, h)[row * p.st[kLse][2]] : 0.f;
+      if (row < p.N && chunk == 0) base<float>(p, kDelta, b, h)[row * p.st[kDelta][2]] = sum;
+    }
+  }
+  __syncthreads();
+  const float l0 = rowL[g], l1 = rowL[g + 8], d0 = rowD[g], d1 = rowD[g + 8];
+
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float sc[4], dp[4];
+  for (int i = 0; i < steps; ++i) {
+    prefetch(i + L::kStages - 1);
+    cp_async_wait<L::kStages - 1>();
+    __syncwarp();
+    const int lt = i / ns, s = i - lt * ns;
+    const float* tile = buffer(i);
+    if (s == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[e] = dp[e] = 0.f;
+    }
+    f32_scores<DC, S, WIDE>(sc, dp, resQ + s * DC, resDO + s * DC, ld, tile, tile + L::kTileF,
+                            g, t4);
+    if (s == ns - 1) {
+      // P = exp(sc2 S - lse) and dS = P (dP - D); keys past M: P = dS = 0
+      const int k0 = (warp + lt * W) * kF32Tile;
+      const bool ok0 = k0 + score_row(2 * t4) < p.M, ok1 = k0 + score_row(2 * t4 + 1) < p.M;
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = e & 1 ? ok1 : ok0;
+        const float pv = ok ? expf(__fmul_rn(p.sc2, sc[e]) - (e < 2 ? l0 : l1)) : 0.f;
+        ds[e] = ok ? pv * (dp[e] - (e < 2 ? d0 : d1)) : 0.f;
       }
-      __syncthreads();
+      Tf32A a;
+      tf32_a_from_c(a, ds);
+      f32_accumulate<DC, S>(acc, a, chunk_buf(lt), g, t4);  // dQ += dS K
     }
-    const int nk = min(kTile32, p.M - k0);  // the same for the whole block
-#pragma unroll
-    for (int j = 0; j < kTile32; ++j) {
-      if (j >= nk) break;
-      const float pj = expf(__fmul_rn(p.sc2, quad_sum(sp[j])) - l);
-      const float ds = pj * (quad_sum(dpp[j]) - dsum);
-#pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(ds, Ks[j][4 * i + sub], acc[i]);
-    }
+    __syncwarp();
   }
-  if (valid) {
-    float* out = base<float>(p, kDQ, b, h) + row * p.st[kDQ][2];
-#pragma unroll
-    for (int i = 0; i < DP; ++i) {
-      if (c0 + 4 * i + sub < p.d) out[c0 + 4 * i + sub] = p.sc2 * acc[i];
-    }
-  }
+  f32_partial<DC, S>(slot, acc, g, t4);
+  __syncthreads();
+  f32_store<DC, S, W, L::kSlot>(base<float>(p, kDQ, b, h), p.st[kDQ][2], f32_smem, 0, r0,
+                                p.N, chunk * DC, p.d, p.sc2);
 }
 
-template <int DC>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(BwdParams p) {
-  constexpr int DP = DC / 4;
-  __shared__ float Qs[kTile32][DC];
-  __shared__ float dOs[kTile32][DC];
-  __shared__ float Ls[kTile32];
-  __shared__ float Dl[kTile32];
+template <int DC, bool WIDE>
+__global__ void __launch_bounds__(F32Smem<DC, WIDE>::W * 32, f32_min_blocks<DC, WIDE>())
+    flash_bwd_dkv_f32(BwdParams p) {
+  using L = F32Smem<DC, WIDE>;
+  constexpr int W = L::W, S = L::S;
+  extern __shared__ __align__(16) float f32_smem[];
+  const int ld = L::res_ld(p.d);
+  float* resK = f32_smem + L::kPool;
+  float* resV = resK + kF32Rows * ld;
 
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int key = blockIdx.x * kTile32 + (threadIdx.x >> 2);
-  const int sub = threadIdx.x & 3;
-  const int c0 = blockIdx.z * DC;
-  const bool valid = key < p.M;
-  const float* k = base<const float>(p, kK, b, h) + key * p.st[kK][2];
-  const float* v = base<const float>(p, kV, b, h) + key * p.st[kV][2];
-  const float* q = base<const float>(p, kQ, b, h);
-  const float* dout = base<const float>(p, kDO, b, h);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int r0 = blockIdx.x * kF32Rows;
+  const int chunk = blockIdx.z;  // dk's and dv's columns [chunk * DC, chunk * DC + DC)
+  const int ns = WIDE ? (p.d + DC - 1) / DC : 1;
+  const float* qp = base<const float>(p, kQ, b, h);
+  const float* dop = base<const float>(p, kDO, b, h);
   const float* lse = base<const float>(p, kLse, b, h);
   const float* delta = base<const float>(p, kDelta, b, h);
+  const long long qst = p.st[kQ][2], dost = p.st[kDO][2];
 
-  float acck[DP], accv[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) acck[i] = accv[i] = 0.f;
+  load_resident<WIDE>(resK, ld, base<const float>(p, kK, b, h), p.st[kK][2], r0, p.M,
+                      ns * DC, p.d, W * 32);
+  load_resident<WIDE>(resV, ld, base<const float>(p, kV, b, h), p.st[kV][2], r0, p.M,
+                      ns * DC, p.d, W * 32);
+  cp_async_commit();
 
-  for (int q0 = 0; q0 < p.N; q0 += kTile32) {
-    float sp[kTile32], dpp[kTile32];
-#pragma unroll
-    for (int j = 0; j < kTile32; ++j) sp[j] = dpp[j] = 0.f;
-    for (int s0 = 0; s0 < p.d; s0 += DC) {
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < kTile32 * DC; idx += kThreads) {
-        const int j = idx / DC, c = idx % DC;
-        const bool ok = q0 + j < p.N && s0 + c < p.d;
-        Qs[j][c] = ok ? q[(q0 + j) * p.st[kQ][2] + s0 + c] : 0.f;
-        dOs[j][c] = ok ? dout[(q0 + j) * p.st[kDO][2] + s0 + c] : 0.f;
-      }
-      if (s0 == 0 && threadIdx.x < kTile32) {
-        const int j = threadIdx.x;
-        const bool ok = q0 + j < p.N;
-        Ls[j] = ok ? lse[(q0 + j) * p.st[kLse][2]] : 0.f;
-        Dl[j] = ok ? delta[(q0 + j) * p.st[kDelta][2]] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        const int col = s0 + 4 * i + sub;
-        const bool in = valid && col < p.d;
-        const float kv = in ? k[col] : 0.f;
-        const float vv = in ? v[col] : 0.f;
-#pragma unroll
-        for (int j = 0; j < kTile32; ++j) {
-          sp[j] = fmaf(kv, Qs[j][4 * i + sub], sp[j]);
-          dpp[j] = fmaf(vv, dOs[j][4 * i + sub], dpp[j]);
-        }
+  float* slot = f32_smem + warp * L::kSlot;
+  float* stats = slot + (L::kStages + (WIDE ? 2 : 0)) * L::kBuf;  // [stage][lse 8, D 8]
+  const int tiles = (p.N + kF32Tile - 1) / kF32Tile;
+  const int mine = warp < tiles ? (tiles - warp + W - 1) / W : 0;
+  const int steps = mine * ns;
+  auto chunk_buf = [&](int lt) { return slot + (lt % L::kStages) * L::kBuf; };
+  auto buffer = [&](int i) {
+    const int lt = i / ns, s = i - lt * ns;
+    return s == chunk ? chunk_buf(lt) : slot + (L::kStages + (i & 1)) * L::kBuf;
+  };
+  auto prefetch = [&](int i) {
+    if (i < steps) {
+      const int lt = i / ns, s = i - lt * ns;
+      const int q0 = (warp + lt * W) * kF32Tile;
+      float* dst = buffer(i);
+      load_rows(dst, S, qp, qst, q0, p.N, kF32Tile, s * DC, DC, p.d, lane, 32);
+      load_rows(dst + L::kTileF, S, dop, dost, q0, p.N, kF32Tile, s * DC, DC, p.d, lane, 32);
+      if (s == 0 && lane < 2 * kF32Tile) {  // lse and D of the tile's queries
+        const int q = q0 + (lane & 7);
+        const bool ok = q < p.N;
+        const float* src = lane < kF32Tile ? lse + (ok ? q * p.st[kLse][2] : 0)
+                                           : delta + (ok ? q * p.st[kDelta][2] : 0);
+        cp_async4(stats + (lt % L::kStages) * L::kStat + lane, src, ok);
       }
     }
-    if (p.d > DC) {  // Q's and dO's columns of this block's chunk
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < kTile32 * DC; idx += kThreads) {
-        const int j = idx / DC, c = idx % DC;
-        const bool ok = q0 + j < p.N && c0 + c < p.d;
-        Qs[j][c] = ok ? q[(q0 + j) * p.st[kQ][2] + c0 + c] : 0.f;
-        dOs[j][c] = ok ? dout[(q0 + j) * p.st[kDO][2] + c0 + c] : 0.f;
-      }
-      __syncthreads();
-    }
-    const int nq = min(kTile32, p.N - q0);  // queries past N are skipped
+    cp_async_commit();
+  };
+  for (int i = 0; i < L::kStages - 1; ++i) prefetch(i);
+  cp_async_wait<L::kStages - 1>();
+  __syncthreads();
+
+  float acck[DC / 8][4], accv[DC / 8][4];
 #pragma unroll
-    for (int j = 0; j < kTile32; ++j) {
-      if (j >= nq) break;
-      const float pj = expf(__fmul_rn(p.sc2, quad_sum(sp[j])) - Ls[j]);
-      const float ds = pj * (quad_sum(dpp[j]) - Dl[j]);
+  for (int j = 0; j < DC / 8; ++j)
+    acck[j][0] = acck[j][1] = acck[j][2] = acck[j][3] = accv[j][0] = accv[j][1] = accv[j][2] =
+        accv[j][3] = 0.f;
+  float sc[4], dp[4];
+  const int n0 = score_row(2 * t4), n1 = score_row(2 * t4 + 1);
+  for (int i = 0; i < steps; ++i) {
+    prefetch(i + L::kStages - 1);
+    cp_async_wait<L::kStages - 1>();
+    __syncwarp();
+    const int lt = i / ns, s = i - lt * ns;
+    const float* tile = buffer(i);
+    if (s == 0) {
 #pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        accv[i] = fmaf(pj, dOs[j][4 * i + sub], accv[i]);
-        acck[i] = fmaf(ds, Qs[j][4 * i + sub], acck[i]);
-      }
+      for (int e = 0; e < 4; ++e) sc[e] = dp[e] = 0.f;
     }
+    // S^T = K Q^T and dP^T = V dO^T over this slice
+    f32_scores<DC, S, WIDE>(sc, dp, resK + s * DC, resV + s * DC, ld, tile, tile + L::kTileF,
+                            g, t4);
+    if (s == ns - 1) {
+      // P^T and dS^T; column n is query q0 + pi(n), and queries past N give
+      // P = dS = 0
+      const int q0 = (warp + lt * W) * kF32Tile;
+      const float* stat = stats + (lt % L::kStages) * L::kStat;
+      const bool ok0 = q0 + n0 < p.N, ok1 = q0 + n1 < p.N;
+      float pt[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = e & 1 ? ok1 : ok0;
+        const int n = e & 1 ? n1 : n0;
+        pt[e] = ok ? expf(__fmul_rn(p.sc2, sc[e]) - stat[n]) : 0.f;
+        ds[e] = ok ? pt[e] * (dp[e] - stat[kF32Tile + n]) : 0.f;
+      }
+      const float* chunk_tile = chunk_buf(lt);  // Q and dO's chunk
+      Tf32A a;
+      tf32_a_from_c(a, pt);
+      f32_accumulate<DC, S>(accv, a, chunk_tile + L::kTileF, g, t4);  // dV += P^T dO
+      tf32_a_from_c(a, ds);
+      f32_accumulate<DC, S>(acck, a, chunk_tile, g, t4);  // dK += dS^T Q
+    }
+    __syncwarp();
   }
-  if (valid) {
-    float* ko = base<float>(p, kDK, b, h) + key * p.st[kDK][2];
-    float* vo = base<float>(p, kDV, b, h) + key * p.st[kDV][2];
-#pragma unroll
-    for (int i = 0; i < DP; ++i) {
-      const int col = c0 + 4 * i + sub;
-      if (col < p.d) {
-        ko[col] = p.sc2 * acck[i];
-        vo[col] = accv[i];
-      }
-    }
-  }
+  f32_partial<DC, S>(slot, acck, g, t4);
+  f32_partial<DC, S>(slot + kF32Rows * S, accv, g, t4);
+  __syncthreads();
+  f32_store<DC, S, W, L::kSlot>(base<float>(p, kDK, b, h), p.st[kDK][2], f32_smem, 0, r0,
+                                p.M, chunk * DC, p.d, p.sc2);
+  f32_store<DC, S, W, L::kSlot>(base<float>(p, kDV, b, h), p.st[kDV][2], f32_smem,
+                                kF32Rows * S, r0, p.M, chunk * DC, p.d, 1.f);
 }
 
 // The TMA maps of one bf16 kernel, in boxes of W columns: the resident
@@ -1099,14 +1373,21 @@ int launch_narrow(int which, const BwdParams& p, int B, cudaStream_t stream) {
                   : launch_bf16<D, true>(which, p, B, stream);
 }
 
-template <int DC>
+template <int DC, bool WIDE>
 int launch_f32(int which, const BwdParams& p, int B, cudaStream_t stream) {
+  using L = F32Smem<DC, WIDE>;
   const int rows = which == 0 ? p.N : p.M;
-  const dim3 grid((rows + kTile32 - 1) / kTile32, B * p.H, (p.d + DC - 1) / DC);
+  const dim3 grid((rows + kF32Rows - 1) / kF32Rows, B * p.H, WIDE ? (p.d + DC - 1) / DC : 1);
+  constexpr int kMaxBytes = L::bytes(WIDE ? 1024 : DC);
+  int err;
   if (which == 0) {
-    flash_bwd_dq_f32<DC><<<grid, kThreads, 0, stream>>>(p);
+    static bool attr = false;
+    if ((err = set_smem(flash_bwd_dq_f32<DC, WIDE>, kMaxBytes, &attr)) != 0) return err;
+    flash_bwd_dq_f32<DC, WIDE><<<grid, L::W * 32, L::bytes(p.d), stream>>>(p);
   } else {
-    flash_bwd_dkv_f32<DC><<<grid, kThreads, 0, stream>>>(p);
+    static bool attr = false;
+    if ((err = set_smem(flash_bwd_dkv_f32<DC, WIDE>, kMaxBytes, &attr)) != 0) return err;
+    flash_bwd_dkv_f32<DC, WIDE><<<grid, L::W * 32, L::bytes(p.d), stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
@@ -1132,10 +1413,11 @@ int dispatch(int which, int is_bf16, void* const* ptrs, int B, int H, int N,
     if (D <= 128) return launch_narrow<128>(which, p, B, st);
     return launch_bf16_wide(which, p, B, st);
   }
-  if (D <= 16) return launch_f32<16>(which, p, B, st);
-  if (D <= 32) return launch_f32<32>(which, p, B, st);
-  if (D <= 64) return launch_f32<64>(which, p, B, st);
-  return launch_f32<128>(which, p, B, st);
+  if (D <= 16) return launch_f32<16, false>(which, p, B, st);
+  if (D <= 32) return launch_f32<32, false>(which, p, B, st);
+  if (D <= 64) return launch_f32<64, false>(which, p, B, st);
+  if (D <= 128) return launch_f32<128, false>(which, p, B, st);
+  return launch_f32<128, true>(which, p, B, st);
 }
 
 }  // namespace

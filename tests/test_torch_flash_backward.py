@@ -4,8 +4,8 @@
   backward kernels) against JAX ``_flash_bwd`` (head layout) and
   ``_flash_mha_bwd`` (token layout) run in interpret mode on the same q, k,
   v, o, lse and dO, with 32-wide blocks so that each kernel loops over
-  several blocks, for N = M and N != M; and against ``jax.grad`` of
-  ``naive_attention``.
+  several blocks, for N = M and N != M, and at the classifier's f32
+  shapes; and against ``jax.grad`` of ``naive_attention``.
 * Autograd through the port's ``flash_attention`` and
   ``flash_attention_tokens`` on the CPU (the plain forward, then the plain
   backward) against ``jax.grad`` of the JAX entries in interpret mode,
@@ -133,6 +133,36 @@ def test_plain_backward_matches_jax_token_layout(name, n, m, bwd_spy):
                                                   heads[4], scale)
     for what, g, r in zip(("dq", "dk", "dv"), grads, (jdq, jdk, jdv)):
         _close(g.transpose(1, 2).flatten(2), r, name, what)
+
+
+# The classifier's attention (EncoderUNetOpenAI, model channels 64, f32): 16^2
+# = 256 tokens of width 128 as one head of 128 (adaptive pool) or 4 heads of
+# 32, and its attention pool over 257 tokens (the mean token prepended), 4
+# heads of 32; with the Pallas blocks (the grid takes N in whole blocks:
+# 257 is one block).
+CLASSIFIER_SHAPES = [(256, 1, 64), (256, 4, 64), (257, 4, 257)]
+
+
+@pytest.mark.parametrize("n,h,block", CLASSIFIER_SHAPES)
+def test_plain_backward_matches_jax_at_the_classifier_shapes(n, h, block, bwd_spy):
+    """f32, B=1, token layout: the plain backward (what the f32 kernels are
+    held to on the card) against interpret-mode ``_flash_mha_bwd`` on its
+    own forward's o and lse, atol = rtol = 2e-5 (the same f32 products
+    summed in another order)."""
+    b, c = 1, 128
+    scale = (c // h) ** -0.25
+    q, k, v, do = _arrays([(b, n, c)] * 4, 13 * n + h)
+    (tq, jq), (tk, jk), (tv, jv), (tdo, jdo) = (_pair(a, "f32") for a in (q, k, v, do))
+    jo, jlse = jax_fa._fwd_mha_call(jq, jk, jv, h, scale, block, block, True)
+    jdq, jdk, jdv = jax_fa._flash_mha_bwd(h, scale, block, block, True,
+                                          (jq, jk, jv, jo, jlse), jdo)
+    assert {"_bwd_dq_kernel", "_bwd_dkv_kernel"} <= set(bwd_spy)
+    to, tlse = torch.from_numpy(_np(jo)), torch.from_numpy(_np(jlse))
+    heads = [FA._heads(t, h) for t in (tq, tk, tv, to, tdo)]
+    grads = FA.flash_attention_backward_reference(*heads[:4], tlse.transpose(1, 2),
+                                                  heads[4], scale)
+    for what, g, r in zip(("dq", "dk", "dv"), grads, (jdq, jdk, jdv)):
+        _close(g.transpose(1, 2).flatten(2), r, "f32", what)
 
 
 @pytest.mark.parametrize("n,m", [(48, 48), (40, 72)])

@@ -388,15 +388,20 @@ def test_flash_attention_backward_any_head_width_matches_plain_version(cuda, dty
 
 
 @pytest.mark.cuda
-@DTYPES
-@pytest.mark.parametrize("n,layout", [(256, "tokens"), (1024, "head")])
-def test_flash_attention_backward_is_deterministic(cuda, dtype, n, layout):
+@pytest.mark.parametrize("dtype,n,c,heads,layout", [
+    *(pytest.param(dtype, n, 256, 8, layout, id=f"{n}-{layout}-{name}")
+      for n, layout in ((256, "tokens"), (1024, "head"))
+      for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))),
+    pytest.param(torch.float32, 256, 128, 1, "tokens", id="256-tokens-f32-1x128"),
+    pytest.param(torch.float32, 257, 128, 4, "tokens", id="257-tokens-f32-4x32")])
+def test_flash_attention_backward_is_deterministic(cuda, dtype, n, c, heads, layout):
     """No atomics: two runs give the same bits (d = 32, as at the 32^2 and
-    16^2 levels of the training path)."""
-    q, k, v, do = (torch.randn((2, n, 256), generator=cuda, device="cuda").to(dtype)
+    16^2 levels of the training path; in f32 also the classifier's one head
+    of 128 and its attention pool's 257 tokens, 4 heads of 32)."""
+    q, k, v, do = (torch.randn((2, n, c), generator=cuda, device="cuda").to(dtype)
                    for _ in range(4))
-    first = _attention_grads(q, k, v, do, 8, layout)[0]
-    second = _attention_grads(q, k, v, do, 8, layout)[0]
+    first = _attention_grads(q, k, v, do, heads, layout)[0]
+    second = _attention_grads(q, k, v, do, heads, layout)[0]
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 

@@ -21,7 +21,12 @@ each variant's two turns kept: the forward at the flagship sampling batch
 inputs, the backward at the training batch (B=32), GEGLU at B=64 and at
 the sampling batch (16 UNet rows), with each variant's device time split
 by kernel (up- and down-projection, from a profile of a few eager calls)
-and the sum per CFG UNet forward at B=64. GroupNorm is checked in f32 and
+and the sum per CFG UNet forward at B=64. With ``--dtype float32`` the
+attention kernels' f32 routes are checked instead (within 2e-5 absolute
+and relative of the plain version, the classifier's shapes and wide heads
+among the checks, two launches bit-equal) and timed at the classifier's
+three shapes (``chip_smoke.CLF_ATTN_SHAPES``, B=8, token layout) beside
+SDPA's forward or backward on the same inputs. GroupNorm is checked in f32 and
 bf16 (2e-5 and 1e-2, SiLU on and off, bit for bit across two launches) at
 the path's shapes and ``chip_smoke.GN_ROUTE_CASES`` at B=2, and timed in
 bf16 with SiLU at the path's nine shapes at the flagship batch (B=64 UNet,
@@ -31,6 +36,8 @@ per CFG UNet forward and per decode. Run from the repository root:
 
     python3 tools/compare_attn_builds.py --kernel fwd \\
         now=medfusion_tpu_torch/csrc other=path/to/copy:MACRO=1,OTHER
+    python3 tools/compare_attn_builds.py --kernel bwd --dtype float32 \\
+        parent=_chip/parent/medfusion_tpu_torch/csrc now=medfusion_tpu_torch/csrc
     python3 tools/compare_attn_builds.py --kernel gn \\
         c16=medfusion_tpu_torch/csrc c8=medfusion_tpu_torch/csrc:max_cluster=8
 """
@@ -60,12 +67,16 @@ GN_PLAN_KEYS = ("max_cluster", "values_per_thread", "block_threads", "cluster_th
                 "slice_bytes")
 # GEGLU (rows, C): path shapes at 2, 16 and 64 UNet rows, ragged rows, and
 # the narrow widths
+# f32 attention checks beyond CHECKS: the classifier's shapes, wide heads
+F32_CHECKS = [(256, 256, 128, 1, "tokens"), (257, 257, 128, 4, "tokens"),
+              (77, 45, 272, 2, "tokens"), (129, 127, 2048, 2, "head")]
 GEGLU_CHECKS = [(2048, 256), (16384, 256), (4096, 512), (1024, 1024), (4096, 1024),
                 (77, 256), (1000, 1024), (130, 16), (33, 48)]
 
 
-def build(kernel, variants, out_dir):
-    """{name: [entry points]}; prints each build's bf16 ptxas lines."""
+def build(kernel, variants, out_dir, dtype="bfloat16"):
+    """{name: [entry points]}; prints each build's ptxas lines for the
+    kernels of ``dtype``."""
     from medfusion_tpu_torch.ops import build as B
     from medfusion_tpu_torch.ops import flash_attention as FA
     from medfusion_tpu_torch.ops import geglu as GL
@@ -90,7 +101,8 @@ def build(kernel, variants, out_dir):
         entry = None
         for line in log.splitlines():
             if "Compiling entry" in line:
-                entry = line.split("'")[1] if "bf16" in line or "bfloat16" in line else None
+                tags = ("f32",) if dtype == "float32" else ("bf16", "bfloat16")
+                entry = line.split("'")[1] if any(t in line for t in tags) else None
                 entry = entry and entry.split("_GLOBAL__N__")[-1]
             elif entry and ("registers" in line or "spill" in line):
                 print(f"   {entry[-60:]}: {line.strip()}")
@@ -109,10 +121,11 @@ def launch_fwd(fn, ops, scale):
     import torch
 
     q, k, v, o, lse = ops
+    is_bf16 = int(q.dtype == torch.bfloat16)
     b, h, n, d = q.shape
     strides = (ctypes.c_longlong * 15)(*[s for t in (q, o, k, v) for s in t.stride()[:3]],
                                        *lse.stride())
-    err = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+    err = fn(is_bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
              b, h, n, k.shape[2], d, ctypes.cast(strides, ctypes.c_void_p), float(scale),
              torch.cuda.current_stream().cuda_stream)
     if err:
@@ -126,18 +139,17 @@ def launch_bwd(fn, ops, scale):
     b, h, n, d = q.shape
     ptrs = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in ops])
     strides = (ctypes.c_longlong * 30)(*[s for t in ops for s in t.stride()[:3]])
-    err = fn(1, ctypes.cast(ptrs, ctypes.c_void_p), b, h, n, k.shape[2], d,
+    err = fn(int(q.dtype == torch.bfloat16), ctypes.cast(ptrs, ctypes.c_void_p), b, h, n,
+             k.shape[2], d,
              ctypes.cast(strides, ctypes.c_void_p), float(scale * scale),
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: error {err}")
 
 
-def fwd_operands(CS, FA, b, n, m, c, heads, layout, gen):
+def fwd_operands(CS, FA, b, n, m, c, heads, layout, gen, dtype):
     """The forward kernel's operands (q, k, v, o, lse views) and scale."""
-    import torch
-
-    q, k, v = CS.attn_inputs(b, n, m, c, torch.bfloat16, gen)
+    q, k, v = CS.attn_inputs(b, n, m, c, dtype, gen)
     if layout == "head":
         ops = FA.flash_attention_forward_operands(*(FA._heads(t, heads) for t in (q, k, v)))
     else:
@@ -145,11 +157,11 @@ def fwd_operands(CS, FA, b, n, m, c, heads, layout, gen):
     return ops, (c // heads) ** -0.25
 
 
-def bwd_operands(CS, FA, b, n, m, c, heads, layout, gen):
+def bwd_operands(CS, FA, b, n, m, c, heads, layout, gen, dtype):
     import torch
 
-    q, k, v = CS.attn_inputs(b, n, m, c, torch.bfloat16, gen)
-    do = torch.randn((b, n, c), generator=gen, device="cuda").bfloat16()
+    q, k, v = CS.attn_inputs(b, n, m, c, dtype, gen)
+    do = torch.randn((b, n, c), generator=gen, device="cuda").to(dtype)
     return CS.bwd_operands(FA, q, k, v, heads, layout, do)
 
 
@@ -326,9 +338,9 @@ def times_gn(CS, fns, plans, gen):
         f"{name} {t:.4f}" for name, t in per["vae"].items()))
 
 
-def check(kernel, CS, FA, fns, gen, plans=None):
-    """Each variant against the plain version at CHECKS; returns False if
-    any fails."""
+def check(kernel, CS, FA, fns, gen, plans=None, dtype=None):
+    """Each variant against the plain version at CHECKS (float32: also
+    F32_CHECKS, and two launches bit-equal); returns False if any fails."""
     import torch
 
     if kernel == "geglu":
@@ -336,33 +348,40 @@ def check(kernel, CS, FA, fns, gen, plans=None):
     if kernel == "gn":
         return check_gn(CS, fns, plans, gen)
     ok_all = True
-    for n, m, c, heads, layout in CHECKS:
+    f32 = dtype == torch.float32
+    for n, m, c, heads, layout in CHECKS + (F32_CHECKS if f32 else []):
         if kernel == "fwd":
-            ops, scale = fwd_operands(CS, FA, 2, n, m, c, heads, layout, gen)
+            ops, scale = fwd_operands(CS, FA, 2, n, m, c, heads, layout, gen, dtype)
             ro, rlse = FA.naive_attention_reference(*ops[:3], scale)
-            refs = [(ops[3], ro, CS.attn_o_tol(ro)[0]),
-                    (ops[4], rlse, CS.ATTN_LSE_TOL["bfloat16"])]
+            ltol = CS.ATTN_LSE_TOL[str(dtype).split(".")[-1]]
+            refs = [(ops[3], ro, CS.attn_o_tol(ro)), (ops[4], rlse, (ltol, ltol))]
         else:
-            ops, scale = bwd_operands(CS, FA, 2, n, m, c, heads, layout, gen)
+            ops, scale = bwd_operands(CS, FA, 2, n, m, c, heads, layout, gen, dtype)
             grads = FA.flash_attention_backward_reference(*ops[:4], ops[8], ops[4], scale)
-            refs = [(out, r, CS.attn_bwd_tol(r)[0]) for out, r in zip(ops[5:8], grads)]
+            refs = [(out, r, CS.attn_bwd_tol(r)) for out, r in zip(ops[5:8], grads)]
         for name, entries in fns.items():
-            for out, _, _ in refs:
-                out.fill_(float("nan"))
-            for fn in entries:
-                (launch_fwd if kernel == "fwd" else launch_bwd)(fn, ops, scale)
-            torch.cuda.synchronize()
-            errs = [((out.float() - r.float()).abs().max().item(), tol)
-                    for out, r, tol in refs]
-            ok = all(e <= tol for e, tol in errs)  # NaN fails
+            outs = []
+            for _ in range(2 if f32 else 1):
+                for out, _, _ in refs:
+                    out.fill_(float("nan"))
+                for fn in entries:
+                    (launch_fwd if kernel == "fwd" else launch_bwd)(fn, ops, scale)
+                torch.cuda.synchronize()
+                outs.append([out.clone() for out, _, _ in refs])
+            errs = [(out.float() - r.float()).abs() for out, r, _ in refs]
+            # NaN fails
+            ok = all(bool((e <= atol + rtol * r.float().abs()).all())
+                     for e, (_, r, (atol, rtol)) in zip(errs, refs))
+            ok &= all(torch.equal(a, b) for a, b in zip(outs[0], outs[-1]))
+            errs = [e.max().item() for e in errs]
             ok_all &= ok
             print(f"check N={n} M={m} C={c} H={heads} {layout}: {name} "
-                  f"{'ok' if ok else 'FAIL'} " + "/".join(f"{e:.2e}" for e, _ in errs),
+                  f"{'ok' if ok else 'FAIL'} " + "/".join(f"{e:.2e}" for e in errs),
                   flush=True)
     return ok_all
 
 
-def times(kernel, CS, FA, fns, gen, plans=None):
+def times(kernel, CS, FA, fns, gen, plans=None, dtype=None):
     """Each variant's time at the path's shapes, in turns; the forward also
     beside SDPA on the same inputs."""
     import torch
@@ -372,16 +391,18 @@ def times(kernel, CS, FA, fns, gen, plans=None):
         return times_geglu(CS, fns, gen)
     if kernel == "gn":
         return times_gn(CS, fns, plans, gen)
+    if dtype == torch.float32:
+        return times_f32(kernel, CS, FA, fns, gen)
     totals = {name: [0.0] * len(entries) for name, entries in fns.items()}
     sdpa_total = 0.0
     for n, c, heads, _, layout in CS.ATTN_SHAPES:
         if kernel == "fwd":
             b = CS.TIMING_BATCH["unet"]
-            ops, scale = fwd_operands(CS, FA, b, n, n, c, heads, layout, gen)
+            ops, scale = fwd_operands(CS, FA, b, n, n, c, heads, layout, gen, dtype)
             go = launch_fwd
         else:
             b = CS.TRAIN_BATCH
-            ops, scale = bwd_operands(CS, FA, b, n, n, c, heads, layout, gen)
+            ops, scale = bwd_operands(CS, FA, b, n, n, c, heads, layout, gen, dtype)
             go = launch_bwd
         best = {}
         for name in list(fns) + list(fns)[::-1]:
@@ -405,9 +426,51 @@ def times(kernel, CS, FA, fns, gen, plans=None):
           + (f"; sdpa {sdpa_total:.4f}" if kernel == "fwd" else ""))
 
 
+def times_f32(kernel, CS, FA, fns, gen):
+    """Each variant's f32 time at the classifier's shapes (B=8, token
+    layout), in turns, the faster of each variant's two turns kept, beside
+    SDPA's forward or backward on the same inputs; the backward prints each
+    kernel's time and the pair's."""
+    import torch
+    import torch.nn.functional as F
+
+    b = CS.N_SAMPLES
+    for n, c, heads in CS.CLF_ATTN_SHAPES:
+        if kernel == "fwd":
+            ops, scale = fwd_operands(CS, FA, b, n, n, c, heads, "tokens", gen, torch.float32)
+            go = launch_fwd
+        else:
+            ops, scale = bwd_operands(CS, FA, b, n, n, c, heads, "tokens", gen,
+                                      torch.float32)
+            go = launch_bwd
+        best = {}
+        for name in list(fns) + list(fns)[::-1]:
+            ts = [CS.graph_ms(lambda f=f: go(f, ops, scale), 20) for f in fns[name]]
+            best[name] = [min(a, b) for a, b in zip(best.get(name, ts), ts)]
+        sc = torch.tensor(scale)
+        leaves = [(t * sc).detach().requires_grad_() for t in ops[:2]] + [
+            ops[2].detach().requires_grad_()]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*leaves, scale=1.0)
+
+        lib = CS.graph_ms(sdpa, 20)
+        what = "sdpa"
+        if kernel == "bwd":
+            lib = CS.graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, ops[4]), 20) - lib
+            what = "sdpa backward"
+        print(f"ms f32 N={n} H={heads} d={c // heads} tokens B={b}: " + "; ".join(
+            f"{name} " + "/".join(f"{t:.4f}" for t in ts)
+            + (f" (pair {sum(ts):.4f})" if len(ts) > 1 else "") for name, ts in best.items())
+            + f"; {what} {lib:.4f}", flush=True)
+        del ops, leaves
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernel", choices=sorted(SOURCES), default="fwd")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                        help="the attention kernels' route to check and time")
     parser.add_argument("variants", nargs="+",
                         help="name=dir[:MACRO,MACRO=1,plan_key=value]")
     args = parser.parse_args()
@@ -419,6 +482,8 @@ def main():
     import chip_smoke as CS
     from medfusion_tpu_torch.ops import flash_attention as FA
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+
     variants, plans = {}, {}
     for spec in args.variants:
         name, rest = spec.split("=", 1)
@@ -429,10 +494,11 @@ def main():
         variants[name] = (Path(src).resolve(),
                           [m for m in items if m.partition("=")[0] not in GN_PLAN_KEYS])
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build(args.kernel, variants, Path(tmp))
+        fns = build(args.kernel, variants, Path(tmp), args.dtype)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        ok = check(args.kernel, CS, FA, fns, gen, plans)
-        times(args.kernel, CS, FA, fns, gen, plans)
+        dtype = getattr(torch, args.dtype)
+        ok = check(args.kernel, CS, FA, fns, gen, plans, dtype)
+        times(args.kernel, CS, FA, fns, gen, plans, dtype)
     print(CS.card_line())
     return 0 if ok else 1
 
