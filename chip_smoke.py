@@ -1364,6 +1364,28 @@ def grad_departure(g, ref, qkv_heads=None):
 
 
 @contextlib.contextmanager
+def planted_lse_fault(FA, head_dim, head, shift):
+    """Within the block, every token-layout forward at ``head_dim`` has
+    ``shift`` added to its lse on ``head``; yields the list of the faulted
+    launches, so a check can tell that the fault was reached."""
+    real = FA.flash_attention_tokens_cuda
+    hits = []
+
+    def faulty(q, k, v, num_heads, scale):
+        o, lse = real(q, k, v, num_heads, scale)
+        if q.shape[2] // num_heads == head_dim:
+            lse[:, :, head] += shift
+            hits.append(q.shape)
+        return o, lse
+
+    FA.flash_attention_tokens_cuda = faulty
+    try:
+        yield hits
+    finally:
+        FA.flash_attention_tokens_cuda = real
+
+
+@contextlib.contextmanager
 def planted_fault(FA, wrapper, operand, head_dim, heads):
     """Within the block, every launch of the backward ``wrapper`` at
     ``head_dim`` is followed by zeroing its output ``operand`` on ``heads``."""
@@ -3017,9 +3039,13 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # for each f32 one (SDPA's f32 kernels and the f32 attention backward)
 SPLIT_TF32_FLOPS_PER_S = 495e12 / 3
 CLF_CHANNELS = 64
-# 13b: the classifier gradient's check must flag dq zeroed at d = 128
+# 13b: the classifier gradient's check must flag dq zeroed at d = 128, and
+# a forward whose lse is 1e-3 high on one head at d = 128 (the backward
+# reads lse: p = exp(s - lse) drops by 1e-3 and the attention's share of the
+# gradient with it; the plain path gives 3.0e-4 x max|g| on the CPU)
 CLF_FAULT = ("dq zeroed at d=128, every head", "flash_attention_bwd_dq", 5, 128,
              slice(None))
+CLF_LSE_FAULT = ("lse + 1e-3 at d=128, head 0", 128, 0, 1e-3)
 # 13c: the flow program on phase 9's tree and autoencoder: cli.train_diffusion
 # --family flow (B=32, bf16, EMA; UNet forward + frozen encode a step), then
 # cli.sample --family flow --ckpt --ema: Heun 25 (2 x 25 - 1 UNet forwards,
@@ -3172,7 +3198,8 @@ def phase_classifier_vs_cpu(FA, worst):
     layouts; B=2); the chest classifier with each attending pool, card
     against CPU (B=2): logits at SMOKE_TOL, the input gradient within
     CLF_GRAD_TOL x max|g|; the same gradient check with dq zeroed at d =
-    128 (13b), which it must flag; one classifier train step (the
+    128 and with the forward's lse 1e-3 high on one head at d = 128 (13b),
+    which it must flag; one classifier train step (the
     attention pool, on latents, B=4) with its loss, gradients and updated
     weights as phase 5's."""
     import torch
@@ -3221,6 +3248,17 @@ def phase_classifier_vs_cpu(FA, worst):
             if not f_gap > CLF_GRAD_TOL:
                 raise RuntimeError("the classifier gradient check misses dq zeroed at d=128")
             report["fault"] = f_gap
+            label_l, *lse_fault = CLF_LSE_FAULT
+            with planted_lse_fault(FA, *lse_fault) as hits:
+                gl = classifier_grads(FA, {"cuda": pair["cuda"]}, x, t, label)["cuda"]
+            l_gap = grad_gap(gl, g["cpu"])
+            log(f"  [13b] planted forward fault, {label_l} ({len(hits)} launches): the "
+                f"classifier gradient departs by max|d|/max|g| {l_gap:.3e} (limit "
+                f"{CLF_GRAD_TOL}: flagged {l_gap > CLF_GRAD_TOL})")
+            if not hits or not l_gap > CLF_GRAD_TOL:
+                raise RuntimeError("the classifier gradient check misses the forward's lse "
+                                   "1e-3 high at d=128")
+            report["lse_fault"] = l_gap
 
     pair = classifier_pair("attention", cgen)
     sched = dict(timesteps=1000, schedule_strategy="scaled_linear", beta_start=0.002,
@@ -3286,8 +3324,8 @@ def clf_attention_times(FA, worst):
     version. SDPA's f32 kernels (CUTLASS's memory-efficient attention) run
     their products on the tensor cores in split-TF32
     (``OpMultiplyAddFastF32``: three tf32 products for each f32 one, not
-    single-pass TF32, whatever ``allow_tf32`` says), as the backward kernels
-    do; the forward kernel runs f32 FMA. So the bound is the least time for
+    single-pass TF32, whatever ``allow_tf32`` says), as the forward and
+    backward kernels do. So the bound is the least time for
     f32-accurate work: the FLOPs at the split-TF32 rate (495 / 3 TFLOP/s),
     the bytes, or the SFU's exponentials, whichever is longest; each
     kernel's share of it is printed beside its share of the f32 FMA bound
@@ -6152,7 +6190,8 @@ def main():
         f"{TRAIN_BATCH}, bf16, {flow_report['train_peak']:.2f} GiB), flow sample Heun "
         f"{FLOW_STEPS} {flow_report['sample_s']:.3f} s; classifier gradient card vs cpu "
         f"{clf_report['adaptive']:.3e} / {clf_report['attention']:.3e} (adaptive / attention "
-        f"pool), planted dq fault {clf_report['fault']:.3e}; guided sampling " + "; ".join(
+        f"pool), planted dq fault {clf_report['fault']:.3e}, planted lse fault "
+        f"{clf_report['lse_fault']:.3e}; guided sampling " + "; ".join(
             f"{k} {s:.3f} s {peak:.3f} GiB" for k, (s, peak) in guided_report.items())
         + "; f32 attention at the classifier's shapes (B=8, ms kernel / plain / sdpa): "
         + "; ".join(f"N={r['N']} H={r['H']} " + ", ".join(

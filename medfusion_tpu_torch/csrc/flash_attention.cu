@@ -68,10 +68,11 @@
 // streamed through the ring, and multiplies P by its own 128-column chunk
 // of V. Every chunk recomputes the scores (d / 128 times the score FLOPs);
 // chunk 0 writes lse.
-// f32 (not on a bf16 path): the simple version, plain f32 FMA (not TF32),
-// four lanes per query row, a chunk of DC = min(128, next width >= d)
-// columns of o per block (gridDim.z chunks), the scores summed over DC-wide
-// slices of q and k, tiles staged with synchronous loads.
+// f32 (classifier guidance and training, the f32 paths): every product on
+// the tensor cores in split-TF32 (three tf32 mma.syncs, f32-accurate), 16
+// query rows a block, the key loop split across the block's warps, each
+// with its own cp.async ring and online softmax, merged in warp order; see
+// "f32" below.
 //
 // The launch goes on the caller's stream; the kernel allocates nothing. The
 // entry point returns cudaGetLastError() after the launch, or 10000 plus the
@@ -106,7 +107,6 @@ struct Params {
   float scale;
 };
 
-constexpr int kThreads = 128;  // f32 blocks
 // bf16 blocks: 64 query rows (one consumer warpgroup) plus the producer
 // warp, 64-key tiles, a ring of two stages
 constexpr int kRows = 64;
@@ -557,91 +557,228 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
   }
 }
 
-constexpr int kBQ32 = 32;  // query rows per block (f32): 4 lanes per row
-constexpr int kBK32 = 32;  // keys per tile (f32)
+// ---- f32: split-TF32 products on the tensor cores ----
+// The layout and helpers are the f32 backward's (flash_attention_common.cuh).
+// A block owns 16 query rows, one m16 tile: their q * s (one f32 multiply,
+// then split into tf32 big and small parts, d <= 128) stays in shared
+// memory for every warp. Its W warps split the key loop into tiles of 8
+// keys: warp w takes tiles w, w + W, ..., each K and V tile through the
+// warp's own cp.async ring (zero-filled past M and d; 3 stages at d <= 32,
+// 4 at 64, 2 at 128). For each tile: the 16 x 8 scores in k8 steps of mma_split3
+// with k * s formed in f32 before its split, a fresh accumulator every 16
+// columns added in f32; keys past M masked to -inf; the running max and sum
+// of each row kept by the warp (the max over a row's 4 lanes by shuffles,
+// the sum in each lane's share, reduced at the end); acc rescaled by
+// alpha = e^(m_old - m_new) as the tile's p v, on a fresh accumulator, is
+// added (f32_accumulate with alphas), p reaching the A fragment through
+// tf32_a_from_c. At the end each warp leaves (m_w, l_w, acc_w) in its slot
+// and the block merges them in warp order, m = max m_w, l = sum l_w
+// e^(m_w - m), o = (sum acc_w e^(m_w - m)) / l, lse = m + log(l): no
+// atomics, the same bits on every run; a warp that got no tile (M < 8 W)
+// adds nothing. d > 128 (WIDE): o's columns in 128-wide chunks over
+// gridDim.z, q's whole d resident unsplit (scaled where it is read), K
+// streamed in 128-column slices and V's chunk into a buffer kept for p v;
+// every chunk recomputes the scores, chunk 0 writes lse.
+// Occupancy on an H100 at the classifier's shapes, B = 8: d = 128, N = 256,
+// one head: 16 x 8 = 128 blocks of 8 warps, one an SM, each warp 4 key
+// tiles; d = 32, 4 heads: 16 or 17 x 32 blocks of 4 warps, five an SM.
+// Bound: 4 BH N M d FLOPs at the split-TF32 rate (495 / 3 TFLOP/s) against
+// reading q, k, v and writing o and lse once (at these shapes the FLOPs).
+// What sets the pace instead (PERF.md): the block's fixed costs (the launch,
+// the resident rows, the merge; a third of the time at d = 128) and each
+// warp's serial tiles, two warps a scheduler at d = 128. Dropping the two
+// small-term mma.syncs saved 15-22 %, fast exponentials 0-4 %; deeper
+// rings, 4 or 8 warps at other widths, and issuing the next tile's scores
+// beside this tile's p v did not help.
 
-// f32: columns [c0, c0 + DC) of o per block (c0 = DC * blockIdx.z); the
-// scores summed over DC-wide slices of q*s and k*s, lane `sub` taking
-// columns 4 i + sub of each slice and the four lanes of a row reduced with
-// shuffles.
-template <int DC>
-__global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
-  constexpr int DP = DC / 4;  // columns per lane of a slice
-  __shared__ float Ks[kBK32][DC];
-  __shared__ float Vs[kBK32][DC];
-
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
-  float* lse = p.lse + b * p.l_sb + h * p.l_sh;
-  const int row = blockIdx.x * kBQ32 + (threadIdx.x >> 2);
-  const int sub = threadIdx.x & 3;
-  const int c0 = blockIdx.z * DC;
-  const float s = p.scale;
-
-  float acc[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) acc[i] = 0.f;
-  float m = kInitMax, l = 0.f;
-
-  for (int k0 = 0; k0 < p.M; k0 += kBK32) {
-    float sc[kBK32];
-#pragma unroll
-    for (int j = 0; j < kBK32; ++j) sc[j] = 0.f;
-    for (int s0 = 0; s0 < p.d; s0 += DC) {
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < kBK32 * DC; idx += kThreads) {
-        const int j = idx / DC, c = idx % DC;
-        Ks[j][c] = k0 + j < p.M && s0 + c < p.d ? k[(k0 + j) * p.k_st + s0 + c] * s : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        const int col = s0 + 4 * i + sub;
-        const float qv = row < p.N && col < p.d ? q[row * p.q_st + col] * s : 0.f;
-#pragma unroll
-        for (int j = 0; j < kBK32; ++j) sc[j] = fmaf(qv, Ks[j][4 * i + sub], sc[j]);
-      }
-    }
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBK32; ++j) {
-      float part = sc[j];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      sc[j] = k0 + j < p.M ? part : -INFINITY;
-      mx = fmaxf(mx, sc[j]);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    m = m_new;
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) acc[i] *= alpha;
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kBK32 * DC; idx += kThreads) {
-      const int j = idx / DC, c = idx % DC;
-      Vs[j][c] = k0 + j < p.M && c0 + c < p.d ? v[(k0 + j) * p.v_st + c0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kBK32; ++j) {
-      const float pj = expf(sc[j] - m);
-      l += pj;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(pj, Vs[j][4 * i + sub], acc[i]);
-    }
+// Shared memory of an f32 block, in floats: W slots, each a warp's ring
+// and then its partial (acc [16][S], m and l of the 16 rows); the resident
+// [16][res_ld] q * s; the merge's weights e^(m_w - m) [W][16] and l [16].
+template <int DC, bool WIDE>
+struct FwdF32Smem {
+  // warps a block: 8 at DC 64 and 128 (one block an SM), 4 at DC <= 32
+  // (five blocks an SM) and for WIDE (whose resident q takes 66 KB at d =
+  // 1,024)
+  static constexpr int W = !WIDE && DC > 32 ? 8 : 4;
+  static constexpr int S = DC + 8;  // a tile's row stride, 8 mod 16: no bank conflicts
+  static constexpr int kTileF = kF32Tile * S;  // one [8][S] tile
+  static constexpr int kBuf = 2 * kTileF;  // a K and a V tile
+  // a warp's ring: kStages buffers by key tile (3 at DC <= 32, where five
+  // blocks share an SM's shared memory), WIDE also two K slices by step
+  // parity
+  static constexpr int kStages = WIDE ? 2 : DC <= 32 ? 3 : DC <= 64 ? 4 : 2;
+  static constexpr int kRing = kStages * kBuf + (WIDE ? 2 * kTileF : 0);
+  static constexpr int kPartial = kF32Rows * S + 2 * kF32Rows;
+  static constexpr int kSlot = kRing > kPartial ? kRing : kPartial;
+  static constexpr int kPool = W * kSlot;
+  // the resident rows' stride: raw (WIDE), or split in pairs
+  __host__ __device__ static constexpr int res_ld(int d) {
+    return (WIDE ? 1 : 2) * (round_up(d, DC) + 8);
   }
-  if (row < p.N) {
-#pragma unroll
-    for (int i = 0; i < DP; ++i) {
-      const int col = c0 + 4 * i + sub;
-      if (col < p.d) o[row * p.o_st + col] = acc[i] / l;
+  __host__ __device__ static constexpr int bytes(int d) {
+    return 4 * (kPool + kF32Rows * res_ld(d) + (W + 1) * kF32Rows);
+  }
+};
+
+// Blocks an SM the kernel is compiled for: five blocks of 4 warps (96
+// registers a thread) at DC <= 32, so that the 544 blocks of the 257-token
+// classifier shape (B = 8, 4 heads) run in one wave on 132 SMs; one block
+// at the wider DC, whose accumulators need the registers.
+template <int DC, bool WIDE>
+__global__ void __launch_bounds__(FwdF32Smem<DC, WIDE>::W * 32, DC <= 32 ? 5 : 1)
+    flash_fwd_f32(Params p) {
+  using L = FwdF32Smem<DC, WIDE>;
+  constexpr int W = L::W, S = L::S;
+  constexpr int kSteps = DC / 8 < 2 ? DC / 8 : 2;  // k8 steps a fresh score accumulator
+  extern __shared__ __align__(16) float f32_smem[];
+  const int ld = L::res_ld(p.d);
+  float* resQ = f32_smem + L::kPool;
+  float* wts = resQ + kF32Rows * ld;
+  float* rowL = wts + W * kF32Rows;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int r0 = blockIdx.x * kF32Rows;
+  const int chunk = blockIdx.z;  // o's columns [chunk * DC, chunk * DC + DC)
+  const int ns = WIDE ? (p.d + DC - 1) / DC : 1;  // slices of the head dim
+  const float s = p.scale;
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+
+  load_resident<WIDE>(resQ, ld, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh,
+                      p.q_st, r0, p.N, ns * DC, p.d, W * 32, s);
+  cp_async_commit();
+
+  float* slot = f32_smem + warp * L::kSlot;
+  const int tiles = (p.M + kF32Tile - 1) / kF32Tile;
+  const int mine = warp < tiles ? (tiles - warp + W - 1) / W : 0;
+  const int steps = mine * ns;
+  // step i: the warp's tile i / ns, K's slice i % ns; the chunk's own slice
+  // and V's chunk go to the tile's buffer, K's other slices (WIDE) through
+  // the slice ring
+  auto chunk_buf = [&](int lt) { return slot + (lt % L::kStages) * L::kBuf; };
+  auto buffer = [&](int i) {
+    const int lt = i / ns, sl = i - lt * ns;
+    return sl == chunk ? chunk_buf(lt) : slot + L::kStages * L::kBuf + (i & 1) * L::kTileF;
+  };
+  auto prefetch = [&](int i) {
+    if (i < steps) {
+      const int lt = i / ns, sl = i - lt * ns;
+      const int k0 = (warp + lt * W) * kF32Tile;
+      load_rows(buffer(i), S, kp, p.k_st, k0, p.M, kF32Tile, sl * DC, DC, p.d, lane, 32);
+      if (sl == chunk)
+        load_rows(chunk_buf(lt) + L::kTileF, S, vp, p.v_st, k0, p.M, kF32Tile, chunk * DC, DC,
+                  p.d, lane, 32);
     }
-    if (sub == 0 && blockIdx.z == 0) lse[row * p.l_st] = m + logf(l);
+    cp_async_commit();
+  };
+  for (int i = 0; i < L::kStages - 1; ++i) prefetch(i);
+  cp_async_wait<L::kStages - 1>();
+  __syncthreads();
+
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // rows g and g + 8: the running max, and this lane's share of the sum
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float sc[4];
+  const int n0 = score_row(2 * t4), n1 = score_row(2 * t4 + 1);
+  const int trow = score_row(g) * S;
+  for (int i = 0; i < steps; ++i) {
+    prefetch(i + L::kStages - 1);
+    cp_async_wait<L::kStages - 1>();
+    __syncwarp();
+    const int lt = i / ns, sl = i - lt * ns;
+    const float* tile = buffer(i);
+    if (sl == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[e] = 0.f;
+    }
+#pragma unroll
+    for (int k0 = 0; k0 < DC / 8; k0 += kSteps) {
+      float ps[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = k0; kk < k0 + kSteps; ++kk)
+        tf32_score_step<WIDE>(ps, resQ + sl * DC, ld, tile + trow, g, kk * 8 + 2 * t4, s);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[e] += ps[e];
+    }
+    if (sl == ns - 1) {
+      // column n is key k0 + pi(n); keys past M are -inf (the tile holds at
+      // least one key below M, so each row's max is finite)
+      const int k0 = (warp + lt * W) * kF32Tile;
+      const bool ok0 = k0 + n0 < p.M, ok1 = k0 + n1 < p.M;
+      if (!ok0) sc[0] = sc[2] = -INFINITY;
+      if (!ok1) sc[1] = sc[3] = -INFINITY;
+      float mx0 = fmaxf(sc[0], sc[1]), mx1 = fmaxf(sc[2], sc[3]);
+#pragma unroll
+      for (int x = 1; x < 4; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);  // 0 on the first tile
+      m0 = mn0;
+      m1 = mn1;
+      float pr[4] = {expf(sc[0] - m0), expf(sc[1] - m0), expf(sc[2] - m1), expf(sc[3] - m1)};
+      l0 = fmaf(l0, a0, pr[0] + pr[1]);
+      l1 = fmaf(l1, a1, pr[2] + pr[3]);
+      Tf32A a;
+      tf32_a_from_c(a, pr);
+      f32_accumulate<DC, S>(acc, a, chunk_buf(lt) + L::kTileF, g, t4, a0, a1);  // acc += p V
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  f32_partial<DC, S>(slot, acc, g, t4);
+  float* stat = slot + kF32Rows * S;  // m [16], then l [16]
+  if (t4 == 0) {
+    stat[g] = m0;
+    stat[g + 8] = m1;
+    stat[kF32Rows + g] = l0;
+    stat[kF32Rows + g + 8] = l1;
+  }
+  __syncthreads();
+
+  // the merge, over the warps that got a tile, in warp order
+  const int nw = tiles < W ? tiles : W;
+  if (threadIdx.x < kF32Rows) {
+    const int r = threadIdx.x;
+    const float* st0 = f32_smem + kF32Rows * S;
+    float m = st0[r];
+    for (int w = 1; w < nw; ++w) m = fmaxf(m, st0[w * L::kSlot + r]);
+    float l = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      const float e = expf(st0[w * L::kSlot + r] - m);
+      wts[w * kF32Rows + r] = e;
+      l = fmaf(st0[w * L::kSlot + kF32Rows + r], e, l);
+    }
+    rowL[r] = l;
+    if (chunk == 0 && r0 + r < p.N)
+      p.lse[b * p.l_sb + h * p.l_sh + (r0 + r) * p.l_st] = m + logf(l);
+  }
+  __syncthreads();
+  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  constexpr int kChunks = DC / 4;
+  for (int i = threadIdx.x; i < kF32Rows * kChunks; i += W * 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    if (r0 + r >= p.N || chunk * DC + c >= p.d) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < nw; ++w) {
+      const float e = wts[w * kF32Rows + r];
+      const float4 v = *reinterpret_cast<const float4*>(f32_smem + w * L::kSlot + r * S + c);
+      sum.x = fmaf(v.x, e, sum.x);
+      sum.y = fmaf(v.y, e, sum.y);
+      sum.z = fmaf(v.z, e, sum.z);
+      sum.w = fmaf(v.w, e, sum.w);
+    }
+    const float l = rowL[r];
+    *reinterpret_cast<float4*>(o + (r0 + r) * p.o_st + chunk * DC + c) =
+        make_float4(sum.x / l, sum.y / l, sum.z / l, sum.w / l);
   }
 }
 
@@ -691,10 +828,15 @@ int launch_bf16_wide(const Params& p, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int DC>
+template <int DC, bool WIDE>
 int launch_f32(const Params& p, int B, cudaStream_t stream) {
-  const dim3 grid((p.N + kBQ32 - 1) / kBQ32, B * p.H, (p.d + DC - 1) / DC);
-  flash_fwd_f32<DC><<<grid, kThreads, 0, stream>>>(p);
+  using L = FwdF32Smem<DC, WIDE>;
+  const dim3 grid((p.N + kF32Rows - 1) / kF32Rows, B * p.H, WIDE ? (p.d + DC - 1) / DC : 1);
+  static bool attr_set = false;
+  int err;
+  if ((err = set_smem(flash_fwd_f32<DC, WIDE>, L::bytes(WIDE ? 1024 : DC), &attr_set)) != 0)
+    return err;
+  flash_fwd_f32<DC, WIDE><<<grid, L::W * 32, L::bytes(p.d), stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -737,8 +879,9 @@ extern "C" int mf_flash_attention_fwd(int is_bf16, const void* q, const void* k,
     if (D <= 128) return launch_narrow<128>(p, B, st);
     return launch_bf16_wide(p, B, st);
   }
-  if (D <= 16) return launch_f32<16>(p, B, st);
-  if (D <= 32) return launch_f32<32>(p, B, st);
-  if (D <= 64) return launch_f32<64>(p, B, st);
-  return launch_f32<128>(p, B, st);
+  if (D <= 16) return launch_f32<16, false>(p, B, st);
+  if (D <= 32) return launch_f32<32, false>(p, B, st);
+  if (D <= 64) return launch_f32<64, false>(p, B, st);
+  if (D <= 128) return launch_f32<128, false>(p, B, st);
+  return launch_f32<128, true>(p, B, st);
 }

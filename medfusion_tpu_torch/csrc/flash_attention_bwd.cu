@@ -851,11 +851,11 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
 // order: no atomics, the same bits on every run. Every product is
 // mma_split3 (split-TF32, flash_attention_common.cuh): the scores and dP
 // over the head dim in k8 steps with the resident rows as A, then P and dS
-// as A fragments straight from the score accumulators. A score tile's n-th
-// column is the tile's row pi(n) = n ^ (n >> 2), so that the score loads
-// ([8][DC + 8] tile, lane g on row pi(g), 8-byte loads) and the
-// accumulating products' loads (rows pi(2 t4) and pi(2 t4 + 1), column g)
-// both hit 32 distinct banks. dK/dV computes S^T and dP^T of a query tile
+// as A fragments straight from the score accumulators; a score tile's
+// columns are the looped tile's rows permuted (score_row, in
+// flash_attention_common.cuh with the loads and the products shared with
+// the forward's f32 kernel), so both load patterns hit 32 distinct banks.
+// dK/dV computes S^T and dP^T of a query tile
 // once and feeds both P^T dO and dS^T Q from them.
 // Head widths: d <= 128 runs the kernels compiled for the next of 16, 32,
 // 64 and 128 on zero-filled columns; d > 128 (WIDE) splits the gradients'
@@ -876,11 +876,6 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
 // quarter of the time at d = 128, PERF.md), and each warp's few tiles, whose
 // fixed costs (the resident rows, D, the partial sums) and load latency a
 // 16-row block cannot spread further.
-
-constexpr int kF32Rows = 16;  // a block's output rows: one m16 tile
-constexpr int kF32Tile = 8;   // a looped tile's rows: one n8 tile, one k8 step
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // Shared memory of an f32 block, in floats: W slots, each a warp's ring
 // and then its partial sums; the two resident [16][res_ld] tiles; lse and
@@ -920,62 +915,6 @@ __host__ __device__ constexpr int f32_min_blocks() {
   return DC <= 32 ? 16 / F32Smem<DC, WIDE>::W : 1;
 }
 
-__device__ __forceinline__ int score_row(int n) { return n ^ (n >> 2); }
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [r0, r0 + rows) and columns [c0, c0 + cols) of a strided f32
-// operand into a [rows][ld] tile, by threads tid of n; zeros past row
-// `limit` and column d.
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, long long st,
-                                          int r0, int limit, int rows, int c0, int cols, int d,
-                                          int tid, int n) {
-  const int chunks = cols / 4;
-#pragma unroll 4
-  for (int i = tid; i < rows * chunks; i += n) {
-    const int r = i / chunks, c = (i - r * chunks) * 4;
-    const bool ok = r0 + r < limit && c0 + c < d;
-    cp_async16(dst + r * ld + c, ok ? src + (r0 + r) * st + c0 + c : src, ok);
-  }
-}
-
-// The block's 16 resident rows of one operand, zero past row `limit` and
-// column d: WIDE, as they are (cp.async, columns [0, cols)); else split in
-// pairs (tf32_split_pair), converted once for every looped tile.
-template <bool WIDE>
-__device__ __forceinline__ void load_resident(float* dst, int ld, const float* src,
-                                              long long st, int r0, int limit, int cols,
-                                              int d, int n) {
-  if (WIDE) {
-    load_rows(dst, ld, src, st, r0, limit, kF32Rows, 0, cols, d, threadIdx.x, n);
-    return;
-  }
-  const int chunks = cols / 4;
-  for (int i = threadIdx.x; i < kF32Rows * chunks; i += n) {
-    const int r = i / chunks, c = (i - r * chunks) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < limit && c < d) x = *reinterpret_cast<const float4*>(src + (r0 + r) * st + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + 2 * c) = tf32_split_pair(x.x, x.y);
-    *reinterpret_cast<uint4*>(dst + r * ld + 2 * c + 4) = tf32_split_pair(x.z, x.w);
-  }
-}
-
 // The scores (S or S^T) and dP (or dP^T) of one looped tile over one DC-wide
 // slice: rows of the resident tiles x and y (columns [c, c + DC)) against
 // rows pi(g) of the looped tiles tx and ty. The tensor cores round their
@@ -995,50 +934,14 @@ __device__ __forceinline__ void f32_scores(float* sc, float* dp, const float* x,
 #pragma unroll
     for (int kk = k0; kk < k0 + kSteps; ++kk) {
       const int c = kk * 8 + 2 * t4;
-      Tf32A a;
-      if (WIDE) {
-        tf32_load_a(a, x, ld, g, c);
-      } else {
-        tf32_load_a_split(a, x, ld, g, c);
-      }
-      const float2 kb = *reinterpret_cast<const float2*>(tx + row + c);
-      mma_split3(ps, a, kb.x, kb.y);
-      if (WIDE) {
-        tf32_load_a(a, y, ld, g, c);
-      } else {
-        tf32_load_a_split(a, y, ld, g, c);
-      }
-      const float2 vb = *reinterpret_cast<const float2*>(ty + row + c);
-      mma_split3(pd, a, vb.x, vb.y);
+      tf32_score_step<WIDE>(ps, x, ld, tx + row, g, c, 1.f);
+      tf32_score_step<WIDE>(pd, y, ld, ty + row, g, c, 1.f);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       sc[e] += ps[e];
       dp[e] += pd[e];
     }
-  }
-}
-
-// acc[j] += A m[:, 8j : 8j + 8] over one k8 step: rows pi(2 t4) and
-// pi(2 t4 + 1) of the looped tile m, column g of each n-tile.
-template <int DC, int S>
-__device__ __forceinline__ void f32_accumulate(float (&acc)[DC / 8][4], const Tf32A& a,
-                                               const float* m, int g, int t4) {
-  const float* r0 = m + score_row(2 * t4) * S + g;
-  const float* r1 = m + score_row(2 * t4 + 1) * S + g;
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j) mma_split3(acc[j], a, r0[8 * j], r1[8 * j]);
-}
-
-// A warp's partial [16][DC] sum (C fragments) into its slot, row stride S.
-template <int DC, int S>
-__device__ __forceinline__ void f32_partial(float* part, const float (&acc)[DC / 8][4], int g,
-                                            int t4) {
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j) {
-    *reinterpret_cast<float2*>(part + g * S + 8 * j + 2 * t4) = make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(part + (g + 8) * S + 8 * j + 2 * t4) =
-        make_float2(acc[j][2], acc[j][3]);
   }
 }
 

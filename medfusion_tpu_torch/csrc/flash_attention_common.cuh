@@ -1,8 +1,8 @@
 // Fragment helpers shared by the flash-attention forward
 // (flash_attention.cu) and backward (flash_attention_bwd.cu) kernels: bf16
 // packing, the A fragment of a product from the C fragments of another, the
-// rounding of a scaled bf16 chunk, and the split-TF32 products of the f32
-// routes.
+// rounding of a scaled bf16 chunk, and the split-TF32 products, cp.async
+// loads and tile layout of the f32 routes.
 //
 // mma.sync m16n8k16 fragments (a wgmma accumulator holds, for each warp's 16
 // rows, the same C fragments; hopper_sm90.cuh), for lane = 4 * g + t4:
@@ -18,6 +18,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_sm90.cuh"
 
 namespace mf_flash {
 
@@ -94,10 +96,13 @@ __device__ __forceinline__ void tf32_split_a(Tf32A& a, float x0, float x1, float
 // The A fragment of rows (g, g + 8) and elements (c, c + 1) of a row-major
 // f32 matrix in shared memory with row stride `ld` (floats): k index t4 is
 // element c = 2 t4 of the k-step's 8, t4 + 4 is c + 1.
-__device__ __forceinline__ void tf32_load_a(Tf32A& a, const float* m, int ld, int g, int c) {
+// Each value is first multiplied by s in f32 (the forward's q * s; 1 for
+// the backward), so the split is of the scaled value.
+__device__ __forceinline__ void tf32_load_a(Tf32A& a, const float* m, int ld, int g, int c,
+                                            float s) {
   const float2 r0 = *reinterpret_cast<const float2*>(m + g * ld + c);
   const float2 r1 = *reinterpret_cast<const float2*>(m + (g + 8) * ld + c);
-  tf32_split_a(a, r0.x, r1.x, r0.y, r1.y);
+  tf32_split_a(a, r0.x * s, r1.x * s, r0.y * s, r1.y * s);
 }
 
 // A row-major matrix kept split in shared memory: each pair of elements
@@ -147,6 +152,143 @@ __device__ __forceinline__ void mma_split3(float* c, const Tf32A& a, float b0, f
   mma_tf32(c, a.small, bb0, bb1);
   mma_tf32(c, a.big, bs0, bs1);
   mma_tf32(c, a.big, bb0, bb1);
+}
+
+
+// ---- the f32 kernels' tiles: 16 resident rows, looped tiles of 8 rows ----
+//
+// A block owns 16 output rows, one m16 tile, resident in shared memory; its
+// warps each loop over tiles of 8 rows of the other side (one n8 tile of
+// the scores, one k8 step of the accumulating products) through their own
+// cp.async ring. A score tile's n-th column is the looped tile's row
+// pi(n) = n ^ (n >> 2) (score_row), so that the score loads ([8][DC + 8]
+// tile, lane g on row pi(g), 8-byte loads) and the accumulating products'
+// loads (rows pi(2 t4) and pi(2 t4 + 1), column g) both hit 32 distinct
+// banks.
+
+constexpr int kF32Rows = 16;  // a block's output rows: one m16 tile
+constexpr int kF32Tile = 8;   // a looped tile's rows: one n8 tile, one k8 step
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+__device__ __forceinline__ int score_row(int n) { return n ^ (n >> 2); }
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(mf_sm90::smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(mf_sm90::smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + rows) and columns [c0, c0 + cols) of a strided f32
+// operand into a [rows][ld] tile, by threads tid of n; zeros past row
+// `limit` and column d.
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, long long st,
+                                          int r0, int limit, int rows, int c0, int cols, int d,
+                                          int tid, int n) {
+  const int chunks = cols / 4;
+#pragma unroll 4
+  for (int i = tid; i < rows * chunks; i += n) {
+    const int r = i / chunks, c = (i - r * chunks) * 4;
+    const bool ok = r0 + r < limit && c0 + c < d;
+    cp_async16(dst + r * ld + c, ok ? src + (r0 + r) * st + c0 + c : src, ok);
+  }
+}
+
+// The block's 16 resident rows of one operand, zero past row `limit` and
+// column d: WIDE, as they are (cp.async, columns [0, cols); a caller that
+// scales them does so where it reads them); else each value times s, split
+// in pairs (tf32_split_pair), converted once for every looped tile.
+template <bool WIDE>
+__device__ __forceinline__ void load_resident(float* dst, int ld, const float* src,
+                                              long long st, int r0, int limit, int cols,
+                                              int d, int n, float s = 1.f) {
+  if (WIDE) {
+    load_rows(dst, ld, src, st, r0, limit, kF32Rows, 0, cols, d, threadIdx.x, n);
+    return;
+  }
+  const int chunks = cols / 4;
+  for (int i = threadIdx.x; i < kF32Rows * chunks; i += n) {
+    const int r = i / chunks, c = (i - r * chunks) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < limit && c < d) x = *reinterpret_cast<const float4*>(src + (r0 + r) * st + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + 2 * c) = tf32_split_pair(x.x * s, x.y * s);
+    *reinterpret_cast<uint4*>(dst + r * ld + 2 * c + 4) = tf32_split_pair(x.z * s, x.w * s);
+  }
+}
+
+// One k8 step of a 16x8 score tile: ps += (rows g, g + 8 of the resident
+// tile x, columns c, c + 1) (row `trow` of a looped tile, the same
+// columns), both operands times s in f32 before their split (WIDE: x
+// raw; else x already scaled and split).
+template <bool WIDE>
+__device__ __forceinline__ void tf32_score_step(float* ps, const float* x, int ld,
+                                                const float* trow, int g, int c, float s) {
+  Tf32A a;
+  if (WIDE) {
+    tf32_load_a(a, x, ld, g, c, s);
+  } else {
+    tf32_load_a_split(a, x, ld, g, c);
+  }
+  const float2 b = *reinterpret_cast<const float2*>(trow + c);
+  mma_split3(ps, a, b.x * s, b.y * s);
+}
+
+// acc[j] += A m[:, 8j : 8j + 8] over one k8 step: rows pi(2 t4) and
+// pi(2 t4 + 1) of the looped tile m (row stride S), column g of each
+// n-tile.
+template <int DC, int S>
+__device__ __forceinline__ void f32_accumulate(float (&acc)[DC / 8][4], const Tf32A& a,
+                                               const float* m, int g, int t4) {
+  const float* r0 = m + score_row(2 * t4) * S + g;
+  const float* r1 = m + score_row(2 * t4 + 1) * S + g;
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j) mma_split3(acc[j], a, r0[8 * j], r1[8 * j]);
+}
+
+// acc[j] = alpha acc[j] + A m[:, 8j : 8j + 8], alpha0 for rows g and
+// alpha1 for rows g + 8 (an online softmax's rescaling): the step's product
+// on a fresh accumulator, added in f32 (fmaf, rounded to nearest), so no
+// accumulator takes a chain of more than three mma.syncs, whose f32 sums
+// the tensor cores round toward zero.
+template <int DC, int S>
+__device__ __forceinline__ void f32_accumulate(float (&acc)[DC / 8][4], const Tf32A& a,
+                                               const float* m, int g, int t4, float alpha0,
+                                               float alpha1) {
+  const float* r0 = m + score_row(2 * t4) * S + g;
+  const float* r1 = m + score_row(2 * t4 + 1) * S + g;
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_split3(t, a, r0[8 * j], r1[8 * j]);
+    acc[j][0] = fmaf(acc[j][0], alpha0, t[0]);
+    acc[j][1] = fmaf(acc[j][1], alpha0, t[1]);
+    acc[j][2] = fmaf(acc[j][2], alpha1, t[2]);
+    acc[j][3] = fmaf(acc[j][3], alpha1, t[3]);
+  }
+}
+
+// A warp's partial [16][DC] sum (C fragments) into its slot, row stride S.
+template <int DC, int S>
+__device__ __forceinline__ void f32_partial(float* part, const float (&acc)[DC / 8][4], int g,
+                                            int t4) {
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j) {
+    *reinterpret_cast<float2*>(part + g * S + 8 * j + 2 * t4) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(part + (g + 8) * S + 8 * j + 2 * t4) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
 }
 
 }  // namespace mf_flash

@@ -24,9 +24,11 @@ custom VJPs ``_flash`` and ``_flash_mha`` do.
   (:data:`MAX_HEAD_DIM`), float32 and bfloat16, and any N, M >= 1. In
   bfloat16 a head dim under 128 runs the kernel compiled for the next of
   16, 32, 64 and 128 on zero-filled columns, and a wider one splits the
-  output's columns into 128-wide chunks over blocks (``csrc/*.cu``); so does
-  the float32 backward, whose products run on the tensor cores in
-  split-TF32 (three tf32 products for each f32 one, f32-accurate). A head
+  output's columns into 128-wide chunks over blocks (``csrc/*.cu``); so do
+  the float32 forward and backward, whose products run on the tensor cores
+  in split-TF32 (three tf32 products for each f32 one, f32-accurate; the
+  forward's key loop split over a block's warps, each with its own online
+  softmax, merged in warp order). A head
   dim that is not a multiple of 8 would break the kernels' 16-byte rows and
   TMA's 16-byte strides, so the entries run the kernels on zero-padded
   copies (:func:`pad_head_dim`) and return the first d columns: zero

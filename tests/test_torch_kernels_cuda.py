@@ -13,7 +13,8 @@ Tolerances:
   another order); bfloat16 atol = rtol = 1e-2 (both sides round an f32
   result to bf16, so they may differ by one bf16 ulp).
 * Flash attention, o: float32 atol = rtol = 2e-5 (the same products summed
-  in another order, f32 FMA on both sides, no TF32); bfloat16 atol = two
+  in another order: the kernel's split-TF32 products, f32-accurate, against
+  f32 FMA, no single-pass TF32); bfloat16 atol = two
   bf16 ulps of max|o_ref|, rtol = 0: both sides round q*s, k*s and o to
   bf16, and p to bf16 against the running row max (kernel) or the final one
   (plain version); the f32 values rounded to o differ by well under an ulp,
@@ -25,8 +26,8 @@ Tolerances:
   bias, and an ulp flip in g moves the F-long down-projection sum by about
   an ulp of the output.
 * Flash attention backward, dq/dk/dv against the plain backward on the
-  kernels' o and lse: float32 atol = rtol = 2e-5 (the same products summed
-  in another order, f32 FMA, no TF32); bfloat16 atol = two bf16 ulps of the
+  kernels' o and lse: float32 atol = rtol = 2e-5 (as the forward's o);
+  bfloat16 atol = two bf16 ulps of the
   largest |gradient|, rtol = 0: both sides round ds and p to bf16 at the
   same points and the gradients once at the end, from f32 sums taken in
   another order, so an element of ds, and so of the gradient, may land one
@@ -769,6 +770,55 @@ def test_classifier_attention_shapes_match_plain_version(cuda, n, c, heads):
     for what, g, r in zip(("dq", "dk", "dv"), grads, refs):
         torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-5,
                                    msg=lambda msg, w=what: f"{w}: {msg}")
+
+
+def _f32_forward_both_layouts(q, k, v, heads, scale):
+    """The f32 forward kernel in the token and the head layout, each as
+    [B, H, N, D] o and [B, H, N] lse."""
+    o, lse = FA.flash_attention_tokens_cuda(q, k, v, heads, scale)
+    oh, lseh = FA.flash_attention_cuda(*(FA._heads(t, heads) for t in (q, k, v)), scale)
+    return [(FA._heads(o, heads), lse.transpose(1, 2)), (oh, lseh)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,heads", CLASSIFIER_ATTN_CASES)
+def test_flash_attention_f32_is_deterministic(cuda, n, c, heads):
+    """The f32 forward merges its warps' partial sums in warp order, with no
+    atomics: two launches give the same bits, o and lse, in both layouts."""
+    q, k, v = _attn_inputs(cuda, 8, n, n, c, torch.float32)
+    scale = (c // heads) ** -0.25
+    first = _f32_forward_both_layouts(q, k, v, heads, scale)
+    second = _f32_forward_both_layouts(q, k, v, heads, scale)
+    for (o1, l1), (o2, l2) in zip(first, second):
+        assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("c,heads", [(128, 1), (128, 4)])
+def test_flash_attention_f32_with_fewer_keys_than_warps_matches_plain_version(cuda, m, c,
+                                                                               heads):
+    """M < 8 W: one key tile, so all but the first warp of a block (8 at d =
+    128, 4 at d = 32) get no tile and must add nothing to the merge."""
+    q, k, v = _attn_inputs(cuda, 2, 77, m, c, torch.float32)
+    scale = (c // heads) ** -0.25
+    ro, rlse = FA.naive_attention_reference(*(FA._heads(t, heads) for t in (q, k, v)), scale)
+    for o, lse in _f32_forward_both_layouts(q, k, v, heads, scale):
+        torch.testing.assert_close(o, ro, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(lse, rlse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [136, 512, 1024])
+def test_flash_attention_f32_wide_heads_over_1024_tokens_match_plain_version(cuda, d):
+    """d > 128 in 128-column chunks over 1,024 queries and keys: the longest
+    chains of score and p v products the f32 forward runs."""
+    q, k, v = _attn_inputs(cuda, 2, 1024, 1024, d, torch.float32)
+    scale = d ** -0.25
+    ro, rlse = FA.naive_attention_reference(*(FA._heads(t, 1) for t in (q, k, v)), scale)
+    for o, lse in _f32_forward_both_layouts(q, k, v, 1, scale):
+        torch.testing.assert_close(o, ro, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(lse, rlse, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.cuda

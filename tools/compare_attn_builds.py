@@ -26,7 +26,8 @@ attention kernels' f32 routes are checked instead (within 2e-5 absolute
 and relative of the plain version, the classifier's shapes and wide heads
 among the checks, two launches bit-equal) and timed at the classifier's
 three shapes (``chip_smoke.CLF_ATTN_SHAPES``, B=8, token layout) beside
-SDPA's forward or backward on the same inputs. GroupNorm is checked in f32 and
+SDPA's forward or backward on the same inputs. Each check also says whether
+a variant's outputs are bit-equal to the first variant's. GroupNorm is checked in f32 and
 bf16 (2e-5 and 1e-2, SiLU on and off, bit for bit across two launches) at
 the path's shapes and ``chip_smoke.GN_ROUTE_CASES`` at B=2, and timed in
 bf16 with SiLU at the path's nine shapes at the flagship batch (B=64 UNet,
@@ -69,7 +70,8 @@ GN_PLAN_KEYS = ("max_cluster", "values_per_thread", "block_threads", "cluster_th
 # the narrow widths
 # f32 attention checks beyond CHECKS: the classifier's shapes, wide heads
 F32_CHECKS = [(256, 256, 128, 1, "tokens"), (257, 257, 128, 4, "tokens"),
-              (77, 45, 272, 2, "tokens"), (129, 127, 2048, 2, "head")]
+              (77, 45, 272, 2, "tokens"), (129, 127, 2048, 2, "head"),
+              (77, 1, 256, 8, "tokens"), (1024, 1024, 1024, 1, "head")]
 GEGLU_CHECKS = [(2048, 256), (16384, 256), (4096, 512), (1024, 1024), (4096, 1024),
                 (77, 256), (1000, 1024), (130, 16), (33, 48)]
 
@@ -359,6 +361,7 @@ def check(kernel, CS, FA, fns, gen, plans=None, dtype=None):
             ops, scale = bwd_operands(CS, FA, 2, n, m, c, heads, layout, gen, dtype)
             grads = FA.flash_attention_backward_reference(*ops[:4], ops[8], ops[4], scale)
             refs = [(out, r, CS.attn_bwd_tol(r)) for out, r in zip(ops[5:8], grads)]
+        first = None  # the first variant's outputs, name
         for name, entries in fns.items():
             outs = []
             for _ in range(2 if f32 else 1):
@@ -375,8 +378,14 @@ def check(kernel, CS, FA, fns, gen, plans=None, dtype=None):
             ok &= all(torch.equal(a, b) for a, b in zip(outs[0], outs[-1]))
             errs = [e.max().item() for e in errs]
             ok_all &= ok
+            same = ""
+            if first is None:
+                first = (outs[0], name)
+            else:
+                equal = all(torch.equal(a, b) for a, b in zip(outs[0], first[0]))
+                same = f"; bit-equal to {first[1]}: {equal}"
             print(f"check N={n} M={m} C={c} H={heads} {layout}: {name} "
-                  f"{'ok' if ok else 'FAIL'} " + "/".join(f"{e:.2e}" for e in errs),
+                  f"{'ok' if ok else 'FAIL'} " + "/".join(f"{e:.2e}" for e in errs) + same,
                   flush=True)
     return ok_all
 
