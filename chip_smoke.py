@@ -183,7 +183,11 @@ Phases (each raises on failure, so any failure exits non-zero):
     ``shard_params``/``shard_batch`` for dp, FSDP and TP (min_shard_dim
     256), each bit-equal to the plain steps; ring attention bit-equal to
     kernel 2 alone (its launch counted) and the lse merge over K/V in 2 and
-    4 blocks against the plain merge; the chest DiT-MoE with
+    4 blocks against the plain merge; its gradient (B=32): the
+    ring's backward bit-equal to kernels 3 and 4 on the whole (one launch
+    each), the block-pair backward over 2 and 4 K/V blocks against the plain
+    backward's pairs (bf16) and over 2 at the classifier's f32 shape; the
+    chest DiT-MoE with
     ``moe_expert_axis``, its forward and train steps bit-equal to the dense
     layout with kernels 3-5 counted; ``pipeline_apply`` at one stage
     bit-equal to the stage, forward and gradients; each path's ms beside
@@ -196,6 +200,7 @@ as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -5584,6 +5589,10 @@ def phase_diffusers_full_width(ops, root):
 # of residual MLP blocks on the DiT's tokens.
 PAR_N, PAR_STEPS, PAR_TRAIN_STEPS = 32, 50, 2
 RING_SPLITS = (2, 4)
+# the ring's backward at the training batch; its f32 case at the classifier's
+# (256 tokens, 4 heads x 32) attention, B=8, held to the plain version at 1e-5
+RING_BWD_BATCH = TRAIN_BATCH
+RING_F32, RING_F32_TOL = (8, 4, 256, 32), 1e-5
 PIPE_TOKENS, PIPE_WIDTH = 256, 384
 
 
@@ -5779,7 +5788,8 @@ def phase_ring_attention(ops, FA, mesh):
     """18e: ring attention at world 1 bit-equal to kernel 2 alone, its launch
     counted; the lse merge of kernel 2 over K/V split into RING_SPLITS
     blocks against the same merge of the plain version's blocks (bf16, two
-    ulps of the blocks' largest |o|) and against kernel 2 on the whole."""
+    ulps of the blocks' largest |o|) and against kernel 2 on the whole.
+    Then its gradient (:func:`ring_backward_checks`)."""
     import torch
 
     from medfusion_tpu_torch.parallel import ring_attention
@@ -5806,8 +5816,8 @@ def phase_ring_attention(ops, FA, mesh):
             check_counts(f"merge over {parts} blocks", ops.launch_counts(),
                          {"flash_attention": parts})
             plain = [FA.naive_attention_reference(q, kb, vb, scale) for kb, vb in blocks]
-            got = merge_attention_blocks(*zip(*kern))
-            want = merge_attention_blocks(*zip(*plain))
+            got, _ = merge_attention_blocks(*zip(*kern))
+            want, _ = merge_attention_blocks(*zip(*plain))
             atol, _ = attn_o_tol(torch.stack([o for o, _ in plain]))
             errs[parts] = close(f"merge of {parts} blocks", got, want, atol, 0.0)
             errs[f"{parts} vs whole"] = (got.float() - whole.float()).abs().max().item()
@@ -5818,7 +5828,121 @@ def phase_ring_attention(ops, FA, mesh):
         f"{ring_ms:.4f} ms (kernel alone {kernel_ms:.4f}); lse merge vs the plain merge "
         f"max|d| " + ", ".join(f"{p} blocks {errs[p]:.3e} ({errs[f'{p} ms']:.4f} ms; vs the "
                                 f"whole {errs[f'{p} vs whole']:.3e})" for p in RING_SPLITS))
-    return {"ring_ms": ring_ms, "kernel_ms": kernel_ms, "errs": errs}
+    return {"ring_ms": ring_ms, "kernel_ms": kernel_ms, "errs": errs,
+            "backward": ring_backward_checks(ops, FA, mesh)}
+
+
+def check_blocks_backward(ops, FA, q, k, v, do, scale, parts, f32_tol=None):
+    """``attention_blocks_backward`` over ``parts`` K/V blocks with the merged
+    kernel-2 o and lse: both kernels launched once a block, against the same
+    sums of the plain backward's pairs. bf16: each block's dK/dV within
+    ``attn_bwd_tol`` of its plain pair, dQ (an f32 sum of ``parts`` bf16
+    partials) within the sum of its partials' tolerances; f32: ``f32_tol``.
+    Returns (max errors, (dq, dk, dv) in the input dtype, the merged (o, lse),
+    the blocks)."""
+    import torch
+
+    from medfusion_tpu_torch.parallel.ring_attention import (
+        attention_blocks_backward,
+        merge_attention_blocks,
+    )
+
+    blocks = list(zip(k.chunk(parts, dim=2), v.chunk(parts, dim=2)))
+    o, lse = merge_attention_blocks(*zip(*[FA.flash_attention(q, kb, vb, scale)
+                                           for kb, vb in blocks]))
+    ops.reset_launch_counts()
+    dq, dkv = attention_blocks_backward(q, blocks, o, lse, do, scale)
+    check_counts(f"block-pair backward over {parts} blocks", ops.launch_counts(),
+                 {"flash_attention_bwd_dq": parts, "flash_attention_bwd_dkv": parts})
+    plain = [FA.flash_attention_backward_reference(q, kb, vb, o, lse, do, scale)
+             for kb, vb in blocks]
+    tag = f"blocks backward x{parts} {str(q.dtype).split('.')[-1]}"
+
+    def tol(ref):  # (atol, rtol)
+        return (attn_bwd_tol(ref)[0], 0.0) if f32_tol is None else (f32_tol, f32_tol)
+
+    dq_tol = tol(plain[0][0])
+    if f32_tol is None:  # an f32 sum of bf16 partials: their tolerances add
+        dq_tol = (sum(tol(g[0])[0] for g in plain), 0.0)
+    errs = {"dq": close(f"{tag} dq", dq, sum(g[0].float() for g in plain), *dq_tol)}
+    for i, ((dk, dv), (_, rk, rv)) in enumerate(zip(dkv, plain)):
+        for what, got, ref in (("dk", dk, rk), ("dv", dv, rv)):
+            errs[what] = max(errs.get(what, 0.0),
+                             close(f"{tag} block {i} {what}", got, ref, *tol(ref)))
+    grads = (dq.to(q.dtype), torch.cat([g for g, _ in dkv], dim=2),
+             torch.cat([g for _, g in dkv], dim=2))
+    return errs, grads, (o, lse), blocks
+
+
+def ring_backward_checks(ops, FA, mesh):
+    """18e, the gradient, at the 32^2 level of chest-spatial (B=RING_BWD_BATCH,
+    8 heads x 32, 1,024 tokens, bf16): the ring's backward at world 1
+    bit-equal to kernels 3 and 4 on the whole, each launched once;
+    ``attention_blocks_backward`` over RING_SPLITS blocks against the plain
+    backward's pairs (``check_blocks_backward``), with its max|d| against the
+    whole-sequence pair; one f32 case at the classifier's (256, 4 x 32)
+    shape (RING_F32) over 2 blocks within RING_F32_TOL. Times (eager and
+    graph-replayed) against the pair on the whole sequence;
+    ``tools/ring_backward_times.py`` splits them by kernel."""
+    import torch
+
+    from medfusion_tpu_torch.parallel import ring_attention
+    from medfusion_tpu_torch.parallel.ring_attention import attention_blocks_backward
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    b, h, n, d = RING_BWD_BATCH, 8, 1024, 32
+    q, k, v, do = (torch.randn((b, h, n, d), generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    scale = d ** -0.25
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launch_counts()
+    o = ring_attention(*leaves, mesh, scale=scale, axis="data")
+    grads = torch.autograd.grad(o, leaves, do, retain_graph=True)
+    check_counts("ring attention forward + backward (world 1)", ops.launch_counts(),
+                 {"flash_attention": 1, "flash_attention_bwd_dq": 1,
+                  "flash_attention_bwd_dkv": 1})
+    with torch.no_grad():
+        whole_o, whole_lse = FA.flash_attention(q, k, v, scale)
+    whole = FA.flash_attention_backward_cuda(q, k, v, whole_o, whole_lse, do, scale)
+    for what, got, want in zip(("dq", "dk", "dv"), grads, whole):
+        same(f"ring backward {what}", got, want)
+
+    def pair():
+        return FA.flash_attention_backward_cuda(q, k, v, whole_o, whole_lse, do, scale)
+
+    out = {"ring_ms": cuda_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
+                              20),
+           "pair_ms": cuda_ms(pair, 20), "pair_graph_ms": graph_ms(pair, 20),
+           "whole_max": {w: g.float().abs().max().item()
+                         for w, g in zip(("dq", "dk", "dv"), whole)}}
+    for parts in RING_SPLITS:
+        errs, got, (bo, blse), blocks = check_blocks_backward(ops, FA, q, k, v, do, scale,
+                                                              parts)
+        run = functools.partial(attention_blocks_backward, q, blocks, bo, blse, do, scale)
+        out[parts] = {
+            "errs": errs,
+            "vs_whole": {w: (g.float() - r.float()).abs().max().item()
+                         for w, g, r in zip(("dq", "dk", "dv"), got, whole)},
+            "ms": cuda_ms(run, 20), "graph_ms": graph_ms(run, 20)}
+    gen32 = torch.Generator(device="cuda").manual_seed(21)
+    f32 = [torch.randn(RING_F32, generator=gen32, device="cuda") for _ in range(4)]
+    out["f32"], _, _, _ = check_blocks_backward(ops, FA, *f32, RING_F32[3] ** -0.25, 2,
+                                               f32_tol=RING_F32_TOL)
+    log(f"  ring backward (B={b}, 8 heads x 32, {n} tokens, bf16; {card_line()}): world 1 "
+        f"bit-equal to kernels 3 + 4 on the whole, {out['ring_ms']:.4f} ms (the pair alone "
+        f"{out['pair_ms']:.4f}, graph-replayed {out['pair_graph_ms']:.4f}); block-pair "
+        f"backward " + "; ".join(
+            f"over {p} blocks {out[p]['ms']:.4f} ms (graph-replayed {out[p]['graph_ms']:.4f}), "
+            f"vs the plain pairs max|d| "
+            + ", ".join(f"{w} {e:.3e}" for w, e in out[p]["errs"].items())
+            + " (vs the whole pair " + ", ".join(
+                f"{w} {e:.3e} of max|g| {out['whole_max'][w]:.3e}"
+                for w, e in out[p]["vs_whole"].items()) + ")"
+            for p in RING_SPLITS)
+        + f"; f32 B={RING_F32[0]} ({RING_F32[2]}, {RING_F32[1]} x {RING_F32[3]}) over 2 "
+        f"blocks max|d| " + ", ".join(f"{w} {e:.3e}" for w, e in out["f32"].items())
+        + f" (tol {RING_F32_TOL})")
+    return out
 
 
 def phase_expert_parallel(ops, mesh):
@@ -6254,6 +6378,12 @@ def main():
         f"{par_moe['dense_ms']:.1f}); "
         f"pipeline {par_pipe['pipe_ms']:.4f} ms (stage {par_pipe['plain_ms']:.4f}); phase 18 "
         f"{par_seconds:.1f} s")
+    ring_bwd = par_ring["backward"]
+    log(f"  ring attention's gradient on the card (world 1): backward "
+        f"{ring_bwd['ring_ms']:.4f} ms (kernels 3 + 4 on the whole {ring_bwd['pair_ms']:.4f}, "
+        f"graph-replayed {ring_bwd['pair_graph_ms']:.4f}); block-pair backward " + ", ".join(
+            f"over {p} blocks {ring_bwd[p]['ms']:.4f} ms (graph-replayed "
+            f"{ring_bwd[p]['graph_ms']:.4f})" for p in RING_SPLITS))
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

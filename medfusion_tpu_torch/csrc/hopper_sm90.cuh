@@ -309,6 +309,16 @@ inline EncodeTiled encode_tiled() {
 // An entry point returns this plus the CUresult where a map cannot be encoded.
 constexpr int kEncodeError = 10000;
 
+// cuTensorMapEncodeTiled needs a context current on the calling thread, which
+// a thread that has made no runtime call yet lacks (autograd's device thread
+// when an attention backward is its first CUDA work: torch's device guard
+// skips cudaSetDevice for the device already selected). cudaSetDevice makes
+// the device's primary context current, as the runtime's first call would.
+inline bool bind_context() {
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+}
+
 // The 4-D map (d, token, head, batch) of a bf16 tensor [B, H, tokens, d]
 // at `ptr` with element strides st = (batch, head, token) and a unit-stride
 // head dim, in boxes of (W, rows, 1, 1) with the swizzle of a W-column tile
@@ -322,6 +332,7 @@ inline int encode(CUtensorMap* map, void* ptr, const long long* st, int d, int B
                   int tokens, int rows, int W) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  if (!bind_context()) return kEncodeError + (int)CUDA_ERROR_INVALID_CONTEXT;
   cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)tokens, (cuuint64_t)H, (cuuint64_t)B};
   const long long by_dim[3] = {st[2], st[1], st[0]};  // token, head, batch
   cuuint64_t strides[3];
@@ -352,6 +363,7 @@ inline int encode(CUtensorMap* map, void* ptr, const long long* st, int d, int B
 inline int encode_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  if (!bind_context()) return kEncodeError + (int)CUDA_ERROR_INVALID_CONTEXT;
   cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   cuuint32_t box[2] = {64, (cuuint32_t)box_rows};

@@ -31,7 +31,9 @@ Tolerances:
   largest |gradient|, rtol = 0: both sides round ds and p to bf16 at the
   same points and the gradients once at the end, from f32 sums taken in
   another order, so an element of ds, and so of the gradient, may land one
-  ulp apart.
+  ulp apart. Ring attention's block-pair backward: each block's dk and dv
+  so; dq, an f32 sum of the blocks' partials, within the sum of their
+  tolerances.
 
 GEGLU is held at the rows of two UNet rows, of the sampling batch's 16 (8
 samples under CFG) and of the flagship's 64, since its launch plan depends
@@ -54,6 +56,7 @@ backward): the loss equal, each gradient within 1e-6 of its tensor's max.
 
 import copy
 import math
+import threading
 
 import pytest
 import torch
@@ -489,6 +492,76 @@ def test_launch_on_a_side_stream(cuda, kernel):
         outs = run()
     stream.synchronize()
     for out, ref in zip(outs, plain()):
+        atol, rtol = tol(ref)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("parts,d", [(2, 32), (4, 32), (4, 12)])
+def test_attention_blocks_backward_matches_plain_version(cuda, dtype, parts, d):
+    """Ring attention's block-pair backward on one card: both kernels once
+    a K/V block with the blocks' merged o and lse; each block's dk, dv and
+    the f32 sum of the blocks' dq against the same sums of the plain
+    backward's pairs (dq: the pairs' tolerances added)."""
+    from medfusion_tpu_torch.parallel.ring_attention import (
+        attention_blocks_backward,
+        merge_attention_blocks,
+    )
+
+    q, k, v, do = (torch.randn((2, 4, 256, d), generator=cuda, device="cuda").to(dtype)
+                   for _ in range(4))
+    scale = d ** -0.25
+    blocks = list(zip(k.chunk(parts, dim=2), v.chunk(parts, dim=2)))
+    o, lse = merge_attention_blocks(*zip(*(FA.flash_attention(q, kb, vb, scale)
+                                           for kb, vb in blocks)))
+    before = ops.launch_counts()
+    dq, dkv = attention_blocks_backward(q, blocks, o, lse, do, scale)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for kernel in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[kernel] == before[kernel] + parts
+    plain = [FA.flash_attention_backward_reference(q, kb, vb, o, lse, do, scale)
+             for kb, vb in blocks]
+    assert dq.dtype == torch.float32
+    torch.testing.assert_close(dq, sum(g[0].float() for g in plain),
+                               atol=sum(_bwd_tol(g[0])[0] for g in plain),
+                               rtol=_bwd_tol(plain[0][0])[1])
+    for (dk, dv), (_, rk, rv) in zip(dkv, plain):
+        for g, r in ((dk, rk), (dv, rv)):
+            assert g.dtype == dtype and g.shape == r.shape
+            torch.testing.assert_close(g.float(), r.float(), atol=_bwd_tol(r)[0],
+                                       rtol=_bwd_tol(r)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "flash_attention_backward",
+                                    "geglu_mlp"])
+def test_launch_first_on_a_fresh_thread(cuda, kernel):
+    """A bf16 launch from a thread that has made no CUDA call yet, its
+    outputs from the allocator's cache (as autograd's device thread running
+    an attention backward as its first CUDA work): the TMA maps are encoded
+    in the device's primary context."""
+    make = {"flash_attention": _side_stream_attention,
+            "flash_attention_backward": _side_stream_attention_backward,
+            "geglu_mlp": _side_stream_geglu}[kernel]
+    run, plain, tol = make(cuda)
+    run()  # the outputs' blocks go to the allocator's cache
+    torch.cuda.synchronize()
+    result = {}
+
+    def work():
+        try:
+            result["outs"] = run()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            result["error"] = str(e)
+
+    thread = threading.Thread(target=work)
+    thread.start()
+    thread.join(timeout=60)
+    assert not thread.is_alive() and "error" not in result, result.get("error")
+    for out, ref in zip(result["outs"], plain()):
         atol, rtol = tol(ref)
         torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 

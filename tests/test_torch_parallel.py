@@ -3,8 +3,9 @@ JAX package's on the CPU: ranks are processes on gloo, the JAX side runs on
 its 8 virtual devices (or a sub-mesh of them of the ranks' shape).
 
 One group of 2 ranks runs every case of ``tests/torch_parallel_worker.py``
-once for the module, and one group of 4 the 2-D mesh's; the parent writes
-their inputs, computes the JAX references while they run, and compares:
+once for the module, and one group of 4 the 2-D mesh's and ring attention's
+gradient; the parent writes their inputs, computes the JAX references while
+they run, and compares:
 
 * the placements (``model_partition_spec``, ``fsdp_partition_spec``,
   ``moe_partition_spec``) leaf for leaf against JAX's ``PartitionSpec``s,
@@ -16,7 +17,10 @@ their inputs, computes the JAX references while they run, and compares:
   ``make_sharded_sampler`` fed the same noise, at 1e-4 of the scale
   (``tests/test_torch_samplers.py``), and world 2's generator draws against
   one process's at 1e-5;
-* ring attention against JAX's at 1e-5, expert-parallel MoE forward and
+* ring attention and its gradients (``jax.vjp``, worlds 2 and 4, a rank
+  with a zero dO among them) against JAX's at 1e-5; in this process, its
+  gradient at world 1 bit for bit against flash_attention's and the
+  block-pair backward against the whole; expert-parallel MoE forward and
   gradients at ``tests/test_moe.py``'s rtol 1e-4 / atol 1e-5;
 * ``cli.sample_dataset`` at world 2 against world 1, byte for byte.
 """
@@ -43,7 +47,12 @@ from medfusion_tpu.pipelines.flow import FlowMatchingPipeline as JaxFlow
 from medfusion_tpu.train import TrainState as JaxTrainState
 from medfusion_tpu.train import make_diffusion_train_step as jax_make_step
 from medfusion_tpu_torch.cli import sample_dataset
-from medfusion_tpu_torch.parallel import ring_attention
+from medfusion_tpu_torch.ops import flash_attention as FA
+from medfusion_tpu_torch.parallel import make_mesh, ring_attention
+from medfusion_tpu_torch.parallel.ring_attention import (
+    attention_blocks_backward,
+    merge_attention_blocks,
+)
 from medfusion_tpu_torch.utils.weights import (
     flax_path_to_torch_key,
     jax_dit_to_state_dict,
@@ -68,6 +77,8 @@ SAMPLERS = {  # name -> (JAX make_sharded_sampler settings, steps)
 }
 STEP_LABELS = np.arange(8, dtype=np.int32) % 2
 DIT_T, DIT_C = np.asarray([3, 7, 1, 9], np.int32), np.asarray([0, 1, 1, 0], np.int32)
+RING_SHAPE = (2, 4, 64, 16)
+RING_W = np.random.default_rng(8).normal(size=RING_SHAPE).astype(np.float32)
 SD_ARGV = ["--preset", "smoke", "--device", "cpu", "--dtype", "f32", "--steps-list", "3",
            "--n-samples", "4", "--chunk", "2"]
 
@@ -141,7 +152,7 @@ def _inputs(tmp):
         cases[name] = dict(kw, x_T=_t(j["x_T"]),
                            **({"noise": _t(j["noise"])} if name == "ddim" else {}))
     rng = np.random.default_rng(4)
-    qkv = [torch.from_numpy(rng.normal(size=(2, 4, 64, 16)).astype(np.float32))
+    qkv = [torch.from_numpy(rng.normal(size=RING_SHAPE).astype(np.float32))
            for _ in range(3)]
     moe_sd = {"router.weight": _t(j["params_m"]["router"]["kernel"].T.copy()),
               **{k: _t(j["params_m"][k]) for k in ("w1", "b1", "w2", "b2")}}
@@ -153,7 +164,7 @@ def _inputs(tmp):
         "draws": {"t": _t(j["step_t"]).long(), "x_T": _t(j["step_x_T"]),
                   "drop": torch.tensor(bool(j["step_drop"]))},
         "sampler_cases": cases, "cond": _t(COND).long(), "un_cond": _t(UN_COND).long(),
-        "qkv": qkv, "qkv_scale": 16 ** -0.25,
+        "qkv": qkv, "qkv_scale": 16 ** -0.25, "ring_w": _t(RING_W),
         "moe": moe_sd, "moe_x": _t(j["x_moe"]),
         "dit_x": _t(np.moveaxis(j["x_dit"], -1, 1)), "dit_t": _t(DIT_T).long(),
         "dit_c": _t(DIT_C).long(),
@@ -375,18 +386,109 @@ def test_sharded_sampler_rows_are_one_process_rows(ranks):
 # ---- ring attention, expert parallelism ------------------------------------------------
 
 
+def _ring_qkv():
+    rng = np.random.default_rng(4)  # _inputs' q, k, v
+    return [rng.normal(size=RING_SHAPE).astype(np.float32) for _ in range(3)]
+
+
 def test_ring_attention_matches_jax(ranks):
-    rng = np.random.default_rng(4)
-    q, k, v = [jnp.asarray(rng.normal(size=(2, 4, 64, 16)), jnp.float32) for _ in range(3)]
+    q, k, v = (jnp.asarray(t) for t in _ring_qkv())
     ref = jax_ring_attention(q, k, v, _jax_mesh(8, 1), scale=16 ** -0.25, axis="data")
     out = torch.cat([r["out"] for r in ranks("ring_attention")], dim=2)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
-def test_ring_attention_refuses_autograd():
-    q = torch.zeros((1, 1, 4, 8), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ring_attention(q, q, q, mesh=None, scale=1.0)
+_RING_VJP = {}
+
+
+def jax_ring_grads(cotangent):
+    """jax.vjp of the JAX ring attention (8 devices) at _inputs' q, k, v."""
+    if not _RING_VJP:
+        _, _RING_VJP["vjp"] = jax.vjp(
+            lambda q, k, v: jax_ring_attention(q, k, v, _jax_mesh(8, 1), scale=16 ** -0.25,
+                                               axis="data"),
+            *(jnp.asarray(t) for t in _ring_qkv()))
+    return [np.asarray(g) for g in _RING_VJP["vjp"](jnp.asarray(cotangent))]
+
+
+@pytest.mark.parametrize("cotangent", ["random", "zero_on_rank_0"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_ring_attention_grad_matches_jax(ranks, world, cotangent):
+    """Each rank's dq, dk, dv of sum(o * w), its token blocks concatenated,
+    against jax.vjp of the JAX ring attention; with rank 0's dO all zero
+    too (every rank still runs the backward's exchanges)."""
+    w = RING_W.copy()
+    if cotangent == "zero_on_rank_0":
+        w[:, :, :RING_SHAPE[2] // world] = 0.0
+    want = jax_ring_grads(w)
+    res = ranks("ring_attention_grad", world)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        got = torch.cat([r[cotangent][name] for r in res], dim=2)
+        np.testing.assert_allclose(got.numpy(), want[i], rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def _ring_case(d, dtype, seed=11):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, w = (torch.randn((2, 3, 16, d), generator=gen).to(dtype) for _ in range(4))
+    return q, k, v, w, d ** -0.25
+
+
+def _flash_grads(q, k, v, w, scale):
+    """o and the gradients of sum(o * w) through flash_attention's autograd."""
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, _ = FA.flash_attention(*leaves, scale)
+    return o.detach(), torch.autograd.grad((o * w).sum(), leaves)
+
+
+@pytest.mark.parametrize("d", [16, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_attention_world_one_is_flash_attention(d, dtype):
+    """A group of one: o and every gradient equal flash_attention's (and its
+    autograd's) bit for bit, at a head dim off multiples of 8 too."""
+    q, k, v, w, scale = _ring_case(d, dtype)
+    want_o, want = _flash_grads(q, k, v, w, scale)
+    with W.one_rank_group():
+        mesh = make_mesh(n_data=1, n_model=1, device="cpu")
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = ring_attention(*leaves, mesh, scale=scale)
+        got = torch.autograd.grad((o * w).sum(), leaves)
+    assert torch.equal(o, want_o)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and torch.equal(a, b), name
+
+
+def test_ring_attention_grad_of_q_alone():
+    """Only q requires grad: the backward gives k and v None, and q the
+    gradient it has when all three require it."""
+    q, k, v, w, scale = _ring_case(16, torch.float32)
+    with W.one_rank_group():
+        mesh = make_mesh(n_data=1, n_model=1, device="cpu")
+        o = ring_attention(q.clone().requires_grad_(True), k, v, mesh, scale=scale)
+        dq, dk, dv = o.grad_fn.apply(w)[:3]
+    assert dk is None and dv is None
+    assert torch.equal(dq, _flash_grads(q, k, v, w, scale)[1][0])
+
+
+@pytest.mark.parametrize("d", [16, 12])
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_attention_blocks_backward_matches_whole(parts, d):
+    """The block-pair backward over 1, 2 and 4 K/V blocks with the merged o
+    and lse: f32 dQ and each block's dK/dV, concatenated, against the plain
+    backward on the whole sequence (f32, 1e-5)."""
+    q, k, v, do, scale = _ring_case(d, torch.float32, seed=12)
+    k, v = (torch.cat([t, 2.0 * t], dim=2) for t in (k, v))  # 32 keys, unequal blocks
+    blocks = list(zip(k.chunk(parts, dim=2), v.chunk(parts, dim=2)))
+    o, lse = merge_attention_blocks(*zip(*(
+        FA.naive_attention_reference(q, kb, vb, scale) for kb, vb in blocks)))
+    whole_o, whole_lse = FA.naive_attention_reference(q, k, v, scale)
+    np.testing.assert_allclose(o.numpy(), whole_o.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), whole_lse.numpy(), rtol=1e-5, atol=1e-5)
+    dq, dkv = attention_blocks_backward(q, blocks, o, lse, do, scale)
+    assert dq.dtype == torch.float32 and len(dkv) == parts
+    want = FA.flash_attention_backward_reference(q, k, v, whole_o, whole_lse, do, scale)
+    got = (dq, torch.cat([g for g, _ in dkv], dim=2), torch.cat([g for _, g in dkv], dim=2))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
 
 
 def test_expert_parallel_moe_matches_jax(ranks):

@@ -294,6 +294,24 @@ def case_ring_attention(inp, world):
         return {"out": ring_attention(q, k, v, mesh, scale=inp["qkv_scale"], axis="data")}
 
 
+def case_ring_attention_grad(inp, world):
+    """This rank's dq, dk, dv of sum(o * w), for the parent's w and for w
+    with rank 0's rows zero (rank 0's dO all zero: it must still run the
+    backward, which sends and receives)."""
+    from medfusion_tpu_torch.parallel import make_mesh, ring_attention
+    from medfusion_tpu_torch.parallel.ring_attention import shard_tokens
+
+    mesh = make_mesh(n_data=world, n_model=1, device="cpu")
+    q, k, v = (shard_tokens(t, mesh).requires_grad_(True) for t in inp["qkv"])
+    w = shard_tokens(inp["ring_w"], mesh)
+    o = ring_attention(q, k, v, mesh, scale=inp["qkv_scale"], axis="data")
+    out = {}
+    for name, cot in (("random", w), ("zero_on_rank_0", w * (mesh.get_local_rank("data") != 0))):
+        grads = torch.autograd.grad((o * cot).sum(), (q, k, v), retain_graph=True)
+        out[name] = dict(zip(("dq", "dk", "dv"), grads))
+    return out
+
+
 def case_moe(inp, world):
     from medfusion_tpu_torch.parallel import make_mesh
     from medfusion_tpu_torch.parallel.mesh import data_parallel_group, rows, sync_gradients
@@ -476,9 +494,9 @@ def case_multihost(inp, world, rank, port, tmp):
 SUITES = {
     "parallel": {2: [case_train_dp, case_train_fsdp, case_train_fsdp_tp, case_tp_spatial,
                      case_dit_specs,
-                     case_sampler, case_ring_attention, case_moe, case_dit_moe,
-                     case_prefetch, case_sample_dataset],
-                 4: [case_train_fsdp_tp]},
+                     case_sampler, case_ring_attention, case_ring_attention_grad, case_moe,
+                     case_dit_moe, case_prefetch, case_sample_dataset],
+                 4: [case_train_fsdp_tp, case_ring_attention_grad]},
     "pipeline": {2: [case_pipelines], 4: [case_pipelines]},
     "multihost": {2: [case_multihost]},
 }
