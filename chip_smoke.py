@@ -109,7 +109,7 @@ Phases (each raises on failure, so any failure exits non-zero):
     ``cli.train_diffusion --estimator dit`` (B=32, bf16, EMA; ms a step,
     peak memory, breakdown) with phase 8's gradient check on a perturbed
     chest DiT shown to flag dq zeroed at d = 64; ``cli.sample --estimator
-    dit --ckpt --ema`` (DDIM 150, CFG 8); the flow family with the DiT
+    dit --ckpt --ema`` (DDIM 50, CFG 8); the flow family with the DiT
     (training, Heun 25); a DiT-MoE of 8 experts, top-2, capacity 1.25,
     every second block (one bf16 step at B=32: ms, peak memory,
     ``moe_aux``, router gradients, each routed block's dropped share);
@@ -131,7 +131,7 @@ Phases (each raises on failure, so any failure exits non-zero):
     (ms a step, peak memory, breakdown), phase 8's gradient check on a
     perturbed chest OpenAI UNet, ``--remat`` for openai and unet (launches
     with the recompute; loss and gradients against the plain step, peak
-    memory below it); ``cli.sample`` from each run (DDIM 50, CFG 8);
+    memory below it); ``cli.sample`` from each run (DDIM 25, CFG 8);
     ``cli.train_autoencoder --model diffusers_kl`` and ``diffusers_vq
     --gan`` (B=8, f32) with a resume; every run's launches held to the
     counts derived from the architecture;
@@ -191,10 +191,25 @@ Phases (each raises on failure, so any failure exits non-zero):
     ``moe_expert_axis``, its forward and train steps bit-equal to the dense
     layout with kernels 3-5 counted; ``pipeline_apply`` at one stage
     bit-equal to the stage, forward and gradients; each path's ms beside
-    its unsharded ms.
+    its unsharded ms;
+19. the constructor options no CLI reaches (slice 21): the chest UNet and
+    VAE with ``learnable_interpolation=False`` (average-pooled encoder
+    levels, resized decoder levels), bf16, DDIM 25 with CFG 8 at B=8 and
+    the decode, kernel 1's launches held; one bf16 train step at B=32 of
+    that UNet and of the legacy UNet whose decoders concatenate their skips
+    (spatial attention at level 1, so kernel 1 normalises the 768-channel
+    concatenation), each step's gradients held to an f32 step's; kernel 1
+    against its plain version at every GroupNorm shape those paths ran,
+    kernels 5, 3 and 4 at the legacy UNet's and the 3-D classifier's
+    attention shapes, and kernel 6 at the legacy UNet's two GEGLU widths; the 3-D ``EncoderUNetOpenAI`` (attention at one
+    resolution, adaptive pool) on phase 16's latent, f32 forward and
+    backward with its launches held; small widths of the three on the card
+    against the CPU.
 
-The last three lines are the kernels' JSON, the card's name and power limit
-as ``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
+Every phase's seconds are printed on a line of their own when it ends,
+and all of them together before the kernels' line. The last three lines
+are the kernels' JSON, the card's name and power limit as ``nvidia-smi``
+gives them, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3567,7 +3582,7 @@ def phase_classifier_program(ops, tmp, root):
 # training one dQ and one dK/dV. The DiT has no GroupNorm: a run's
 # GroupNorms are the frozen VAE's (8 an encode, 8 a decode).
 DIT_TOKENS, DIT_WIDTH, DIT_HEADS, DIT_DEPTH = 256, 1024, 16, 12
-DIT_TRAIN_STEPS = 3
+DIT_TRAIN_STEPS = 2  # cut from 3 for the script's time
 # the kernels at the DiT's shape: the sampling batch's CFG rows (forward) and
 # the training batch (backward)
 DIT_FWD_B, DIT_BWD_B = 2 * N_SAMPLES, TRAIN_BATCH
@@ -3581,7 +3596,8 @@ DIT_MOE = dict(moe_experts=8, moe_num_selected=2, moe_capacity_factor=1.25, moe_
 # 14e: cli.distill, DISTILL_ITERS iterations of each method at B=32, bf16;
 # the consistency student sampled in CONSISTENCY_STEPS rounds; reflow's pool
 # REFLOW_PAIR_BATCHES batches of a REFLOW_TEACHER_STEPS-step Heun ODE
-DISTILL_ITERS, CONSISTENCY_STEPS = 3, 2
+DISTILL_ITERS, CONSISTENCY_STEPS = 2, 2  # DISTILL_ITERS cut from 3 for time
+DIT_SAMPLE_STEPS = 50  # 14b's DiT DDIM (cut from 150 for the script's time)
 REFLOW_TEACHER_STEPS, REFLOW_PAIR_BATCHES = 4, 1
 
 
@@ -3875,9 +3891,10 @@ def phase_dit_sample_and_flow(ops, tmp, root):
     ae = str(tmp / "ae")
     _, s_dit, p_dit = sample_run(
         ops, sample, ["--preset", "chest", "--estimator", "dit", "--ckpt", str(tmp / "dit"),
-                      "--ema", "--vae-ckpt", ae, "--n", str(N_SAMPLES),
-                      "--out", str(tmp / "dit_samples")],
-        dit_launches(3 * STEPS, decodes=3), f"DiT sample CLI (DDIM {STEPS}, CFG {GUIDANCE})")
+                      "--ema", "--vae-ckpt", ae, "--n", str(N_SAMPLES), "--steps",
+                      str(DIT_SAMPLE_STEPS), "--out", str(tmp / "dit_samples")],
+        dit_launches(3 * DIT_SAMPLE_STEPS, decodes=3),
+        f"DiT sample CLI (DDIM {DIT_SAMPLE_STEPS}, CFG {GUIDANCE})")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     state, losses, _ = train_diffusion.main([
@@ -4049,8 +4066,8 @@ def phase_distill(ops, tmp, root):
 # conv blocks (all 34 of its GroupNorms) and the openai family's res and
 # attention blocks run their forward again in the backward.
 FAMILIES = ("unet_legacy", "openai", "lucidrains")
-FAMILY_STEPS = 3
-FAMILY_SAMPLE_STEPS = 50  # 15d's DDIM (150 through PR 14; cut for the script's time)
+FAMILY_STEPS = 2  # cut from 3 for the script's time
+FAMILY_SAMPLE_STEPS = 25  # 15d's DDIM (cut from 150, then 50, for the script's time)
 LEGACY_GN_PER_FORWARD = 14
 OPENAI_TOKENS, OPENAI_WIDTH, OPENAI_HEADS = 16, 1024, 8
 # 15a: the smoke-width families, card against CPU (f32) at phase 14a's
@@ -6047,6 +6064,409 @@ def phase_pipeline_world1(mesh):
     return {"pipe_ms": pipe_ms, "plain_ms": plain_ms}
 
 
+# ---- phase 19: the constructor options no CLI reaches ------------------------------
+# 19a: the chest UNet and VAE with learnable_interpolation=False, bf16, DDIM
+# SURFACE_STEPS with CFG at B=8 and the decode; 19b: one bf16 step at B=32 of that
+# UNet and of the legacy UNet whose decoders concatenate their skips
+# (LEGACY_CONCAT_ATTENTION: spatial attention at level 1, so kernel 1 normalises
+# the 256 + 512 channels of decoder 1's concatenation and the attention runs at
+# 256 tokens, 8 heads of 96 and of 32, and kernel 6 at widths 768 and 256 on
+# B x 256 rows), each held to an f32 step; 19c: the 3-D
+# classifier on phase 16's latent [B, 8, 8, 16, 16], f32; 19d: small widths of
+# the three on the card against the CPU.
+SURFACE_STEPS = 25
+LEGACY_CONCAT_ATTENTION = ("none", "spatial", "none", "none")
+SMOKE_CONCAT_ATTENTION = ("spatial", "none")  # 19d: decoder 0's 32 + 16 channels
+# tokens, width, heads of 19b's spatial transformers: attention and GEGLU
+LEGACY_ATTN_SHAPES = ((256, 768, 8), (256, 256, 8))
+CLF3D_KW = dict(image_size=16, in_channels=8, model_channels=CLF_CHANNELS, out_channels=2,
+                num_res_blocks=2, attention_resolutions=(2,), channel_mult=(1, 2),
+                spatial_dims=3, num_head_channels=32, pool="adaptive")
+CLF3D_INPUT = (2, 8, 8, 16, 16)
+# 8 x 8 x 8 tokens after the (1, 2, 2) downsample, 4 heads of 32
+CLF3D_TOKENS, CLF3D_WIDTH, CLF3D_HEADS = 512, 2 * CLF_CHANNELS, 4
+
+
+@contextlib.contextmanager
+def gn_shapes_of(*modules):
+    """The set of (shape, groups, eps, SiLU fused, dtype) of every GROUP
+    norm that ``modules`` run inside the block."""
+    from medfusion_tpu_torch.nn.blocks import Norm
+
+    seen = set()
+
+    def hook(m, args):
+        seen.add((tuple(args[0].shape), m.num_groups, m.eps, m.fuse_silu, args[0].dtype))
+
+    handles = [m.register_forward_pre_hook(hook) for mod in modules for m in mod.modules()
+               if isinstance(m, Norm) and m.kind == "group"]
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def check_gn_shapes(G, worst, shapes, label):
+    """Kernel 1 against its plain version at each recorded GroupNorm shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    top = {}
+    for shape, g, eps, silu, dtype in sorted(shapes, key=str):
+        name = str(dtype).split(".")[-1]
+        c = shape[1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 1.0).to(dtype)
+        scale = (1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")).to(dtype)
+        bias = (0.1 * torch.randn((c,), generator=gen, device="cuda")).to(dtype)
+        out = G.group_norm_silu_cuda(x, scale, bias, g, eps, apply_silu=silu)
+        ref = G.group_norm_silu_reference(x, scale, bias, g, eps, apply_silu=silu)
+        err = close(f"gn {label} {shape} G={g} {name}", out, ref, TOL[name], TOL[name])
+        keep(worst, "group_norm_silu", name, err)
+        top[name] = max(top.get(name, 0.0), err)
+    widths = sorted({(s[0][1], s[1]) for s in shapes})
+    log(f"  kernel 1 at the {len(shapes)} GroupNorm shapes of {label} (C, G: {widths}): "
+        f"max|d| " + ", ".join(f"{k} {v:.3e}" for k, v in top.items())
+        + f" (atol=rtol {TOL})")
+
+
+def surface_models(p, dev, legacy_attention=None):
+    """(UNet, VAE) at preset ``p``'s widths, seeded, both with
+    ``learnable_interpolation=False``; with ``legacy_attention`` (one type a
+    level) the legacy UNet in place of the UNet."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import build_unet, build_vae, seeded
+
+    options = {"learnable_interpolation": False}
+    if legacy_attention is not None:
+        options["use_attention"] = list(legacy_attention)
+    with seeded(torch.device(dev), 0):
+        return (build_unet(p, "unet" if legacy_attention is None else "unet_legacy",
+                           **options),
+                build_vae(p, learnable_interpolation=False))
+
+
+def surface_pipeline(p, unet, vae, dev, compute_dtype=None, train=False):
+    """The pipeline as ``build_pipeline`` (sampling) or ``build_train_pipeline``
+    (``train``: CFG dropout, L1, a frozen VAE) make it, on these modules."""
+    from medfusion_tpu_torch.cli.presets import build_scheduler
+    from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
+
+    if train:
+        return DiffusionPipeline(
+            scheduler=build_scheduler(p, dev), noise_estimator=unet,
+            latent_embedder=vae.eval().requires_grad_(False), estimator_objective="x_T",
+            classifier_free_guidance_dropout=p.cfg_dropout, do_input_centering=False,
+            clip_x0=False, loss="l1")
+    return DiffusionPipeline(scheduler=build_scheduler(p, dev), noise_estimator=unet.eval(),
+                             latent_embedder=vae.eval(), estimator_objective="x_T",
+                             clip_x0=False, compute_dtype=compute_dtype)
+
+
+def group_norms(*modules):
+    from medfusion_tpu_torch.nn.blocks import Norm
+
+    return sum(isinstance(m, Norm) and m.kind == "group" for mod in modules
+               for m in mod.modules())
+
+
+def learned_resamplers(*modules):
+    """The BasicDown/BasicUp of ``modules`` that hold a conv (none, without
+    learnable interpolation)."""
+    from medfusion_tpu_torch.nn.blocks import BasicDown, BasicUp
+
+    return [m for mod in modules for m in mod.modules()
+            if isinstance(m, (BasicDown, BasicUp)) and any(True for _ in m.parameters())]
+
+
+def phase_surface_sampling(ops, G, worst):
+    """19a: the chest UNet and VAE without learnable interpolation: a bf16
+    forward against f32 at the sampling batch's 16 rows, then DDIM
+    SURFACE_STEPS with CFG 8 at B=8 and the decode, bf16, its launches held
+    to the structure's (34 GroupNorms a UNet forward, 8 a decode); kernel 1
+    at every GroupNorm shape the sampling ran."""
+    import copy
+
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS
+
+    p = PRESETS["chest"]
+    unet32, vae32 = surface_models(p, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    perturb_(unet32, gen)
+    perturb_(vae32, gen)
+    dec_norms = group_norms(vae32.inc_dec, vae32.decoders, vae32.outc)
+    if (group_norms(unet32), dec_norms) != (UNET_GN_PER_FORWARD, VAE_GN_PER_DECODE):
+        raise RuntimeError(f"{group_norms(unet32)} UNet and {dec_norms} decoder GroupNorms, "
+                           f"the counts assume {UNET_GN_PER_FORWARD} and {VAE_GN_PER_DECODE}")
+    if learned_resamplers(unet32, vae32):
+        raise RuntimeError("a down or up block holds a conv without learnable interpolation")
+    unet16 = copy.deepcopy(unet32).to(torch.bfloat16)
+    vae16 = copy.deepcopy(vae32).to(torch.bfloat16)
+    rows = 2 * N_SAMPLES
+    x = torch.randn((rows, p.emb_channels, *p.latent_shape[:2]), generator=gen, device="cuda")
+    t = torch.linspace(999, 0, rows, device="cuda").long()
+    c = torch.arange(rows, device="cuda") % 2
+    with torch.no_grad():
+        y32, _ = unet32.eval()(x, t, c)
+        y16, _ = unet16.eval()(x.bfloat16(), t, c)
+    rel = ((y16.float() - y32).abs().max() / y32.abs().max()).item()
+    log(f"  19a chest UNet without learnable interpolation, forward bf16 vs f32: "
+        f"max|d|/max|ref| = {rel:.3e} (limit 5e-2)")
+    if not rel < 5e-2:
+        raise RuntimeError(f"bf16 UNet departs from f32 by {rel:.3e}")
+    del unet32, vae32, y32, y16
+    torch.cuda.empty_cache()
+
+    pipe = surface_pipeline(p, unet16, vae16, "cuda", torch.bfloat16)
+    cond = torch.arange(N_SAMPLES, device="cuda") % 2
+    sgen = torch.Generator(device="cuda").manual_seed(0)
+    with gn_shapes_of(unet16, vae16) as shapes:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        imgs = pipe.sample(N_SAMPLES, p.latent_shape, condition=cond, generator=sgen,
+                           steps=SURFACE_STEPS, guidance_scale=GUIDANCE, eta=1.0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    check_counts(f"19a sampling (DDIM {SURFACE_STEPS}, CFG {GUIDANCE}, B={N_SAMPLES}, decode)",
+                 launches, unet_launches(forwards=SURFACE_STEPS, decodes=1))
+    side = p.image_size
+    if tuple(imgs.shape) != (N_SAMPLES, side, side, 3) or not torch.isfinite(imgs).all():
+        raise RuntimeError(f"19a images {tuple(imgs.shape)} or non-finite")
+    amax = imgs.abs().max().item()
+    if not 0 < amax < 1e4:
+        raise RuntimeError(f"19a image magnitude {amax} out of range")
+    log(f"  19a sample: {tuple(imgs.shape)} in {seconds:.3f} s, image range "
+        f"[{imgs.min().item():.3f}, {imgs.max().item():.3f}]")
+    check_gn_shapes(G, worst, shapes, "19a's sampling")
+    return {"seconds": seconds, "launches": launches["group_norm_silu"]}
+
+
+def phase_surface_training(ops, FA, G, GL, worst):
+    """19b: one bf16 step (AdamW + EMA, B=32, after a warm-up step) of 19a's
+    UNet and of the legacy UNet with concatenated skips, each with phase 8's
+    bf16-against-f32 gradient check first; the step's launches held to the
+    structure's; kernel 1 at every GroupNorm shape the steps and checks ran,
+    and the attention kernels and kernel 6 (B x tokens rows) at the legacy
+    UNet's two transformer shapes, f32 and bf16 as the check and the step
+    ran them."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS
+    from medfusion_tpu_torch.nn.attention import SpatialTransformer
+    from medfusion_tpu_torch.train import TrainState, make_diffusion_train_step
+
+    p = PRESETS["chest"]
+    batches = train_batches(p, 2, seed=19)
+    report = {}
+    for label, legacy in (("unet", False), ("unet_legacy", True)):
+        unet, vae = surface_models(p, "cuda", LEGACY_CONCAT_ATTENTION if legacy else None)
+        gen = torch.Generator(device="cuda").manual_seed(19)
+        perturb_(unet, gen)
+        perturb_(vae, gen)
+        n_st = sum(isinstance(m, SpatialTransformer) for m in unet.modules())
+        if n_st != (2 if legacy else 0):
+            raise RuntimeError(f"19b {label}: {n_st} spatial transformers")
+        per_forward = (LEGACY_GN_PER_FORWARD + 2 * n_st) if legacy else UNET_GN_PER_FORWARD
+        if group_norms(unet) - n_st != per_forward:  # a transformer's cross-attention
+            raise RuntimeError(f"19b {label}: {group_norms(unet)} GroupNorms")  # skips one
+        expected = {"group_norm_silu": per_forward + VAE_GN_PER_ENCODE}
+        if n_st:
+            expected.update(flash_attention_tokens=n_st, flash_attention_bwd_dq=n_st,
+                            flash_attention_bwd_dkv=n_st, geglu_mlp=n_st)
+        pipe = surface_pipeline(p, unet, vae, "cuda", train=True)
+        draws = [pipe.train_draws(TRAIN_BATCH, p.latent_shape, generator=gen) for _ in batches]
+        with gn_shapes_of(unet, vae) as shapes:
+            log(f"  19b {label} without learnable interpolation"
+                + (f" (decoder skips concatenated, attention {LEGACY_CONCAT_ATTENTION})"
+                   if legacy else "") + ":")
+            check_train_grads(FA, pipe, batches[0], draws[0], faults=())
+            state = TrainState(unet, lr=p.diffusion_lr, weight_decay=1e-2, use_ema=True)
+            step = make_diffusion_train_step(pipe, compute_dtype=torch.bfloat16)
+            step(state, batches[0], draws[0])  # warm-up
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = float(step(state, batches[1], draws[1])["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = ops.launch_counts()
+        check_counts(f"19b {label} step (B={TRAIN_BATCH}, bf16)", launches, expected)
+        if not math.isfinite(loss):
+            raise RuntimeError(f"19b {label}: loss {loss}")
+        log(f"  19b {label} step: loss {loss:.5f}, {ms:.1f} ms (one step after a warm-up)")
+        check_gn_shapes(G, worst, shapes, f"19b's {label} steps")
+        report[label] = ms
+        del unet, vae, pipe, state, step
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(191)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for n, c, heads in LEGACY_ATTN_SHAPES:
+            for kernel, err in check_attention(FA, n, n, c, heads, dtype, gen).items():
+                keep(worst, kernel, name, err)
+            for kernel, err in check_attention_backward(FA, n, n, c, heads, dtype,
+                                                        gen).items():
+                keep(worst, kernel, name, err)
+            keep(worst, "geglu_mlp", name, check_geglu(GL, TRAIN_BATCH * n, c, dtype, gen))
+    return report
+
+
+def phase_surface_classifier_3d(ops, FA, worst):
+    """19c: ``EncoderUNetOpenAI(spatial_dims=3)`` (attention at the 8 x 8 x 8
+    level, adaptive pool; its GroupNorm32s plain, as in JAX) on phase 16's
+    latent, f32: a forward and the backward of a cross-entropy, the
+    attention's launches held (kernel 5 forward, kernels 3 and 4 backward,
+    one each a block) and each block's token count; then kernels 5, 3 and 4
+    at that shape against their plain versions."""
+    import torch
+    import torch.nn.functional as F
+
+    from medfusion_tpu_torch.models.unet_openai import EncoderUNetOpenAI, SDAttentionBlock
+
+    gen = torch.Generator(device="cuda").manual_seed(193)
+    with torch.device("cuda"):
+        clf = EncoderUNetOpenAI(**CLF3D_KW)
+    perturb_(clf, gen)
+    perturb_gn_(clf, gen)
+    blocks = [m for m in clf.modules() if isinstance(m, SDAttentionBlock)]
+    tokens = []
+    handles = [b.register_forward_pre_hook(lambda m, a: tokens.append(a[0][0, 0].numel()))
+               for b in blocks]
+    x = torch.randn(CLF3D_INPUT, generator=gen, device="cuda").requires_grad_()
+    t = torch.tensor([10, 500], device="cuda")
+    label = torch.tensor([0, 1], device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = clf(x, t)
+    F.cross_entropy(logits, label).backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    for h in handles:
+        h.remove()
+    n = len(blocks)
+    check_counts(f"19c 3-D classifier forward + backward ({n} attention blocks)", launches,
+                 {"flash_attention_tokens": n, "flash_attention_bwd_dq": n,
+                  "flash_attention_bwd_dkv": n})
+    if tokens != [CLF3D_TOKENS] * n:
+        raise RuntimeError(f"19c attention token counts {tokens}")
+    grads = [q.grad for q in clf.parameters()] + [x.grad]
+    if (tuple(logits.shape) != (CLF3D_INPUT[0], 2) or not torch.isfinite(logits).all()
+            or any(g is None or not torch.isfinite(g).all() for g in grads)
+            or not x.grad.abs().max() > 0):
+        raise RuntimeError("19c logits or gradients missing or non-finite")
+    log(f"  19c 3-D classifier on {CLF3D_INPUT}: logits {tuple(logits.shape)}, forward + "
+        f"backward {ms:.1f} ms (f32, the first call), max|dx| {x.grad.abs().max().item():.3e}")
+    slice_attention_checks(FA, worst, "3-D classifier", CLF3D_TOKENS, CLF3D_WIDTH,
+                           CLF3D_HEADS, new_order=False)
+    return {"ms": ms}
+
+
+def phase_surface_vs_cpu():
+    """19d: small widths on the card against the CPU, f32, from the same
+    perturbed weights and draws: the smoke preset's UNet and VAE without
+    learnable interpolation (DDIM 10, CFG 3, decode; SMOKE_TOL), the smoke
+    legacy UNet with concatenated skips (a train step's loss and gradients,
+    CLF_GRAD_TOL x max|g|), and a narrow 3-D classifier (logits, and the
+    input gradient within CLF_GRAD_TOL x its max)."""
+    import torch
+    import torch.nn.functional as F
+
+    from medfusion_tpu_torch.cli.presets import PRESETS
+    from medfusion_tpu_torch.models.unet_openai import EncoderUNetOpenAI
+
+    p = PRESETS["smoke"]
+    gen = torch.Generator().manual_seed(194)
+    report = {}
+    weights = None
+    pipes = {}
+    for dev in ("cpu", "cuda"):
+        unet, vae = surface_models(p, dev)
+        if weights is None:
+            perturb_(unet, gen)
+            perturb_(vae, gen)
+            weights = (unet.state_dict(), vae.state_dict())
+        else:
+            unet.load_state_dict(weights[0])
+            vae.load_state_dict(weights[1])
+        pipes[dev] = surface_pipeline(p, unet, vae, dev)
+    b, steps = 4, 10
+    x_T = torch.randn((b, *p.latent_shape), generator=gen)
+    noise = torch.randn((steps, 2, b, *p.latent_shape), generator=gen)
+    cond = torch.tensor([0, 1, 0, 1])
+    kw = dict(steps=steps, guidance_scale=3.0, eta=1.0)
+    ref = pipes["cpu"].denoise(x_T, condition=cond, noise=noise, **kw)
+    out = pipes["cuda"].denoise(x_T.cuda(), condition=cond.cuda(), noise=noise.cuda(), **kw)
+    report["sampling"] = close_scaled("19d smoke UNet and VAE without learnable "
+                                      "interpolation, card vs cpu, images", out, ref)
+
+    batch = {"source": torch.rand((b, p.image_size, p.image_size, 3), generator=gen) * 2 - 1,
+             "target": torch.arange(b) % 2}
+    out, draws = {}, None
+    for dev in ("cpu", "cuda"):
+        unet, vae = surface_models(p, dev, SMOKE_CONCAT_ATTENTION)
+        if draws is None:
+            perturb_(unet, gen)
+            perturb_(vae, gen)
+            weights = (unet.state_dict(), vae.state_dict())
+        else:
+            unet.load_state_dict(weights[0])
+            vae.load_state_dict(weights[1])
+        pipe = surface_pipeline(p, unet, vae, dev, train=True)
+        if draws is None:
+            draws = dict(pipe.train_draws(b, p.latent_shape, generator=gen),
+                         drop=torch.tensor(False))
+        loss, _ = pipe.train_loss({k: v.to(dev) for k, v in batch.items()},
+                                  {k: v.to(dev) for k, v in draws.items()})
+        loss.backward()
+        out[dev] = (loss.detach().cpu(), {k: q.grad.detach().cpu()
+                                          for k, q in unet.named_parameters()
+                                          if q.grad is not None})
+    (l0, g0), (l1, g1) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(l1, l0, rtol=SMOKE_TOL, atol=0)
+    gap = grad_gap(g1, g0)
+    log(f"  19d smoke legacy UNet with concatenated skips, train step card vs cpu: loss "
+        f"{l1.item():.6f} vs {l0.item():.6f}; gradients ({len(g0)} tensors) max|d| "
+        f"{gap:.3e} of max|g| (limit {CLF_GRAD_TOL})")
+    if set(g1) != set(g0) or not gap <= CLF_GRAD_TOL:
+        raise RuntimeError(f"19d legacy: card gradients depart by {gap}")
+    report["legacy_grads"] = gap
+
+    kw = dict(CLF3D_KW, image_size=8, in_channels=2, model_channels=16, num_head_channels=8,
+              norm_groups=8)
+    x = torch.randn((2, 2, 4, 8, 8), generator=gen)
+    t, label = torch.tensor([10, 500]), torch.tensor([0, 1])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        with torch.device(dev):
+            clf = EncoderUNetOpenAI(**kw)
+        if dev == "cpu":
+            perturb_(clf, gen)
+            perturb_gn_(clf, gen)
+            clf_weights = clf.state_dict()
+        else:
+            clf.load_state_dict(clf_weights)
+        xd = x.detach().to(dev).requires_grad_()
+        logits = clf(xd, t.to(dev))
+        F.cross_entropy(logits, label.to(dev)).backward()
+        out[dev] = (logits.detach(), xd.grad.detach())
+    report["classifier_3d"] = close_scaled("19d narrow 3-D classifier, card vs cpu, logits",
+                                           out["cuda"][0], out["cpu"][0])
+    gap = grad_gap(out["cuda"][1], out["cpu"][1])
+    log(f"  19d narrow 3-D classifier input gradient card vs cpu: max|d| {gap:.3e} of max|g| "
+        f"(limit {CLF_GRAD_TOL})")
+    if not gap <= CLF_GRAD_TOL:
+        raise RuntimeError(f"19d 3-D classifier: card input gradient departs by {gap}")
+    report["classifier_3d_grad"] = gap
+    return report
+
+
 def kernel_row(name, source, replaces, launches, err, rows):
     """One entry of the kernels line: times summed over one launch at each
     of ``rows``' shapes."""
@@ -6060,6 +6480,29 @@ def kernel_row(name, source, replaces, launches, err, rows):
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations" if by_ops else "bytes",
             "library_ms": total("library_ms")}
+
+
+PHASE_CLOCK = {"name": None, "t0": 0.0}
+PHASE_SECONDS = {}
+
+
+def end_phase():
+    """Close the running phase: its seconds on a line of their own."""
+    name = PHASE_CLOCK["name"]
+    if name is not None:
+        seconds = time.perf_counter() - PHASE_CLOCK["t0"]
+        PHASE_SECONDS[name] = seconds
+        log(f"  phase {name}: {seconds:.1f} s")
+        PHASE_CLOCK["name"] = None
+
+
+def begin_phase(name, msg=None):
+    """Close the running phase and start ``name``, logging ``msg`` as its
+    header."""
+    end_phase()
+    if msg is not None:
+        log(f"[{name}] {msg}")
+    PHASE_CLOCK.update(name=name, t0=time.perf_counter())
 
 
 def main():
@@ -6085,9 +6528,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    begin_phase("1", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+                     f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
 
+    begin_phase("2")
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[2] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s; each library "
@@ -6097,38 +6541,38 @@ def main():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    {stem}: {line.strip()}")
 
-    log("[3] kernels against their plain versions (B=2)")
+    begin_phase("3", "kernels against their plain versions (B=2)")
     worst = phase_kernel_checks(G, FA, GL)
 
-    log("[4] kernel times (bf16; CUDA events around a replayed CUDA graph of "
-        "the launches, and around the same launches made eagerly)")
+    begin_phase("4", "kernel times (bf16; CUDA events around a replayed CUDA graph of the "
+                     "launches, and around the same launches made eagerly)")
     rows = phase_kernel_times(G)
     attn_rows, geglu_rows, geglu_b8 = phase_attention_geglu_times(FA, GL, worst)
     bwd_rows = phase_attention_backward_times(FA, worst)
     wide_rows = phase_wide_attention_times(FA, worst)
 
-    log("[5] smoke preset: card against CPU (float32)")
+    begin_phase("5", "smoke preset: card against CPU (float32)")
     for attention in ("none", "spatial"):
         phase_smoke_vs_cpu(attention)
     phase_smoke_train_vs_cpu()
 
-    log("[6] sampling paths: chest, bf16")
+    begin_phase("6", "sampling paths: chest, bf16")
     launches_none, _, pipe = phase_main_path(ops, "none")
     del pipe
     torch.cuda.empty_cache()
     launches, seconds, pipe = phase_main_path(ops, "spatial")
 
-    log("[7] where a chest-spatial sampling step's device time goes")
+    begin_phase("7", "where a chest-spatial sampling step's device time goes")
     phase_breakdown(pipe)
     del pipe
     torch.cuda.empty_cache()
-    log(f"[6b] sampling path: chest-spatial at {WIDE_SAMPLE_HEADS} heads, bf16")
+    begin_phase("6b", f"sampling path: chest-spatial at {WIDE_SAMPLE_HEADS} heads, bf16")
     launches_wide, _, pipe = phase_main_path(ops, "spatial", WIDE_SAMPLE_HEADS)
     del pipe
     torch.cuda.empty_cache()
 
-    log("[8] training path: chest-spatial, bf16 compute, f32 masters, "
-        f"B={TRAIN_BATCH}, AdamW + EMA")
+    begin_phase("8", f"training path: chest-spatial, bf16 compute, f32 masters, B={TRAIN_BATCH}, "
+                     "AdamW + EMA")
     train_launches, train_ms, train = phase_train_main_path(ops, FA)
     phase_train_breakdown(train, train_ms)
     del train
@@ -6137,43 +6581,47 @@ def main():
     with contextlib.ExitStack() as stack:  # phase 9's tree and runs serve phase 13
         tmp = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="two_stage_")))
         root = tmp / "chexpert"
+        begin_phase("9")
         t0 = time.perf_counter()
         write_chexpert_tree(root, TWO_STAGE_IMAGES, TWO_STAGE_SIDE, seed=0)
         log("[9] two-stage program: chest, PNG files, autoencoder -> diffusion -> samples; "
             f"wrote {TWO_STAGE_IMAGES} grey PNGs of {TWO_STAGE_SIDE[0]}x{TWO_STAGE_SIDE[1]} "
             f"(row filters 0-4) in {time.perf_counter() - t0:.1f} s")
         two_stage = phase_two_stage(ops, G, worst, tmp, root)
-        log("[10] adversarial autoencoder and the VQVAE family: chest, PNG files, B=8, f32")
+        begin_phase("10", "adversarial autoencoder and the VQVAE family: chest, PNG files, B=8, "
+                          "f32")
         adversarial = phase_adversarial(ops, G, worst, tmp, root)
 
         with tempfile.TemporaryDirectory(prefix="options_") as otmp:
-            log("[11] the diffusion family's options: samplers, editing, zero-terminal-SNR, "
-                "self-conditioning, learned variance, deep supervision, Min-SNR")
+            begin_phase("11", "the diffusion family's options: samplers, editing, "
+                              "zero-terminal-SNR, self-conditioning, learned variance, deep "
+                              "supervision, Min-SNR")
             phase_smoke_options_vs_cpu()
             option_report = phase_option_samplers(ops, Path(otmp))
             option_train_ms = phase_option_training(ops)
 
         with tempfile.TemporaryDirectory(prefix="evaluation_") as etmp:
             etmp = Path(etmp)
-            log("[12] evaluation: InceptionV3 FID and precision/recall, LPIPS and MS-SSIM, "
-                "the weight ingest and --lpips training, the helper CLIs (f32)")
+            begin_phase("12", "evaluation: InceptionV3 FID and precision/recall, LPIPS and "
+                              "MS-SSIM, the weight ingest and --lpips training, the helper CLIs "
+                              "(f32)")
             phase_eval_vs_cpu()
             real, eval_report = phase_evaluate_images(ops, etmp)
             pr_report = phase_pr_scale()
             lpips_report = phase_ingest_and_lpips(ops, etmp, real)
 
-        log("[13] the flow family and classifier guidance: card against CPU (f32), the "
-            "classifier gradient's planted fault, the flow and classifier programs on "
-            "phase 9's tree")
+        begin_phase("13", "the flow family and classifier guidance: card against CPU (f32), the "
+                          "classifier gradient's planted fault, the flow and classifier programs "
+                          "on phase 9's tree")
         phase_smoke_flow_vs_cpu()
         clf_report = phase_classifier_vs_cpu(FA, worst)
         clf_attn_rows = clf_attention_times(FA, worst)
         flow_report = phase_flow_program(ops, tmp, root)
         guided_report = phase_classifier_program(ops, tmp, root)
 
-        log("[14] the DiT estimator, its mixture-of-experts blocks and distillation: card "
-            "against CPU (f32), the kernels at the DiT's shape, the DiT programs and "
-            "cli.distill on phase 9's tree")
+        begin_phase("14", "the DiT estimator, its mixture-of-experts blocks and distillation: "
+                          "card against CPU (f32), the kernels at the DiT's shape, the DiT "
+                          "programs and cli.distill on phase 9's tree")
         phase_dit_vs_cpu()
         dit_attention_checks(FA, worst)
         dit_rows = dit_attention_times(FA, worst)
@@ -6182,9 +6630,10 @@ def main():
         moe_report = phase_dit_moe(ops)
         distill_report = phase_distill(ops, tmp, root)
 
-        log("[15] the other estimator families (legacy, OpenAI, lucidrains UNets), --remat, "
-            "and the diffusers autoencoders: card against CPU (f32), the kernels at the "
-            "OpenAI middle block's shape, the programs on phase 9's tree")
+        begin_phase("15", "the other estimator families (legacy, OpenAI, lucidrains UNets), "
+                          "--remat, and the diffusers autoencoders: card against CPU (f32), the "
+                          "kernels at the OpenAI middle block's shape, the programs on phase 9's "
+                          "tree")
         family_smoke = phase_families_vs_cpu()
         openai_rows = openai_attention_checks_and_times(FA, worst)
         ftmp = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="families_",
@@ -6195,8 +6644,8 @@ def main():
         family_sample = phase_family_sample(ops, ftmp)
         diffusers_report = phase_diffusers_autoencoders(ops, ftmp, root)
 
-        log("[16] serving (a reference Lightning checkpoint, demo.server's pages and "
-            "micro-batched /one) and the 3-D models and data")
+        begin_phase("16", "serving (a reference Lightning checkpoint, demo.server's pages and "
+                          "micro-batched /one) and the 3-D models and data")
         stmp = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="serving_",
                                                                     dir=ram_dir(8))))
         serve_report = phase_serving(ops, stmp)
@@ -6205,10 +6654,10 @@ def main():
         sample3d_s = phase_3d_sampling(ops)
         smoke3d = phase_3d_vs_cpu(stmp)
 
-        log("[17] the grain order (cli.train_diffusion --grain --no-donate), the prefetch "
-            "to the card and the profiling layer on phase 9's tree; the diffusers blocks "
-            "with FIR resampling and the conditional diffusers UNet: card against CPU "
-            "(f32), bf16 against f32, and at full width")
+        begin_phase("17", "the grain order (cli.train_diffusion --grain --no-donate), the "
+                          "prefetch to the card and the profiling layer on phase 9's tree; the "
+                          "diffusers blocks with FIR resampling and the conditional diffusers "
+                          "UNet: card against CPU (f32), bf16 against f32, and at full width")
         gtmp = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="grain_",
                                                                     dir=ram_dir(32))))
         gstate, gpipe, grain_report = phase_grain_training(ops, gtmp, root)
@@ -6219,9 +6668,10 @@ def main():
         diffusers_full = phase_diffusers_full_width(ops, root)
         torch.cuda.empty_cache()
 
-        log("[18] parallelism at world 1 over NCCL: the sharded sampler, cli.sample_dataset "
-            "under torchrun, dp / FSDP / TP train steps, ring attention, expert-parallel "
-            "DiT-MoE and the pipeline, each bit-equal to its unsharded path")
+        begin_phase("18", "parallelism at world 1 over NCCL: the sharded sampler, "
+                          "cli.sample_dataset under torchrun, dp / FSDP / TP train steps, ring "
+                          "attention, expert-parallel DiT-MoE and the pipeline, each bit-equal "
+                          "to its unsharded path")
         t18 = time.perf_counter()
         mesh = phase_parallel_init()
         par_sampler = phase_sharded_sampler(ops, mesh)
@@ -6237,6 +6687,21 @@ def main():
         par_pipe = phase_pipeline_world1(mesh)
         par_seconds = time.perf_counter() - t18
         torch.distributed.destroy_process_group()
+
+    begin_phase("19", "the constructor options no CLI reaches: the chest UNet and VAE "
+                      "without learnable interpolation (sampling, training), the legacy "
+                      "UNet with concatenated skips, the 3-D classifier; small widths card "
+                      "against CPU")
+    w19 = {}
+    surface_sample = phase_surface_sampling(ops, G, w19)
+    surface_steps = phase_surface_training(ops, FA, G, GL, w19)
+    clf3d = phase_surface_classifier_3d(ops, FA, w19)
+    surface_smoke = phase_surface_vs_cpu()
+    log(f"  phase 19 worst errors by kernel and dtype: {w19}")
+    for kernel, by_dtype in w19.items():
+        for name, err in by_dtype.items():
+            keep(worst, kernel, name, err)
+    end_phase()
 
     per_fwd = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "unet")
     per_dec = sum(r["ms"] * r["launches_per_call"] for r in rows if r["where"] == "vae")
@@ -6322,7 +6787,8 @@ def main():
             f"{w} {r[w]['ms']:.4f}/{r[w]['plain_ms']:.4f}/{r[w]['library_ms']:.4f}"
             for w in ("forward", "dQ", "dK/dV")) for r in clf_attn_rows))
     log(f"  slice 13 on the card: DiT train step {dit_train['train_ms']:.1f} ms (B="
-        f"{TRAIN_BATCH}, bf16, {dit_train['train_peak']:.2f} GiB); DiT sample DDIM {STEPS} "
+        f"{TRAIN_BATCH}, bf16, {dit_train['train_peak']:.2f} GiB); DiT sample DDIM "
+        f"{DIT_SAMPLE_STEPS} "
         f"{dit_sample['sample_s']:.3f} s ({dit_sample['sample_peak']:.3f} GiB), flow Heun "
         f"{FLOW_STEPS} {dit_sample['flow_sample_s']:.3f} s; DiT-MoE step {moe_report['ms']:.1f} "
         f"ms ({moe_report['peak']:.2f} GiB), moe_aux {moe_report['aux']:.6f}, dropped "
@@ -6384,6 +6850,13 @@ def main():
         f"graph-replayed {ring_bwd['pair_graph_ms']:.4f}); block-pair backward " + ", ".join(
             f"over {p} blocks {ring_bwd[p]['ms']:.4f} ms (graph-replayed "
             f"{ring_bwd[p]['graph_ms']:.4f})" for p in RING_SPLITS))
+    log(f"  slice 21 on the card: sampling without learnable interpolation (DDIM "
+        f"{SURFACE_STEPS}, CFG, B={N_SAMPLES}, decode) {surface_sample['seconds']:.3f} s, "
+        f"group_norm_silu {surface_sample['launches']}; bf16 steps (B={TRAIN_BATCH}) "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in surface_steps.items())
+        + f"; 3-D classifier forward + backward {clf3d['ms']:.1f} ms; small widths card vs "
+        f"cpu " + ", ".join(f"{k} {v:.2e}" for k, v in surface_smoke.items()))
+    log("  seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

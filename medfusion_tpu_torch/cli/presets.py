@@ -66,13 +66,15 @@ PRESETS = {
 AE_KINDS = ("vae", "vqvae", "diffusers_kl", "diffusers_vq")
 
 
-def build_vae(p: Preset, kind: str = "vae"):
+def build_vae(p: Preset, kind: str = "vae", **options):
     """The latent embedder by kind at the preset's widths: 'vae' (KL) or
     'vqvae' (a codebook of 8,192, beta 0.25) of the in-house family, or
     'diffusers_kl' / 'diffusers_vq' (the vendored AutoencoderKL / VQModel:
     ``block_out_channels`` the preset's VAE widths, one resnet a level,
     GroupNorms of 32 groups or half the narrowest width, 8,192 codes), as
-    the JAX package's ``build_vae``."""
+    the JAX package's ``build_vae``; ``options`` override the in-house
+    family's other arguments (``learnable_interpolation``, ``dropout``),
+    which no CLI sets."""
     if kind not in AE_KINDS:
         raise ValueError(f"unknown latent embedder {kind!r}; expected one of {AE_KINDS}")
     if kind.startswith("diffusers"):
@@ -85,6 +87,8 @@ def build_vae(p: Preset, kind: str = "vae"):
         common = dict(in_channels=p.in_channels, out_channels=p.in_channels,
                       emb_channels=p.emb_channels, block_out_channels=p.vae_hid_chs,
                       layers_per_block=1, norm_num_groups=groups)
+        if options:
+            raise ValueError(f"{kind} takes no options, got {sorted(options)}")
         if kind == "diffusers_vq":
             return VQModelDiffusers(num_embeddings=8192, **common)
         return AutoencoderKLDiffusers(**common)
@@ -96,7 +100,7 @@ def build_vae(p: Preset, kind: str = "vae"):
                   emb_channels=p.emb_channels, hid_chs=p.vae_hid_chs,
                   kernel_sizes=(3,) * n, strides=(1,) + (2,) * (n - 1),
                   deep_supervision=p.ae_deep_supervision,
-                  norm_name=("GROUP", {"num_groups": n_groups, "affine": True}))
+                  norm_name=("GROUP", {"num_groups": n_groups, "affine": True}), **options)
     if kind == "vqvae":
         return VQVAE(num_embeddings=8192, beta=0.25, **common)
     return VAE(**common)

@@ -317,3 +317,66 @@ def kl_gaussians(mean1, logvar1, mean2, logvar2):
     """KL(N1 || N2) per element."""
     return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
                   + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+# Stable Diffusion's schedule helpers: host numpy in float64, as the JAX
+# package builds them.
+
+def sd_make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-4,
+                          linear_end: float = 2e-2, cosine_s: float = 8e-3) -> np.ndarray:
+    """SD's ``make_beta_schedule``: its 'linear' is linear in sqrt(beta)
+    (this package's 'scaled_linear'), 'sqrt_linear' linear in beta, 'sqrt'
+    the square root of that, 'cosine' the cosine alpha-bar clipped at
+    0.999."""
+    if schedule == "linear":
+        return np.linspace(linear_start ** 0.5, linear_end ** 0.5, n_timestep,
+                           dtype=np.float64) ** 2
+    if schedule == "cosine":
+        x = np.arange(n_timestep + 1, dtype=np.float64) / n_timestep + cosine_s
+        alphas = np.cos(x / (1 + cosine_s) * np.pi / 2) ** 2
+        alphas = alphas / alphas[0]
+        return np.clip(1 - alphas[1:] / alphas[:-1], 0, 0.999)
+    if schedule == "sqrt_linear":
+        return np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64)
+    if schedule == "sqrt":
+        return np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64) ** 0.5
+    raise ValueError(f"schedule '{schedule}' unknown.")
+
+
+def sd_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int,
+                      method: str = "uniform") -> np.ndarray:
+    """SD's ``make_ddim_timesteps``: 'uniform' strided or 'quad' quadratic
+    subsampling of the DDPM steps, plus one."""
+    if method == "uniform":
+        c = num_ddpm_timesteps // num_ddim_timesteps
+        steps = np.asarray(list(range(0, num_ddpm_timesteps, c)))
+    elif method == "quad":
+        steps = (np.linspace(0, np.sqrt(num_ddpm_timesteps * 0.8),
+                             num_ddim_timesteps) ** 2).astype(int)
+    else:
+        raise NotImplementedError(
+            f'There is no ddim discretization method called "{method}"')
+    return steps + 1
+
+
+def sd_ddim_sampling_parameters(alphacums: np.ndarray, ddim_timesteps: np.ndarray,
+                                eta: float):
+    """SD's ``make_ddim_sampling_parameters``: per step (sigma, alpha,
+    alpha_prev) of the DDIM sampler (arXiv:2010.02502)."""
+    alphacums = np.asarray(alphacums)
+    alphas = alphacums[ddim_timesteps]
+    alphas_prev = np.asarray([alphacums[0]] + alphacums[ddim_timesteps[:-1]].tolist())
+    sigmas = eta * np.sqrt((1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
+    return sigmas, alphas, alphas_prev
+
+
+def betas_for_alpha_bar(num_diffusion_timesteps: int, alpha_bar,
+                        max_beta: float = 0.999) -> np.ndarray:
+    """Betas that discretise a continuous alpha-bar(t) on [0, 1], each
+    capped at ``max_beta``."""
+    betas = []
+    for i in range(num_diffusion_timesteps):
+        t1 = i / num_diffusion_timesteps
+        t2 = (i + 1) / num_diffusion_timesteps
+        betas.append(min(1 - alpha_bar(t2) / alpha_bar(t1), max_beta))
+    return np.array(betas)

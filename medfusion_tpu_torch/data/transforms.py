@@ -106,6 +106,15 @@ def to_array(img: np.ndarray) -> np.ndarray:
     return arr.astype(np.float32)
 
 
+def to_array_16bit(img) -> np.ndarray:
+    """augmentations_2d.ToTensor16bit: an int32 copy with a channel axis
+    [H, W, C], not scaled."""
+    arr = np.array(img, np.int32, copy=True)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    return arr
+
+
 def normalize_minmax(arr: np.ndarray) -> np.ndarray:
     """augmentations_2d.Normalize: min-max rescale to [0, 1], float32."""
     arr = arr.astype(np.float32)

@@ -138,13 +138,18 @@ class NLayerDiscriminator(nn.Module):
 
 class _AutoencoderBase(nn.Module):
     """The encoder/decoder skeleton of :class:`VAE` and :class:`VQVAE`; the
-    subclass gives the out-encoder (:meth:`_out_encoder`)."""
+    subclass gives the out-encoder (:meth:`_out_encoder`). Without
+    ``learnable_interpolation`` the down and up blocks average-pool and
+    resize (no skips, so nothing is concatenated); ``dropout`` goes to the
+    down and up blocks' conv blocks and attention, as in the JAX package
+    (not to ``inc``, ``inc_dec`` or the heads)."""
 
     def __init__(self, in_channels: int, out_channels: int, spatial_dims: int,
                  emb_channels: int, hid_chs: Sequence[int], kernel_sizes: Sequence,
                  strides: Sequence, norm_name, act_name, use_res_block: bool,
                  deep_supervision: Union[bool, int],
-                 use_attention: Union[str, Sequence[str]]):
+                 use_attention: Union[str, Sequence[str]], learnable_interpolation: bool,
+                 dropout: Optional[float]):
         super().__init__()
         depth = len(strides)
         attn = (list(use_attention) if isinstance(use_attention, (list, tuple))
@@ -155,7 +160,8 @@ class _AutoencoderBase(nn.Module):
                              strides[0], norm_name, act_name)
         self.encoders = nn.ModuleList([
             DownBlock(n, hid_chs[i - 1], hid_chs[i], kernel_sizes[i], strides[i],
-                      kernel_sizes[i], norm_name, act_name, use_res_block, attn[i])
+                      kernel_sizes[i], norm_name, act_name, use_res_block, attn[i],
+                      dropout=dropout, learnable_interpolation=learnable_interpolation)
             for i in range(1, depth)])
         self.out_enc = self._out_encoder(n, hid_chs[-1], emb_channels)
         self.inc_dec = ConvBlock(n, emb_channels, hid_chs[-1], 3, 1, norm_name,
@@ -163,7 +169,8 @@ class _AutoencoderBase(nn.Module):
         self.decoders = nn.ModuleList([
             UpBlock(n, hid_chs[i + 1], hid_chs[i], kernel_sizes[i + 1],
                     strides[i + 1], strides[i + 1], norm_name, act_name,
-                    use_res_block, attn[i])
+                    use_res_block, attn[i], dropout=dropout,
+                    learnable_interpolation=learnable_interpolation)
             for i in range(depth - 1)])
         self.outc = BasicBlock(n, hid_chs[0], out_channels, 1, zero_conv=True)
         ds = deep_supervision
@@ -206,7 +213,8 @@ class _AutoencoderBase(nn.Module):
 
 _AE_DEFAULTS = dict(in_channels=3, out_channels=3, spatial_dims=2, emb_channels=4,
                     kernel_sizes=(3, 3, 3, 3), strides=(1, 2, 2, 2), act_name=("SWISH", {}),
-                    use_res_block=True, deep_supervision=False, use_attention="none")
+                    use_res_block=True, deep_supervision=False, use_attention="none",
+                    learnable_interpolation=True, dropout=None)
 
 
 class VAE(_AutoencoderBase):

@@ -21,6 +21,11 @@ The forward is ``embed`` -> ``encode_features`` (in conv and encoder: the
 skip stack) -> ``decode_features`` (middle and decoder), so that a sampler
 can reuse an encoder's skips across steps (``pipelines/diffusion/fast.py``).
 
+Without ``learnable_interpolation`` the down is an average pool and the
+up a resize alone (no parameters); without ``use_time_embedder`` the time
+is not embedded, and the blocks take the label embedding alone, or no
+embedding when there is no label embedder (as in the JAX package).
+
 ``dropout`` goes to every conv block and attention. ``remat`` recomputes
 each conv block in the backward (``nn/functional.py::checkpointed``), as
 the JAX package's ``nn.remat`` of its ConvBlocks: their GroupNorm kernels
@@ -74,7 +79,8 @@ class UNet(nn.Module):
                  estimate_variance: bool = False,
                  use_attention="none", attn_heads: int = 8,
                  num_res_blocks: int = 2, use_self_conditioning: bool = False,
-                 dropout: float = 0.0, remat: bool = False):
+                 dropout: float = 0.0, remat: bool = False,
+                 learnable_interpolation: bool = True, use_time_embedder: bool = True):
         super().__init__()
         depth = len(strides)
         attn = (list(use_attention) if isinstance(use_attention, (list, tuple))
@@ -94,23 +100,29 @@ class UNet(nn.Module):
                         f"level width {ch} (hid_chs={tuple(hid_chs)}, "
                         f"use_attention level {i}={attn[i]!r})")
         self.cond_emb_num_classes = cond_emb_num_classes
+        self.use_time_embedder = use_time_embedder
         self.use_self_conditioning = use_self_conditioning
         self.remat = remat
         self.num_res_blocks = nrb = num_res_blocks
         dropout = dropout if dropout else None
         t_dim = time_emb_dim or hid_chs[0] * 4
+        # the blocks take an embedding when there is one to give: the time's,
+        # the label's or their sum, each t_dim wide
+        e_dim = (t_dim if use_time_embedder or cond_emb_num_classes is not None
+                 else None)
         ConvBlock = UnetResBlock if use_res_block else UnetBasicBlock
         n = spatial_dims
 
         def conv_block(cin, cout, k):
             return ConvBlock(n, cin, cout, k, 1, norm_name, act_name,
-                             emb_channels=t_dim, dropout=dropout)
+                             emb_channels=e_dim, dropout=dropout)
 
         def attention(ch, kind):
             return Attention(n, ch, attn_heads, ch // attn_heads, norm_name,
-                             dropout, t_dim, 1, kind)
+                             dropout, e_dim, 1, kind)
 
-        self.time_embedder = TimeEmbedding(emb_dim=t_dim)
+        if use_time_embedder:
+            self.time_embedder = TimeEmbedding(emb_dim=t_dim)
         if cond_emb_num_classes is not None:
             self.cond_embedder = LabelEmbedder(emb_dim=t_dim,
                                                num_classes=cond_emb_num_classes)
@@ -127,8 +139,8 @@ class UNet(nn.Module):
                     attention(hid_chs[i], attn[i])]))
                 skip_chs.append(hid_chs[i])
             if i < depth - 1:
-                in_blocks.append(BasicDown(n, hid_chs[i], hid_chs[i],
-                                           kernel_sizes[i], strides[i]))
+                in_blocks.append(BasicDown(n, hid_chs[i], hid_chs[i], kernel_sizes[i],
+                                           strides[i], learnable_interpolation))
                 skip_chs.append(hid_chs[i])
         self.in_blocks = nn.ModuleList(in_blocks)
 
@@ -160,7 +172,8 @@ class UNet(nn.Module):
             stage = [conv_block(cin, co, kernel_sizes[level]),
                      attention(co, attn[level])]
             if level > 1 and k == 0:
-                stage.append(BasicUp(n, co, co, strides[level], strides[level]))
+                stage.append(BasicUp(n, co, co, strides[level], strides[level],
+                                     learnable_interpolation))
             out_blocks.append(nn.ModuleList(stage))
         self.out_blocks = nn.ModuleList(out_blocks)
 
@@ -171,7 +184,8 @@ class UNet(nn.Module):
 
     def embed(self, t=None, condition=None, cond_mask=None):
         """Summed time + label embedding; ``cond_mask`` zeroes the label part."""
-        time_emb = self.time_embedder(t) if t is not None else None
+        time_emb = (self.time_embedder(t)
+                    if t is not None and self.use_time_embedder else None)
         cond_emb = None
         if condition is not None and self.cond_emb_num_classes is not None:
             cond_emb = self.cond_embedder(condition)

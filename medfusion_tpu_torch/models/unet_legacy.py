@@ -4,7 +4,9 @@
 One DownBlock/UpBlock per level (the ``unet`` family has ``num_res_blocks``
 stages a level): ``inc`` is a conv block with the embedding, each encoder a
 strided conv -> attention -> conv block, each decoder an up-conv -> additive
-skip -> attention -> conv block, then a 1x1 ``outc`` and the
+skip -> attention -> conv block (with ``learnable_interpolation`` off: an
+average pool, and a resize whose output the skip is concatenated to, so
+the decoders' attention and first convs are wider), then a 1x1 ``outc`` and the
 deep-supervision heads ``outc_ver`` on the decoder outputs. Every GroupNorm
 of the blocks runs through the GroupNorm(+SiLU) kernel wrapper
 (``nn/blocks.py``); ``use_attention`` ('none' | 'linear' | 'spatial', one
@@ -49,7 +51,7 @@ class UNetLegacy(nn.Module):
                  cond_emb_num_classes: Optional[int] = None, deep_supervision=True,
                  use_res_block: bool = True, estimate_variance: bool = False,
                  use_self_conditioning: bool = False, dropout: float = 0.0,
-                 use_attention="none"):
+                 use_attention="none", learnable_interpolation: bool = True):
         super().__init__()
         depth = len(strides)
         attn = (list(use_attention) if isinstance(use_attention, (list, tuple))
@@ -62,7 +64,9 @@ class UNetLegacy(nn.Module):
         self.cond_emb_num_classes = cond_emb_num_classes
         self.use_self_conditioning = use_self_conditioning
         t_dim = time_emb_dim or hid_chs[0] * 4
-        emb_dim = t_dim if use_time_embedder else None
+        # the blocks take an embedding when there is one to give (the time's,
+        # the label's or their sum), as the JAX package's lazily sized layers
+        emb_dim = t_dim if use_time_embedder or cond_emb_num_classes is not None else None
         dropout = dropout if dropout else None
         ConvBlock = UnetResBlock if use_res_block else UnetBasicBlock
         n = spatial_dims
@@ -79,12 +83,12 @@ class UNetLegacy(nn.Module):
         self.encoders = nn.ModuleList([
             DownBlock(n, hid_chs[i - 1], hid_chs[i], kernel_sizes[i], strides[i],
                       kernel_sizes[i], norm_name, act_name, use_res_block, attn[i],
-                      emb_dim, dropout)
+                      emb_dim, dropout, learnable_interpolation)
             for i in range(1, depth)])
         self.decoders = nn.ModuleList([
             UpBlock(n, hid_chs[i + 1], hid_chs[i], kernel_sizes[i + 1], strides[i + 1],
                     strides[i + 1], norm_name, act_name, use_res_block, attn[i], emb_dim,
-                    dropout)
+                    dropout, learnable_interpolation, skip_channels=hid_chs[i])
             for i in range(depth - 1)])
         out_ch_hor = out_ch * 2 if estimate_variance else out_ch
         self.outc = BasicBlock(n, hid_chs[0], out_ch_hor, 1)

@@ -25,14 +25,13 @@ shape [1, C, 1, 1]).
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from medfusion_tpu_torch.models.embedders import SinusoidalPosEmb
+from medfusion_tpu_torch.models.embedders import LearnedSinusoidalPosEmb, SinusoidalPosEmb
 
 
 def _eps_for(dtype) -> float:
@@ -177,19 +176,6 @@ def lucid_upsample(dim: int, dim_out: int) -> nn.Sequential:
     return nn.Sequential(_Upsample2x(), nn.Conv2d(dim, dim_out, 3, padding=1))
 
 
-class LearnedSinusoidalPosEmb(nn.Module):
-    """[t | sin(2 pi t w) | cos(2 pi t w)] with learned frequencies ``weights``."""
-
-    def __init__(self, dim: int):
-        super().__init__()
-        self.weights = nn.Parameter(torch.randn(dim // 2))
-
-    def forward(self, t):
-        t = t.float()[:, None]
-        freqs = t * self.weights.float()[None] * 2 * math.pi
-        return torch.cat([t, freqs.sin(), freqs.cos()], dim=-1)
-
-
 class UNetLucidrains(nn.Module):
     def __init__(self, dim: int = 32, init_dim: Optional[int] = None,
                  out_dim: Optional[int] = None, dim_mults: Sequence[int] = (1, 2, 4, 8),
@@ -205,6 +191,11 @@ class UNetLucidrains(nn.Module):
         in_out = list(zip(dims[:-1], dims[1:]))
         time_dim, g = dim * 4, resnet_block_groups
         if learned_sinusoidal_cond:
+            # the reference asserts an even width; the shared embedder would pad
+            # an odd one, where the JAX UNet's Dense takes the unpadded width
+            if learned_sinusoidal_dim % 2:
+                raise ValueError(f"learned_sinusoidal_dim must be even, got "
+                                 f"{learned_sinusoidal_dim}")
             pos, fourier_dim = LearnedSinusoidalPosEmb(learned_sinusoidal_dim), \
                 learned_sinusoidal_dim + 1
         else:

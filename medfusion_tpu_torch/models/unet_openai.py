@@ -28,7 +28,8 @@ attention block in the backward (not the spatial transformers), as the JAX
 package's ``nn.remat``. ``UNetOpenAI(spatial_dims=3)`` runs on [B, C, D,
 H, W] with the JAX package's 3-D rules: the 2x upsampling and the average
 pool act on the inner two dims only, and the conv downsample has stride
-(1, 2, 2). The classifier is 2-D.
+(1, 2, 2). The classifier follows the same rules in 3-D, but for its
+attention pool (2-D only).
 """
 
 from __future__ import annotations
@@ -451,23 +452,29 @@ class _EmbedSequential(nn.Sequential):
 
 
 class EncoderUNetOpenAI(nn.Module):
-    """The half UNet classifier: (x [B, C, H, W], t [B]) -> logits [B, K],
-    with the pools 'adaptive' (GN -> SiLU -> global mean -> zero-init 1x1
-    conv), 'attention' (GN -> SiLU -> :class:`SDAttentionPool`), 'spatial'
-    and 'spatial_v2' (MLPs over the concatenated per-stage spatial means)."""
+    """The half UNet classifier: (x [B, C, H, W], or [B, C, D, H, W] at
+    ``spatial_dims=3``, t [B]) -> logits [B, K], with the pools 'adaptive'
+    (GN -> SiLU -> global mean -> zero-init 1x1 conv), 'attention' (GN ->
+    SiLU -> :class:`SDAttentionPool`, 2-D only), 'spatial' and 'spatial_v2'
+    (MLPs over the concatenated per-stage spatial means). In 3-D the
+    downsamples follow :class:`UNetOpenAI`'s rules (the inner two dims)."""
 
     def __init__(self, image_size: int = 32, in_channels: int = 4,
                  model_channels: int = 256, out_channels: int = 1000,
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (),
                  dropout: float = 0.0, channel_mult: Sequence[int] = (1, 2, 4, 8),
-                 conv_resample: bool = True, num_heads: int = 1,
+                 conv_resample: bool = True, spatial_dims: int = 2, num_heads: int = 1,
                  num_head_channels: int = -1, use_scale_shift_norm: bool = False,
                  resblock_updown: bool = False, use_new_attention_order: bool = False,
                  pool: str = "adaptive", norm_groups: int = 32):
         super().__init__()
+        if spatial_dims not in (2, 3):
+            raise ValueError(f"spatial_dims must be 2 or 3, got {spatial_dims}")
+        n = spatial_dims
         mc, ted = model_channels, model_channels * 4
         self.model_channels = model_channels
         self.pool = pool
+        self.spatial_axes = tuple(range(2, 2 + n))
 
         def heads(ch):
             return num_heads if num_head_channels == -1 else ch // num_head_channels
@@ -475,14 +482,14 @@ class EncoderUNetOpenAI(nn.Module):
         def res(ch_in, ch_out, down=False):
             return SDResBlock(ch_in, ted, ch_out, dropout,
                               use_scale_shift_norm=use_scale_shift_norm, down=down,
-                              norm_groups=norm_groups)
+                              norm_groups=norm_groups, spatial_dims=n)
 
         def attn(ch):
             return SDAttentionBlock(ch, heads(ch), new_order=use_new_attention_order,
                                     norm_groups=norm_groups)
 
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
-        blocks = [_EmbedSequential(nn.Conv2d(in_channels, mc, 3, padding=1))]
+        blocks = [_EmbedSequential(_conv(n, in_channels, mc, 3, padding=1))]
         ch, ds, feature_size = mc, 1, mc
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
@@ -495,7 +502,7 @@ class EncoderUNetOpenAI(nn.Module):
             if level != len(channel_mult) - 1:
                 blocks.append(_EmbedSequential(
                     res(ch, ch, down=True) if resblock_updown
-                    else SDDownsample(ch, ch, conv_resample)))
+                    else SDDownsample(ch, ch, conv_resample, n)))
                 ds *= 2
                 feature_size += ch
         self.input_blocks = nn.ModuleList(blocks)
@@ -504,10 +511,15 @@ class EncoderUNetOpenAI(nn.Module):
 
         if pool == "adaptive":
             self.out = nn.Sequential(GroupNorm32(ch, norm_groups), nn.SiLU(), nn.Identity(),
-                                     _zero(nn.Conv2d(ch, out_channels, 1)))
+                                     _zero(_conv(n, ch, out_channels, 1)))
         elif pool == "attention":
             if num_head_channels == -1:
                 raise ValueError("the attention pool needs num_head_channels")
+            if n == 3:
+                # the JAX package sizes the pool's positional embedding by
+                # the 2-D token count and fails with a shape error in 3-D
+                raise ValueError("the attention pool is 2-D only: its positional "
+                                 "embedding has (image_size // ds) ** 2 tokens")
             self.out = nn.Sequential(GroupNorm32(ch, norm_groups), nn.SiLU(), SDAttentionPool(
                 ch, num_head_channels, out_channels, (image_size // ds) ** 2))
         elif pool == "spatial":
@@ -528,14 +540,14 @@ class EncoderUNetOpenAI(nn.Module):
         for block in self.input_blocks:
             h = block(h, emb)
             if self.pool.startswith("spatial"):
-                results.append(h.mean(dim=(2, 3)))
+                results.append(h.mean(dim=self.spatial_axes))
         h = self.middle_block(h, emb)
         if self.pool == "adaptive":
-            h = self.out[:2](h).mean(dim=(2, 3), keepdim=True)
+            h = self.out[:2](h).mean(dim=self.spatial_axes, keepdim=True)
             return self.out[3](h).flatten(1)
         if self.pool == "attention":
             return self.out(h)
-        results.append(h.mean(dim=(2, 3)))
+        results.append(h.mean(dim=self.spatial_axes))
         return self.out(torch.cat(results, dim=-1))
 
 

@@ -20,8 +20,10 @@ to flax. Dropout (``nn.Dropout``, the global RNG, which
 ``torch.utils.checkpoint`` replays in a recompute) sits between a
 BasicBlock's norm and its activation. The down and up blocks take attention
 ('linear' or 'spatial', 8 heads of ch/8, depth 1) before their conv block,
-as the JAX package's do. The space-to-depth tail and the fused 2x up-conv
-are not ported: they are exact rewrites of the plain conv used here.
+as the JAX package's do. With ``learnable_interpolation`` off, the down is
+an average pool, the up a resize alone and the up block concatenates its
+skip. The space-to-depth tail and the fused 2x up-conv are not ported:
+they are exact rewrites of the plain conv used here.
 """
 
 from __future__ import annotations
@@ -251,32 +253,62 @@ class UnetResBlock(_UnetBlockBase):
         return x
 
 
+def pixel_unshuffle(x, r: int = 2):
+    """[B, C, H r, W r] -> [B, C r r, H, W], channel order (c r1 r2)."""
+    return F.pixel_unshuffle(x, r)
+
+
+def pixel_shuffle(x, r: int = 2):
+    """[B, C r r, H, W] -> [B, C, H r, W r], the inverse of
+    :func:`pixel_unshuffle`."""
+    return F.pixel_shuffle(x, r)
+
+
 class BasicDown(nn.Module):
-    """Strided conv (learnable downsample)."""
+    """Strided conv, or with ``learnable_interpolation`` off an average pool
+    with MONAI padding and no parameters. ``use_res`` adds the input's 2x
+    pixel-unshuffle to the conv (2-D; out = 4 x in channels)."""
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
-                 kernel_size=3, stride=2):
+                 kernel_size=3, stride=2, learnable_interpolation: bool = True,
+                 use_res: bool = False):
         super().__init__()
-        self.down_op = conv_nd(in_channels, out_channels, kernel_size, stride,
-                               spatial_dims=spatial_dims)
+        self.kernel_size, self.stride = kernel_size, stride
+        self.use_res = use_res
+        if learnable_interpolation:
+            self.down_op = conv_nd(in_channels, out_channels, kernel_size, stride,
+                                   spatial_dims=spatial_dims)
 
     def forward(self, x, emb=None):
-        return self.down_op(x)
+        if not hasattr(self, "down_op"):
+            return FN.avg_pool_same(x, self.kernel_size, self.stride)
+        y = self.down_op(x)
+        return y + pixel_unshuffle(x) if self.use_res else y
 
 
 class BasicUp(nn.Module):
-    """Nearest-exact resize to the transposed-conv output shape, then 3x3 conv."""
+    """Nearest-exact resize to the transposed-conv output shape, then 3x3
+    conv; with ``learnable_interpolation`` off the resize alone. ``use_res``
+    adds the input's 2x pixel-shuffle to the conv (2-D; out = in / 4
+    channels)."""
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
-                 kernel_size=2, stride=2):
+                 kernel_size=2, stride=2, learnable_interpolation: bool = True,
+                 use_res: bool = False):
         super().__init__()
         self.kernel_size, self.stride = kernel_size, stride
-        self.up_op = conv_nd(in_channels, out_channels, 3, 1,
-                             spatial_dims=spatial_dims)
+        self.use_res = use_res
+        if learnable_interpolation:
+            self.up_op = conv_nd(in_channels, out_channels, 3, 1,
+                                 spatial_dims=spatial_dims)
 
     def forward(self, x, emb=None):
         size = FN.up_output_shape(x.shape[2:], self.kernel_size, self.stride)
-        return self.up_op(FN.interpolate_nearest_exact(x, size))
+        y = FN.interpolate_nearest_exact(x, size)
+        if not hasattr(self, "up_op"):
+            return y
+        y = self.up_op(y)
+        return y + pixel_shuffle(x) if self.use_res else y
 
 
 def _conv_block(use_res_block: bool):
@@ -303,20 +335,23 @@ def _attention(spatial_dims: int, channels: int, norm_name: NormName,
 
 
 class DownBlock(nn.Module):
-    """Down -> Attention -> ConvBlock."""
+    """Down -> Attention -> ConvBlock. Without ``learnable_interpolation``
+    the down is an average pool, so attention and the conv block's input
+    keep ``in_channels``."""
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
                  kernel_size, stride, downsample_kernel_size, norm_name: NormName,
                  act_name: ActName, use_res_block: bool = False,
                  use_attention: str = "none", emb_channels: Optional[int] = None,
-                 dropout: Optional[float] = None):
+                 dropout: Optional[float] = None, learnable_interpolation: bool = True):
         super().__init__()
         n = spatial_dims
         self.enable_down = FN.ensure_tuple(stride, n) != FN.ensure_tuple(1, n)
         if self.enable_down:
             self.down_op = BasicDown(n, in_channels, out_channels,
-                                     downsample_kernel_size, stride)
-        ch = out_channels if self.enable_down else in_channels
+                                     downsample_kernel_size, stride,
+                                     learnable_interpolation)
+        ch = out_channels if self.enable_down and learnable_interpolation else in_channels
         self.attention = _attention(n, ch, norm_name, use_attention, emb_channels,
                                     dropout)
         self.conv_block = _conv_block(use_res_block)(
@@ -332,20 +367,27 @@ class DownBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
-    """Up -> additive skip -> Attention -> ConvBlock."""
+    """Up -> skip join -> Attention -> ConvBlock. The skip is added with
+    ``learnable_interpolation``; without it the up is a resize alone and
+    the skip of ``skip_channels`` is concatenated after it, so attention
+    and the conv block take ``in_channels + skip_channels``."""
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
                  kernel_size, stride, upsample_kernel_size, norm_name: NormName,
                  act_name: ActName, use_res_block: bool = False,
                  use_attention: str = "none", emb_channels: Optional[int] = None,
-                 dropout: Optional[float] = None):
+                 dropout: Optional[float] = None, learnable_interpolation: bool = True,
+                 skip_channels: int = 0):
         super().__init__()
         n = spatial_dims
+        self.learnable_interpolation = learnable_interpolation
         self.enable_up = FN.ensure_tuple(stride, n) != FN.ensure_tuple(1, n)
         if self.enable_up:
             self.up_op = BasicUp(n, in_channels, out_channels,
-                                 upsample_kernel_size, stride)
-        ch = out_channels if self.enable_up else in_channels
+                                 upsample_kernel_size, stride, learnable_interpolation)
+        ch = out_channels if self.enable_up and learnable_interpolation else in_channels
+        if not learnable_interpolation:
+            ch += skip_channels
         self.attention = _attention(n, ch, norm_name, use_attention, emb_channels,
                                     dropout)
         self.conv_block = _conv_block(use_res_block)(
@@ -355,7 +397,7 @@ class UpBlock(nn.Module):
     def forward(self, x_enc, x_skip=None, emb=None):
         x = self.up_op(x_enc) if self.enable_up else x_enc
         if x_skip is not None:
-            x = x + x_skip
+            x = x + x_skip if self.learnable_interpolation else torch.cat([x, x_skip], dim=1)
         if self.attention is not None:
             x = self.attention(x, emb)
         return self.conv_block(x, emb)

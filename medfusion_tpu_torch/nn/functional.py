@@ -57,6 +57,18 @@ def interpolate_area(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     return pool(x, tuple(size))
 
 
+def avg_pool_same(x: torch.Tensor, kernel_size: IntOrSeq, stride: IntOrSeq) -> torch.Tensor:
+    """torch AvgPool on [B, C, *spatial] (2 or 3 spatial dims) with MONAI
+    padding (k - s + 1) // 2 of zeros, counted in each window's mean
+    (``count_include_pad=True``, torch's default)."""
+    n = x.ndim - 2
+    k = ensure_tuple(kernel_size, n)
+    s = ensure_tuple(stride, n)
+    pad = [p for pi in reversed(get_padding(k, s, n)) for p in (pi, pi)]
+    pool = {2: F.avg_pool2d, 3: F.avg_pool3d}[n]
+    return pool(F.pad(x, pad), k, s)
+
+
 def save_add(*args):
     """None-tolerant sum."""
     args = [a for a in args if a is not None]

@@ -49,7 +49,7 @@ from medfusion_tpu_torch.pipelines.diffusion.editing import EditingMixin
 from medfusion_tpu_torch.pipelines.diffusion.edm import EDMSamplerMixin
 from medfusion_tpu_torch.pipelines.diffusion.fast import FastSamplerMixin
 
-_LOSSES = {"l1": lambda d: d.abs(), "l2": lambda d: d * d}
+_LOSSES = {"l1": lambda d: d.abs(), "l2": lambda d: d * d, "mse": lambda d: d * d}
 
 
 def gaussian_nll(pred, target, var, eps: float = 1e-6):

@@ -3,8 +3,9 @@
 
 The linear path x_t = (1 - t) x_0 + t eps, t in [0, 1] (t = 1 is pure
 noise); the estimator regresses the path's velocity eps - x_0 at model time
-``t * TIME_SCALE``; sampling integrates dx/dt = v(x, t) from t = 1 down to 0
-by Euler or Heun (the last step plain Euler), on a grid warped by the SD3
+``t * time_scale`` (:data:`TIME_SCALE` by default); sampling integrates
+dx/dt = v(x, t) from t = 1 down to 0 by Euler or Heun (the last step plain
+Euler), on a grid warped by the SD3
 resolution shift (:func:`shift_time`). It runs on the diffusion family's
 UNet, VAE, train step and CLIs: ``encode_latent``, ``decode_latent``,
 ``_apply_estimator`` and the classifier-free guidance batching
@@ -42,7 +43,7 @@ import torch
 
 from medfusion_tpu_torch.core.draws import normal
 from medfusion_tpu_torch.nn.functional import interpolate_area
-from medfusion_tpu_torch.pipelines.diffusion.core import DiffusionPipeline
+from medfusion_tpu_torch.pipelines.diffusion.core import _LOSSES, DiffusionPipeline
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw, _to_nhwc
 from medfusion_tpu_torch.pipelines.diffusion.editing import _randn, slerp
 
@@ -64,9 +65,9 @@ def _grid(start: float, stop: float, steps: int, shift: float) -> np.ndarray:
 
 @dataclasses.dataclass
 class FlowMatchingPipeline:
-    """The JAX pipeline's fields and methods, eager. Its ``loss`` and
-    ``time_scale`` are fixed at the values every caller leaves them at (L2,
-    :data:`TIME_SCALE`); its ``jit_sampler`` (a ``jax.jit`` of
+    """The JAX pipeline's fields and methods, eager: ``loss`` is the
+    elementwise loss of the velocity ('l1', or 'l2' = 'mse'), ``time_scale``
+    the factor of the model time. Its ``jit_sampler`` (a ``jax.jit`` of
     :meth:`sample`) has no counterpart."""
 
     # nn.Module: (x_t, t, condition, cond_mask) -> (y, y_ver), t a float
@@ -74,9 +75,11 @@ class FlowMatchingPipeline:
     latent_embedder: Any = None
     classifier_free_guidance_dropout: float = 0.5
     do_input_centering: bool = True
+    loss: str = "l2"  # flow matching is an L2 regression (arXiv:2210.02747 eq. 9)
     compute_dtype: Optional[torch.dtype] = None
     latent_scale: float = 1.0
     latent_shift: float = 0.0
+    time_scale: float = TIME_SCALE
     timestep_sampling: str = "logit_normal"  # or 'uniform'
     logit_mean: float = 0.0
     logit_std: float = 1.0
@@ -87,6 +90,8 @@ class FlowMatchingPipeline:
     def __post_init__(self):
         if self.timestep_sampling not in ("uniform", "logit_normal"):
             raise ValueError(f"unknown timestep_sampling {self.timestep_sampling!r}")
+        if self.loss not in _LOSSES:
+            raise ValueError(f"unknown loss {self.loss!r}")
         if self.shift < 1.0:
             raise ValueError("shift must be >= 1 (1 = identity)")
 
@@ -125,8 +130,8 @@ class FlowMatchingPipeline:
     def train_loss(self, batch: Mapping[str, torch.Tensor],
                    draws: Mapping[str, torch.Tensor],
                    estimator_params: Optional[Mapping[str, torch.Tensor]] = None):
-        """One conditional-flow-matching loss, the mean squared error of the
-        velocity: ``batch`` ``source`` images [B, H, W, C] and optional
+        """One conditional-flow-matching loss, the mean of ``loss`` (squared
+        error by default) of the velocity: ``batch`` ``source`` images [B, H, W, C] and optional
         ``target`` labels [B]; ``draws`` as :meth:`train_draws` makes them.
         The deep-supervision heads regress the velocity at their resolution
         (area-downsampled), weighted 1/2^i and normalised. Returns (loss,
@@ -153,24 +158,24 @@ class FlowMatchingPipeline:
             drop = torch.as_tensor(draws["drop"], device=x_0.device)
             cond_mask = torch.where(drop, 0.0, 1.0).to(x_0.dtype).expand(b)
         pred, pred_vertical, moe_aux = self._apply_estimator(
-            x_t, t * TIME_SCALE, condition, cond_mask, estimator_params, with_aux=True)
-        l2 = ((pred - target) ** 2).mean()
-        loss = l2 + moe_aux
+            x_t, t * self.time_scale, condition, cond_mask, estimator_params, with_aux=True)
+        elt = _LOSSES[self.loss]
+        loss = elt(pred - target).mean() + moe_aux
         if pred_vertical:
             weights = [1 / 2**i for i in range(1 + len(pred_vertical))]
             weights = [w / sum(weights) for w in weights]
             loss = loss * weights[0]
             for i, pred_i in enumerate(pred_vertical):
                 target_i = interpolate_area(target, pred_i.shape[2:])
-                loss = loss + ((pred_i - target_i) ** 2).mean() * weights[i + 1]
-        return loss, {"loss": loss, "L2": l2, "moe_aux": moe_aux}
+                loss = loss + elt(pred_i - target_i).mean() * weights[i + 1]
+        return loss, {"loss": loss, "L2": ((pred - target) ** 2).mean(), "moe_aux": moe_aux}
 
     # -- sampling -----------------------------------------------------------
 
     def _velocity(self, x, t: float, condition, guidance_scale: float, un_cond):
         """The (CFG-batched) velocity of NCHW ``x`` at the scalar time ``t``."""
         t_b = torch.full((x.shape[0],), float(t), dtype=torch.float32,
-                         device=x.device) * TIME_SCALE
+                         device=x.device) * self.time_scale
         return self._guided_pred(x, t_b, condition, guidance_scale, un_cond=un_cond)
 
     def _step(self, x, t_cur, t_next, t_eval, correct: bool, velocity):

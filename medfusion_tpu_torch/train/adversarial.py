@@ -15,8 +15,9 @@ counts optimizer steps, two a batch.
   so there only the out heads get the adversarial gradient; the port takes
   the reference's.)
 * Adaptive lambda (eq. 7 of arXiv:2012.09841): ||d rec/d w|| / (||d gan/d w||
-  + 1e-4), clipped to [0, 1e4] and detached, with w the level's 1x1 out-head
-  conv weight, from two ``torch.autograd.grad`` calls, as the reference.
+  + lambda_eps), lambda_eps 1e-4 by default, clipped to [0, 1e4] and
+  detached, with w the level's 1x1 out-head conv weight, from two
+  ``torch.autograd.grad`` calls, as the reference.
 * Discriminator loss: ``gan_loss`` (hinge by default) of D(target) and
   D(pred.detach()) at each level that has a discriminator, summed, once
   step + 1 > start_disc_train_step (start_gan_train_step when None; the
@@ -45,9 +46,6 @@ from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw
 from medfusion_tpu_torch.train.autoencoder import AutoencoderTrainer, _nchw_or_none
 from medfusion_tpu_torch.train.state import GANTrainState
 
-LAMBDA_EPS = 1e-4  # the adaptive lambda's ||d gan/d w|| + eps
-
-
 @dataclasses.dataclass(frozen=True)
 class AdversarialTrainer:
     """The two players' losses: ``ae_trainer`` gives the autoencoder and its
@@ -60,6 +58,7 @@ class AdversarialTrainer:
     gan_loss_weight: float = 1.0
     start_gan_train_step: int = 50000
     start_disc_train_step: Optional[int] = None
+    lambda_eps: float = 1e-4  # the adaptive lambda's ||d gan/d w|| + eps
 
     def __post_init__(self):
         levels = 1 + len(getattr(self.ae_trainer.autoencoder, "outc_ver", ()))
@@ -80,7 +79,7 @@ class AdversarialTrainer:
         (g_rec,) = torch.autograd.grad(rec, w, retain_graph=True)
         (g_gan,) = torch.autograd.grad(gan, w, retain_graph=True)
         lam = (torch.linalg.vector_norm(g_rec)
-               / (torch.linalg.vector_norm(g_gan) + LAMBDA_EPS))
+               / (torch.linalg.vector_norm(g_gan) + self.lambda_eps))
         lam = lam.clamp(0.0, 1e4).detach()
         term = self.gan_loss_weight * lam * gan
         return rec + term, {f"gan_loss_{depth}": term.detach(), f"lambda_{depth}": lam}

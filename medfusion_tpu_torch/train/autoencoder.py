@@ -5,7 +5,8 @@ The loss of each pyramid level is the elementwise pixel loss plus each
 image's (1 - SSIM) (unless ``use_ssim`` is off, as for the diffusers
 autoencoders, which train on the pixel loss alone) and, with a
 ``perceiver`` (a frozen :class:`LPIPS`), each
-image's LPIPS (weight 1) at pyramid depths below 2, both broadcast over its
+image's LPIPS times ``perceptual_loss_weight`` (1 by default) at pyramid
+depths below 2, both broadcast over its
 elements; each deep-supervision output is held against the target shrunk
 with 'nearest-exact'. The 'vae' flavour
 (the reference's ``VAE.rec_loss``) sums each level's elements and divides by
@@ -55,6 +56,7 @@ class AutoencoderTrainer:
     flavor: str = "vae"
     pixel_loss: str = "l1"
     perceiver: Optional[torch.nn.Module] = None
+    perceptual_loss_weight: float = 1.0
     embedding_loss_weight: float = 1e-6
     use_ssim: bool = True
 
@@ -70,7 +72,7 @@ class AutoencoderTrainer:
         if self.use_ssim:
             elems = elems + ssim_loss_per_image(pred, target)
         if self.perceiver is not None and depth < 2:
-            elems = elems + self.perceiver(pred, target)
+            elems = elems + self.perceiver(pred, target) * self.perceptual_loss_weight
         return elems
 
     def rec_loss(self, pred, pred_vertical, target):

@@ -23,7 +23,7 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw
-from medfusion_tpu_torch.pipelines.flow import TIME_SCALE, FlowMatchingPipeline
+from medfusion_tpu_torch.pipelines.flow import FlowMatchingPipeline
 from medfusion_tpu_torch.train.diffusion import train_on, with_compute_dtype
 from medfusion_tpu_torch.train.state import TrainState
 
@@ -65,7 +65,7 @@ def make_reflow_loss(pipeline: FlowMatchingPipeline,
         x_t = (1.0 - t_b) * z0 + t_b * z1
         cond_mask = None if condition is None else torch.ones((b,), dtype=z0.dtype,
                                                               device=z0.device)
-        pred, _ = pipeline._apply_estimator(x_t, t * TIME_SCALE, condition, cond_mask,
+        pred, _ = pipeline._apply_estimator(x_t, t * pipeline.time_scale, condition, cond_mask,
                                             student_params)
         loss = ((pred - (z1 - z0)) ** 2).mean()
         return loss, {"loss": loss}

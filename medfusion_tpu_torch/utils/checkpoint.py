@@ -217,3 +217,23 @@ def restore_ae_params(path, vae: torch.nn.Module, step: Optional[int] = None) ->
             f"preset or wrong run directory?")
     vae.load_state_dict(sd, strict=True)
     return src
+
+
+def filter_weights(source: Dict[str, torch.Tensor], target: Dict[str, torch.Tensor],
+                   path_regex: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """Partial weight transfer between state dicts: each of ``target``'s
+    entries is ``source``'s of the same key when that key matches
+    ``path_regex`` (``re.search``; every key if None) and the two shapes
+    agree, else ``target``'s own. The result has ``target``'s keys, in its
+    order."""
+    pat = re.compile(path_regex) if path_regex else None
+
+    def pick(key, tgt):
+        src = source.get(key)
+        if src is None or tuple(src.shape) != tuple(tgt.shape):
+            return tgt
+        if pat is not None and not pat.search(key):
+            return tgt
+        return src
+
+    return {key: pick(key, tgt) for key, tgt in target.items()}

@@ -37,6 +37,7 @@ def flax_path_to_torch_key(path: str, kind: str = "unet") -> str:
     k = path
     k = re.sub(r"^time_embedder/linear_0/linear/", "time_embedder.time_emb.1.", k)
     k = re.sub(r"^time_embedder/linear_1/linear/", "time_embedder.time_emb.3.", k)
+    k = re.sub(r"^time_embedder/pos_embedder/weights$", "time_embedder.time_emb.0.weights", k)
     k = re.sub(r"^cond_embedder/embedding/embedding$", "cond_embedder.embedding.weight", k)
     k = re.sub(r"^in_blocks_(\d+)_1/down_conv/conv/", r"in_blocks.\1.down_op.", k)
     k = re.sub(r"^in_blocks_(\d+)_1/", r"in_blocks.\1.0.", k)

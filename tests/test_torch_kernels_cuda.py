@@ -1106,3 +1106,87 @@ def test_group_norm_silu_takes_the_channels_last_output_of_a_one_channel_conv(
     torch.testing.assert_close(out, ref, atol=TOL[torch.float32], rtol=TOL[torch.float32])
     out.sum().backward()
     assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
+
+
+# the constructor options no CLI reaches: the chest legacy UNet without
+# learnable interpolation concatenates decoder 1's resized input and its skip
+# (512 + 256 channels at 16^2, B=32) and normalises the concatenation in its
+# spatial transformer (32 groups: C/G 24), beside the 256-channel attention of
+# its encoder; the 3-D classifier attends over 8 x 8 x 8 = 512 tokens, 128
+# wide, 4 heads of 32, f32, at B=2
+CONCAT_GN_CASES = [(768, 32, 16), (256, 32, 16)]
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("c,g,side", CONCAT_GN_CASES)
+def test_group_norm_silu_at_the_concatenated_skip_widths(cuda, dtype, c, g, side):
+    before = G.LAUNCHES
+    for silu in (True, False):
+        x, scale, bias = _inputs(cuda, 32, c, side, dtype)
+        out = G.group_norm_silu(x, scale, bias, g, apply_silu=silu)
+        ref = G.group_norm_silu_reference(x, scale, bias, g, apply_silu=silu)
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+    assert G.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_classifier_3d_attention_shape_matches_plain_version(cuda):
+    """Kernel 5 forward (o, lse) and kernels 3 and 4 at the 3-D classifier's
+    token count, f32, one launch each."""
+    n, c, heads = 512, 128, 4
+    q, k, v = _attn_inputs(cuda, 2, n, n, c, torch.float32)
+    scale = (c // heads) ** -0.25
+    ro, rlse = FA.naive_attention_reference(*(FA._heads(t, heads) for t in (q, k, v)), scale)
+    o, lse = FA.flash_attention_tokens(q, k, v, heads, scale)
+    torch.testing.assert_close(FA._heads(o, heads), ro, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse.transpose(1, 2), rlse, atol=2e-5, rtol=2e-5)
+    do = torch.randn((2, n, c), generator=cuda, device="cuda")
+    before = ops.launch_counts()
+    grads, refs = _attention_grads(q, k, v, do, heads, "tokens")
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("flash_attention_tokens", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    for what, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-5,
+                                   msg=lambda msg, w=what: f"{w}: {msg}")
+
+
+@pytest.mark.cuda
+def test_classifier_3d_and_concatenating_legacy_unet_match_the_cpu(cuda):
+    """A narrow 3-D classifier's logits and input gradient, and a narrow
+    legacy UNet with concatenated skips and spatial attention on them
+    (forward), f32, card against CPU on the same perturbed weights, within
+    1e-4 of max|ref|."""
+    import torch.nn.functional as F
+
+    from medfusion_tpu_torch.models.unet_legacy import UNetLegacy
+    from medfusion_tpu_torch.models.unet_openai import EncoderUNetOpenAI
+
+    torch.manual_seed(0)
+    cpu = EncoderUNetOpenAI(image_size=8, in_channels=2, model_channels=16, out_channels=2,
+                            num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                            spatial_dims=3, num_head_channels=8, norm_groups=8)
+    legacy = UNetLegacy(in_ch=2, out_ch=2, hid_chs=(16, 32), kernel_sizes=(3, 3),
+                        strides=(1, 2), time_emb_dim=32, cond_emb_num_classes=2,
+                        norm_name=("GROUP", {"num_groups": 8, "affine": True}),
+                        use_attention=["spatial", "none"], learnable_interpolation=False)
+    with torch.no_grad():
+        for prm in (*cpu.parameters(), *legacy.parameters()):
+            prm.add_(0.05 * torch.randn(prm.shape))
+    x, t, label = torch.randn((2, 2, 4, 8, 8)), torch.tensor([3, 900]), torch.tensor([1, 0])
+    out = {}
+    for dev, clf in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).cuda())):
+        xd = x.detach().to(dev).requires_grad_()
+        logits = clf(xd, t.to(dev))
+        F.cross_entropy(logits, label.to(dev)).backward()
+        out[dev] = (logits.detach().cpu(), xd.grad.cpu())
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=1e-4)
+    z = torch.randn((2, 2, 8, 8))
+    with torch.no_grad():
+        ref, _ = legacy(z, t, label)
+        got, _ = copy.deepcopy(legacy).cuda()(z.cuda(), t.cuda(), label.cuda())
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4 * ref.abs().max().item(), rtol=1e-4)

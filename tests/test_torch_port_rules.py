@@ -300,3 +300,238 @@ def test_no_port_file_refuses_items_7_and_8(item):
     refuses anything naming them."""
     for path in PORT_FILES:
         assert f"item {item}" not in path.read_text(), path.name
+
+
+# ---- the JAX package's surface has a counterpart in the port -----------------------
+#
+# Every public function, class and module constant of each ``medfusion_tpu/``
+# file, and every constructor field of its classes (flax and dataclass fields,
+# ``__init__`` parameters), has a counterpart in the port file of the same
+# path: the same name, or the one COUNTERPARTS names. JAX_ONLY lists what has
+# no counterpart to write, each with its reason.
+
+JAX_ROOT = ROOT / "medfusion_tpu"
+JAX_FILES = sorted(JAX_ROOT.rglob("*.py"))
+
+_FLAX_INIT = "a flax initialiser; torch modules initialise themselves"
+_REWRITE = ("an exact XLA rewrite of a plain conv (space-to-depth or fused 2x up); the port "
+            "runs the conv")
+_CONVERTER = ("a torch -> flax converter; the port's modules carry the torch checkpoints' "
+              "own keys, so nothing is converted")
+_PALLAS = "a Pallas block size; the CUDA kernels choose their own tiles"
+_UNCALLED = "nothing in the JAX package calls it"
+JAX_ONLY = {
+    "nn/functional.py::torch_conv_kernel_init": _FLAX_INIT,
+    "nn/functional.py::torch_linear_kernel_init": _FLAX_INIT,
+    "nn/functional.py::make_torch_bias_init": _FLAX_INIT,
+    "nn/functional.py::zeros_init": _FLAX_INIT,
+    "nn/blocks.py::Dense": "flax Dense with torch's init; the port uses nn.Linear",
+    "nn/blocks.py::_ConvParams": "flax's holder of a conv's params; torch's convs hold their own",
+    "nn/blocks.py::ConvND.use_bias": _UNCALLED + " with False; every conv has its bias",
+    "nn/functional.py::interpolate_nearest": _UNCALLED,
+    "nn/blocks.py::ConvND.fused_up2x": _REWRITE,
+    "models/unet_lucidrains.py::Conv": "flax Conv with torch's init; the port uses nn.Conv2d",
+    "nn/functional.py::fused_up2x_conv": _REWRITE,
+    "nn/functional.py::FUSED_UP_VARIANT": _REWRITE,
+    "nn/functional.py::space_to_depth2": _REWRITE,
+    "nn/functional.py::depth_to_space2": _REWRITE,
+    "nn/functional.py::s2d_kernel_3x3": _REWRITE,
+    "nn/functional.py::s2d_conv3x3": _REWRITE,
+    "nn/functional.py::s2d_conv1x1": _REWRITE,
+    "nn/functional.py::s2d_group_norm": _REWRITE,
+    "nn/blocks.py::S2DGroupNorm": _REWRITE,
+    "ops/flash_attention.py::DEFAULT_BLOCK_Q": _PALLAS,
+    "ops/flash_attention.py::DEFAULT_BLOCK_K": _PALLAS,
+    "ops/flash_attention.py::MIN_KV_TOKENS": "XLA's softmax below 256 tokens; on the card that "
+                                             "would be the plain version, not a kernel",
+    "ops/geglu.py::DEFAULT_BLOCK_M": _PALLAS,
+    "ops/geglu.py::DEFAULT_BLOCK_F": _PALLAS,
+    "metrics/inception.py::convert_torch_inception": _CONVERTER,
+    "models/diffusers_blocks.py::convert_diffusers_block_state_dict": _CONVERTER,
+    "models/latent_embedders_diffusers.py::convert_diffusers_vae_state_dict": _CONVERTER,
+    "models/unet_diffusers.py::convert_diffusers_unet_state_dict": _CONVERTER,
+    "models/unet_lucidrains.py::convert_lucidrains_state_dict": _CONVERTER,
+    "models/unet_openai.py::convert_openai_state_dict": _CONVERTER,
+    "utils/torch_compat.py::torch_key_to_flax_path": _CONVERTER,
+    "utils/torch_compat.py::convert_state_dict": _CONVERTER,
+    "utils/torch_compat.py::get_in_tree": _CONVERTER,
+    "utils/torch_compat.py::set_in_tree": _CONVERTER,
+    "utils/checkpoint.py::globalize_for_multihost": (
+        "orbax's multi-host array gathering; the port's save_checkpoint gathers each placed "
+        "tensor's pieces and rank 0 writes the whole state"),
+    "utils/logging.py::MetricsWriter.use_tensorboard": (
+        "needs tensorboardX, which the card's machine does not have"),
+}
+
+_SWITCH = "cli/kernels.py::resolve_kernel_flags"  # the kernels run on the card, always
+COUNTERPARTS = {  # JAX entry -> the port's, where it has another name or file; a
+    # class's counterpart is its fields' too, unless a field has its own entry
+    "cli/ingest_weights.py::strip_fid_blocks": "metrics/inception.py::strip_fid_blocks",
+    "cli/sample.py::load_pipeline": "cli/presets.py::build_pipeline",
+    "cli/train_diffusion.py::load_vae_params": "cli/presets.py::load_vae",
+    # the port may not import grain; its loader reproduces grain's order
+    "data/grain_loader.py::make_grain_loader": "data/grain_loader.py::GrainDataModule",
+    "metrics/inception.py::BasicConv2d.out_channels": "metrics/inception.py::BasicConv2d.out_ch",
+    "models/diffusers_blocks.py::DDownsampleOp": "models/diffusers_blocks.py::DDownsample",
+    "models/diffusers_blocks.py::DDownsampleOp.in_channels":
+        "models/diffusers_blocks.py::DDownsample.channels",
+    "models/unet_lucidrains.py::LucidUpsample": "models/unet_lucidrains.py::lucid_upsample",
+    "models/unet_lucidrains.py::LucidUpsample.in_dim":
+        "models/unet_lucidrains.py::lucid_upsample.dim",
+    "models/unet_lucidrains.py::WSConv.in_features":
+        "models/unet_lucidrains.py::WSConv.in_channels",
+    "models/unet_lucidrains.py::WSConv.features": "models/unet_lucidrains.py::WSConv.out_channels",
+    "models/unet_lucidrains.py::LucidBlock.in_dim": "models/unet_lucidrains.py::LucidBlock.dim",
+    "models/unet_lucidrains.py::LucidResnetBlock.in_dim":
+        "models/unet_lucidrains.py::LucidResnetBlock.dim",
+    "models/unet_lucidrains.py::PreNorm.fn_kind": "models/unet_lucidrains.py::PreNorm.fn",
+    "models/unet_lucidrains.py::Residual.fn_kind": "models/unet_lucidrains.py::Residual.fn",
+    "models/unet_lucidrains.py::Residual.dim": "models/unet_lucidrains.py::Residual.fn",
+    "nn/blocks.py::ConvND": "nn/blocks.py::conv_nd",
+    "nn/blocks.py::FusedGroupNorm": "nn/blocks.py::Norm",
+    "nn/blocks.py::FusedGroupNorm.epsilon": "nn/blocks.py::Norm.eps",
+    "nn/blocks.py::FusedGroupNorm.affine": "nn/blocks.py::Norm.norm_name",
+    "nn/blocks.py::FusedGroupNorm.apply_silu": "nn/blocks.py::Norm.fuse_silu",
+    "ops/__init__.py::fused_group_norm_silu": "ops/group_norm.py::group_norm_silu",
+    "ops/__init__.py::fused_geglu_mlp": "ops/geglu.py::fused_geglu_mlp",
+    "ops/__init__.py::flash_attention_tokens": "ops/flash_attention.py::flash_attention_tokens",
+    "ops/flash_attention.py::naive_attention": "ops/flash_attention.py::naive_attention_reference",
+    "ops/group_norm.py::fused_group_norm_silu": "ops/group_norm.py::group_norm_silu",
+    "ops/__init__.py::enable_flash_attention": _SWITCH,
+    "ops/__init__.py::flash_attention_enabled": _SWITCH,
+    "ops/__init__.py::enable_fused_geglu": _SWITCH,
+    "ops/__init__.py::fused_geglu_enabled": _SWITCH,
+    "ops/__init__.py::enable_fused_group_norm": _SWITCH,
+    "ops/__init__.py::fused_group_norm_enabled": _SWITCH,
+    "ops/__init__.py::enable_fused_up_conv": _SWITCH,
+    "ops/__init__.py::fused_up_conv_enabled": _SWITCH,
+    "ops/__init__.py::enable_s2d_decode_tail": _SWITCH,
+    "ops/__init__.py::s2d_decode_tail_enabled": _SWITCH,
+    "ops/flash_attention.py::HEAD_LAYOUT_MIN_TOKENS": "ops/__init__.py::HEAD_LAYOUT_MIN_TOKENS",
+    "pipelines/diffusion/core.py::DiffusionPipeline.zero_terminal_snr":
+        "core/schedules.py::GaussianDiffusionSchedule.zero_terminal_snr",
+    "train/adversarial.py::init_discriminators": "cli/presets.py::build_discriminators",
+    # the BatchNorm statistics are the discriminators' buffers
+    "train/adversarial.py::GANTrainState.disc_stats": "train/adversarial.py::GANTrainState.disc",
+    "train/adversarial.py::AdversarialTrainer.discriminator":
+        "train/adversarial.py::AdversarialTrainer.discriminators",
+    "train/adversarial.py::AdversarialTrainer.n_discriminators":
+        "train/adversarial.py::AdversarialTrainer.discriminators",
+    # flax's TrainState is a pytree of params, optimizer state and optax
+    # transform; the port's holds the module, its AdamW and its EMA
+    "train/state.py::TrainState.params": "train/state.py::TrainState.model",
+    "train/state.py::TrainState.tx": "train/state.py::TrainState.optimizer",
+    "train/state.py::TrainState.opt_state": "train/state.py::TrainState.optimizer",
+    "train/state.py::TrainState.ema_params": "train/state.py::TrainState.use_ema",
+    "train/state.py::TrainState.ema_kwargs": "train/state.py::TrainState.use_ema",
+    "train/state.py::TrainState.step": "train/state.py::TrainState.step",
+    "utils/torch_compat.py::flax_path_to_torch_key": "utils/weights.py::flax_path_to_torch_key",
+    "utils/torch_compat.py::to_torch_state_dict": "utils/weights.py::jax_params_to_state_dict",
+    "utils/torch_compat.py::load_torch_checkpoint": "utils/torch_compat.py::read_state_dict",
+}
+
+
+def _class_fields(node):
+    """A class's constructor fields: annotated class attributes (flax and
+    dataclass fields) and ``__init__`` parameters."""
+    fields = []
+    for item in node.body:
+        if isinstance(item, ast.AnnAssign) and isinstance(item.target, ast.Name):
+            fields.append(item.target.id)
+        elif isinstance(item, ast.FunctionDef) and item.name == "__init__":
+            fields += [a.arg for a in item.args.args[1:] + item.args.kwonlyargs]
+    return [f for f in fields if not f.startswith("_")]
+
+
+def _jax_surface(path):
+    """'name' for each public function, class and constant, and
+    'Class.field' for each constructor field (of private classes too)."""
+    out = []
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+            out.append(node.name)
+        if isinstance(node, ast.ClassDef):
+            out += [f"{node.name}.{f}" for f in _class_fields(node)]
+        targets = (node.targets if isinstance(node, ast.Assign)
+                   else [node.target] if isinstance(node, ast.AnnAssign) else [])
+        out += [t.id for t in targets if isinstance(t, ast.Name) and not t.id.startswith("_")]
+    return out
+
+
+def _port_module(rel):
+    import importlib
+
+    parts = Path(rel).with_suffix("").parts
+    parts = parts[:-1] if parts[-1] == "__init__" else parts
+    return importlib.import_module(".".join(("medfusion_tpu_torch",) + parts))
+
+
+def _port_has(entry):
+    """Whether the port holds ``'file::name'`` or ``'file::Class.field'``:
+    the field a constructor parameter (inherited ones too), a class
+    attribute, or an attribute its ``__init__`` sets."""
+    import inspect
+    import re
+
+    rel, name = entry.split("::")
+    module = _port_module(rel)
+    cls_name, _, field = name.partition(".")
+    if not hasattr(module, cls_name):
+        return False
+    if not field:
+        return True
+    cls = getattr(module, cls_name)
+    if field in inspect.signature(cls).parameters or hasattr(cls, field):
+        return True
+    return re.search(rf"self\.{field}\s*=", inspect.getsource(cls)) is not None
+
+
+def _counterpart(entry):
+    """The port entry that ``entry`` needs, or None for a JAX-only one."""
+    owner, _, field = entry.rpartition("::")[2].partition(".")
+    owner = f"{entry.split('::')[0]}::{owner}"
+    if entry in JAX_ONLY or owner in JAX_ONLY:
+        return None
+    if entry in COUNTERPARTS:
+        return COUNTERPARTS[entry]
+    return f"{COUNTERPARTS[owner]}.{field}" if field and owner in COUNTERPARTS else entry
+
+
+@pytest.mark.parametrize("path", JAX_FILES, ids=lambda p: str(p.relative_to(JAX_ROOT)))
+def test_jax_surface_has_a_port_counterpart(path):
+    rel = str(path.relative_to(JAX_ROOT))
+    missing = []
+    for name in _jax_surface(path):
+        target = _counterpart(f"{rel}::{name}")
+        if target is not None and not _port_has(target):
+            missing.append(name)
+    assert not missing, f"medfusion_tpu_torch/{rel} lacks {missing}"
+
+
+def test_allow_list_and_counterparts_are_current():
+    """Every JAX_ONLY and COUNTERPARTS entry names a current JAX entry, each
+    JAX_ONLY entry has its reason, and no entry the port does hold under
+    its own name sits on JAX_ONLY."""
+    surface = {f"{p.relative_to(JAX_ROOT)}::{n}" for p in JAX_FILES for n in _jax_surface(p)}
+    surface |= {e.rsplit(".", 1)[0] for e in surface if "." in e.split("::")[1]}
+    # (a private class with fields)
+    assert not (set(JAX_ONLY) | set(COUNTERPARTS)) - surface
+    assert not set(JAX_ONLY) & set(COUNTERPARTS)
+    assert all(JAX_ONLY.values())
+    assert not [e for e in JAX_ONLY if _port_has(e)]
+
+
+def test_chip_smoke_defines_each_name_once():
+    """A second top-level definition in ``chip_smoke.py`` silently replaces
+    the first, whose callers then reach the new one."""
+    import collections
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = collections.Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            names.update(e.id for t in node.targets for e in ast.walk(t)
+                         if isinstance(e, ast.Name))
+    assert not [n for n, k in names.items() if k > 1]
