@@ -4562,6 +4562,21 @@ def write_reference_ckpt(path, unet, vae):
     return path
 
 
+def perturbed_reference_ckpt(preset, path, device):
+    """The preset's seeded UNet and VAE built on ``device`` and perturbed
+    from seed 18 (a seeded VAE decodes every latent to 0), as a reference
+    Lightning file that the CLIs' ``--ckpt`` reads."""
+    import torch
+
+    from medfusion_tpu_torch.cli.presets import PRESETS, build_pipeline
+
+    pipe = build_pipeline(PRESETS[preset], device=device, seed=0)
+    gen = torch.Generator(device=device).manual_seed(18)
+    perturb_(pipe.noise_estimator, gen)
+    perturb_(pipe.latent_embedder, gen)
+    return write_reference_ckpt(path, pipe.noise_estimator, pipe.latent_embedder)
+
+
 def serve_in_thread(server, argv):
     """``demo.server`` on 127.0.0.1:0 in this process: (http server, state,
     thread, base url); built and warmed before it serves."""
@@ -5672,6 +5687,7 @@ def phase_sharded_sampler(ops, mesh):
     pipe = build_pipeline(p, device="cuda", compute_dtype=torch.bfloat16, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(18)
     perturb_(pipe.noise_estimator, gen)
+    perturb_(pipe.latent_embedder, gen)  # a seeded VAE decodes every latent to 0
     cond = torch.arange(PAR_N, device="cuda") % 2
     kw = dict(steps=PAR_STEPS, guidance_scale=GUIDANCE, eta=1.0)
     expected = unet_launches(forwards=PAR_STEPS, decodes=1)
@@ -5694,6 +5710,8 @@ def phase_sharded_sampler(ops, mesh):
     same("sharded sampler", out["sharded images"], out["unsharded images"])
     if not torch.isfinite(out["sharded images"]).all():
         raise RuntimeError("non-finite images")
+    if out["sharded images"].float().std().item() == 0:
+        raise RuntimeError("the sharded sampler's images are constant")
     s = {k: min(v) for k, v in out.items() if not k.endswith("images")}
     log(f"  sharded sampler (chest, B={PAR_N}, bf16, DDIM {PAR_STEPS}, CFG {GUIDANCE}, "
         f"decode): bit-equal to pipe.denoise; {s['sharded']:.3f} s, unsharded "
@@ -5705,10 +5723,15 @@ def phase_sharded_sampler(ops, mesh):
 def phase_sample_dataset_torchrun(tmp):
     """18c: ``cli.sample_dataset`` (chest, chunk PAR_N, PAR_N samples a
     label, DDIM PAR_STEPS) under ``torch.distributed.run`` at one process
-    and run alone: the PNGs byte for byte."""
+    and run alone, on seeded and perturbed weights given as a reference
+    ``--ckpt`` (a seeded VAE decodes every latent to 0): the PNGs byte for
+    byte, and not all alike."""
+    from medfusion_tpu_torch.data.png import read_png
+
+    ckpt = perturbed_reference_ckpt("chest", tmp / "weights.ckpt", "cuda")
     argv = ["-m", "medfusion_tpu_torch.cli.sample_dataset", "--preset", "chest",
-            "--chunk", str(PAR_N), "--n-samples", str(PAR_N), "--steps-list",
-            str(PAR_STEPS)]
+            "--ckpt", str(ckpt), "--chunk", str(PAR_N), "--n-samples", str(PAR_N),
+            "--steps-list", str(PAR_STEPS)]
     runs = {"torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
                          "--nproc_per_node", "1"] + argv,
             "alone": [sys.executable] + argv}
@@ -5732,6 +5755,8 @@ def phase_sample_dataset_torchrun(tmp):
     for f in files:
         if (tmp / "alone" / f).read_bytes() != (tmp / "torchrun" / f).read_bytes():
             raise RuntimeError(f"{f} differs between torchrun and a plain run")
+    if read_png(tmp / "alone" / files[0]).std() == 0:
+        raise RuntimeError(f"{files[0]} is one grey level: the weights decode to a constant")
     log(f"  cli.sample_dataset under torchrun (1 process, NCCL): {len(files)} PNGs "
         f"byte-equal to the plain run; wall {seconds['torchrun']:.1f} s, alone "
         f"{seconds['alone']:.1f} s (each with its start-up)")

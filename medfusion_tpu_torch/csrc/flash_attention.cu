@@ -805,7 +805,7 @@ int launch_bf16(const Params& p, int B, cudaStream_t stream) {
   Maps t;
   int err;
   if ((err = encode_qkv(&t, p, B, SwTile<D, kRows>::W)) != 0) return err;
-  static bool attr_set = false;
+  static DeviceAttr attr_set;
   if ((err = set_smem(flash_fwd_bf16<D, PAD>, smem, &attr_set)) != 0) return err;
   const dim3 grid((p.N + kRows - 1) / kRows, B * p.H);
   flash_fwd_bf16<D, PAD><<<grid, kBf16Threads, smem, stream>>>(p, t.q, t.k, t.v);
@@ -821,7 +821,7 @@ int launch_bf16_wide(const Params& p, int B, cudaStream_t stream) {
   Maps t;
   int err;
   if ((err = encode_qkv(&t, p, B, 64)) != 0) return err;
-  static bool attr_set = false;
+  static DeviceAttr attr_set;
   if ((err = set_smem(flash_fwd_bf16_wide, kWideMaxSmem, &attr_set)) != 0) return err;
   const dim3 grid((p.N + kRows - 1) / kRows, B * p.H, (p.d + 127) / 128);
   flash_fwd_bf16_wide<<<grid, kBf16Threads, wide_smem(p.d), stream>>>(p, t.q, t.k, t.v);
@@ -832,7 +832,7 @@ template <int DC, bool WIDE>
 int launch_f32(const Params& p, int B, cudaStream_t stream) {
   using L = FwdF32Smem<DC, WIDE>;
   const dim3 grid((p.N + kF32Rows - 1) / kF32Rows, B * p.H, WIDE ? (p.d + DC - 1) / DC : 1);
-  static bool attr_set = false;
+  static DeviceAttr attr_set;
   int err;
   if ((err = set_smem(flash_fwd_f32<DC, WIDE>, L::bytes(WIDE ? 1024 : DC), &attr_set)) != 0)
     return err;

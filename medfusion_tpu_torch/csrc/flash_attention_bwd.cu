@@ -1235,13 +1235,13 @@ int launch_bf16(int which, const BwdParams& p, int B, cudaStream_t stream) {
     return err;
   if (which == 0) {
     constexpr int smem = BwdSmem<D, loop_rows(0), ring_stages<D>(0)>::kBytes;
-    static bool attr = false;
+    static DeviceAttr attr;
     if ((err = set_smem(flash_bwd_dq_bf16<D, PAD>, smem, &attr)) != 0) return err;
     flash_bwd_dq_bf16<D, PAD><<<grid, kBf16Threads, smem, stream>>>(p, res[0], res[1],
                                                                      loop[0], loop[1]);
   } else {
     constexpr int smem = BwdSmem<D, loop_rows(1), ring_stages<D>(1)>::kBytes;
-    static bool attr = false;
+    static DeviceAttr attr;
     if ((err = set_smem(flash_bwd_dkv_bf16<D, PAD>, smem, &attr)) != 0) return err;
     flash_bwd_dkv_bf16<D, PAD><<<grid, kBf16Threads, smem, stream>>>(p, res[0], res[1],
                                                                       loop[0], loop[1]);
@@ -1257,12 +1257,12 @@ int launch_bf16_wide(int which, const BwdParams& p, int B, cudaStream_t stream) 
   if ((err = encode_maps(res, loop, which, p, B, 64, which == 0 ? kTile : kWideBQ)) != 0)
     return err;
   if (which == 0) {
-    static bool attr = false;
+    static DeviceAttr attr;
     if ((err = set_smem(flash_bwd_dq_bf16_wide, kWideSmem, &attr)) != 0) return err;
     flash_bwd_dq_bf16_wide<<<grid, kBf16Threads, kWideSmem, stream>>>(p, res[0], res[1],
                                                                      loop[0], loop[1]);
   } else {
-    static bool attr = false;
+    static DeviceAttr attr;
     if ((err = set_smem(flash_bwd_dkv_bf16_wide, kWideSmem, &attr)) != 0) return err;
     flash_bwd_dkv_bf16_wide<<<grid, kBf16Threads, kWideSmem, stream>>>(p, res[0], res[1],
                                                                       loop[0], loop[1]);
@@ -1284,11 +1284,11 @@ int launch_f32(int which, const BwdParams& p, int B, cudaStream_t stream) {
   constexpr int kMaxBytes = L::bytes(WIDE ? 1024 : DC);
   int err;
   if (which == 0) {
-    static bool attr = false;
+    static DeviceAttr attr;
     if ((err = set_smem(flash_bwd_dq_f32<DC, WIDE>, kMaxBytes, &attr)) != 0) return err;
     flash_bwd_dq_f32<DC, WIDE><<<grid, L::W * 32, L::bytes(p.d), stream>>>(p);
   } else {
-    static bool attr = false;
+    static DeviceAttr attr;
     if ((err = set_smem(flash_bwd_dkv_f32<DC, WIDE>, kMaxBytes, &attr)) != 0) return err;
     flash_bwd_dkv_f32<DC, WIDE><<<grid, L::W * 32, L::bytes(p.d), stream>>>(p);
   }

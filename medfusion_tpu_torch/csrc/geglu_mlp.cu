@@ -463,7 +463,7 @@ int launch_up(const bf16* x, const bf16* lns, const bf16* lnb, const CUtensorMap
   const int stages = up_stages(BM, C);
   if (stages < 2) return (int)cudaErrorInvalidValue;
   const int smem = panels(C) * BM * 128 + stages * kStage + kBarBytes + 1024;
-  static bool attr = false;
+  static DeviceAttr attr;
   int err;
   if ((err = set_smem(geglu_up_bf16<MW>, kMaxSmem, &attr)) != 0) return err;
   const int ntiles = (F + kBN - 1) / kBN;
@@ -487,7 +487,7 @@ int launch_bf16(const bf16* x, const bf16* lns, const bf16* lnb, const bf16* w1t
             ? launch_up<2>(x, lns, lnb, th, tg, b1, g, M, C, F, tiles_per_block, eps, stream)
             : launch_up<1>(x, lns, lnb, th, tg, b1, g, M, C, F, tiles_per_block, eps, stream);
   if (err != 0) return err;
-  static bool attr = false;
+  static DeviceAttr attr;
   if ((err = set_smem(geglu_down_bf16, kDownSmem, &attr)) != 0) return err;
   const dim3 grid((C + kBN - 1) / kBN, (M + 127) / 128);
   geglu_down_bf16<<<grid, kTcThreads, kDownSmem, stream>>>(b2, out, tgm, tw, M, C, F);

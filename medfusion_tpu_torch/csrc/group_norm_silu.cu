@@ -61,10 +61,13 @@
 namespace {
 
 namespace cgr = cooperative_groups;
+using mf_sm90::DeviceAttr;
 using mf_sm90::mbar_arrive_expect_tx;
 using mf_sm90::mbar_init;
 using mf_sm90::mbar_init_fence;
 using mf_sm90::mbar_wait;
+using mf_sm90::set_attribute;
+using mf_sm90::set_smem;
 using mf_sm90::smem_addr;
 
 typedef __nv_bfloat16 bf16;
@@ -460,24 +463,16 @@ int launch_block_route(int units, bool vec, const void* x, const void* scale,
 }
 
 // Lets the cluster kernel take `smem` bytes of dynamic shared memory and
-// clusters above the portable 8 (once for each, per instantiation).
+// clusters above the portable 8 (once for each, per instantiation and
+// device).
 template <typename T, int W>
 int prepare_cluster(int cs, int smem) {
-  static int smem_set = 0;
-  static bool nonportable_set = false;
+  static DeviceAttr smem_set, nonportable_set;
   const auto kernel = gn_cluster_kernel<T, W>;
-  cudaError_t err;
-  if (smem > smem_set) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
-  }
-  if (cs > 8 && !nonportable_set) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    nonportable_set = true;
-  }
-  return 0;
+  const int err = set_smem(kernel, smem, &smem_set);
+  if (err != 0 || cs <= 8) return err;
+  return set_attribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1,
+                       &nonportable_set);
 }
 
 cudaLaunchConfig_t cluster_config(int blocks, int threads, int cs, int smem,

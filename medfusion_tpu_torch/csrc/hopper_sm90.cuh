@@ -33,6 +33,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace mf_sm90 {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -271,16 +274,40 @@ __device__ __forceinline__ float ex2(float x) {
 
 // ---- host side ----
 
-// Lets `kernel` take `bytes` of dynamic shared memory, once (*done records
-// it). Returns 0 or the CUDA error.
+// A function's attributes belong to the context of one device, so a kernel
+// that one process launches on several cards (a model on a second card, or
+// one process holding every card of a host) is opted in on each of them.
+constexpr int kMaxDevices = 64;
+
+// One attribute of one kernel: the largest value set so far on each device
+// (a function-local static beside the launch). Threads that launch at once
+// check it without the lock and set it under the lock.
+struct DeviceAttr {
+  std::atomic<int> value[kMaxDevices] = {};
+  std::mutex lock;
+};
+
+// Sets `attr` of `kernel` to `value` on the current device unless *done
+// holds at least `value` there. Returns 0 or the CUDA error.
 template <typename Kernel>
-int set_smem(Kernel kernel, int bytes, bool* done) {
-  if (*done) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+int set_attribute(Kernel kernel, cudaFuncAttribute attr, int value, DeviceAttr* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  *done = true;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (done->value[dev].load(std::memory_order_acquire) >= value) return 0;
+  std::lock_guard<std::mutex> hold(done->lock);
+  if (done->value[dev].load(std::memory_order_relaxed) >= value) return 0;
+  err = cudaFuncSetAttribute(kernel, attr, value);
+  if (err != cudaSuccess) return (int)err;
+  done->value[dev].store(value, std::memory_order_release);
   return 0;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current device.
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes, DeviceAttr* done) {
+  return set_attribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes, done);
 }
 
 // The tensor maps of the TMA loads.

@@ -9,13 +9,18 @@ flags, so an edited source or header rebuilds and an unchanged one is
 reused. A failed build raises with the compiler's output. One lock
 serialises the builds and loads, so threads that launch their first kernels
 at once (a server's worker and handler threads) run one ``nvcc`` a source,
-not one each into the same temporary file; :data:`LAUNCH_LOCK` guards the
+not one each into the same temporary file; an exclusive ``flock`` on the
+build directory does the same across processes (the ranks of a
+``torchrun`` job on one host): the first to take it compiles, the others
+find its libraries when they take it in turn. :data:`LAUNCH_LOCK` guards the
 wrappers' launch counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -60,14 +65,27 @@ def _target(src: Path) -> Path:
 
 def build_all() -> Dict[str, Path]:
     """Compile every ``csrc/*.cu`` that has no up-to-date library, all at
-    once, under the build lock. Returns stem -> library path."""
-    with _BUILD_LOCK:
+    once, under the build lock of this process and of the build directory.
+    Returns stem -> library path."""
+    with _BUILD_LOCK, _directory_lock():
         return _build_all()
+
+
+@contextlib.contextmanager
+def _directory_lock():
+    """An exclusive ``flock`` on :data:`BUILD_DIR` (a lock on the directory
+    itself, so it adds no file; the kernel drops it when its holder exits)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd = os.open(BUILD_DIR, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)  # closing the descriptor releases the lock
 
 
 def _build_all() -> Dict[str, Path]:
     sources = sorted(CSRC.glob("*.cu"))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {s.stem: _target(s) for s in sources}
     pending = {}
     start = time.perf_counter()

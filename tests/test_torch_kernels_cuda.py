@@ -1190,3 +1190,113 @@ def test_classifier_3d_and_concatenating_legacy_unet_match_the_cpu(cuda):
         ref, _ = legacy(z, t, label)
         got, _ = copy.deepcopy(legacy).cuda()(z.cuda(), t.cuda(), label.cuda())
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4 * ref.abs().max().item(), rtol=1e-4)
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a kernel's attributes are set on each card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return [torch.device("cuda", i) for i in range(2)]
+
+
+def _on(dev, gen, *shape, dtype=torch.float32, std=1.0, mean=0.0):
+    """A seeded CPU draw moved to ``dev``: both cards get the same numbers."""
+    return (torch.randn(shape, generator=gen) * std + mean).to(dev, dtype)
+
+
+def _card_group_norm(dev, gen, dtype, c, g, side):
+    """Kernel 1 on ``launch_plan``'s route for [2, C, side, side]; with a
+    cluster route, a cluster of more than 8 blocks (the non-portable sizes
+    a kernel opts into) and more than 48 KB of shared memory a block."""
+    plan = G.launch_plan(2, c, side * side, g, dtype)
+    x = _on(dev, gen, 2, c, side, side, dtype=dtype, std=2.0, mean=1.0)
+    scale = _on(dev, gen, c, dtype=dtype, std=0.1, mean=1.0)
+    bias = _on(dev, gen, c, dtype=dtype, std=0.1)
+    out = G.group_norm_silu_cuda(x, scale, bias, g, plan=plan)
+    ref = G.group_norm_silu_reference(x, scale, bias, g)
+    return [(out, ref, (TOL[dtype], TOL[dtype]))], {"group_norm_silu": 1}, plan
+
+
+def _card_attention(dev, gen, dtype, d, heads=4, n=130, m=96):
+    """Kernels 2 and 5 (both layouts) and 3 and 4 (the head layout's
+    gradient) at head width ``d``, against the plain forward and backward."""
+    c = heads * d
+    q, k, v, do = (_on(dev, gen, 2, r, c, dtype=dtype) for r in (n, m, m, n))
+    scale = d ** -0.25
+    qh, kh, vh, doh = (FA._heads(t, heads) for t in (q, k, v, do))
+    ro, _ = FA.naive_attention_reference(qh, kh, vh, scale)
+    ot, _ = FA.flash_attention_tokens(q, k, v, heads, scale)
+    leaves = [t.contiguous().requires_grad_() for t in (qh, kh, vh)]
+    oh, lse = FA.flash_attention(*leaves, scale)
+    oh.backward(doh)
+    rg = FA.flash_attention_backward_reference(qh, kh, vh, oh.detach(), lse, doh, scale)
+    pairs = [(FA._heads(ot, heads), ro, _attn_o_tol(ro)), (oh, ro, _attn_o_tol(ro))]
+    pairs += [(t.grad, r, _bwd_tol(r)) for t, r in zip(leaves, rg)]
+    return pairs, {"flash_attention": 1, "flash_attention_tokens": 1,
+                   "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}, None
+
+
+def _card_geglu(dev, gen, dtype, rows=1000, c=512):
+    f = 4 * c
+    args = [_on(dev, gen, rows, c, dtype=dtype, std=2.0, mean=0.5),
+            _on(dev, gen, c, dtype=dtype, std=0.1, mean=1.0), _on(dev, gen, c, dtype=dtype, std=0.1),
+            _on(dev, gen, 2 * f, c, dtype=dtype, std=c ** -0.5).t(),
+            _on(dev, gen, 2 * f, dtype=dtype, std=0.1),
+            _on(dev, gen, c, f, dtype=dtype, std=f ** -0.5).t(), _on(dev, gen, c, dtype=dtype, std=0.1)]
+    out = GL.geglu_mlp_cuda(*args)
+    ref = GL.geglu_mlp_reference(*args)
+    return [(out, ref, (GEGLU_TOL[dtype], GEGLU_TOL[dtype]))], {"geglu_mlp": 1}, None
+
+
+# (id, launcher, dtype, arguments): kernel 1's block route and its cluster
+# route at 16 blocks (f32: 128 KB of shared memory a block); kernels 2-5 in
+# bf16 at d 32 and 128 and on the wide route (d 256, 128-column chunks), and
+# on the f32 split-TF32 routes at the same widths; kernel 6 in both dtypes
+TWO_CARD_ROUTES = [
+    ("group_norm-block-bf16", _card_group_norm, torch.bfloat16, (256, 32, 32)),
+    ("group_norm-cluster16-f32", _card_group_norm, torch.float32, (64, 8, 256)),
+    ("group_norm-cluster16-bf16", _card_group_norm, torch.bfloat16, (64, 8, 256)),
+    ("attention-bf16-d32", _card_attention, torch.bfloat16, (32,)),
+    ("attention-bf16-d128", _card_attention, torch.bfloat16, (128,)),
+    ("attention-bf16-d256", _card_attention, torch.bfloat16, (256,)),
+    ("attention-f32-d32", _card_attention, torch.float32, (32,)),
+    ("attention-f32-d128", _card_attention, torch.float32, (128,)),
+    ("attention-f32-d256", _card_attention, torch.float32, (256,)),
+    ("geglu-bf16", _card_geglu, torch.bfloat16, ()),
+    ("geglu-f32", _card_geglu, torch.float32, ()),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,launch,dtype,args", TWO_CARD_ROUTES,
+                         ids=[r[0] for r in TWO_CARD_ROUTES])
+def test_kernels_on_two_cards_in_one_process(two_cards, route, launch, dtype, args):
+    """One process launches each kernel route on card 0 and then on card 1,
+    each launch held to its plain version on its own card: a kernel's
+    function attributes (its shared memory above 48 KB, a non-portable
+    cluster size) belong to each card's context and are set on each. The
+    same inputs give the same bits on both cards (printed, not held)."""
+    outs = []
+    for dev in two_cards:
+        gen = torch.Generator().manual_seed(22)
+        with torch.cuda.device(dev):
+            before = ops.launch_counts()
+            pairs, launches, plan = launch(dev, gen, dtype, *args)
+            torch.cuda.synchronize(dev)
+            after = ops.launch_counts()
+        for name, n in launches.items():
+            assert after[name] == before[name] + n, (route, dev, name)
+        if plan is not None and plan["route"] == "cluster" and "cluster16" in route:
+            assert plan["cluster"] == 16 and plan["smem_bytes"] > 48 * 1024, plan
+        errs = []
+        for out, ref, (atol, rtol) in pairs:
+            assert out.device == dev
+            torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol,
+                                       msg=lambda msg, d=dev: f"{route} on {d}: {msg}")
+            errs.append((out.float() - ref.float()).abs().max().item())
+        outs.append([out.detach().cpu() for out, _, _ in pairs])
+        print(f"{route} on {dev}: max|d| {max(errs):.3e}")
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    print(f"{route}: card 1 {'bit-equal to' if same else 'differs from'} card 0")

@@ -35,7 +35,8 @@ def one_thread():
 
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "medfusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "medfusion_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "multicard_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "medfusion_tpu")
 
 

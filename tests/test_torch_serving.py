@@ -11,12 +11,16 @@ after ``tests/test_serving.py``, and the kernel build's lock.
   (``tests/test_torch_pipeline.py``); the port's own draws depend on
   ``(base_seed, seed)`` alone.
 * ``ops.build.build_all`` from two threads at once runs one compiler a
-  source (a stand-in ``nvcc`` that sleeps), and the launch counters lose no
-  update under threads.
+  source (a stand-in ``nvcc`` that sleeps), and so does it from two
+  processes at once (the ranks of a ``torchrun`` job, through the build
+  directory's ``flock``); the launch counters lose no update under threads.
 """
 
+import json
+import subprocess
 import sys
 import threading
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -250,6 +254,35 @@ def test_build_all_from_two_threads_runs_one_compiler_a_source(tmp_path, monkeyp
     assert len(results) == 2 and results[0] == results[1]
     assert sorted(log.read_text().split()) == sorted(str(csrc / f"{s}.cu") for s in "ab")
     assert sorted(p.name for p in out.iterdir()) == sorted(v.name for v in results[0].values())
+
+
+def test_build_all_from_two_processes_runs_one_compiler_a_source(tmp_path):
+    """Two processes start ``build_all`` at once on the same build directory:
+    one compiles each source, the other loads what it wrote."""
+    csrc, out = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    for stem in ("a", "b"):
+        (csrc / f"{stem}.cu").write_text(f"// {stem}\n")
+    script, log = _fake_nvcc(tmp_path)
+    code = ("import json, sys\n"
+            "from pathlib import Path\n"
+            "from medfusion_tpu_torch.ops import build\n"
+            "build.CSRC, build.BUILD_DIR = Path(sys.argv[1]), Path(sys.argv[2])\n"
+            "build._nvcc = lambda: sys.argv[3]\n"
+            "print(json.dumps({k: str(v) for k, v in build.build_all().items()}))\n")
+    root = Path(__file__).resolve().parents[1]
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(csrc), str(out), str(script)],
+                              cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    results = []
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=120)
+        assert proc.returncode == 0, stderr
+        results.append(json.loads(stdout.splitlines()[-1]))
+    assert results[0] == results[1]
+    assert sorted(log.read_text().split()) == sorted(str(csrc / f"{s}.cu") for s in "ab")
+    assert sorted(p.name for p in out.iterdir()) == sorted(Path(v).name
+                                                          for v in results[0].values())
 
 
 def test_launch_counters_lose_no_update_under_threads(monkeypatch):
