@@ -5202,8 +5202,9 @@ def phase_grain_training(ops, tmp, root):
 def read_trace_region(log_dir, region):
     """The trace file ``utils.profiling.trace`` wrote into ``log_dir``: the
     host span of the ``annotate`` region ``region`` and the CUDA kernels that
-    ran inside it (its device span where the trace has one, else its host
-    span, which ends after a synchronize), as (span ms, [kernel names])."""
+    ran inside it (the host span, which ends after a synchronize: its device
+    spans are drawn one a stream, and the prefetch's copy stream's holds
+    copies and no kernel), as (span ms, [kernel names], the span's kinds)."""
     files = sorted(Path(log_dir).glob("*.pt.trace.json"))
     if len(files) != 1:
         raise RuntimeError(f"trace: {len(files)} trace files in {log_dir}")
@@ -5211,7 +5212,7 @@ def read_trace_region(log_dir, region):
     spans = {e.get("cat"): e for e in events if e.get("name") == region and "dur" in e}
     if "user_annotation" not in spans:
         raise RuntimeError(f"trace: no region {region!r} in {files[0].name}")
-    span = spans.get("gpu_user_annotation", spans["user_annotation"])
+    span = spans["user_annotation"]
     start, end = span["ts"], span["ts"] + span["dur"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"
                and start <= e.get("ts", -1) <= end]
@@ -5223,8 +5224,8 @@ def phase_prefetch_and_trace(ops, tmp, root, state, pipe):
     (size PREFETCH_SIZE) on the card against the same batches copied
     without it: bit-equal, in order. Over a loop of PREFETCH_STEPS chest
     training steps (bf16), the ms a step and the ms spent waiting for a
-    batch, with and without the prefetch (for the record); ``StepTimer``'s
-    stats of the prefetched loop; then that loop again inside
+    batch, with and without the prefetch (for the record); then that loop
+    again inside
     ``utils.profiling.trace`` and an ``annotate`` region, whose trace file
     must hold the region with CUDA kernels (kernel 1's among them) in it."""
     import itertools
@@ -5247,7 +5248,7 @@ def phase_prefetch_and_trace(ops, tmp, root, state, pipe):
     def to_card(batch):
         return {k: torch.from_numpy(batch[k]).cuda() for k in ("source", "target")}
 
-    def loop(prefetch, timer=None):
+    def loop(prefetch):
         stream = batch_stream(dm, 0)
         batches = itertools.islice(stream, PREFETCH_STEPS)
         source = (prefetch_to_device(batches, size=PREFETCH_SIZE) if prefetch
@@ -5263,16 +5264,13 @@ def phase_prefetch_and_trace(ops, tmp, root, state, pipe):
                 break
             step(state, batch, draws)
             seen.append((batch["source"], batch["target"]))
-            if timer is not None:
-                timer.tick()
         torch.cuda.synchronize()
         stream.close()
         return (time.perf_counter() - t0) / PREFETCH_STEPS * 1e3, wait / PREFETCH_STEPS * 1e3, seen
 
     loop(True)  # warm-up: the step, the pinned pool, the side stream
-    timer = profiling.StepTimer()
     # in turns (without, with, with, without), on one card
-    runs = [loop(False), loop(True, timer), loop(True), loop(False)]
+    runs = [loop(False), loop(True), loop(True), loop(False)]
     plain, pre = runs[0][2], runs[1][2]
     if not len(plain) == len(pre) == PREFETCH_STEPS:
         raise RuntimeError(f"prefetch gave {len(pre)} batches, the loader {len(plain)}")
@@ -5286,7 +5284,7 @@ def phase_prefetch_and_trace(ops, tmp, root, state, pipe):
         f"turns (without, with, with, without): ms a step " + ", ".join(
             f"{r[0]:.1f}" for r in runs) + "; ms a batch waiting for the loader and the "
         "copy " + ", ".join(f"{r[1]:.1f}" for r in runs) + f"; means without {ms_plain:.1f} "
-        f"/ {wait_plain:.1f}, with {ms_pre:.1f} / {wait_pre:.1f}; StepTimer {timer.stats()}")
+        f"/ {wait_plain:.1f}, with {ms_pre:.1f} / {wait_pre:.1f}")
     log_dir = tmp / "trace"
     with profiling.trace(log_dir):
         with profiling.annotate(PREFETCH_REGION):
@@ -5299,8 +5297,7 @@ def phase_prefetch_and_trace(ops, tmp, root, state, pipe):
     if not kernels or "group_norm_silu" not in kinds:
         raise RuntimeError(f"the trace's region holds {len(kernels)} kernels, kinds {kinds}")
     return {"ms_plain": ms_plain, "ms_prefetch": ms_pre, "wait_plain": wait_plain,
-            "wait_prefetch": wait_pre, "trace_kernels": len(kernels),
-            "timer": timer.stats()}
+            "wait_prefetch": wait_pre, "trace_kernels": len(kernels)}
 
 
 def diffusers_block_cases():

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from medfusion_tpu_torch.data.prefetch import _map
 from medfusion_tpu_torch.parallel import comm
 from medfusion_tpu_torch.parallel.multihost import initialize_multihost
+from medfusion_tpu_torch.utils.profiling import annotate
 
 try:
     from torch.distributed.tensor import Replicate, Shard
@@ -370,26 +371,29 @@ def sync_gradients(model: nn.Module, group) -> None:
     replicated parameters' all-reduced (one flat buffer a dtype) and
     divided by the size; an FSDP slice's (reduce-scattered already by the
     gather's backward) and an expert's (summed over the ranks' tokens by the
-    all-to-all's backward) divided by it."""
-    n = dist.get_world_size(group)
-    plan = getattr(model, "parallel_plan", None)
-    experts = _expert_param_ids(model)
-    flat: Dict[torch.dtype, List[torch.Tensor]] = {}
-    for name, p in model.named_parameters():
-        if p.grad is None:
-            continue
-        if id(p) in experts or (plan is not None and plan.fsdp_dim(name) is not None):
-            p.grad.div_(n)
-        else:
-            flat.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in flat.values():
-        buf = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(buf, group=group)
-        buf.div_(n)
-        offset = 0
-        for g in grads:
-            g.copy_(buf[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+    all-to-all's backward) divided by it. Its span counts the bytes
+    all-reduced (``allreduce_bytes``) and the all-reduces (``collectives``)."""
+    with annotate("parallel.sync_gradients") as span:
+        n = dist.get_world_size(group)
+        plan = getattr(model, "parallel_plan", None)
+        experts = _expert_param_ids(model)
+        flat: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for name, p in model.named_parameters():
+            if p.grad is None:
+                continue
+            if id(p) in experts or (plan is not None and plan.fsdp_dim(name) is not None):
+                p.grad.div_(n)
+            else:
+                flat.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in flat.values():
+            buf = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(buf, group=group)
+            span.count(allreduce_bytes=buf.numel() * buf.element_size(), collectives=1)
+            buf.div_(n)
+            offset = 0
+            for g in grads:
+                g.copy_(buf[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
 
 
 def mean_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:

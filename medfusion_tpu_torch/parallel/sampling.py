@@ -15,6 +15,7 @@ from typing import Tuple
 
 from medfusion_tpu_torch.core.draws import RowDraws, normal
 from medfusion_tpu_torch.parallel.mesh import axis_rank, axis_size
+from medfusion_tpu_torch.utils.profiling import annotate
 
 
 def make_sharded_sampler(
@@ -70,7 +71,10 @@ def make_sharded_sampler(
             raise ValueError(f"num_samples={num_samples} must divide by the data axis "
                              f"size {n_data}")
         local = num_samples // n_data
+        with annotate("sample.chunk", rows=local):
+            return chunk(generator, local, condition, un_cond, x_T, noise)
 
+    def chunk(generator, local, condition, un_cond, x_T, noise):
         def mine(t, dim=0):
             return None if t is None else t.narrow(dim, rank * local, local)
 

@@ -48,6 +48,7 @@ from medfusion_tpu_torch.pipelines.diffusion.dpmpp import DPMSolverMixin
 from medfusion_tpu_torch.pipelines.diffusion.editing import EditingMixin
 from medfusion_tpu_torch.pipelines.diffusion.edm import EDMSamplerMixin
 from medfusion_tpu_torch.pipelines.diffusion.fast import FastSamplerMixin
+from medfusion_tpu_torch.utils.profiling import annotate
 
 _LOSSES = {"l1": lambda d: d.abs(), "l2": lambda d: d * d, "mse": lambda d: d * d}
 
@@ -110,22 +111,23 @@ class DiffusionPipeline(DDIMSamplerMixin, DPMSolverMixin, EDMSamplerMixin,
         ``with_aux`` (the training forward only) also returns the summed
         mixture-of-experts aux loss, a float32 scalar: the estimator's own
         (``returns_aux``, the DiT), else 0."""
-        if self.compute_dtype is not None:
-            x_t = x_t.to(self.compute_dtype)
-            self_cond = None if self_cond is None else self_cond.to(self.compute_dtype)
-        args = (x_t, t, condition, cond_mask)
-        kwargs = {} if self_cond is None else {"self_cond": self_cond}
-        asks_aux = with_aux and getattr(self.noise_estimator, "returns_aux", False)
-        if asks_aux:
-            kwargs["with_aux"] = True
-        if params is None:
-            out = self.noise_estimator(*args, **kwargs)
-        else:
-            out = functional_call(self.noise_estimator, dict(params), args, kwargs)
-        y, y_ver = out[:2]
-        if self.compute_dtype is not None:
-            y = y.float()
-            y_ver = [v.float() for v in y_ver]
+        with annotate("estimator"):
+            if self.compute_dtype is not None:
+                x_t = x_t.to(self.compute_dtype)
+                self_cond = None if self_cond is None else self_cond.to(self.compute_dtype)
+            args = (x_t, t, condition, cond_mask)
+            kwargs = {} if self_cond is None else {"self_cond": self_cond}
+            asks_aux = with_aux and getattr(self.noise_estimator, "returns_aux", False)
+            if asks_aux:
+                kwargs["with_aux"] = True
+            if params is None:
+                out = self.noise_estimator(*args, **kwargs)
+            else:
+                out = functional_call(self.noise_estimator, dict(params), args, kwargs)
+            y, y_ver = out[:2]
+            if self.compute_dtype is not None:
+                y = y.float()
+                y_ver = [v.float() for v in y_ver]
         if not with_aux:
             return y, y_ver
         aux = out[2] if asks_aux else torch.zeros((), device=y.device)
@@ -147,14 +149,15 @@ class DiffusionPipeline(DDIMSamplerMixin, DPMSolverMixin, EDMSamplerMixin,
 
     def decode_latent(self, z):
         """NCHW latent -> NCHW image (float32 when compute_dtype is set)."""
-        if self.latent_embedder is None:
-            return z
-        if self.latent_scale != 1.0 or self.latent_shift != 0.0:
-            z = z / self.latent_scale + self.latent_shift
-        if self.compute_dtype is not None:
-            z = z.to(self.compute_dtype)
-        out = self.latent_embedder.decode(z)
-        return out.float() if self.compute_dtype is not None else out
+        with annotate("sample.decode"):
+            if self.latent_embedder is None:
+                return z
+            if self.latent_scale != 1.0 or self.latent_shift != 0.0:
+                z = z / self.latent_scale + self.latent_shift
+            if self.compute_dtype is not None:
+                z = z.to(self.compute_dtype)
+            out = self.latent_embedder.decode(z)
+            return out.float() if self.compute_dtype is not None else out
 
     # -- training -----------------------------------------------------------
 
@@ -191,7 +194,7 @@ class DiffusionPipeline(DDIMSamplerMixin, DPMSolverMixin, EDMSamplerMixin,
         x_in = _to_nchw(batch["source"])
         condition = batch.get("target")
         b = x_in.shape[0]
-        with torch.no_grad():
+        with torch.no_grad(), annotate("train.encode"):
             noise = draws.get("enc_noise")
             x_0 = self.encode_latent(x_in, None if noise is None else _to_nchw(noise))
         if self.do_input_centering:

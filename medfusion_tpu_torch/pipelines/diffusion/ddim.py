@@ -29,6 +29,7 @@ import torch
 
 from medfusion_tpu_torch.core.draws import normal
 from medfusion_tpu_torch.core import schedules as S
+from medfusion_tpu_torch.utils.profiling import annotate
 
 
 def _to_nchw(x):
@@ -168,7 +169,8 @@ class DDIMSamplerMixin:
             for i in range(start_idx, n):
                 more = i < n - 1
                 t_next = ts_rev[i + 1] if more else 0
-                x, self_cond = reverse(x, self_cond, ts_rev[i], t_next, more, i)
+                with annotate("sample.step"):
+                    x, self_cond = reverse(x, self_cond, ts_rev[i], t_next, more, i)
                 if known is not None:
                     x = project(x, t_next, more, i)
         else:
@@ -185,7 +187,8 @@ class DDIMSamplerMixin:
                     more = True
                 else:
                     more = to < n
-                    x, self_cond = reverse(x, self_cond, t_cur, t_to, more, row)
+                    with annotate("sample.step"):
+                        x, self_cond = reverse(x, self_cond, t_cur, t_to, more, row)
                 x = project(x, t_to, more, row)
         if decode:
             x = self.decode_latent(x)

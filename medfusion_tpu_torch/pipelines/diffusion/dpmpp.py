@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw, _to_nhwc
+from medfusion_tpu_torch.utils.profiling import annotate
 
 
 class DPMSolverMixin:
@@ -61,15 +62,16 @@ class DPMSolverMixin:
 
         d_prev = h_prev = None
         for t_cur, t_next in zip(ts_rev[:-1], ts_rev[1:]):
-            d = x0_pred(x, t_cur)
-            h = lam[t_next] - lam[t_cur]  # > 0: the noise decreases
-            if d_prev is None:  # first order (DDIM) on the first step
-                d_bar = d
-            else:
-                r = h_prev / h
-                d_bar = (1.0 + 1.0 / (2.0 * r)) * d - (1.0 / (2.0 * r)) * d_prev
-            x = (sigma[t_next] / sigma[t_cur]) * x - alpha[t_next] * torch.expm1(-h) * d_bar
-            d_prev, h_prev = d, h
+            with annotate("sample.step"):
+                d = x0_pred(x, t_cur)
+                h = lam[t_next] - lam[t_cur]  # > 0: the noise decreases
+                if d_prev is None:  # first order (DDIM) on the first step
+                    d_bar = d
+                else:
+                    r = h_prev / h
+                    d_bar = (1.0 + 1.0 / (2.0 * r)) * d - (1.0 / (2.0 * r)) * d_prev
+                x = (sigma[t_next] / sigma[t_cur]) * x - alpha[t_next] * torch.expm1(-h) * d_bar
+                d_prev, h_prev = d, h
         x = x0_pred(x, ts_rev[-1])
         if decode:
             x = self.decode_latent(x)

@@ -24,6 +24,7 @@ import torch
 from medfusion_tpu_torch.core.draws import normal
 from medfusion_tpu_torch.core import schedules as S
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw, _to_nhwc
+from medfusion_tpu_torch.utils.profiling import annotate
 
 
 class EDMSamplerMixin:
@@ -85,22 +86,23 @@ class EDMSamplerMixin:
         churn_scale = 1.0 + torch.full((), gamma_max, dtype=sigmas.dtype, device=sigmas.device)
         x = x * torch.sqrt(1.0 + sigma_max ** 2)  # VP prior -> k-space
         for i in range(n):
-            sigma, sigma_next = sigmas[i], sigmas[i + 1]
-            if s_churn > 0.0:
-                sigma_hat = sigma * churn_scale
-                z = (churn_noise[i] if churn_noise is not None else
-                     normal(x.shape, generator, x.device))
-                x = x + torch.sqrt(torch.clamp(sigma_hat ** 2 - sigma ** 2, min=0.0)) * z
-            else:
-                sigma_hat = sigma
-            d = (x - denoised_at(x, sigma_hat)) / sigma_hat
-            dt = sigma_next - sigma_hat
-            x_euler = x + dt * d
-            if i < n - 1:  # Heun: sigma_next > 0 on every transition but the last
-                d2 = (x_euler - denoised_at(x_euler, sigma_next)) / sigma_next
-                x = x + dt * 0.5 * (d + d2)
-            else:
-                x = x_euler
+            with annotate("sample.step"):
+                sigma, sigma_next = sigmas[i], sigmas[i + 1]
+                if s_churn > 0.0:
+                    sigma_hat = sigma * churn_scale
+                    z = (churn_noise[i] if churn_noise is not None else
+                         normal(x.shape, generator, x.device))
+                    x = x + torch.sqrt(torch.clamp(sigma_hat ** 2 - sigma ** 2, min=0.0)) * z
+                else:
+                    sigma_hat = sigma
+                d = (x - denoised_at(x, sigma_hat)) / sigma_hat
+                dt = sigma_next - sigma_hat
+                x_euler = x + dt * d
+                if i < n - 1:  # Heun: sigma_next > 0 on every transition but the last
+                    d2 = (x_euler - denoised_at(x_euler, sigma_next)) / sigma_next
+                    x = x + dt * 0.5 * (d + d2)
+                else:
+                    x = x_euler
         if decode:
             x = self.decode_latent(x)
         return _to_nhwc(x)

@@ -20,6 +20,7 @@ import torch
 from medfusion_tpu_torch.core.draws import normal
 from medfusion_tpu_torch.core import schedules as S
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw, _to_nhwc
+from medfusion_tpu_torch.utils.profiling import annotate
 
 
 class FastSamplerMixin:
@@ -68,21 +69,22 @@ class FastSamplerMixin:
             return y.float(), y_ver
 
         for i, t in enumerate(ts_rev):
-            more = i < n - 1
-            t_next = ts_rev[i + 1] if more else 0
-            refresh = i % encoder_key_every == 0
-            t_b = torch.full((b,), t, dtype=torch.long, device=x.device)
-            pred = self._guided_pred(x, t_b, condition, guidance_scale, un_cond=un_cond,
-                                     estimator=propagate)
-            pred, _ = self._split_variance(pred)
-            z = (noise[i].contiguous() if noise is not None else
-                 normal(x.shape, generator, x.device))
-            x_prior, x_0, x_T, _ = self._pred_to_states(x, t_b, pred, z)
-            if more:
-                x = S.ddim_step(sched, x_0, x_T, t, t_next,
-                                torch.zeros_like(x) if eta == 0.0 else z, eta)
-            else:
-                x = x_0 if timestep_spacing == "trailing" else x_prior
+            with annotate("sample.step"):
+                more = i < n - 1
+                t_next = ts_rev[i + 1] if more else 0
+                refresh = i % encoder_key_every == 0
+                t_b = torch.full((b,), t, dtype=torch.long, device=x.device)
+                pred = self._guided_pred(x, t_b, condition, guidance_scale, un_cond=un_cond,
+                                         estimator=propagate)
+                pred, _ = self._split_variance(pred)
+                z = (noise[i].contiguous() if noise is not None else
+                     normal(x.shape, generator, x.device))
+                x_prior, x_0, x_T, _ = self._pred_to_states(x, t_b, pred, z)
+                if more:
+                    x = S.ddim_step(sched, x_0, x_T, t, t_next,
+                                    torch.zeros_like(x) if eta == 0.0 else z, eta)
+                else:
+                    x = x_0 if timestep_spacing == "trailing" else x_prior
         if decode:
             x = self.decode_latent(x)
         return _to_nhwc(x)

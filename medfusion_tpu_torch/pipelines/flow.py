@@ -46,6 +46,7 @@ from medfusion_tpu_torch.nn.functional import interpolate_area
 from medfusion_tpu_torch.pipelines.diffusion.core import _LOSSES, DiffusionPipeline
 from medfusion_tpu_torch.pipelines.diffusion.ddim import _to_nchw, _to_nhwc
 from medfusion_tpu_torch.pipelines.diffusion.editing import _randn, slerp
+from medfusion_tpu_torch.utils.profiling import annotate
 
 f32 = np.float32
 TIME_SCALE = 1000.0  # model time = t * TIME_SCALE: the embedder's [0, 1000) range
@@ -237,20 +238,21 @@ class FlowMatchingPipeline:
             return self._velocity(x, t, condition, guidance_scale, un_cond)
 
         for i in range(steps):
-            t_cur, t_next = ts[i], ts[i + 1]
-            # the last step is Euler: Heun's correction would query t = 0
-            correct = heun and i < steps - 1
-            for r in range(1 if known is None else resample_steps):
-                x = self._step(x, t_cur, t_next, t_cur, correct, velocity)
-                if known is None:
-                    continue
-                known_t = float(f32(1.0) - t_next) * known + float(t_next) * draw(i, r, 0)
-                x = mask * known_t + (1.0 - mask) * x
-                if r < resample_steps - 1:
-                    # marginal-preserving move up the path, t_next -> t_cur
-                    a = (f32(1.0) - t_cur) / (f32(1.0) - t_next)
-                    b = np.sqrt(np.maximum(t_cur * t_cur - (a * t_next) ** 2, f32(0.0)))
-                    x = float(a) * x + float(b) * draw(i, r, 1)
+            with annotate("sample.step"):
+                t_cur, t_next = ts[i], ts[i + 1]
+                # the last step is Euler: Heun's correction would query t = 0
+                correct = heun and i < steps - 1
+                for r in range(1 if known is None else resample_steps):
+                    x = self._step(x, t_cur, t_next, t_cur, correct, velocity)
+                    if known is None:
+                        continue
+                    known_t = float(f32(1.0) - t_next) * known + float(t_next) * draw(i, r, 0)
+                    x = mask * known_t + (1.0 - mask) * x
+                    if r < resample_steps - 1:
+                        # marginal-preserving move up the path, t_next -> t_cur
+                        a = (f32(1.0) - t_cur) / (f32(1.0) - t_next)
+                        b = np.sqrt(np.maximum(t_cur * t_cur - (a * t_next) ** 2, f32(0.0)))
+                        x = float(a) * x + float(b) * draw(i, r, 1)
         if decode:
             x = self.decode_latent(x)
         return _to_nhwc(x)

@@ -30,6 +30,7 @@ import torch
 from medfusion_tpu_torch.parallel import mesh as parallel_mesh
 from medfusion_tpu_torch.pipelines.diffusion import DiffusionPipeline
 from medfusion_tpu_torch.train.state import TrainState
+from medfusion_tpu_torch.utils.profiling import annotate
 
 
 def with_compute_dtype(pipeline: DiffusionPipeline, compute_dtype=None) -> DiffusionPipeline:
@@ -74,21 +75,24 @@ def train_on(state: TrainState, compute_dtype, loss_fn: Callable) -> Dict[str, t
     ``compute_dtype`` (:func:`estimator_params`); on a mesh the gradients
     and the metrics are the means over the data ranks. Returns the metrics,
     detached."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, metrics = loss_fn(estimator_params(state.model, compute_dtype))
-    loss.backward()
-    for p in state.model.parameters():
-        # a parameter the loss does not reach (the projections skipped by
-        # cross-attention to one token) gets a zero gradient, so that AdamW
-        # still decays it, as optax's adamw does
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    group = parallel_mesh.data_parallel_group(state.model)
-    if group is not None:
-        parallel_mesh.sync_gradients(state.model, group)
-        metrics = parallel_mesh.mean_metrics(metrics, group)
-    state.apply_gradients()
+    with annotate("train.step"):
+        state.optimizer.zero_grad(set_to_none=True)
+        with annotate("train.forward"):
+            loss, metrics = loss_fn(estimator_params(state.model, compute_dtype))
+        with annotate("train.backward"):
+            loss.backward()
+            for p in state.model.parameters():
+                # a parameter the loss does not reach (the projections skipped by
+                # cross-attention to one token) gets a zero gradient, so that AdamW
+                # still decays it, as optax's adamw does
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        group = parallel_mesh.data_parallel_group(state.model)
+        if group is not None:
+            parallel_mesh.sync_gradients(state.model, group)
+            metrics = parallel_mesh.mean_metrics(metrics, group)
+        state.apply_gradients()
     return metrics
 
 

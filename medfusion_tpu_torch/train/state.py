@@ -19,6 +19,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from medfusion_tpu_torch.train.ema import ema_decay, ema_update
+from medfusion_tpu_torch.utils.profiling import annotate
 
 
 class TrainState:
@@ -38,11 +39,13 @@ class TrainState:
         """One AdamW step on the gradients held in the parameters' ``.grad``;
         then the EMA, with the decay of the step count BEFORE the increment
         (as the JAX package's ``apply_gradients``); then step += 1."""
-        self.optimizer.step()
-        if self.lr_scheduler is not None:
-            self.lr_scheduler.step()
+        with annotate("train.optimizer"):
+            self.optimizer.step()
+            if self.lr_scheduler is not None:
+                self.lr_scheduler.step()
         if self.ema is not None:
-            ema_update(self.ema, self.model, ema_decay(self.step))
+            with annotate("train.ema"):
+                ema_update(self.ema, self.model, ema_decay(self.step))
         self.step += 1
 
     @property

@@ -12,15 +12,13 @@ package on the CPU.
   before the first batch, one more a batch), iterators shorter than
   ``size``, the refusal of ``mesh=``.
 * ``utils/profiling.py``: ``trace`` writes a trace file that holds an
-  ``annotate`` region; ``StepTimer.stats()`` equals the JAX package's on the
-  same injected ``time.perf_counter`` readings.
+  ``annotate`` region.
 * ``MSIvsMSSDataset`` and ``CheXpertDataset`` against the JAX package's
   classes, items and labels, on a PNG tree and a label CSV written here (an
   empty Cardiomegaly cell among them).
 """
 
 import json
-import time
 
 import numpy as np
 import pytest
@@ -28,7 +26,6 @@ import torch
 
 from medfusion_tpu.data import datasets_2d as jax_ds
 from medfusion_tpu.data.grain_loader import make_grain_loader
-from medfusion_tpu.utils import profiling as jax_profiling
 from medfusion_tpu_torch.cli import presets, train_diffusion
 from medfusion_tpu_torch.data import datasets_2d as ds
 from medfusion_tpu_torch.data import png
@@ -283,18 +280,6 @@ def test_trace_writes_a_file_holding_the_annotated_region(tmp_path):
     assert region and region[0]["cat"] == "user_annotation"
     start, end = region[0]["ts"], region[0]["ts"] + region[0]["dur"]
     assert any(e.get("name") == "aten::mm" and start <= e["ts"] <= end for e in events)
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    now = [0.0]
-    monkeypatch.setattr(time, "perf_counter", lambda: now[0])
-    port, ref = profiling.StepTimer(0.8), jax_profiling.StepTimer(0.8)
-    assert port.stats() == ref.stats() == {}
-    for t in (1.0, 1.25, 1.75, 1.8, 2.9):
-        now[0] = t
-        assert port.tick() == ref.tick()
-    assert port.stats() == ref.stats()
-    assert port.stats()["steps_per_sec"] == 1.0 / port.ema_step_s
 
 
 # ---- the two datasets ------------------------------------------------------------

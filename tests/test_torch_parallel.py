@@ -13,6 +13,8 @@ they run, and compares:
 * the data-parallel, FSDP and FSDP + tensor-parallel steps against the JAX
   step on the same converted params and draws: loss at rtol 1e-5, params at
   rtol 1e-4 / atol 1e-5 (``tests/test_parallel.py``'s);
+* the dp step's ``parallel.sync_gradients`` span: its counters say one
+  all-reduce of every f32 gradient's bytes;
 * the sharded bulk sampler (ddim, dpmpp, edm, flow) against JAX's
   ``make_sharded_sampler`` fed the same noise, at 1e-4 of the scale
   (``tests/test_torch_samplers.py``), and world 2's generator draws against
@@ -227,6 +229,17 @@ def _check_step(ranks, case, world=2):
 
 def test_data_parallel_step_matches_jax(ranks):
     _check_step(ranks, "train_dp")
+
+
+def test_sync_gradients_counts_the_bytes_it_all_reduces(ranks):
+    """At world 2 the dp step's ``parallel.sync_gradients`` span, inside
+    ``train.step``, counts one all-reduce of every f32 gradient."""
+    for r in ranks("sync_counters"):
+        names = [name for name, *_ in r["spans"]]
+        (sync,) = [s for s in r["spans"] if s[0] == "parallel.sync_gradients"]
+        assert r["spans"][sync[1]][0] == "train.step" and sync[2] == 0
+        assert sync[3] == {"allreduce_bytes": r["grad_bytes"], "collectives": 1}
+        assert names.count("train.step") == 1
 
 
 def test_fsdp_step_matches_jax(ranks):

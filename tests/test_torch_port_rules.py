@@ -330,6 +330,7 @@ JAX_ONLY = {
     "nn/blocks.py::_ConvParams": "flax's holder of a conv's params; torch's convs hold their own",
     "nn/blocks.py::ConvND.use_bias": _UNCALLED + " with False; every conv has its bias",
     "nn/functional.py::interpolate_nearest": _UNCALLED,
+    "utils/profiling.py::StepTimer": _UNCALLED,
     "nn/blocks.py::ConvND.fused_up2x": _REWRITE,
     "models/unet_lucidrains.py::Conv": "flax Conv with torch's init; the port uses nn.Conv2d",
     "nn/functional.py::fused_up2x_conv": _REWRITE,

@@ -186,6 +186,20 @@ def case_train_dp(inp, world):
     return _train_step(inp, mesh)
 
 
+def case_sync_counters(inp, world):
+    """The dp step with the spans recorded: ``parallel.sync_gradients``'s
+    counters and the bytes of the model's f32 gradients."""
+    from medfusion_tpu_torch.parallel import make_mesh
+    from medfusion_tpu_torch.utils import profiling
+
+    mesh = make_mesh(n_data=world, n_model=1, device="cpu")
+    with profiling.recording() as rec:
+        _train_step(inp, mesh)
+    model = _unet(UNET_KW, inp["unet"])
+    return {"spans": [(s.name, s.parent, s.round, dict(s.counters)) for s in rec.spans],
+            "grad_bytes": sum(p.numel() * 4 for p in model.parameters())}
+
+
 def case_train_fsdp(inp, world):
     from medfusion_tpu_torch.parallel import fsdp_partition_spec, make_mesh
 
@@ -493,7 +507,7 @@ def case_multihost(inp, world, rank, port, tmp):
 
 SUITES = {
     "parallel": {2: [case_train_dp, case_train_fsdp, case_train_fsdp_tp, case_tp_spatial,
-                     case_dit_specs,
+                     case_dit_specs, case_sync_counters,
                      case_sampler, case_ring_attention, case_ring_attention_grad, case_moe,
                      case_dit_moe, case_prefetch, case_sample_dataset],
                  4: [case_train_fsdp_tp, case_ring_attention_grad]},
